@@ -1,0 +1,54 @@
+"""BlockID, PartSetHeader, signed-message types and canonical vote
+sign-bytes (field order of the reference's CanonicalVote, types/canonical.go:
+type, height and round as fixed64, timestamp, block id, chain id)."""
+
+from __future__ import annotations
+
+from dataclasses import dataclass, field
+from enum import IntEnum
+
+from tendermint_tpu_torch.encoding.codec import Writer
+
+
+class SignedMsgType(IntEnum):
+    PREVOTE = 0x01
+    PRECOMMIT = 0x02
+    PROPOSAL = 0x20
+    HEARTBEAT = 0x30
+
+
+@dataclass(frozen=True)
+class PartSetHeader:
+    total: int = 0
+    hash: bytes = b""
+
+    def encode(self, w: Writer) -> None:
+        w.uvarint(self.total).bytes(self.hash)
+
+
+@dataclass(frozen=True)
+class BlockID:
+    """Block hash plus the part-set header it was gossiped under; a zero
+    BlockID marks a nil vote."""
+
+    hash: bytes = b""
+    parts_header: PartSetHeader = field(default_factory=PartSetHeader)
+
+    def encode(self, w: Writer) -> None:
+        w.bytes(self.hash)
+        self.parts_header.encode(w)
+
+
+def canonical_vote_sign_bytes(
+    chain_id: str,
+    vote_type: int,
+    height: int,
+    round: int,
+    timestamp_ns: int,
+    block_id: BlockID,
+) -> bytes:
+    w = Writer()
+    w.uvarint(int(vote_type)).fixed64(height).fixed64(round).fixed64(timestamp_ns)
+    block_id.encode(w)
+    w.string(chain_id)
+    return w.build()
