@@ -6,20 +6,35 @@
 Phases, in order; any failure exits non-zero:
 
   1. device  the card's name and power limit (nvidia-smi) and torch's name;
-  2. build   both CUDA kernels from the checkout's sources, in parallel;
+  2. build   the three CUDA kernels from the checkout's sources, in
+             parallel, with each one's registers, spills and stack frame;
   3. K1      the prologue kernel against its plain version on the card,
              2,048 seeded rows at each message length 0, 33, 104, 111, 112
              and 200, exact; h also against hashlib + bigint mod L;
-  4. K2      the ladder kernel against its plain version on the card, 256
-             rows (the 20-row Go-edge window and seeded signatures), exact;
-             verdicts against the port's own ``_verify_pure``;
-  5. main    a 10,000-validator commit through ValidatorSet.verify_commit
-             -> TorchBatchVerifier -> K1 -> K2: the commit passes, a flipped
-             signature bit and an under-quorum commit are rejected, both
-             kernels launched; wall and device times; each kernel against
-             its plain version at the main path's shapes, with times and
-             bounds.
+  4. K2      the ed25519 ladder kernel against its plain version on the
+             card, 256 rows (the 20-row Go-edge window and seeded
+             signatures), exact; verdicts against the port's ``_verify_pure``;
+  5. main    a 10,000-validator ed25519 commit through
+             ValidatorSet.verify_commit -> TorchBatchVerifier -> K1 -> K2:
+             the commit passes, a flipped signature bit and an under-quorum
+             commit are rejected, both kernels launched; wall and device
+             times; each kernel against its plain version at the main
+             path's shapes, with times and bounds;
+  6. K3      the secp256k1 ladder kernel against its plain version on the
+             card, 256 rows (the 23-row secp256k1 edge window, seeded
+             signatures and rows that take the r + n branch), exact on the
+             verdict and on X and Z; verdicts against the port's oracle
+             ``crypto.secp256k1.verify``;
+  7. secp    a 10,000-validator secp256k1 commit through the same
+             verify_commit -> TorchBatchVerifier.verify_secp256k1 -> K3: the
+             commit passes, a flipped signature byte and an under-quorum
+             commit are rejected, K3 launched; wall, host breakdown and
+             device times; K3 against its plain version at those shapes;
+  8. mixed   a 1,000-validator commit of mixed ed25519 and secp256k1 keys:
+             it passes with K1, K2 and K3 each launched, and a flipped
+             secp256k1 row and a flipped ed25519 row are each rejected.
 
+Each path's launch counts are set to 0 just before it and read just after.
 The line before the last two is the ``kernels`` JSON, then the card's name
 and power limit, then ``{"ok": true, "device": {...}}``. Exits 2 when no
 CUDA device is present.
@@ -38,17 +53,25 @@ import numpy as np
 import torch
 
 from tendermint_tpu_torch.crypto import ed25519 as ed
-from tendermint_tpu_torch.crypto.batch import TorchBatchVerifier
+from tendermint_tpu_torch.crypto import secp256k1 as secp
+from tendermint_tpu_torch.crypto.batch import SigItem, TorchBatchVerifier
+from tendermint_tpu_torch.crypto.hashing import sha256
+from tendermint_tpu_torch.crypto.keys import PubKeyEd25519, PubKeySecp256k1
 from tendermint_tpu_torch.ops import _build
 from tendermint_tpu_torch.ops import ed25519_cuda as ec
 from tendermint_tpu_torch.ops import fe
+from tendermint_tpu_torch.ops import secp256k1_cuda as sc
 from tendermint_tpu_torch.testutil import commit as tc
+from tendermint_tpu_torch.testutil import secp_signer
 from tendermint_tpu_torch.types.validator_set import CommitError
 
-N_VALIDATORS = 10_000  # BASELINE.json config 2
+N_VALIDATORS = 10_000  # BASELINE.json config 2 (and config 4 at its width)
+N_MIXED = 1_000
 K1_ROWS = 2048
 K1_LENGTHS = (0, 33, 104, 111, 112, 200)
 K2_ROWS = 256
+K3_ROWS = 256
+K3_RN_PAIRS = 4  # row pairs that take the r + n branch (rnok 1, then 0)
 WALL_REPS = 5
 TIME_ITERS = 20
 
@@ -74,7 +97,9 @@ BARRETT_PRODUCTS = 17 * 17 + 17 * 18 // 2
 REPLACES = {
     "ed25519_prologue": "tendermint_tpu/ops/ed25519_pallas.py:622",
     "ed25519_ladder": "tendermint_tpu/ops/ed25519_pallas.py:354",
+    "secp256k1_ladder": "tendermint_tpu/ops/secp256k1_pallas.py:283",
 }
+KERNELS = tuple(REPLACES)
 
 
 class SmokeFailure(RuntimeError):
@@ -250,70 +275,91 @@ def expect_commit_error(fn, prefix: str) -> str:
     raise SmokeFailure(f"no CommitError, want {prefix!r}")
 
 
-def main() -> int:
-    if not torch.cuda.is_available():
-        print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
-        return 2
-    t_start = time.perf_counter()
-    dev = torch.device("cuda", 0)
-    rng = np.random.default_rng(20261016)
+def host_p50_ms(fn) -> float:
+    """Median host-clock ms of fn() over WALL_REPS calls."""
+    samples = []
+    for _ in range(WALL_REPS):
+        t0 = time.perf_counter()
+        fn()
+        samples.append(time.perf_counter() - t0)
+    return statistics.median(samples) * 1e3
 
-    phase("device")
-    smi_line = smi("name,power.limit")
-    props = torch.cuda.get_device_properties(0)
-    max_sm_mhz = float(smi("clocks.max.sm").split()[0])
-    print(f"  nvidia-smi: {smi_line}; torch: {torch.cuda.get_device_name(0)}; "
-          f"SMs {props.multi_processor_count}; max SM clock {max_sm_mhz} MHz; "
-          f"torch {torch.__version__} cuda {torch.version.cuda}", flush=True)
 
-    phase("build")
-    secs = _build.build_all()
-    for name, s in secs.items():
-        print(f"  {name}: {s:.1f} s", flush=True)
-        for line in _build.build_log(name).splitlines():
-            if "registers" in line or "spill" in line or "stack frame" in line:
-                print(f"    {line.strip()}")
-
-    err = {"ed25519_prologue": phase_k1(dev, rng)}
-    err["ed25519_ladder"] = phase_k2(dev, rng)
-
-    phase(f"main path: {N_VALIDATORS}-validator commit")
-    t0 = time.perf_counter()
-    sc = tc.build_commit(N_VALIDATORS)
-    print(f"  built and signed in {time.perf_counter() - t0:.1f} s", flush=True)
-    verifier = TorchBatchVerifier()
-    check(verifier.device.type == "cuda", "verifier is not on cuda")
-    verify = lambda commit: sc.valset.verify_commit(
-        sc.chain_id, sc.block_id, sc.height, commit, verifier=verifier)
-
+def reset_launches() -> None:
     ec.reset_launches()
+    sc.reset_launches()
+
+
+def read_launches() -> dict:
+    return {**ec.launches, **sc.launches}
+
+
+def flipped(sc_: tc.SignedCommit, i: int):
+    """The commit with a bit of precommit i's signature flipped: inside s
+    for ed25519 (bit 300) and in the last byte of a DER signature (s)."""
+    sig = sc_.commit.precommits[i].signature
+    return tc.flip_signature_bit(sc_.commit, i, 300 if len(sig) == 64 else 8 * (len(sig) - 1))
+
+
+def drive_commit(sc_: tc.SignedCommit, verifier, tampered_rows) -> dict:
+    """verify_commit on the signed commit: it passes (one first call, then
+    WALL_REPS timed), a flipped signature in each of ``tampered_rows`` is
+    rejected, and 2/3 of the precommits (not above 2/3 of equal powers)
+    are rejected. The launch counts are set to 0 just before and read just
+    after."""
+    n = sc_.valset.size
+    verify = lambda commit: sc_.valset.verify_commit(
+        sc_.chain_id, sc_.block_id, sc_.height, commit, verifier=verifier)
+    reset_launches()
     t0 = time.perf_counter()
-    verify(sc.commit)
-    first_s = time.perf_counter() - t0
+    verify(sc_.commit)
+    first_ms = (time.perf_counter() - t0) * 1e3
     walls = []
     for _ in range(WALL_REPS):
         t0 = time.perf_counter()
-        verify(sc.commit)
+        verify(sc_.commit)
         walls.append(time.perf_counter() - t0)
-    tampered = tc.flip_signature_bit(sc.commit, N_VALIDATORS // 3, bit=300)
-    expect_commit_error(lambda: verify(tampered), "invalid signature in commit")
-    keep = (2 * N_VALIDATORS) // 3  # 6,666 of 10,000 equal powers: not above 2/3
-    msg = expect_commit_error(lambda: verify(tc.drop_precommits(sc.commit, keep)),
+    for i in tampered_rows:
+        expect_commit_error(lambda: verify(flipped(sc_, i)), "invalid signature in commit")
+    msg = expect_commit_error(lambda: verify(tc.drop_precommits(sc_.commit, (2 * n) // 3)),
                               "insufficient voting power")
-    main_launches = dict(ec.launches)
-    for name, count in main_launches.items():
-        check(count > 0, f"kernel {name} was not launched on the main path")
-    wall_p50 = statistics.median(walls) * 1e3
-    print(f"  verify_commit: passes; first {first_s * 1e3:.1f} ms (decompress, "
-          f"upload); p50 {wall_p50:.3f} ms over {WALL_REPS}; "
-          f"tampered and under-quorum rejected ({msg}); launches {main_launches}",
-          flush=True)
+    launches = read_launches()
+    p50 = statistics.median(walls) * 1e3
+    print(f"  verify_commit: passes; first {first_ms:.1f} ms; p50 {p50:.3f} ms over "
+          f"{WALL_REPS}; {len(tampered_rows)} tampered and under-quorum rejected ({msg}); "
+          f"launches {launches}", flush=True)
+    return {"first_ms": first_ms, "p50_ms": p50, "launches": launches}
+
+
+def nbytes(ts) -> int:
+    return sum(t.numel() * t.element_size() for t in ts)
+
+
+def least_ms(ins, outs, ops: float, op_rate: float):
+    """The least time for the work: each input read once and each output
+    written once at the HBM rate, against ``ops`` 32-bit integer
+    instructions at the card's rate; (ms, what bounds it)."""
+    t_bytes = (nbytes(ins) + nbytes(outs)) / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / op_rate * 1e3
+    return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def phase_ed25519_main(dev, op_rate: float, err: dict) -> dict:
+    phase(f"main path: {N_VALIDATORS}-validator ed25519 commit")
+    t0 = time.perf_counter()
+    sc_ = tc.build_commit(N_VALIDATORS)
+    print(f"  built and signed in {time.perf_counter() - t0:.1f} s", flush=True)
+    verifier = TorchBatchVerifier()
+    check(verifier.device.type == "cuda", "verifier is not on cuda")
+    run = drive_commit(sc_, verifier, [N_VALIDATORS // 3])
+    for name in ("ed25519_prologue", "ed25519_ladder"):
+        check(run["launches"][name] > 0, f"kernel {name} was not launched on the main path")
 
     # the main path's resident inputs, for device timings and the checks
     pubs_a, sigs_a = as_arrays(
-        [v.pub_key.bytes() for v in sc.valset.validators],
-        [pc.signature for pc in sc.commit.precommits])
-    msgs = [pc.sign_bytes(sc.chain_id) for pc in sc.commit.precommits]
+        [v.pub_key.bytes() for v in sc_.valset.validators],
+        [pc.signature for pc in sc_.commit.precommits])
+    msgs = [pc.sign_bytes(sc_.chain_id) for pc in sc_.commit.precommits]
     inputs, valid = group_inputs(pubs_a, msgs, sigs_a, dev)
     consts, negax, ay, pubw, sigw, tmpl, vidx, vwords = inputs
     b = negax.shape[1]
@@ -322,21 +368,13 @@ def main() -> int:
           f"p50 {packed_p50:.3f} ms", flush=True)
 
     # where verify_commit's wall time goes (host clock, p50 of WALL_REPS)
-    def host_p50_ms(fn):
-        samples = []
-        for _ in range(WALL_REPS):
-            t0 = time.perf_counter()
-            fn()
-            samples.append(time.perf_counter() - t0)
-        return statistics.median(samples) * 1e3
-
-    raw_pubs = [v.pub_key.bytes() for v in sc.valset.validators]
+    raw_pubs = [v.pub_key.bytes() for v in sc_.valset.validators]
     breakdown = {
-        "collect_commit_sigs_ms": host_p50_ms(lambda: sc.valset.collect_commit_sigs(
-            sc.chain_id, sc.block_id, sc.height, sc.commit)),
+        "collect_commit_sigs_ms": host_p50_ms(lambda: sc_.valset.collect_commit_sigs(
+            sc_.chain_id, sc_.block_id, sc_.height, sc_.commit)),
         "verify_ed25519_raw_ms": host_p50_ms(
             lambda: verifier.verify_ed25519_raw(raw_pubs, msgs, [
-                pc.signature for pc in sc.commit.precommits])),
+                pc.signature for pc in sc_.commit.precommits])),
         "pack_and_upload_ms": host_p50_ms(lambda: group_inputs(pubs_a, msgs, sigs_a, dev)),
         "device_packed_p50_ms": packed_p50,
     }
@@ -355,47 +393,203 @@ def main() -> int:
     check(bool((k2_out[0][:N_VALIDATORS].cpu().numpy() != 0).all()),
           "main-path verdicts not all accepted")
 
-    ms = {"ed25519_prologue": cuda_ms(lambda: ec.prologue(*k1_in)),
-          "ed25519_ladder": cuda_ms(lambda: ec.ladder(*k2_in))}
-    plain_ms = {"ed25519_prologue": cuda_ms(lambda: ec.prologue_ref(*k1_in), 2, 1),
-                "ed25519_ladder": cuda_ms(lambda: ec.ladder_ref(*k2_in), 1, 1)}
-
-    # least time: bytes each input read once and each output written once,
-    # against 32-bit integer instructions at the card's rate. K1's SHA-512
-    # runs on the integer pipe beside its Barrett products on the multiply
-    # pipe, so the larger of the two counts; K2 counts the products it needs,
-    # NLIMB^2 a multiplication and NLIMB(NLIMB+1)/2 a squaring.
-    op_rate = props.multi_processor_count * max_sm_mhz * 1e6 * INT32_OPS_PER_CLK_PER_SM
-    nbytes = lambda ts: sum(t.numel() * t.element_size() for t in ts)
+    # K1's SHA-512 runs on the integer pipe beside its Barrett products on
+    # the multiply pipe, so the larger of the two counts; K2 counts the
+    # products it needs, NLIMB^2 a multiplication and NLIMB(NLIMB+1)/2 a
+    # squaring.
     nblocks = tmpl.shape[0] // 32
     k1_ops = max(nblocks * SHA512_BLOCK_OPS, BARRETT_PRODUCTS) * b
     muls, squarings = ec.ladder_fe_ops()
     k2_ops = (muls * fe.NLIMB ** 2 + squarings * fe.NLIMB * (fe.NLIMB + 1) // 2) * b
-    bounds = {}
-    for name, ins, outs, ops in (
-            ("ed25519_prologue", k1_in, k1_out, k1_ops),
-            ("ed25519_ladder", k2_in, k2_out, k2_ops)):
-        t_bytes = (nbytes(ins) + nbytes(outs)) / HBM_BYTES_PER_S * 1e3
-        t_ops = ops / op_rate * 1e3
-        bounds[name] = (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations")
-    for name in ms:
+    return {
+        "launches": run["launches"],
+        "ms": {"ed25519_prologue": cuda_ms(lambda: ec.prologue(*k1_in)),
+               "ed25519_ladder": cuda_ms(lambda: ec.ladder(*k2_in))},
+        "plain_ms": {"ed25519_prologue": cuda_ms(lambda: ec.prologue_ref(*k1_in), 2, 1),
+                     "ed25519_ladder": cuda_ms(lambda: ec.ladder_ref(*k2_in), 1, 1)},
+        "bounds": {"ed25519_prologue": least_ms(k1_in, k1_out, k1_ops, op_rate),
+                   "ed25519_ladder": least_ms(k2_in, k2_out, k2_ops, op_rate)},
+        "b": b,
+    }
+
+
+def phase_k3(dev, rng) -> int:
+    phase(f"K3 secp256k1 ladder vs plain: {K3_ROWS} rows incl. the edge window "
+          f"and {K3_RN_PAIRS} r + n row pairs")
+    pubs, digs, sigs, fixed = tc.secp_edge_window(seed=1)
+    n_edge = len(pubs)
+    m = K3_ROWS - 2 * K3_RN_PAIRS
+    for i in range(m - n_edge):
+        priv = secp.gen_privkey(rng.bytes(32))
+        dig = rng.bytes(32)
+        sig = bytearray(secp_signer.sign(priv, dig))
+        if i % 7 == 3:
+            sig[-1 - int(rng.integers(0, 8))] ^= 1 << int(rng.integers(0, 8))
+        pubs.append(secp_signer.pubkey_compressed(priv))
+        digs.append(dig)
+        sigs.append(bytes(sig))
+    host, forced = sc.pack_rows(pubs, digs, sigs, K3_ROWS)
+    qx, qy, d1, d2, rl, rnl, rnok = (h.copy() for h in host)
+    # x(R) = r + n is reached by an honest signature with probability about
+    # 2^-128: each pair repeats clean row k's point and digits with
+    # rnl = x(R) (its r) and rl = r + 1, once with rnok = 1 (accept) and
+    # once with rnok = 0 (reject)
+    for k in range(K3_RN_PAIRS):
+        for j, flag in ((m + 2 * k, 1), (m + 2 * k + 1, 0)):
+            for a in (qx, qy, d1, d2):
+                a[j] = a[k]
+            rnl[j] = rl[k]
+            rl[j] = sc._limbs_batch([sc.F.limbs_to_int(rl[k].tolist()) + 1])[0]
+            rnok[j] = flag
+    ins = sc.upload((qx, qy, d1, d2, rl, rnl, rnok), dev)
+    got = sc.ladder(*ins)
+    torch.cuda.synchronize()
+    worst = max_abs_diff(got, sc.ladder_ref(*ins))
+    check(worst == 0, f"K3 differs from its plain version: {worst}")
+    ok = got[0].cpu().numpy() != 0
+    for k in range(K3_RN_PAIRS):
+        check(ok[m + 2 * k] and not ok[m + 2 * k + 1], f"K3 r + n pair {k}: "
+              f"{ok[m + 2 * k]}, {ok[m + 2 * k + 1]}, want True, False")
+    verdict = np.where(forced[:m] >= 0, forced[:m].astype(bool), ok[:m])
+    sample = list(range(n_edge)) + list(range(n_edge, m, 16))
+    for i in sample:
+        want_v = secp.verify(pubs[i], digs[i], sigs[i])
+        check(bool(verdict[i]) == want_v, f"K3 row {i}: {verdict[i]} vs oracle {want_v}")
+        if i in fixed:
+            check(want_v == fixed[i], f"edge row {i} oracle {want_v} != {fixed[i]}")
+    print(f"  exact on {K3_ROWS} rows (ok, X, Z); r + n pairs accepted with rnok "
+          f"and rejected without; {len(sample)} verdicts match secp256k1.verify "
+          f"({int(verdict.sum())} of {m} accepted)", flush=True)
+    return worst
+
+
+def phase_secp_main(dev, op_rate: float, err: dict) -> dict:
+    phase(f"secp256k1 path: {N_VALIDATORS}-validator secp256k1 commit")
+    t0 = time.perf_counter()
+    sc_ = tc.build_commit(N_VALIDATORS, key_type="secp256k1")
+    print(f"  built and signed in {time.perf_counter() - t0:.1f} s", flush=True)
+    verifier = TorchBatchVerifier()
+    run = drive_commit(sc_, verifier, [N_VALIDATORS // 3])
+    check(run["launches"]["secp256k1_ladder"] > 0, "K3 was not launched on the secp256k1 path")
+
+    pks, msgs, sigs, _ = sc_.valset.collect_commit_sigs(
+        sc_.chain_id, sc_.block_id, sc_.height, sc_.commit)
+    pubs = [pk.bytes() for pk in pks]
+    items = [SigItem(p, m, s) for p, m, s in zip(pubs, msgs, sigs)]
+    b = sc._bucket(N_VALIDATORS)
+    host, forced = sc.pack_rows(pubs, [sha256(m) for m in msgs], sigs, b)
+    check(bool((forced[:N_VALIDATORS] == -1).all()), "an honest row was decided on the host")
+    ins = sc.upload(host, dev)
+
+    def upload_sync():
+        sc.upload(host, dev)
+        torch.cuda.synchronize()
+
+    breakdown = {
+        "collect_commit_sigs_ms": host_p50_ms(lambda: sc_.valset.collect_commit_sigs(
+            sc_.chain_id, sc_.block_id, sc_.height, sc_.commit)),
+        "verify_secp256k1_ms": host_p50_ms(lambda: verifier.verify_secp256k1(items)),
+        "sha256_and_prep_item_ms": host_p50_ms(lambda: [
+            sc.prep_item(p, sha256(m), s) for p, m, s in zip(pubs, msgs, sigs)]),
+        "sha256_prep_and_pack_ms": host_p50_ms(lambda: sc.pack_rows(
+            pubs, [sha256(m) for m in msgs], sigs, b)),
+        "upload_ms": host_p50_ms(upload_sync),
+        "k3_device_p50_ms": cuda_p50_ms(lambda: sc.ladder(*ins)),
+    }
+    print(f"  b = {b}; breakdown: " + ", ".join(f"{k} {v:.3f}" for k, v in breakdown.items()),
+          flush=True)
+
+    out = sc.ladder(*ins)
+    err["secp256k1_ladder"] = max(err["secp256k1_ladder"],
+                                  max_abs_diff(out, sc.ladder_ref(*ins)))
+    check(err["secp256k1_ladder"] == 0, f"K3 differs from its plain version: {err}")
+    check(bool((out[0][:N_VALIDATORS].cpu().numpy() != 0).all()),
+          "secp256k1 verdicts not all accepted")
+    # the products the function needs: NLIMB^2 a multiplication,
+    # NLIMB(NLIMB+1)/2 a squaring, NLIMB a multiplication by b3
+    muls, squarings, smalls = sc.ladder_fe_ops()
+    ops = (muls * sc.NLIMB ** 2 + squarings * sc.NLIMB * (sc.NLIMB + 1) // 2
+           + smalls * sc.NLIMB) * b
+    return {
+        "launches": run["launches"],
+        "ms": cuda_ms(lambda: sc.ladder(*ins)),
+        "plain_ms": cuda_ms(lambda: sc.ladder_ref(*ins), 1, 1),
+        "bound": least_ms(ins, out, ops, op_rate),
+        "b": b,
+    }
+
+
+def phase_mixed() -> dict:
+    phase(f"mixed path: {N_MIXED}-validator ed25519 + secp256k1 commit")
+    t0 = time.perf_counter()
+    sc_ = tc.build_commit(N_MIXED, key_type="mixed")
+    kinds = [type(v.pub_key) for v in sc_.valset.validators]
+    n_secp = kinds.count(PubKeySecp256k1)
+    print(f"  built and signed in {time.perf_counter() - t0:.1f} s: {n_secp} secp256k1, "
+          f"{N_MIXED - n_secp} ed25519 keys", flush=True)
+    rows = [kinds.index(PubKeySecp256k1), kinds.index(PubKeyEd25519)]
+    run = drive_commit(sc_, TorchBatchVerifier(), rows)
+    for name in KERNELS:
+        check(run["launches"][name] > 0, f"kernel {name} was not launched on the mixed path")
+    return run
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
+        return 2
+    t_start = time.perf_counter()
+    dev = torch.device("cuda", 0)
+    rng = np.random.default_rng(20261016)
+
+    phase("device")
+    smi_line = smi("name,power.limit")
+    props = torch.cuda.get_device_properties(0)
+    max_sm_mhz = float(smi("clocks.max.sm").split()[0])
+    print(f"  nvidia-smi: {smi_line}; torch: {torch.cuda.get_device_name(0)}; "
+          f"SMs {props.multi_processor_count}; max SM clock {max_sm_mhz} MHz; "
+          f"torch {torch.__version__} cuda {torch.version.cuda}", flush=True)
+    op_rate = props.multi_processor_count * max_sm_mhz * 1e6 * INT32_OPS_PER_CLK_PER_SM
+
+    phase("build")
+    secs = _build.build_all()
+    for name, s in secs.items():
+        print(f"  {name}: {s:.1f} s", flush=True)
+        for line in _build.build_log(name).splitlines():
+            if "registers" in line or "spill" in line or "stack frame" in line:
+                print(f"    {line.strip()}")
+
+    err = {"ed25519_prologue": phase_k1(dev, rng), "ed25519_ladder": phase_k2(dev, rng)}
+    ed_main = phase_ed25519_main(dev, op_rate, err)
+    err["secp256k1_ladder"] = phase_k3(dev, rng)
+    secp_main = phase_secp_main(dev, op_rate, err)
+    mixed = phase_mixed()
+
+    ms = {**ed_main["ms"], "secp256k1_ladder": secp_main["ms"]}
+    plain_ms = {**ed_main["plain_ms"], "secp256k1_ladder": secp_main["plain_ms"]}
+    bounds = {**ed_main["bounds"], "secp256k1_ladder": secp_main["bound"]}
+    launches = {**ed_main["launches"], "secp256k1_ladder":
+                secp_main["launches"]["secp256k1_ladder"]}
+    for name in KERNELS:
+        b = secp_main["b"] if name == "secp256k1_ladder" else ed_main["b"]
         print(f"  {name}: {ms[name]:.4f} ms (plain {plain_ms[name]:.1f} ms, bound "
-              f"{bounds[name][0]:.4f} ms by {bounds[name][1]}) at b = {b}", flush=True)
+              f"{bounds[name][0]:.4f} ms by {bounds[name][1]}) at b = {b}; "
+              f"mixed-path launches {mixed['launches'][name]}", flush=True)
 
     kernels = []
-    for name in ("ed25519_prologue", "ed25519_ladder"):
+    for name in KERNELS:
         kernels.append({
             "name": name,
             "route": "cuda",
             "source": f"tendermint_tpu_torch/ops/csrc/{_build.SOURCES[name]}",
             "replaces": REPLACES[name],
-            "launches": main_launches[name],
+            "launches": launches[name],
             "max_abs_err": err[name],
             "ms": ms[name],
             "plain_ms": plain_ms[name],
             "bound_ms": bounds[name][0],
             "bound_by": bounds[name][1],
-            "library_ms": None,  # no single PyTorch call computes either function
+            "library_ms": None,  # no single PyTorch call computes these functions
         })
     print(f"  total {time.perf_counter() - t_start:.1f} s", flush=True)
 

@@ -4,9 +4,11 @@
 Counterpart of the JAX package's ``crypto/batch.py`` (``TPUBatchVerifier``,
 ``verify_generic``, ``set_batch_verifier`` / ``get_batch_verifier``). Commit
 verification collects every precommit signature of a height and makes one
-call; homogeneous ed25519 batches go to ``ops.ed25519_cuda.verify_batch``.
-What later slices port raises ``NotImplementedError`` naming the ROADMAP
-item, rather than running a host loop in its place.
+call: ed25519 signatures go to ``ops.ed25519_cuda.verify_batch`` (K1, K2),
+secp256k1 signatures to ``ops.secp256k1_cuda.verify_batch`` (K3), and a
+mixed batch is split by key type and scattered back by index. What later
+slices port (multisig keys, the MSM path) raises ``NotImplementedError``
+naming the ROADMAP item, rather than running a host loop in its place.
 """
 
 from __future__ import annotations
@@ -14,13 +16,15 @@ from __future__ import annotations
 import threading
 import time
 from dataclasses import dataclass
-from typing import NamedTuple, Optional, Sequence
+from typing import Dict, NamedTuple, Optional, Sequence
 
 import numpy as np
 
-from tendermint_tpu_torch.crypto.keys import PubKeyEd25519
+from tendermint_tpu_torch.crypto.hashing import sha256
+from tendermint_tpu_torch.crypto.keys import PubKeyEd25519, PubKeySecp256k1
 from tendermint_tpu_torch.device import DeviceLike, resolve_device
 from tendermint_tpu_torch.ops import ed25519_cuda as _kernel
+from tendermint_tpu_torch.ops import secp256k1_cuda as _secp_kernel
 
 ED25519_PATHS = ("ladder", "msm")
 FE_BACKENDS = ("vpu", "mxu", "mxu16")  # the JAX verifier's values
@@ -36,16 +40,16 @@ def _choice(value: Optional[str], default: str, allowed, name: str) -> str:
 
 
 class SigItem(NamedTuple):
-    pubkey: bytes  # raw 32-byte ed25519 key
+    pubkey: bytes  # raw 32-byte ed25519 key or 33-byte compressed secp256k1
     msg: bytes
     sig: bytes
 
 
 @dataclass
 class DispatchStats:
-    """Plain counters of the dispatches a verifier served. The first
-    dispatch pays the kernel build and the key upload, so its seconds are
-    kept apart as warm-up."""
+    """Plain counters of the dispatches a verifier served for one
+    algorithm. The first dispatch pays the kernel build and the key upload,
+    so its seconds are kept apart as warm-up."""
 
     dispatches: int = 0
     signatures: int = 0
@@ -63,9 +67,14 @@ class DispatchStats:
             self.seconds += seconds
 
 
+ALGORITHMS = ("ed25519", "secp256k1")
+
+
 class TorchBatchVerifier:
-    """Batched ed25519 verification on a torch device (``cuda`` unless the
-    caller passes ``device="cpu"``, which runs the kernels' plain versions).
+    """Batched ed25519 and secp256k1 verification on a torch device
+    (``cuda`` unless the caller passes ``device="cpu"``, which runs the
+    kernels' plain versions). ``stats`` keeps one ``DispatchStats`` per
+    algorithm, so each algorithm's first dispatch counts as its warm-up.
 
     ``fe_backend`` and ``carry_mode`` are accepted with the JAX verifier's
     values and recorded; the port has one limb multiplier (32x32 -> 64
@@ -87,7 +96,7 @@ class TorchBatchVerifier:
                 "ed25519_path='msm' is ported by ROADMAP queue 1 item 6 (the MSM path)"
             )
         self.ed25519_path = path
-        self.stats = DispatchStats()
+        self.stats: Dict[str, DispatchStats] = {a: DispatchStats() for a in ALGORITHMS}
 
     def verify_ed25519(self, items: Sequence[SigItem]) -> np.ndarray:
         return self.verify_ed25519_raw(
@@ -101,18 +110,30 @@ class TorchBatchVerifier:
         if n == 0:
             return np.zeros((0,), dtype=bool)
         t0 = time.perf_counter()
-        first = self.stats.dispatches == 0
         pubs_a = np.frombuffer(b"".join(pubs), dtype=np.uint8).reshape(n, 32)
         sigs_a = np.frombuffer(b"".join(sigs), dtype=np.uint8).reshape(n, 64)
         ok = _kernel.verify_batch(pubs_a, msgs, sigs_a, device=self.device)
-        self.stats.record(n, time.perf_counter() - t0,
-                          n - int(np.count_nonzero(ok)), first)
+        self._record("ed25519", ok, t0)
         return ok
 
-    def verify_secp256k1(self, items):
-        raise NotImplementedError(
-            "secp256k1 verification is ported by ROADMAP queue 1 item 7"
+    def verify_secp256k1(self, items: Sequence[SigItem]) -> np.ndarray:
+        """Items carry (33-byte compressed key, raw message, DER signature);
+        the SHA-256 premix (secp256k1.go:140) happens here."""
+        n = len(items)
+        if n == 0:
+            return np.zeros((0,), dtype=bool)
+        t0 = time.perf_counter()
+        ok = _secp_kernel.verify_batch(
+            [it.pubkey for it in items], [sha256(it.msg) for it in items],
+            [it.sig for it in items], device=self.device,
         )
+        self._record("secp256k1", ok, t0)
+        return ok
+
+    def _record(self, algo: str, ok: np.ndarray, t0: float) -> None:
+        stats = self.stats[algo]
+        stats.record(len(ok), time.perf_counter() - t0,
+                     len(ok) - int(np.count_nonzero(ok)), stats.dispatches == 0)
 
 
 _lock = threading.Lock()
@@ -135,27 +156,40 @@ def get_batch_verifier():
         return _default
 
 
-def verify_generic(pubkeys: Sequence[PubKeyEd25519], msgs: Sequence[bytes],
+def verify_generic(pubkeys: Sequence, msgs: Sequence[bytes],
                    sigs: Sequence[bytes], verifier=None) -> np.ndarray:
-    """Batch-verify over key objects. Homogeneous ed25519 batches with
-    64-byte signatures go to the verifier in one call; other keys are
-    ported with the secp256k1 and multisig paths."""
-    if not all(type(pk) is PubKeyEd25519 for pk in pubkeys):
-        raise NotImplementedError(
-            "non-ed25519 keys are ported by ROADMAP queue 1 item 7 (secp256k1)"
-        )
-    if not all(len(s) == 64 for s in sigs):
-        # Go rejects a signature of the wrong length without hashing it
-        ok = np.zeros((len(sigs),), dtype=bool)
-        idx = [i for i, s in enumerate(sigs) if len(s) == 64]
-        if idx:
-            ok[idx] = verify_generic([pubkeys[i] for i in idx],
-                                     [msgs[i] for i in idx],
-                                     [sigs[i] for i in idx], verifier)
-        return ok
+    """Batch-verify over key objects, routed as the JAX package routes them:
+    a homogeneous ed25519 batch with 64-byte signatures makes one column-form
+    call; otherwise ed25519 keys with 64-byte signatures go to
+    ``verify_ed25519`` (any other length is False: Go rejects it without
+    hashing), secp256k1 keys to ``verify_secp256k1``, and the verdicts are
+    scattered back by index."""
     if verifier is None:
         verifier = get_batch_verifier()
-    return np.asarray(
-        verifier.verify_ed25519_raw([pk.bytes() for pk in pubkeys], msgs, sigs),
-        dtype=bool,
-    )
+    if all(type(pk) is PubKeyEd25519 for pk in pubkeys) and all(
+        len(s) == 64 for s in sigs
+    ):
+        return np.asarray(
+            verifier.verify_ed25519_raw([pk.bytes() for pk in pubkeys], msgs, sigs),
+            dtype=bool,
+        )
+    out = np.zeros((len(pubkeys),), dtype=bool)
+    ed_idx, ed_items, sk_idx, sk_items = [], [], [], []
+    for i, pk in enumerate(pubkeys):
+        if isinstance(pk, PubKeyEd25519):
+            if len(sigs[i]) == 64:
+                ed_idx.append(i)
+                ed_items.append(SigItem(pk.bytes(), msgs[i], sigs[i]))
+        elif isinstance(pk, PubKeySecp256k1):
+            sk_idx.append(i)
+            sk_items.append(SigItem(pk.bytes(), msgs[i], sigs[i]))
+        else:
+            raise NotImplementedError(
+                f"{type(pk).__name__} keys (multisig routing) are ported by "
+                "ROADMAP queue 1 item 9"
+            )
+    if ed_items:
+        out[ed_idx] = verifier.verify_ed25519(ed_items)
+    if sk_items:
+        out[sk_idx] = verifier.verify_secp256k1(sk_items)
+    return out

@@ -1,0 +1,122 @@
+"""Host-side hash functions the secp256k1 path needs: SHA-256 and
+RIPEMD-160 (the port's copy of those of the JAX package's
+``crypto/hashing.py``; RIPEMD160(SHA256(pubkey)) is the bitcoin-style
+address of crypto/secp256k1/secp256k1.go:121).
+"""
+
+from __future__ import annotations
+
+import hashlib
+import struct
+
+
+def sha256(data: bytes) -> bytes:
+    return hashlib.sha256(data).digest()
+
+
+# ---------------------------------------------------------------------------
+# RIPEMD160 — pure-python fallback; OpenSSL 3 ships it behind the legacy
+# provider so hashlib.new('ripemd160') often raises. Needed only for
+# secp256k1 bitcoin-style addresses (not a hot path).
+# ---------------------------------------------------------------------------
+
+def _has_openssl_ripemd() -> bool:
+    try:
+        hashlib.new("ripemd160")
+        return True
+    except Exception:
+        return False
+
+
+_HAS_OPENSSL_RIPEMD = _has_openssl_ripemd()
+
+
+def ripemd160(data: bytes) -> bytes:
+    if _HAS_OPENSSL_RIPEMD:
+        h = hashlib.new("ripemd160")
+        h.update(data)
+        return h.digest()
+    return _ripemd160_py(data)
+
+
+# -- pure python RIPEMD-160 (spec: Dobbertin, Bosselaers, Preneel 1996) -----
+
+_RL = [
+    [0, 1, 2, 3, 4, 5, 6, 7, 8, 9, 10, 11, 12, 13, 14, 15],
+    [7, 4, 13, 1, 10, 6, 15, 3, 12, 0, 9, 5, 2, 14, 11, 8],
+    [3, 10, 14, 4, 9, 15, 8, 1, 2, 7, 0, 6, 13, 11, 5, 12],
+    [1, 9, 11, 10, 0, 8, 12, 4, 13, 3, 7, 15, 14, 5, 6, 2],
+    [4, 0, 5, 9, 7, 12, 2, 10, 14, 1, 3, 8, 11, 6, 15, 13],
+]
+_RR = [
+    [5, 14, 7, 0, 9, 2, 11, 4, 13, 6, 15, 8, 1, 10, 3, 12],
+    [6, 11, 3, 7, 0, 13, 5, 10, 14, 15, 8, 12, 4, 9, 1, 2],
+    [15, 5, 1, 3, 7, 14, 6, 9, 11, 8, 12, 2, 10, 0, 4, 13],
+    [8, 6, 4, 1, 3, 11, 15, 0, 5, 12, 2, 13, 9, 7, 10, 14],
+    [12, 15, 10, 4, 1, 5, 8, 7, 6, 2, 13, 14, 0, 3, 9, 11],
+]
+_SL = [
+    [11, 14, 15, 12, 5, 8, 7, 9, 11, 13, 14, 15, 6, 7, 9, 8],
+    [7, 6, 8, 13, 11, 9, 7, 15, 7, 12, 15, 9, 11, 7, 13, 12],
+    [11, 13, 6, 7, 14, 9, 13, 15, 14, 8, 13, 6, 5, 12, 7, 5],
+    [11, 12, 14, 15, 14, 15, 9, 8, 9, 14, 5, 6, 8, 6, 5, 12],
+    [9, 15, 5, 11, 6, 8, 13, 12, 5, 12, 13, 14, 11, 8, 5, 6],
+]
+_SR = [
+    [8, 9, 9, 11, 13, 15, 15, 5, 7, 7, 8, 11, 14, 14, 12, 6],
+    [9, 13, 15, 7, 12, 8, 9, 11, 7, 7, 12, 7, 6, 15, 13, 11],
+    [9, 7, 15, 11, 8, 6, 6, 14, 12, 13, 5, 14, 13, 13, 7, 5],
+    [15, 5, 8, 11, 14, 14, 6, 14, 6, 9, 12, 9, 12, 5, 15, 8],
+    [8, 5, 12, 9, 12, 5, 14, 6, 8, 13, 6, 5, 15, 13, 11, 11],
+]
+_KL = [0x00000000, 0x5A827999, 0x6ED9EBA1, 0x8F1BBCDC, 0xA953FD4E]
+_KR = [0x50A28BE6, 0x5C4DD124, 0x6D703EF3, 0x7A6D76E9, 0x00000000]
+
+
+def _rol(x: int, n: int) -> int:
+    x &= 0xFFFFFFFF
+    return ((x << n) | (x >> (32 - n))) & 0xFFFFFFFF
+
+
+def _rmd_f(j: int, x: int, y: int, z: int) -> int:
+    if j == 0:
+        return x ^ y ^ z
+    if j == 1:
+        return (x & y) | (~x & z)
+    if j == 2:
+        return (x | ~y) ^ z
+    if j == 3:
+        return (x & z) | (y & ~z)
+    return x ^ (y | ~z)
+
+
+def _ripemd160_py(data: bytes) -> bytes:
+    h = [0x67452301, 0xEFCDAB89, 0x98BADCFE, 0x10325476, 0xC3D2E1F0]
+    # padding, little-endian bit length
+    msg = data + b"\x80"
+    while len(msg) % 64 != 56:
+        msg += b"\x00"
+    msg += struct.pack("<Q", (8 * len(data)) & 0xFFFFFFFFFFFFFFFF)
+    for off in range(0, len(msg), 64):
+        x = struct.unpack("<16I", msg[off : off + 64])
+        al, bl, cl, dl, el = h
+        ar, br, cr, dr, er = h
+        for rnd in range(5):
+            for i in range(16):
+                t = _rol(
+                    (al + _rmd_f(rnd, bl, cl, dl) + x[_RL[rnd][i]] + _KL[rnd]) & 0xFFFFFFFF,
+                    _SL[rnd][i],
+                ) + el
+                al, el, dl, cl, bl = el, dl, _rol(cl, 10), bl, t & 0xFFFFFFFF
+                t = _rol(
+                    (ar + _rmd_f(4 - rnd, br, cr, dr) + x[_RR[rnd][i]] + _KR[rnd]) & 0xFFFFFFFF,
+                    _SR[rnd][i],
+                ) + er
+                ar, er, dr, cr, br = er, dr, _rol(cr, 10), br, t & 0xFFFFFFFF
+        t = (h[1] + cl + dr) & 0xFFFFFFFF
+        h[1] = (h[2] + dl + er) & 0xFFFFFFFF
+        h[2] = (h[3] + el + ar) & 0xFFFFFFFF
+        h[3] = (h[4] + al + br) & 0xFFFFFFFF
+        h[4] = (h[0] + bl + cr) & 0xFFFFFFFF
+        h[0] = t
+    return struct.pack("<5I", *h)

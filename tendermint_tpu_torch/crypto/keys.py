@@ -1,10 +1,14 @@
-"""Ed25519 public key with the reference's address rule
-(crypto/ed25519/ed25519.go:138: SHA-256(pubkey)[:20])."""
+"""Public and private keys with the reference's address rules: ed25519
+(crypto/ed25519/ed25519.go:138: SHA-256(pubkey)[:20]) and secp256k1
+(crypto/secp256k1/secp256k1.go:121: RIPEMD160(SHA256(pubkey)))."""
 
 from __future__ import annotations
 
 import hashlib
 from dataclasses import dataclass
+
+from tendermint_tpu_torch.crypto import secp256k1 as _secp
+from tendermint_tpu_torch.crypto.hashing import ripemd160, sha256
 
 ADDRESS_SIZE = 20
 
@@ -26,3 +30,44 @@ class PubKeyEd25519:
 
     def bytes(self) -> bytes:
         return self.data
+
+
+@dataclass(frozen=True)
+class PubKeySecp256k1:
+    data: bytes  # 33-byte compressed point
+    type_name = "tendermint/PubKeySecp256k1"
+
+    def __post_init__(self):
+        if len(self.data) != 33:
+            raise ValueError("secp256k1 pubkey must be 33 bytes (compressed)")
+        object.__setattr__(self, "_addr", ripemd160(sha256(self.data)))
+
+    def address(self) -> bytes:
+        return self._addr
+
+    def bytes(self) -> bytes:
+        return self.data
+
+
+@dataclass(frozen=True)
+class PrivKeySecp256k1:
+    data: bytes  # 32 bytes
+    type_name = "tendermint/PrivKeySecp256k1"
+
+    def __post_init__(self):
+        if len(self.data) != 32:
+            raise ValueError("secp256k1 privkey must be 32 bytes")
+
+    def bytes(self) -> bytes:
+        return self.data
+
+    def sign(self, msg: bytes) -> bytes:
+        # reference signs SHA256(msg) and emits DER (secp256k1.go:58-67)
+        return _secp.sign(self.data, sha256(msg))
+
+    def pub_key(self) -> PubKeySecp256k1:
+        return PubKeySecp256k1(_secp.pubkey_compressed(self.data))
+
+    @staticmethod
+    def generate(seed: bytes | None = None) -> "PrivKeySecp256k1":
+        return PrivKeySecp256k1(_secp.gen_privkey(seed))

@@ -1,0 +1,252 @@
+"""Pure-python secp256k1 ECDSA matching the reference's btcec semantics.
+
+Reference crypto/secp256k1/secp256k1.go:
+  * Sign: deterministic-k (RFC 6979) ECDSA over SHA256(msg), serialized as DER,
+    with the canonical low-s rule (btcec forces s <= N/2);
+  * VerifyBytes: parse compressed pubkey + DER signature, reject non-canonical
+    (high-s) signatures, verify over SHA256(msg).
+
+The port's copy of the JAX package's ``crypto/secp256k1.py``: the host
+oracle that every batch path's accept/reject is pinned to. The batched path
+is ``ops/secp256k1_cuda.py`` (BASELINE.json configs[3]).
+"""
+
+from __future__ import annotations
+
+import hashlib
+import hmac
+import os
+from typing import Optional, Tuple
+
+# curve parameters
+P = 2**256 - 2**32 - 977
+N = 0xFFFFFFFFFFFFFFFFFFFFFFFFFFFFFFFEBAAEDCE6AF48A03BBFD25E8CD0364141
+Gx = 0x79BE667EF9DCBBAC55A06295CE870B07029BFCDB2DCE28D959F2815B16F81798
+Gy = 0x483ADA7726A3C4655DA4FBFC0E1108A8FD17B448A68554199C47D08FFB10D4B8
+
+_HALF_N = N // 2
+
+
+def _inv(a: int, m: int) -> int:
+    return pow(a, m - 2, m)
+
+
+# Jacobian coordinates for speed
+def _jadd(p1, p2):
+    if p1 is None:
+        return p2
+    if p2 is None:
+        return p1
+    X1, Y1, Z1 = p1
+    X2, Y2, Z2 = p2
+    Z1Z1 = Z1 * Z1 % P
+    Z2Z2 = Z2 * Z2 % P
+    U1 = X1 * Z2Z2 % P
+    U2 = X2 * Z1Z1 % P
+    S1 = Y1 * Z2 * Z2Z2 % P
+    S2 = Y2 * Z1 * Z1Z1 % P
+    if U1 == U2:
+        if S1 != S2:
+            return None  # point at infinity
+        return _jdouble(p1)
+    H = (U2 - U1) % P
+    R = (S2 - S1) % P
+    HH = H * H % P
+    HHH = H * HH % P
+    V = U1 * HH % P
+    X3 = (R * R - HHH - 2 * V) % P
+    Y3 = (R * (V - X3) - S1 * HHH) % P
+    Z3 = H * Z1 * Z2 % P
+    return (X3, Y3, Z3)
+
+
+def _jdouble(p1):
+    if p1 is None:
+        return None
+    X1, Y1, Z1 = p1
+    if Y1 == 0:
+        return None
+    YY = Y1 * Y1 % P
+    S = 4 * X1 * YY % P
+    M = 3 * X1 * X1 % P  # a = 0
+    X3 = (M * M - 2 * S) % P
+    Y3 = (M * (S - X3) - 8 * YY * YY) % P
+    Z3 = 2 * Y1 * Z1 % P
+    return (X3, Y3, Z3)
+
+
+def _jmul(point, k: int):
+    acc = None
+    base = point
+    while k:
+        if k & 1:
+            acc = _jadd(acc, base)
+        base = _jdouble(base)
+        k >>= 1
+    return acc
+
+
+def _to_affine(p1) -> Optional[Tuple[int, int]]:
+    if p1 is None:
+        return None
+    X, Y, Z = p1
+    zi = _inv(Z, P)
+    zi2 = zi * zi % P
+    return (X * zi2 % P, Y * zi2 * zi % P)
+
+
+_G = (Gx, Gy, 1)
+
+
+def decompress_pubkey(data: bytes) -> Optional[Tuple[int, int]]:
+    if len(data) != 33 or data[0] not in (2, 3):
+        return None
+    x = int.from_bytes(data[1:], "big")
+    if x >= P:
+        return None
+    y2 = (pow(x, 3, P) + 7) % P
+    y = pow(y2, (P + 1) // 4, P)
+    if y * y % P != y2:
+        return None
+    if (y & 1) != (data[0] & 1):
+        y = P - y
+    return (x, y)
+
+
+def compress_point(x: int, y: int) -> bytes:
+    return bytes([2 | (y & 1)]) + x.to_bytes(32, "big")
+
+
+def pubkey_compressed(privkey: bytes) -> bytes:
+    d = int.from_bytes(privkey, "big")
+    if not 0 < d < N:
+        raise ValueError("invalid secp256k1 private key")
+    x, y = _to_affine(_jmul(_G, d))
+    return compress_point(x, y)
+
+
+def gen_privkey(seed: bytes | None = None) -> bytes:
+    while True:
+        cand = seed if seed is not None else os.urandom(32)
+        seed = None
+        d = int.from_bytes(cand, "big")
+        if 0 < d < N:
+            return cand
+
+
+def privkey_from_secret(secret: bytes) -> bytes:
+    """reference GenPrivKeySecp256k1: SHA256(secret), with validity fixup."""
+    cand = hashlib.sha256(secret).digest()
+    return gen_privkey(cand)
+
+
+# ---------------------------------------------------------------------------
+# RFC 6979 deterministic nonce
+# ---------------------------------------------------------------------------
+
+
+def _rfc6979_k(privkey: bytes, digest: bytes) -> int:
+    holen = 32
+    x = privkey
+    h1 = digest
+    V = b"\x01" * holen
+    K = b"\x00" * holen
+    K = hmac.new(K, V + b"\x00" + x + h1, hashlib.sha256).digest()
+    V = hmac.new(K, V, hashlib.sha256).digest()
+    K = hmac.new(K, V + b"\x01" + x + h1, hashlib.sha256).digest()
+    V = hmac.new(K, V, hashlib.sha256).digest()
+    while True:
+        V = hmac.new(K, V, hashlib.sha256).digest()
+        k = int.from_bytes(V, "big")
+        if 0 < k < N:
+            return k
+        K = hmac.new(K, V + b"\x00", hashlib.sha256).digest()
+        V = hmac.new(K, V, hashlib.sha256).digest()
+
+
+# ---------------------------------------------------------------------------
+# DER encode/decode (strict, as btcec emits/parses)
+# ---------------------------------------------------------------------------
+
+
+def _der_int(v: int) -> bytes:
+    b = v.to_bytes((v.bit_length() + 7) // 8 or 1, "big")
+    if b[0] & 0x80:
+        b = b"\x00" + b
+    return b"\x02" + bytes([len(b)]) + b
+
+
+def der_encode_sig(r: int, s: int) -> bytes:
+    body = _der_int(r) + _der_int(s)
+    return b"\x30" + bytes([len(body)]) + body
+
+
+def der_decode_sig(sig: bytes) -> Optional[Tuple[int, int]]:
+    try:
+        if len(sig) < 8 or sig[0] != 0x30 or sig[1] != len(sig) - 2:
+            return None
+        i = 2
+        if sig[i] != 0x02:
+            return None
+        rl = sig[i + 1]
+        r = int.from_bytes(sig[i + 2 : i + 2 + rl], "big")
+        i += 2 + rl
+        if i >= len(sig) or sig[i] != 0x02:
+            return None
+        sl = sig[i + 1]
+        if i + 2 + sl != len(sig):
+            return None
+        s = int.from_bytes(sig[i + 2 :], "big")
+        return (r, s)
+    except (IndexError, ValueError):
+        return None
+
+
+# ---------------------------------------------------------------------------
+# sign / verify
+# ---------------------------------------------------------------------------
+
+
+def sign(privkey: bytes, digest: bytes) -> bytes:
+    """ECDSA over a 32-byte digest; deterministic k; low-s canonical; DER."""
+    d = int.from_bytes(privkey, "big")
+    if not 0 < d < N:
+        raise ValueError("invalid secp256k1 private key")
+    e = int.from_bytes(digest, "big")
+    while True:
+        k = _rfc6979_k(privkey, digest)
+        R = _to_affine(_jmul(_G, k))
+        r = R[0] % N
+        if r == 0:
+            digest = hashlib.sha256(digest).digest()
+            continue
+        s = _inv(k, N) * (e + r * d) % N
+        if s == 0:
+            digest = hashlib.sha256(digest).digest()
+            continue
+        if s > _HALF_N:  # canonical low-s (btcec)
+            s = N - s
+        return der_encode_sig(r, s)
+
+
+def verify(pubkey: bytes, digest: bytes, sig: bytes) -> bool:
+    Q = decompress_pubkey(pubkey)
+    if Q is None:
+        return False
+    parsed = der_decode_sig(sig)
+    if parsed is None:
+        return False
+    r, s = parsed
+    if not (0 < r < N and 0 < s < N):
+        return False
+    if s > _HALF_N:  # reject non-canonical high-s (malleability)
+        return False
+    e = int.from_bytes(digest, "big")
+    w = _inv(s, N)
+    u1 = e * w % N
+    u2 = r * w % N
+    pt = _jadd(_jmul(_G, u1), _jmul((Q[0], Q[1], 1), u2))
+    aff = _to_affine(pt)
+    if aff is None:
+        return False
+    return aff[0] % N == r

@@ -26,6 +26,7 @@ BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "tendermint_tpu_torc
 SOURCES = {
     "ed25519_prologue": "ed25519_prologue.cu",
     "ed25519_ladder": "ed25519_ladder.cu",
+    "secp256k1_ladder": "secp256k1_ladder.cu",
 }
 
 FLAGS = (

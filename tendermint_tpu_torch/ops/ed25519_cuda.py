@@ -496,11 +496,11 @@ def reset_launches() -> None:
         launches[k] = 0
 
 
-def _kernel_fn(name: str):
+def _kernel_fn(name: str, argtypes):
     fn = _fns.get(name)
     if fn is None:
         fn = getattr(_build.load(name), name + "_launch")
-        fn.argtypes = _SIGNATURES[name]
+        fn.argtypes = argtypes
         fn.restype = ctypes.c_int
         _fns[name] = fn
     return fn
@@ -527,14 +527,20 @@ def _check(name: str, t: torch.Tensor, shape: Tuple[int, ...]) -> None:
         raise ValueError(f"{name}: not contiguous")
 
 
-def _launch(name: str, dev: torch.device, *args) -> None:
-    """Launch on ``dev``'s current stream; raises if the launch failed."""
-    fn = _kernel_fn(name)
+def launch_kernel(name: str, argtypes, counts: Dict[str, int],
+                  dev: torch.device, *args) -> None:
+    """Launch kernel ``name`` on ``dev``'s current stream and add one to
+    ``counts[name]``; raises if the launch failed."""
+    fn = _kernel_fn(name, argtypes)
     with torch.cuda.device(dev):
         rc = fn(*args, torch.cuda.current_stream(dev).cuda_stream)
-    launches[name] += 1
+    counts[name] += 1
     if rc != 0:
         raise RuntimeError(f"{name} launch failed: cudaError {rc}")
+
+
+def _launch(name: str, dev: torch.device, *args) -> None:
+    launch_kernel(name, _SIGNATURES[name], launches, dev, *args)
 
 
 def prologue(tmpl, vidx, vwords, pub_words, sig_words):

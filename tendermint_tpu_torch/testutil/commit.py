@@ -3,8 +3,10 @@
 ``build_commit`` makes a signed N-validator ``Commit`` the way the
 repository's headline bench does (``bench.py:_build_commit``): every
 precommit votes one block id, and the canonical sign-bytes differ only in
-the fixed64 timestamp. ``go_edge_window`` makes a 20-row batch that holds
-every Go verification edge the kernels must honour.
+the fixed64 timestamp. Validators hold ed25519 keys, secp256k1 keys, or a
+seeded mix. ``go_edge_window`` makes a 20-row batch that holds every Go
+verification edge the ed25519 kernels must honour; ``secp_edge_window``
+the corruption matrix the secp256k1 path must honour.
 """
 
 from __future__ import annotations
@@ -15,7 +17,10 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 
 from tendermint_tpu_torch.crypto import ed25519 as ed
-from tendermint_tpu_torch.crypto.keys import PubKeyEd25519
+from tendermint_tpu_torch.crypto import secp256k1 as secp
+from tendermint_tpu_torch.crypto.hashing import sha256
+from tendermint_tpu_torch.crypto.keys import PubKeyEd25519, PubKeySecp256k1
+from tendermint_tpu_torch.testutil import secp_signer
 from tendermint_tpu_torch.types.block import Commit
 from tendermint_tpu_torch.types.core import BlockID, PartSetHeader, SignedMsgType
 from tendermint_tpu_torch.types.validator_set import Validator, ValidatorSet
@@ -31,19 +36,48 @@ class SignedCommit:
     valset: ValidatorSet
     block_id: BlockID
     commit: Commit
-    privs: List[bytes]  # in validator-set order
+    privs: List[bytes]  # in validator-set order; 64 bytes ed25519, 32 secp256k1
     chain_id: str = CHAIN_ID
     height: int = HEIGHT
 
 
-def build_commit(n: int, seed: int = 42, power: int = 10) -> SignedCommit:
-    """A commit signed by all n validators of a seeded set."""
+KEY_TYPES = ("ed25519", "secp256k1", "mixed")
+
+
+def pub_key(priv: bytes):
+    """The public key object of a fixture private key."""
+    if len(priv) == 64:
+        return PubKeyEd25519(priv[32:])
+    return PubKeySecp256k1(secp_signer.pubkey_compressed(priv))
+
+
+def sign(priv: bytes, msg: bytes) -> bytes:
+    """Sign as the key's type signs: ed25519 over msg, secp256k1 DER over
+    SHA-256(msg)."""
+    if len(priv) == 64:
+        return ed.sign(priv, msg)
+    return secp_signer.sign(priv, sha256(msg))
+
+
+def build_commit(n: int, seed: int = 42, power: int = 10,
+                 key_type: str = "ed25519") -> SignedCommit:
+    """A commit signed by all n validators of a seeded set. ``key_type``
+    "mixed" draws each validator's key type from the seed."""
+    if key_type not in KEY_TYPES:
+        raise ValueError(f"key_type must be one of {KEY_TYPES}, got {key_type!r}")
     rng = np.random.default_rng(seed)
-    seeds = rng.bytes(32 * n)
+    raw = rng.bytes(32 * n)
+    seeds = [raw[32 * i: 32 * (i + 1)] for i in range(n)]
     block_id = BlockID(b"\xaa" * 32, PartSetHeader(1, b"\xbb" * 32))
-    privs = [ed.gen_privkey(seeds[32 * i: 32 * (i + 1)]) for i in range(n)]
-    by_addr = {PubKeyEd25519(p[32:]).address(): p for p in privs}
-    valset = ValidatorSet([Validator(PubKeyEd25519(p[32:]), power) for p in privs])
+    if key_type == "mixed":
+        is_secp = rng.integers(0, 2, n).astype(bool)
+    else:
+        is_secp = np.full(n, key_type == "secp256k1")
+    privs = [secp.gen_privkey(s) if k else ed.gen_privkey(s)
+             for s, k in zip(seeds, is_secp)]
+    pubs = [pub_key(p) for p in privs]
+    by_addr = {pk.address(): p for pk, p in zip(pubs, privs)}
+    valset = ValidatorSet([Validator(pk, power) for pk in pubs])
     ordered = [by_addr[v.address] for v in valset.validators]
     votes = []
     for i, (val, priv) in enumerate(zip(valset.validators, ordered)):
@@ -56,7 +90,7 @@ def build_commit(n: int, seed: int = 42, power: int = 10) -> SignedCommit:
             validator_address=val.address,
             validator_index=i,
         )
-        votes.append(vote.with_signature(ed.sign(priv, vote.sign_bytes(CHAIN_ID))))
+        votes.append(vote.with_signature(sign(priv, vote.sign_bytes(CHAIN_ID))))
     return SignedCommit(valset, block_id, Commit(block_id, votes), ordered)
 
 
@@ -82,7 +116,7 @@ def stray_vote(sc: SignedCommit, index: int) -> Commit:
     pcs = list(sc.commit.precommits)
     vote = replace(pcs[index], block_id=other, signature=b"")
     pcs[index] = vote.with_signature(
-        ed.sign(sc.privs[index], vote.sign_bytes(sc.chain_id)))
+        sign(sc.privs[index], vote.sign_bytes(sc.chain_id)))
     return Commit(sc.commit.block_id, pcs)
 
 
@@ -209,3 +243,63 @@ def go_edge_window(seed: int = 0) -> Tuple[List[bytes], List[bytes], List[bytes]
     verdicts: Dict[int, Optional[bool]] = {i: True for i in range(10)}
     verdicts.update({i: v for i, (_, v) in EDGE_ROWS.items()})
     return pubs, msgs, sigs, verdicts
+
+
+# ---------------------------------------------------------------------------
+# The secp256k1 edge window
+# ---------------------------------------------------------------------------
+
+SECP_EDGE_ROWS = {  # row -> (what it is, the oracle's verdict)
+    10: ("s xor 1", False),
+    11: ("wrong digest", False),
+    12: ("signed under another key", False),
+    13: ("malformed DER", False),
+    14: ("high s (n - s)", False),
+    15: ("r = 0", False),
+    16: ("r = n", False),
+    17: ("s = 0", False),
+    18: ("key x = 0, off the curve", False),
+    19: ("key with the wrong parity prefix", False),
+    20: ("zero digest: u1 = 0, the host oracle decides", True),
+    21: ("r with a redundant leading zero byte (lenient DER)", True),
+    22: ("truncated DER", False),
+}
+
+
+def secp_edge_window(seed: int = 0) -> Tuple[List[bytes], List[bytes], List[bytes], Dict[int, bool]]:
+    """23 rows at the digest level: 10 clean signatures and the edges of
+    ``SECP_EDGE_ROWS`` (the corruption matrix of the JAX package's
+    secp256k1 tests and the range, parity and DER edges). Returns (pubs,
+    digests, sigs, verdicts), verdicts mapping every row to the verdict of
+    ``crypto.secp256k1.verify``."""
+    rng = np.random.default_rng(seed)
+    privs = [secp.gen_privkey(rng.bytes(32)) for _ in range(22)]
+    pubs = [secp_signer.pubkey_compressed(p) for p in privs]
+    digs = [sha256(b"secp-edge-%d-" % i + rng.bytes(16)) for i in range(22)]
+    digs[20] = bytes(32)
+    sigs = [secp_signer.sign(p, d) for p, d in zip(privs, digs)]
+    parsed = [secp.der_decode_sig(s) for s in sigs]
+
+    r, s = parsed[10]
+    sigs[10] = secp.der_encode_sig(r, s ^ 1)
+    digs[11] = sha256(b"not the signed digest")
+    pubs[12] = pubs[0]
+    sigs[13] = b"\x30\x02\x01\x01"
+    r, s = parsed[14]
+    sigs[14] = secp.der_encode_sig(r, secp.N - s)
+    sigs[15] = secp.der_encode_sig(0, parsed[15][1])
+    sigs[16] = secp.der_encode_sig(secp.N, parsed[16][1])
+    sigs[17] = secp.der_encode_sig(parsed[17][0], 0)
+    pubs[18] = b"\x02" + bytes(32)
+    pubs[19] = bytes([pubs[19][0] ^ 1]) + pubs[19][1:]
+    r, s = parsed[21]
+    rb = secp._der_int(r)[2:]
+    body = b"\x02" + bytes([len(rb) + 1]) + b"\x00" + rb + secp._der_int(s)
+    sigs[21] = b"\x30" + bytes([len(body)]) + body
+    pubs.append(pubs[1])
+    digs.append(digs[1])
+    sigs.append(sigs[1][:-1])
+
+    verdicts = {i: True for i in range(10)}
+    verdicts.update({i: v for i, (_, v) in SECP_EDGE_ROWS.items()})
+    return pubs, digs, sigs, verdicts

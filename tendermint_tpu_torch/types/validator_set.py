@@ -12,10 +12,10 @@ from __future__ import annotations
 
 import struct as _struct
 from dataclasses import dataclass
-from typing import List, Optional, Sequence, Tuple
+from typing import List, Optional, Sequence, Tuple, Union
 
 from tendermint_tpu_torch.crypto.batch import verify_generic
-from tendermint_tpu_torch.crypto.keys import PubKeyEd25519
+from tendermint_tpu_torch.crypto.keys import PubKeyEd25519, PubKeySecp256k1
 from tendermint_tpu_torch.types.core import (
     BlockID,
     SignedMsgType,
@@ -23,9 +23,12 @@ from tendermint_tpu_torch.types.core import (
 )
 
 
+PubKey = Union[PubKeyEd25519, PubKeySecp256k1]
+
+
 @dataclass
 class Validator:
-    pub_key: PubKeyEd25519
+    pub_key: PubKey
     voting_power: int
 
     @property
@@ -54,7 +57,7 @@ class ValidatorSet:
 
     def collect_commit_sigs(
         self, chain_id: str, block_id: BlockID, height: int, commit
-    ) -> Tuple[List[PubKeyEd25519], List[bytes], List[bytes], List[int]]:
+    ) -> Tuple[List[PubKey], List[bytes], List[bytes], List[int]]:
         """Structural checks + (pubkeys, msgs, sigs, powers) for every
         non-nil precommit; powers[j] is 0 for a precommit voting another
         block. Raises CommitError.

@@ -164,8 +164,9 @@ def test_structural_errors_match_jax(signed, verifier):
 
 
 def test_dispatch_stats(verifier):
-    assert verifier.stats.dispatches >= 1
-    assert verifier.stats.signatures >= N
+    assert verifier.stats["ed25519"].dispatches >= 1
+    assert verifier.stats["ed25519"].signatures >= N
+    assert verifier.stats["secp256k1"].dispatches == 0
     assert verifier.backend == "cpu" and verifier.fe_backend == "vpu"
 
 
@@ -190,9 +191,7 @@ def test_unported_paths_raise():
     with pytest.raises(NotImplementedError, match="item 6"):
         tbatch.TorchBatchVerifier(device="cpu", ed25519_path="msm")
     v = tbatch.TorchBatchVerifier(device="cpu")
-    with pytest.raises(NotImplementedError, match="item 7"):
-        v.verify_secp256k1([])
-    with pytest.raises(NotImplementedError, match="item 7"):
+    with pytest.raises(NotImplementedError, match="item 9"):
         tbatch.verify_generic([object()], [b""], [b"\0" * 64], verifier=v)
 
 

@@ -9,7 +9,9 @@ import pytest
 import torch
 
 from tendermint_tpu_torch.crypto import ed25519 as ted
+from tendermint_tpu_torch.crypto import secp256k1 as ts
 from tendermint_tpu_torch.ops import ed25519_cuda as ec
+from tendermint_tpu_torch.ops import secp256k1_cuda as sc
 from tendermint_tpu_torch.testutil import commit as tc
 
 pytestmark = pytest.mark.cuda
@@ -71,3 +73,40 @@ def test_verify_batch_on_cuda_vs_oracle(cuda):
     got = ec.verify_batch(pa, msgs, sa, device=cuda)
     want = [ted._verify_pure(pa[i].tobytes(), msgs[i], sa[i].tobytes()) for i in range(len(msgs))]
     assert got.tolist() == want
+
+
+def test_secp256k1_ladder_kernel_vs_plain(cuda):
+    """K3 against its plain version on the edge window padded with random
+    limbs and digits (off-curve points exercise the same arithmetic), and
+    on the r + n branch rows."""
+    pubs, digs, sigs, _ = tc.secp_edge_window(seed=2)
+    host, _ = sc.pack_rows(pubs, digs, sigs, 128)
+    qx, qy, d1, d2, rl, rnl, rnok = (h.copy() for h in host)
+    rng = np.random.default_rng(3)
+    m = len(pubs) + 2
+    for a in (qx, qy, rl):
+        a[m:] = rng.integers(0, 1 << 22, a[m:].shape)
+    for a in (d1, d2):
+        a[m:] = rng.integers(0, 16, a[m:].shape)
+    # rows m-2, m-1: rnl = x(R) of row 0, rl another value, rnok 1 and 0
+    for j, flag in ((m - 2, 1), (m - 1, 0)):
+        for a in (qx, qy, d1, d2):
+            a[j] = a[0]
+        rnl[j] = rl[0]
+        rl[j] = sc._limbs_batch([sc.F.limbs_to_int(rl[0].tolist()) + 1])[0]
+        rnok[j] = flag
+    ins = sc.upload((qx, qy, d1, d2, rl, rnl, rnok), cuda)
+    before = sc.launches["secp256k1_ladder"]
+    got = sc.ladder(*ins)
+    torch.cuda.synchronize()
+    assert sc.launches["secp256k1_ladder"] == before + 1
+    for g, w in zip(got, sc.ladder_ref(*ins)):
+        assert torch.equal(g.cpu(), w.cpu())
+    assert got[0][m - 2].item() == 1 and got[0][m - 1].item() == 0
+
+
+def test_secp256k1_verify_batch_on_cuda_vs_oracle(cuda):
+    pubs, digs, sigs, verdicts = tc.secp_edge_window(seed=4)
+    got = sc.verify_batch(pubs, digs, sigs, device=cuda)
+    want = [ts.verify(p, d, g) for p, d, g in zip(pubs, digs, sigs)]
+    assert got.tolist() == want == [verdicts[i] for i in range(len(pubs))]

@@ -38,6 +38,8 @@ def test_import_leaves_jax_unloaded():
     code = (
         "import sys, tendermint_tpu_torch, chip_smoke\n"
         "import tendermint_tpu_torch.crypto.batch, tendermint_tpu_torch.testutil.commit\n"
+        "import tendermint_tpu_torch.crypto.secp256k1, tendermint_tpu_torch.crypto.hashing\n"
+        "import tendermint_tpu_torch.ops.secp256k1_cuda, tendermint_tpu_torch.ops.fe_secp256k1\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'tendermint_tpu')]\n"
         "assert not bad, bad\n"
     )
