@@ -6,8 +6,11 @@
 Phases, in order; any failure exits non-zero:
 
   1. device  the card's name and power limit (nvidia-smi) and torch's name;
-  2. build   the three CUDA kernels from the checkout's sources, in
-             parallel, with each one's registers, spills and stack frame;
+  2. build   the three CUDA kernels and the multiply probe from the
+             checkout's sources, in parallel, with each one's registers,
+             spills and stack frame; then the probe's IMAD.WIDE and IMAD
+             rates (products a clock an SM): the IMAD.WIDE rate prices
+             K2's and K3's bounds;
   3. K1      the prologue kernel against its plain version on the card,
              2,048 seeded rows at each message length 0, 33, 104, 111, 112
              and 200, exact; h also against hashlib + bigint mod L;
@@ -24,12 +27,15 @@ Phases, in order; any failure exits non-zero:
              card, 256 rows (the 23-row secp256k1 edge window, seeded
              signatures and rows that take the r + n branch), exact on the
              verdict and on X and Z; verdicts against the port's oracle
-             ``crypto.secp256k1.verify``;
+             ``crypto.secp256k1.verify``; then 200 seeded rows, a ragged
+             last block, into outputs with sentinel tails that must stay
+             unwritten;
   7. secp    a 10,000-validator secp256k1 commit through the same
              verify_commit -> TorchBatchVerifier.verify_secp256k1 -> K3: the
              commit passes, a flipped signature byte and an under-quorum
              commit are rejected, K3 launched; wall, host breakdown and
-             device times; K3 against its plain version at those shapes;
+             device times; K3 against its plain version at those shapes,
+             with its geometry, registers and shared memory;
   8. mixed   a 1,000-validator commit of mixed ed25519 and secp256k1 keys:
              it passes with K1, K2 and K3 each launched, and a flipped
              secp256k1 row and a flipped ed25519 row are each rejected.
@@ -60,6 +66,7 @@ from tendermint_tpu_torch.crypto.keys import PubKeyEd25519, PubKeySecp256k1
 from tendermint_tpu_torch.ops import _build
 from tendermint_tpu_torch.ops import ed25519_cuda as ec
 from tendermint_tpu_torch.ops import fe
+from tendermint_tpu_torch.ops import imad_probe
 from tendermint_tpu_torch.ops import secp256k1_cuda as sc
 from tendermint_tpu_torch.testutil import commit as tc
 from tendermint_tpu_torch.testutil import secp_signer
@@ -72,14 +79,17 @@ K1_LENGTHS = (0, 33, 104, 111, 112, 200)
 K2_ROWS = 256
 K3_ROWS = 256
 K3_RN_PAIRS = 4  # row pairs that take the r + n branch (rnok 1, then 0)
+K3_RAGGED_ROWS = 200  # not a multiple of the rows a K3 block serves
 WALL_REPS = 5
 TIME_ITERS = 20
 
 # Rates for the least time the card could take: HBM bandwidth (H100 SXM
 # data sheet); 32-bit integer add, logic, shift and multiply-add each retire
 # at 64 per clock per SM (CUDA C++ Programming Guide throughput table,
-# compute capability 9.0). A 32x32 -> 64 product (IMAD.WIDE) is counted as
-# one multiply issue, the least it can cost.
+# compute capability 9.0), which prices K1's instructions. K2's and K3's
+# 32x32 -> 64 products (IMAD.WIDE) are priced at the rate the multiply
+# probe (ops/imad_probe.py) measures in the same run; the bound at the
+# table's 64 a clock is printed beside it.
 HBM_BYTES_PER_S = 3.35e12
 INT32_OPS_PER_CLK_PER_SM = 64
 
@@ -335,16 +345,16 @@ def nbytes(ts) -> int:
     return sum(t.numel() * t.element_size() for t in ts)
 
 
-def least_ms(ins, outs, ops: float, op_rate: float):
+def least_ms(ins, outs, ops: float, rate: float):
     """The least time for the work: each input read once and each output
-    written once at the HBM rate, against ``ops`` 32-bit integer
-    instructions at the card's rate; (ms, what bounds it)."""
+    written once at the HBM rate, against ``ops`` operations at ``rate`` a
+    second; (ms, what bounds it)."""
     t_bytes = (nbytes(ins) + nbytes(outs)) / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / op_rate * 1e3
+    t_ops = ops / rate * 1e3
     return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
 
-def phase_ed25519_main(dev, op_rate: float, err: dict) -> dict:
+def phase_ed25519_main(dev, op_rate: float, mul_rate: float, err: dict) -> dict:
     phase(f"main path: {N_VALIDATORS}-validator ed25519 commit")
     t0 = time.perf_counter()
     sc_ = tc.build_commit(N_VALIDATORS)
@@ -408,7 +418,8 @@ def phase_ed25519_main(dev, op_rate: float, err: dict) -> dict:
         "plain_ms": {"ed25519_prologue": cuda_ms(lambda: ec.prologue_ref(*k1_in), 2, 1),
                      "ed25519_ladder": cuda_ms(lambda: ec.ladder_ref(*k2_in), 1, 1)},
         "bounds": {"ed25519_prologue": least_ms(k1_in, k1_out, k1_ops, op_rate),
-                   "ed25519_ladder": least_ms(k2_in, k2_out, k2_ops, op_rate)},
+                   "ed25519_ladder": least_ms(k2_in, k2_out, k2_ops, mul_rate)},
+        "table_bound": {"ed25519_ladder": least_ms(k2_in, k2_out, k2_ops, op_rate)},
         "b": b,
     }
 
@@ -460,10 +471,36 @@ def phase_k3(dev, rng) -> int:
     print(f"  exact on {K3_ROWS} rows (ok, X, Z); r + n pairs accepted with rnok "
           f"and rejected without; {len(sample)} verdicts match secp256k1.verify "
           f"({int(verdict.sum())} of {m} accepted)", flush=True)
+    return max(worst, phase_k3_ragged(dev, rng))
+
+
+def phase_k3_ragged(dev, rng) -> int:
+    """K3 on K3_RAGGED_ROWS seeded rows, which end inside a block: the
+    outputs are views of longer buffers with sentinel tails, which rows past
+    b must leave unwritten."""
+    b, pad, sentinel = K3_RAGGED_ROWS, 64, 0x5A5A5A5A
+    lanes, rpb, blocks, _ = sc.k3_geometry(b)
+    qx, qy, rl, rnl = (rng.integers(0, 1 << 22, (b, sc.NLIMB)).astype(np.uint32)
+                       for _ in range(4))
+    d1, d2 = (rng.integers(0, 16, (b, sc.NWIN)).astype(np.uint32) for _ in range(2))
+    rnok = rng.integers(0, 2, (b,)).astype(np.uint32)
+    ins = sc.upload((qx, qy, d1, d2, rl, rnl, rnok), dev)
+    bufs = [torch.full((n + pad,), sentinel, dtype=torch.int32, device=dev)
+            for n in (b, sc.NLIMB * b, sc.NLIMB * b)]
+    outs = (bufs[0][:b], bufs[1][:sc.NLIMB * b].view(sc.NLIMB, b),
+            bufs[2][:sc.NLIMB * b].view(sc.NLIMB, b))
+    sc.ladder_into(ins, *outs)
+    torch.cuda.synchronize()
+    worst = max_abs_diff(outs, sc.ladder_ref(*ins))
+    check(worst == 0, f"K3 differs from its plain version at b = {b}: {worst}")
+    check(all(bool((t[-pad:] == sentinel).all()) for t in bufs),
+          "K3 wrote past row b")
+    print(f"  ragged b = {b}: {blocks} blocks of {rpb} rows ({blocks * rpb - b} past b), "
+          f"exact (ok, X, Z); rows past b left unwritten", flush=True)
     return worst
 
 
-def phase_secp_main(dev, op_rate: float, err: dict) -> dict:
+def phase_secp_main(dev, op_rate: float, mul_rate: float, err: dict) -> dict:
     phase(f"secp256k1 path: {N_VALIDATORS}-validator secp256k1 commit")
     t0 = time.perf_counter()
     sc_ = tc.build_commit(N_VALIDATORS, key_type="secp256k1")
@@ -510,11 +547,18 @@ def phase_secp_main(dev, op_rate: float, err: dict) -> dict:
     muls, squarings, smalls = sc.ladder_fe_ops()
     ops = (muls * sc.NLIMB ** 2 + squarings * sc.NLIMB * (sc.NLIMB + 1) // 2
            + smalls * sc.NLIMB) * b
+    k3_ms = cuda_ms(lambda: sc.ladder(*ins))
+    lanes, rpb, blocks, smem = sc.k3_geometry(b)
+    regs = next((ln.strip() for ln in _build.build_log(sc.NAME).splitlines()
+                 if "registers" in ln), "registers not reported")
+    print(f"  K3 {k3_ms:.4f} ms at b = {b}: {lanes} lanes a row, {rpb} rows a block, "
+          f"{blocks} blocks, {smem} B dynamic shared memory a block; {regs}", flush=True)
     return {
         "launches": run["launches"],
-        "ms": cuda_ms(lambda: sc.ladder(*ins)),
+        "ms": k3_ms,
         "plain_ms": cuda_ms(lambda: sc.ladder_ref(*ins), 1, 1),
-        "bound": least_ms(ins, out, ops, op_rate),
+        "bound": least_ms(ins, out, ops, mul_rate),
+        "table_bound": least_ms(ins, out, ops, op_rate),
         "b": b,
     }
 
@@ -558,11 +602,16 @@ def main() -> int:
         for line in _build.build_log(name).splitlines():
             if "registers" in line or "spill" in line or "stack frame" in line:
                 print(f"    {line.strip()}")
+    rates = imad_probe.products_per_clock(dev)
+    mul_rate = props.multi_processor_count * max_sm_mhz * 1e6 * rates["imad_wide"]
+    print(f"  multiply probe: IMAD.WIDE {rates['imad_wide']:.2f}, IMAD {rates['imad']:.2f} "
+          f"a clock an SM (median of {props.multi_processor_count} SMs); K2's and K3's "
+          f"bounds price a product at the IMAD.WIDE rate", flush=True)
 
     err = {"ed25519_prologue": phase_k1(dev, rng), "ed25519_ladder": phase_k2(dev, rng)}
-    ed_main = phase_ed25519_main(dev, op_rate, err)
+    ed_main = phase_ed25519_main(dev, op_rate, mul_rate, err)
     err["secp256k1_ladder"] = phase_k3(dev, rng)
-    secp_main = phase_secp_main(dev, op_rate, err)
+    secp_main = phase_secp_main(dev, op_rate, mul_rate, err)
     mixed = phase_mixed()
 
     ms = {**ed_main["ms"], "secp256k1_ladder": secp_main["ms"]}
@@ -573,8 +622,12 @@ def main() -> int:
     for name in KERNELS:
         b = secp_main["b"] if name == "secp256k1_ladder" else ed_main["b"]
         print(f"  {name}: {ms[name]:.4f} ms (plain {plain_ms[name]:.1f} ms, bound "
-              f"{bounds[name][0]:.4f} ms by {bounds[name][1]}) at b = {b}; "
-              f"mixed-path launches {mixed['launches'][name]}", flush=True)
+              f"{bounds[name][0]:.4f} ms by {bounds[name][1]}, {bounds[name][0] / ms[name]:.1%} "
+              f"of it) at b = {b}; mixed-path launches {mixed['launches'][name]}", flush=True)
+    table = {**ed_main["table_bound"], "secp256k1_ladder": secp_main["table_bound"]}
+    for name, (t, _) in table.items():
+        print(f"  {name} at the table's {INT32_OPS_PER_CLK_PER_SM} products a clock: bound "
+              f"{t:.4f} ms, {t / ms[name]:.1%} of it", flush=True)
 
     kernels = []
     for name in KERNELS:

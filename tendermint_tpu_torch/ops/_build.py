@@ -27,6 +27,7 @@ SOURCES = {
     "ed25519_prologue": "ed25519_prologue.cu",
     "ed25519_ladder": "ed25519_ladder.cu",
     "secp256k1_ladder": "secp256k1_ladder.cu",
+    "imad_probe": "imad_probe.cu",  # a measurement probe, not a port of a TPU kernel
 }
 
 FLAGS = (

@@ -6,7 +6,8 @@ and of ``ops/secp256k1_verify.py``'s field. Layout (shared by the CUDA
 ladder kernel ``csrc/secp256k1_ladder.cu`` and the plain version below),
 libsecp256k1's ``field_10x26``: ten limbs of weight 2^(26 i), nine 26 bits
 wide and the top one 22 bits (26 * 9 + 22 = 256). The kernel holds limbs in
-``uint32`` and everything inside ``mul`` in ``uint64``; the plain version
+``uint32`` and ``mul``'s columns and folded limbs in ``uint64`` (the rest of
+``mul`` fits 32 bits by the bounds below); the plain version
 holds both in ``int64`` tensors with the limbs on the last axis. The two run
 the same schedule, so every intermediate is the same integer:
 
@@ -23,7 +24,7 @@ the same schedule, so every intermediate is the same integer:
     column k >= 10 by 2^260 = 0x1000003D10 (mod p) in two parts: 0x3D10 d_k
     at limb k - 10 and 0x400 d_k at limb k - 9 (2^36 = 2^10 * 2^26). Column
     19's 0x400 part lands on 2^260 again and is folded once more (0xF44000
-    at limb 0, 0x100000 at limb 1). Two ``carry`` passes follow, in 64 bits.
+    at limb 0, 0x100000 at limb 1). Two ``carry`` passes follow.
   * ``canonical``: three sequential carry-and-fold passes, then one
     conditional subtraction of p.
 

@@ -11,7 +11,12 @@ then one hand-written CUDA kernel (``csrc/secp256k1_ladder.cu``), K3
 table [0..15]G and one from a per-row table [0..15]Q built by 15 complete
 additions through the identity) and accepts iff
 Z != 0 and (X = r Z or (r + n < p and X = (r + n) Z)) mod p: x(R) mod n = r
-without an inversion.
+without an inversion. The kernel serves each row with two lanes of a warp,
+which split each point formula's independent products between them
+(``ADD_ROUNDS``, ``DOUBLE_ROUNDS``; ``pt_add_rounds`` and
+``pt_double_rounds`` evaluate that schedule on the plain field ops), and
+keeps the per-row table in shared memory; ``k3_geometry`` gives its launch
+geometry.
 
 Additions use Renes-Costello-Batina 2016 algorithm 7 (complete, a = 0, 12
 multiplications and 2 by b3 = 21), doublings its algorithm 9 (6
@@ -273,6 +278,87 @@ def ladder_fe_ops(nwin: int = NWIN) -> tuple:
     return m + 2, s, k
 
 
+# ---------------------------------------------------------------------------
+# K3's two-lane schedule. Each round lists a point formula's independent
+# products (operand names) in slot order: lane q of a row computes product
+# 2 s + q in slot s. Between rounds each lane computes only the linear
+# values its own next products read, and the lanes trade single values.
+# A slot whose products are all squares uses the 55-product squaring.
+# ---------------------------------------------------------------------------
+
+K3_LANES_PER_ROW = 2  # lanes of a warp that serve one signature row
+
+ADD_ROUNDS = (
+    (("X1", "X2"), ("Z1", "Z2"), ("Y1", "Y2"), ("X1+Z1", "X2+Z2"),
+     ("X1+Y1", "X2+Y2"), ("Y1+Z1", "Y2+Z2")),
+    (("t3", "t1'"), ("t4", "y3b"), ("t1'", "z3"), ("z3", "t4"), ("t0x3", "t3"),
+     ("y3b", "t0x3")),
+)
+DOUBLE_ROUNDS = (
+    (("Y", "Y"), ("Z", "Z"), ("Y", "Z"), ("X", "Y")),
+    (("t2", "z3"), ("t0'", "y3"), ("t1", "z3"), ("t0'", "XY")),
+)
+
+
+def lane_slots(nprod: int) -> List[List[int]]:
+    """[lane][slot] -> the product of a round a lane computes."""
+    lanes = K3_LANES_PER_ROW
+    return [list(range(q, nprod, lanes)) for q in range(lanes)]
+
+
+def _run_round(envs: Sequence[dict], round_) -> List[list]:
+    """One round as the kernel runs it: each lane its slots' products, from
+    the values that lane holds."""
+    out = []
+    for q, slots in enumerate(lane_slots(len(round_))):
+        mine = []
+        for k in slots:
+            a, b = round_[k]
+            slot = round_[k - q: k - q + K3_LANES_PER_ROW]
+            squares = all(x == y for x, y in slot)
+            mine.append(F.sq(envs[q][a]) if squares else F.mul(envs[q][a], envs[q][b]))
+        out.append(mine)
+    return out
+
+
+def pt_add_rounds(p, q):
+    """``_pt_add`` evaluated in K3's lane schedule: (X, Y, Z), which both
+    lanes hold after the last exchange."""
+    X1, Y1, Z1 = p
+    X2, Y2, Z2 = q
+    envs = [{"X1": X1, "X2": X2, "Y1": Y1, "Y2": Y2,
+             "X1+Y1": F.add(X1, Y1), "X2+Y2": F.add(X2, Y2)},
+            {"Z1": Z1, "Z2": Z2, "X1+Z1": F.add(X1, Z1), "X2+Z2": F.add(X2, Z2),
+             "Y1+Z1": F.add(Y1, Z1), "Y2+Z2": F.add(Y2, Z2)}]
+    (t0, t1, m3), (t2, m5, m4) = _run_round(envs, ADD_ROUNDS[0])
+    # each lane: its own third product; t0, t1, t2 and m5 after the exchange
+    t2b = F.mul_small(t2)
+    shared = {"y3b": F.mul_small(F.sub(m5, F.add(t0, t2))),
+              "t0x3": F.add(F.add(t0, t0), t0)}
+    z3, t1p = F.add(t1, t2b), F.sub(t1, t2b)  # lane 0's, lane 1's
+    envs = [{"t3": F.sub(m3, F.add(t1, t0)), "z3": z3, "t1'": t1p, **shared},
+            {"t4": F.sub(m4, F.add(t1, t2)), "t1'": t1p, "z3": z3, **shared}]
+    (n0, n3, n5), (n1, n4, n2) = _run_round(envs, ADD_ROUNDS[1])
+    return F.sub(n0, n1), F.add(n3, n2), F.add(n5, n4)
+
+
+def pt_double_rounds(p):
+    """``_pt_double`` evaluated in K3's lane schedule: (X, Y, Z), which
+    both lanes hold after the last exchange."""
+    X, Y, Z = p
+    envs = [{"X": X, "Y": Y, "Z": Z}] * K3_LANES_PER_ROW
+    (t0, t1), (zz, xy) = _run_round(envs, DOUBLE_ROUNDS[0])
+    t2 = F.mul_small(zz)  # both lanes, after the exchange of slot 0
+    z3 = F.add(t0, t0)
+    z3 = F.add(z3, z3)
+    z3 = F.add(z3, z3)  # lane 0's
+    t0p = F.sub(t0, F.add(F.add(t2, t2), t2))  # lane 1's, the same three steps
+    envs = [{"t2": t2, "z3": z3, "t1": t1},
+            {"t0'": t0p, "y3": F.add(t0, t2), "XY": xy}]
+    (n0, n2), (n1, n3) = _run_round(envs, DOUBLE_ROUNDS[1])
+    return F.add(n3, n3), F.add(n0, n1), n2
+
+
 def ladder_point_ref(consts, qx, qy, dig1, dig2, nwin: int = NWIN):
     """R = u1 G + u2 Q over ``nwin`` MSB-first windows, projective: returns
     (X, Y, Z), each (b, 10) int64 carried limbs. consts (480,), qx/qy
@@ -325,10 +411,27 @@ NAME = "secp256k1_ladder"
 # launches of K3: the wrapper adds one where it launches the kernel
 launches: Dict[str, int] = {NAME: 0}
 
+# K3's geometry; the kernel source's LPR and RPB must agree
+K3_ROWS_PER_BLOCK = 16  # rows a block serves: one warp
+
+
+def k3_geometry(b: int) -> Tuple[int, int, int, int]:
+    """(lanes_per_row, rows_per_block, blocks, smem_bytes) of K3 over b
+    rows: one block per 16 rows (the last one ragged), and dynamic shared
+    memory for the constant [0..15]G and each of the block's rows' [0..15]Q
+    (16 points of 30 words)."""
+    if b <= 0:
+        raise ValueError(f"bad batch size {b}")
+    rpb = K3_ROWS_PER_BLOCK
+    smem = (NCONSTS + 16 * 3 * NLIMB * rpb) * 4
+    return K3_LANES_PER_ROW, rpb, -(-b // rpb), smem
+
+
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-# consts, qx, qy, dig1, dig2, rl, rnl, rnok, ok, X, Z, b, nwin, stream
-_ARGTYPES = [_P] * 11 + [_I, _I, _P]
+# consts, qx, qy, dig1, dig2, rl, rnl, rnok, ok, X, Z, b, nwin,
+# lanes_per_row, rows_per_block, blocks, smem_bytes, stream
+_ARGTYPES = [_P] * 11 + [_I] * 6 + [_P]
 
 
 def reset_launches() -> None:
@@ -340,24 +443,34 @@ def ladder(consts, qx, qy, dig1, dig2, rl, rnl, rnok):
     CUDA tensors launch the kernel on the current stream (no
     synchronisation). Returns int32 ok (b,), X (10, b), Z (10, b)."""
     ins = (consts, qx, qy, dig1, dig2, rl, rnl, rnok)
-    nwin = dig1.shape[0]
     if _ec._on_cpu(ins):
-        return ladder_ref(*ins, nwin=nwin)
-    b = qx.shape[1]
+        return ladder_ref(*ins, nwin=dig1.shape[0])
+    b, dev = qx.shape[1], qx.device
+    ok = torch.empty((b,), dtype=torch.int32, device=dev)
+    X = torch.empty((NLIMB, b), dtype=torch.int32, device=dev)
+    Z = torch.empty((NLIMB, b), dtype=torch.int32, device=dev)
+    ladder_into(ins, ok, X, Z)
+    return ok, X, Z
+
+
+def ladder_into(ins, ok, X, Z) -> None:
+    """Launch K3 on CUDA inputs ``ins`` (``ladder``'s eight) into the given
+    int32 outputs ok (b,), X (10, b), Z (10, b); the kernel writes rows
+    below b only."""
+    consts, qx, qy, dig1, dig2, rl, rnl, rnok = ins
+    nwin, b = dig1.shape[0], qx.shape[1]
     if b == 0 or nwin == 0:
         raise ValueError(f"bad sizes b={b} nwin={nwin}")
     for nm, t, shp in (("consts", consts, (NCONSTS,)), ("qx", qx, (NLIMB, b)),
                        ("qy", qy, (NLIMB, b)), ("dig1", dig1, (nwin, b)),
                        ("dig2", dig2, (nwin, b)), ("rl", rl, (NLIMB, b)),
-                       ("rnl", rnl, (NLIMB, b)), ("rnok", rnok, (1, b))):
+                       ("rnl", rnl, (NLIMB, b)), ("rnok", rnok, (1, b)),
+                       ("ok", ok, (b,)), ("X", X, (NLIMB, b)), ("Z", Z, (NLIMB, b))):
         _ec._check(nm, t, shp)
-    dev = qx.device
-    ok = torch.empty((b,), dtype=torch.int32, device=dev)
-    X = torch.empty((NLIMB, b), dtype=torch.int32, device=dev)
-    Z = torch.empty((NLIMB, b), dtype=torch.int32, device=dev)
-    _ec.launch_kernel(NAME, _ARGTYPES, launches, dev, *(t.data_ptr() for t in ins),
-                      ok.data_ptr(), X.data_ptr(), Z.data_ptr(), b, nwin)
-    return ok, X, Z
+    if _ec._on_cpu((*ins, ok, X, Z)):
+        raise ValueError("ladder_into launches the kernel: CUDA tensors only")
+    _ec.launch_kernel(NAME, _ARGTYPES, launches, qx.device, *(t.data_ptr() for t in ins),
+                      ok.data_ptr(), X.data_ptr(), Z.data_ptr(), b, nwin, *k3_geometry(b))
 
 
 # ---------------------------------------------------------------------------

@@ -105,6 +105,28 @@ def test_secp256k1_ladder_kernel_vs_plain(cuda):
     assert got[0][m - 2].item() == 1 and got[0][m - 1].item() == 0
 
 
+def test_secp256k1_ladder_ragged_edge_leaves_rows_past_b_unwritten(cuda):
+    """b = 200 is not a multiple of the rows a block serves: the last block
+    computes past b and must write nothing there. The outputs are views of
+    longer buffers filled with a sentinel; the tails keep it."""
+    b, pad, sentinel = 200, 64, 0x5A5A5A5A
+    assert b % sc.K3_ROWS_PER_BLOCK
+    rng = np.random.default_rng(5)
+    qx, qy, rl, rnl = (rng.integers(0, 1 << 22, (b, 10)).astype(np.uint32) for _ in range(4))
+    d1, d2 = (rng.integers(0, 16, (b, 64)).astype(np.uint32) for _ in range(2))
+    rnok = rng.integers(0, 2, (b,)).astype(np.uint32)
+    ins = sc.upload((qx, qy, d1, d2, rl, rnl, rnok), cuda)
+    bufs = [torch.full((n + pad,), sentinel, dtype=torch.int32, device=cuda)
+            for n in (b, 10 * b, 10 * b)]
+    ok, X, Z = bufs[0][:b], bufs[1][:10 * b].view(10, b), bufs[2][:10 * b].view(10, b)
+    sc.ladder_into(ins, ok, X, Z)
+    torch.cuda.synchronize()
+    for g, w in zip((ok, X, Z), sc.ladder_ref(*ins)):
+        assert torch.equal(g.cpu(), w.cpu())
+    for t in bufs:
+        assert bool((t[-pad:] == sentinel).all())
+
+
 def test_secp256k1_verify_batch_on_cuda_vs_oracle(cuda):
     pubs, digs, sigs, verdicts = tc.secp_edge_window(seed=4)
     got = sc.verify_batch(pubs, digs, sigs, device=cuda)
