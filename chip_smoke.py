@@ -17,12 +17,15 @@ Phases, in order; any failure exits non-zero:
   4. K2      the ed25519 ladder kernel against its plain version on the
              card, 256 rows (the 20-row Go-edge window and seeded
              signatures), exact; verdicts against the port's ``_verify_pure``;
+             then 200 seeded rows, a ragged last block, into outputs with
+             sentinel tails that must stay unwritten;
   5. main    a 10,000-validator ed25519 commit through
              ValidatorSet.verify_commit -> TorchBatchVerifier -> K1 -> K2:
              the commit passes, a flipped signature bit and an under-quorum
              commit are rejected, both kernels launched; wall and device
              times; each kernel against its plain version at the main
-             path's shapes, with times and bounds;
+             path's shapes, with times and bounds, and K2's geometry,
+             registers and shared memory;
   6. K3      the secp256k1 ladder kernel against its plain version on the
              card, 256 rows (the 23-row secp256k1 edge window, seeded
              signatures and rows that take the r + n branch), exact on the
@@ -77,6 +80,7 @@ N_MIXED = 1_000
 K1_ROWS = 2048
 K1_LENGTHS = (0, 33, 104, 111, 112, 200)
 K2_ROWS = 256
+K2_RAGGED_ROWS = 200  # not a multiple of the rows a K2 block serves
 K3_ROWS = 256
 K3_RN_PAIRS = 4  # row pairs that take the r + n branch (rnok 1, then 0)
 K3_RAGGED_ROWS = 200  # not a multiple of the rows a K3 block serves
@@ -273,6 +277,41 @@ def phase_k2(dev, rng) -> int:
             check(want_v == fixed[i], f"edge row {i} oracle {want_v} != {fixed[i]}")
     print(f"  exact on {K2_ROWS} rows; {len(sample)} verdicts match _verify_pure "
           f"({int(verdict.sum())} accepted)", flush=True)
+    return max(worst, phase_k2_ragged(dev, rng))
+
+
+TAIL, SENTINEL = 64, 0x5A5A5A5A
+
+
+def sentinel_outputs(dev, sizes):
+    """Buffers of ``n + TAIL`` words filled with SENTINEL, for each n in
+    ``sizes``: a kernel writes the first n, the tails must keep it."""
+    return [torch.full((n + TAIL,), SENTINEL, dtype=torch.int32, device=dev) for n in sizes]
+
+
+def tails_intact(bufs) -> bool:
+    return all(bool((t[-TAIL:] == SENTINEL).all()) for t in bufs)
+
+
+def phase_k2_ragged(dev, rng) -> int:
+    """K2 on K2_RAGGED_ROWS seeded rows, which end inside a block: the
+    outputs are views of longer buffers with sentinel tails, which rows past
+    b must leave unwritten."""
+    b = K2_RAGGED_ROWS
+    lanes, rpb, blocks, _ = ec.k2_geometry(b)
+    negax, ay, rlimb = (rng.integers(0, 1 << 25, (ec.NLIMB, b)) for _ in range(3))
+    digs, digh = (rng.integers(0, 16, (ec.NWIN, b)) for _ in range(2))
+    rsign = rng.integers(0, 2, (1, b))
+    ins = tuple(ec._put(a, dev) for a in (ec._CONSTS, negax, ay, digs, digh, rlimb, rsign))
+    bufs = sentinel_outputs(dev, (b, 8 * b))
+    outs = (bufs[0][:b], bufs[1][:8 * b].view(8, b))
+    ec.ladder_into(ins, *outs)
+    torch.cuda.synchronize()
+    worst = max_abs_diff(outs, ec.ladder_ref(*ins))
+    check(worst == 0, f"K2 differs from its plain version at b = {b}: {worst}")
+    check(tails_intact(bufs), "K2 wrote past row b")
+    print(f"  ragged b = {b}: {blocks} blocks of {rpb} rows ({blocks * rpb - b} past b), "
+          f"exact (ok, renc); rows past b left unwritten", flush=True)
     return worst
 
 
@@ -339,6 +378,12 @@ def drive_commit(sc_: tc.SignedCommit, verifier, tampered_rows) -> dict:
           f"{WALL_REPS}; {len(tampered_rows)} tampered and under-quorum rejected ({msg}); "
           f"launches {launches}", flush=True)
     return {"first_ms": first_ms, "p50_ms": p50, "launches": launches}
+
+
+def registers(name: str) -> str:
+    """The compiler's register line for kernel ``name`` in this build."""
+    return next((ln.strip() for ln in _build.build_log(name).splitlines()
+                 if "registers" in ln), "registers not reported")
 
 
 def nbytes(ts) -> int:
@@ -411,10 +456,15 @@ def phase_ed25519_main(dev, op_rate: float, mul_rate: float, err: dict) -> dict:
     k1_ops = max(nblocks * SHA512_BLOCK_OPS, BARRETT_PRODUCTS) * b
     muls, squarings = ec.ladder_fe_ops()
     k2_ops = (muls * fe.NLIMB ** 2 + squarings * fe.NLIMB * (fe.NLIMB + 1) // 2) * b
+    k2_ms = cuda_ms(lambda: ec.ladder(*k2_in))
+    lanes, rpb, blocks, smem = ec.k2_geometry(b)
+    print(f"  K2 {k2_ms:.4f} ms at b = {b}: {lanes} lanes a row, {rpb} rows a block, "
+          f"{blocks} blocks, {smem} B dynamic shared memory a block; "
+          f"{registers('ed25519_ladder')}", flush=True)
     return {
         "launches": run["launches"],
         "ms": {"ed25519_prologue": cuda_ms(lambda: ec.prologue(*k1_in)),
-               "ed25519_ladder": cuda_ms(lambda: ec.ladder(*k2_in))},
+               "ed25519_ladder": k2_ms},
         "plain_ms": {"ed25519_prologue": cuda_ms(lambda: ec.prologue_ref(*k1_in), 2, 1),
                      "ed25519_ladder": cuda_ms(lambda: ec.ladder_ref(*k2_in), 1, 1)},
         "bounds": {"ed25519_prologue": least_ms(k1_in, k1_out, k1_ops, op_rate),
@@ -478,23 +528,21 @@ def phase_k3_ragged(dev, rng) -> int:
     """K3 on K3_RAGGED_ROWS seeded rows, which end inside a block: the
     outputs are views of longer buffers with sentinel tails, which rows past
     b must leave unwritten."""
-    b, pad, sentinel = K3_RAGGED_ROWS, 64, 0x5A5A5A5A
+    b = K3_RAGGED_ROWS
     lanes, rpb, blocks, _ = sc.k3_geometry(b)
     qx, qy, rl, rnl = (rng.integers(0, 1 << 22, (b, sc.NLIMB)).astype(np.uint32)
                        for _ in range(4))
     d1, d2 = (rng.integers(0, 16, (b, sc.NWIN)).astype(np.uint32) for _ in range(2))
     rnok = rng.integers(0, 2, (b,)).astype(np.uint32)
     ins = sc.upload((qx, qy, d1, d2, rl, rnl, rnok), dev)
-    bufs = [torch.full((n + pad,), sentinel, dtype=torch.int32, device=dev)
-            for n in (b, sc.NLIMB * b, sc.NLIMB * b)]
+    bufs = sentinel_outputs(dev, (b, sc.NLIMB * b, sc.NLIMB * b))
     outs = (bufs[0][:b], bufs[1][:sc.NLIMB * b].view(sc.NLIMB, b),
             bufs[2][:sc.NLIMB * b].view(sc.NLIMB, b))
     sc.ladder_into(ins, *outs)
     torch.cuda.synchronize()
     worst = max_abs_diff(outs, sc.ladder_ref(*ins))
     check(worst == 0, f"K3 differs from its plain version at b = {b}: {worst}")
-    check(all(bool((t[-pad:] == sentinel).all()) for t in bufs),
-          "K3 wrote past row b")
+    check(tails_intact(bufs), "K3 wrote past row b")
     print(f"  ragged b = {b}: {blocks} blocks of {rpb} rows ({blocks * rpb - b} past b), "
           f"exact (ok, X, Z); rows past b left unwritten", flush=True)
     return worst
@@ -549,10 +597,9 @@ def phase_secp_main(dev, op_rate: float, mul_rate: float, err: dict) -> dict:
            + smalls * sc.NLIMB) * b
     k3_ms = cuda_ms(lambda: sc.ladder(*ins))
     lanes, rpb, blocks, smem = sc.k3_geometry(b)
-    regs = next((ln.strip() for ln in _build.build_log(sc.NAME).splitlines()
-                 if "registers" in ln), "registers not reported")
     print(f"  K3 {k3_ms:.4f} ms at b = {b}: {lanes} lanes a row, {rpb} rows a block, "
-          f"{blocks} blocks, {smem} B dynamic shared memory a block; {regs}", flush=True)
+          f"{blocks} blocks, {smem} B dynamic shared memory a block; {registers(sc.NAME)}",
+          flush=True)
     return {
         "launches": run["launches"],
         "ms": k3_ms,

@@ -160,7 +160,8 @@ def verify_generic(pubkeys: Sequence, msgs: Sequence[bytes],
                    sigs: Sequence[bytes], verifier=None) -> np.ndarray:
     """Batch-verify over key objects, routed as the JAX package routes them:
     a homogeneous ed25519 batch with 64-byte signatures makes one column-form
-    call; otherwise ed25519 keys with 64-byte signatures go to
+    call (one ``verify_ed25519`` call over ``SigItem``s where the verifier
+    has no column form); otherwise ed25519 keys with 64-byte signatures go to
     ``verify_ed25519`` (any other length is False: Go rejects it without
     hashing), secp256k1 keys to ``verify_secp256k1``, and the verdicts are
     scattered back by index."""
@@ -169,10 +170,11 @@ def verify_generic(pubkeys: Sequence, msgs: Sequence[bytes],
     if all(type(pk) is PubKeyEd25519 for pk in pubkeys) and all(
         len(s) == 64 for s in sigs
     ):
-        return np.asarray(
-            verifier.verify_ed25519_raw([pk.bytes() for pk in pubkeys], msgs, sigs),
-            dtype=bool,
-        )
+        raw = getattr(verifier, "verify_ed25519_raw", None)
+        if raw is not None:
+            return np.asarray(raw([pk.bytes() for pk in pubkeys], msgs, sigs), dtype=bool)
+        items = [SigItem(pk.bytes(), m, s) for pk, m, s in zip(pubkeys, msgs, sigs)]
+        return np.asarray(verifier.verify_ed25519(items), dtype=bool)
     out = np.zeros((len(pubkeys),), dtype=bool)
     ed_idx, ed_items, sk_idx, sk_items = [], [], [], []
     for i, pk in enumerate(pubkeys):

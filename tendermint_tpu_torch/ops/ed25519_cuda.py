@@ -13,7 +13,13 @@ hand-written CUDA kernels (``csrc/``):
     windows (4 doublings, one mixed add from the constant niels table
     [0..15]B, one cached add from a per-row table [0..15](-A)), complete
     extended formulas throughout, then Z^-1 and the canonical encoding of
-    R'. A row is accepted iff that encoding equals R's bytes.
+    R'. A row is accepted iff that encoding equals R's bytes. The kernel
+    serves each row with two lanes of a warp, which split each point
+    formula's independent products between them (``DOUBLE_ROUNDS``,
+    ``MADD_ROUNDS``, ``CACHED_ROUNDS``, evaluated on the plain field ops by
+    ``pt_double_rounds``, ``pt_madd_rounds``, ``pt_add_cached_rounds`` and,
+    for the table, ``pt_add_rounds``), and keeps the per-row table in
+    shared memory; ``k2_geometry`` gives its launch geometry.
 
 The host keeps Go's accept set (see ``crypto/ed25519.py``): s is checked only
 by ``sig[63] & 224``, A is decompressed with non-canonical y accepted (cached
@@ -473,6 +479,122 @@ def ladder_ref(consts, negax, ay, digs, digh, rlimb, rsign, nwin: int = NWIN):
 
 
 # ---------------------------------------------------------------------------
+# K2's two-lane schedule. Each round lists a point formula's independent
+# products (operand names) in slot order: lane q of a row computes product
+# 2 s + q in slot s. Between rounds each lane computes only the linear
+# values its own next products read, and the lanes trade single values.
+# A slot whose products are all squares uses the 55-product squaring.
+# Every formula ends with lane 0 holding X, T and Y, lane 1 Z, Y and T,
+# which is what every formula's first round reads. The functions below
+# evaluate the schedule on the plain field ops; each equals its one-lane
+# formula limb for limb.
+# ---------------------------------------------------------------------------
+
+LANES_PER_ROW = 2  # lanes of a warp that serve one signature row, in K2 and K3
+K2_ROWS_PER_BLOCK = 16  # rows a block serves: one warp
+
+_FINISH = (("E", "H"), ("G", "F"), ("E", "F"), ("G", "H"))  # T3 | Z3, X3 | Y3
+DOUBLE_ROUNDS = ((("X", "X"), ("Y", "Y"), ("X+Y", "X+Y"), ("Z", "Z")), _FINISH)
+MADD_ROUNDS = ((("Y-X", "ymx"), ("T", "t2d"), ("Y+X", "ypx")), _FINISH)
+CACHED_ROUNDS = ((("Y-X", "ymx"), ("T", "t2d"), ("Y+X", "ypx"), ("2Z", "Z2")), _FINISH)
+
+
+def lane_slots(nprod: int) -> List[List[int]]:
+    """[lane][slot] -> the product of a round a lane computes."""
+    return [list(range(q, nprod, LANES_PER_ROW)) for q in range(LANES_PER_ROW)]
+
+
+def run_round(envs: Sequence[dict], round_, field=fe) -> List[list]:
+    """One round as the kernel (K2 or K3) runs it: each lane its slots'
+    products, from the values that lane holds, over the field module
+    ``field``."""
+    out = []
+    for q, slots in enumerate(lane_slots(len(round_))):
+        mine = []
+        for k in slots:
+            a, b = round_[k]
+            squares = all(x == y for x, y in round_[k - q: k - q + LANES_PER_ROW])
+            mine.append(field.sq(envs[q][a]) if squares else field.mul(envs[q][a], envs[q][b]))
+        out.append(mine)
+    return out
+
+
+def _last_round(E, F, G, H):
+    """Round 2 of every formula: lane 0 holds E, H and F, lane 1 F, G and
+    H; they compute E H, E F | G F, G H (T3, X3 | Z3, Y3) and trade
+    T3 | Y3."""
+    envs = [{"E": E, "H": H, "F": F}, {"G": G, "F": F, "H": H}]
+    (T3, X3), (Z3, Y3) = run_round(envs, _FINISH)
+    return X3, Y3, Z3, T3
+
+
+def _finish_rounds(A, B, C, D):
+    """``_pt_finish`` in K2's schedule: lane 0 forms E, H from A, B, lane 1
+    F, G from C, D, and they trade H | F."""
+    return _last_round(fe.sub(B, A), fe.sub(D, C), fe.add(D, C), fe.add(B, A))
+
+
+def pt_double_rounds(p):
+    """``_pt_double`` in K2's schedule: lane 0 squares X and X+Y, lane 1 Y
+    and Z; they trade A | B, then lane 0 forms E = H - S and lane 1
+    F = 2 ZZ + G, and they trade E | F."""
+    X, Y, Z, _ = p
+    envs = [{"X": X, "X+Y": fe.add(X, Y)}, {"Y": Y, "Z": Z}]
+    (A, S), (B, ZZ) = run_round(envs, DOUBLE_ROUNDS[0])
+    G, H = fe.sub(A, B), fe.add(A, B)  # both lanes
+    E = fe.sub(H, S)  # lane 0
+    F = fe.add(G, fe.add(ZZ, ZZ))  # lane 1
+    return _last_round(E, F, G, H)
+
+
+def pt_add_cached_rounds(p, c):
+    """``_pt_add_cached`` in K2's schedule: lane 0 computes (Y-X) ymx and
+    (Y+X) ypx, lane 1 T t2d and 2Z Z2."""
+    X, Y, Z, T = p
+    ypx, ymx, Z2, t2d = c
+    envs = [{"Y-X": fe.sub(Y, X), "Y+X": fe.add(Y, X), "ymx": ymx, "ypx": ypx},
+            {"T": T, "t2d": t2d, "2Z": fe.add(Z, Z), "Z2": Z2}]
+    (A, B), (C, D) = run_round(envs, CACHED_ROUNDS[0])
+    return _finish_rounds(A, B, C, D)
+
+
+def pt_madd_rounds(p, ypx, ymx, t2d):
+    """``_pt_madd`` in K2's schedule: the cached add's rounds, where lane 1
+    keeps 2Z (the niels entry's Z is 1) in place of a second product."""
+    X, Y, Z, T = p
+    envs = [{"Y-X": fe.sub(Y, X), "Y+X": fe.add(Y, X), "ymx": ymx, "ypx": ypx},
+            {"T": T, "t2d": t2d}]
+    (A, B), (C,) = run_round(envs, MADD_ROUNDS[0])
+    return _finish_rounds(A, B, C, fe.add(Z, Z))
+
+
+def pt_add_rounds(p, q, d2):
+    """``_pt_add`` (the table's odd entries, [j-1](-A) + (-A)) in K2's
+    schedule: the cached add's first round with lane 0's operands Y2-X2 and
+    Y2+X2 and lane 1's 2d and Z2, then one slot in which lane 1 computes
+    C = (T 2d) T2 (lane 0's product of that slot is not used)."""
+    X, Y, Z, T = p
+    X2, Y2, Z2, T2 = q
+    envs = [{"Y-X": fe.sub(Y, X), "Y+X": fe.add(Y, X),
+             "ymx": fe.sub(Y2, X2), "ypx": fe.add(Y2, X2)},
+            {"T": T, "t2d": d2, "2Z": fe.add(Z, Z), "Z2": Z2}]
+    (A, B), (Td, D) = run_round(envs, CACHED_ROUNDS[0])
+    return _finish_rounds(A, B, fe.mul(Td, T2), D)
+
+
+def sq_split(i: int, j: int) -> Tuple[int, int]:
+    """K2's squaring: the factors by which it multiplies a_i and a_j
+    (i <= j) before their 32x32 -> 64 product, so that the product is the
+    term fe.mul(a, a) puts in column (i + j) % 10: W[i][j] a_i a_j, twice
+    for i != j. The left factor is 1 or 2, the right 1, 2, 19 or 38, so
+    neither operand overflows 32 bits (76 on an even limb would)."""
+    wrap = 19 if i + j >= NLIMB else 1
+    if i == j:
+        return (2 if i % 2 else 1), wrap
+    return 2, (2 if i % 2 and j % 2 else 1) * wrap
+
+
+# ---------------------------------------------------------------------------
 # Kernel wrappers
 # ---------------------------------------------------------------------------
 
@@ -485,8 +607,9 @@ _SIGNATURES = {
     # tmpl, rows, vidx, k, vwords, pub_words, sig_words,
     # digs, digh, rlimb, rsign, b, stream
     "ed25519_prologue": [_P, _I, _P, _I, _P, _P, _P, _P, _P, _P, _P, _I, _P],
-    # consts, negax, ay, digs, digh, rlimb, rsign, ok, renc, b, nwin, stream
-    "ed25519_ladder": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _P],
+    # consts, negax, ay, digs, digh, rlimb, rsign, ok, renc, b, nwin,
+    # lanes_per_row, rows_per_block, blocks, smem_bytes, stream
+    "ed25519_ladder": [_P] * 9 + [_I] * 6 + [_P],
 }
 _fns: dict = {}
 
@@ -567,28 +690,49 @@ def prologue(tmpl, vidx, vwords, pub_words, sig_words):
     return digs, digh, rlimb, rsign
 
 
+def k2_geometry(b: int) -> Tuple[int, int, int, int]:
+    """(lanes_per_row, rows_per_block, blocks, smem_bytes) of K2 over b
+    rows: one block per 16 rows (the last one ragged), and dynamic shared
+    memory for the constants (niels [0..15]B, 2d) and each of the block's
+    rows' [0..15](-A) (16 entries of 40 words)."""
+    if b <= 0:
+        raise ValueError(f"bad batch size {b}")
+    rpb = K2_ROWS_PER_BLOCK
+    smem = (NCONSTS + 16 * 4 * NLIMB * rpb) * 4
+    return LANES_PER_ROW, rpb, -(-b // rpb), smem
+
+
 def ladder(consts, negax, ay, digs, digh, rlimb, rsign):
     """K2 over ``digs.shape[0]`` windows. CPU tensors take ``ladder_ref``;
-    CUDA tensors launch the kernel. Returns int32 ok (b,), renc (8, b)."""
+    CUDA tensors launch the kernel on the current stream (no
+    synchronisation). Returns int32 ok (b,), renc (8, b)."""
     ins = (consts, negax, ay, digs, digh, rlimb, rsign)
-    nwin = digs.shape[0]
     if _on_cpu(ins):
-        return ladder_ref(*ins, nwin=nwin)
-    b = negax.shape[1]
+        return ladder_ref(*ins, nwin=digs.shape[0])
+    b, dev = negax.shape[1], negax.device
+    ok = torch.empty((b,), dtype=torch.int32, device=dev)
+    renc = torch.empty((8, b), dtype=torch.int32, device=dev)
+    ladder_into(ins, ok, renc)
+    return ok, renc
+
+
+def ladder_into(ins, ok, renc) -> None:
+    """Launch K2 on CUDA inputs ``ins`` (``ladder``'s seven) into the given
+    int32 outputs ok (b,), renc (8, b); the kernel writes rows below b
+    only."""
+    consts, negax, ay, digs, digh, rlimb, rsign = ins
+    nwin, b = digs.shape[0], negax.shape[1]
     if b == 0 or nwin == 0:
         raise ValueError(f"bad sizes b={b} nwin={nwin}")
     for nm, t, shp in (("consts", consts, (NCONSTS,)), ("negax", negax, (NLIMB, b)),
                        ("ay", ay, (NLIMB, b)), ("digs", digs, (nwin, b)),
                        ("digh", digh, (nwin, b)), ("rlimb", rlimb, (NLIMB, b)),
-                       ("rsign", rsign, (1, b))):
+                       ("rsign", rsign, (1, b)), ("ok", ok, (b,)), ("renc", renc, (8, b))):
         _check(nm, t, shp)
-    dev = negax.device
-    ok = torch.empty((b,), dtype=torch.int32, device=dev)
-    renc = torch.empty((8, b), dtype=torch.int32, device=dev)
-    _launch("ed25519_ladder", dev, consts.data_ptr(), negax.data_ptr(), ay.data_ptr(),
-            digs.data_ptr(), digh.data_ptr(), rlimb.data_ptr(), rsign.data_ptr(),
-            ok.data_ptr(), renc.data_ptr(), b, nwin)
-    return ok, renc
+    if _on_cpu((*ins, ok, renc)):
+        raise ValueError("ladder_into launches the kernel: CUDA tensors only")
+    _launch("ed25519_ladder", negax.device, *(t.data_ptr() for t in ins),
+            ok.data_ptr(), renc.data_ptr(), b, nwin, *k2_geometry(b))
 
 
 # ---------------------------------------------------------------------------

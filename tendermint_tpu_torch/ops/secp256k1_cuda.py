@@ -281,12 +281,13 @@ def ladder_fe_ops(nwin: int = NWIN) -> tuple:
 # ---------------------------------------------------------------------------
 # K3's two-lane schedule. Each round lists a point formula's independent
 # products (operand names) in slot order: lane q of a row computes product
-# 2 s + q in slot s. Between rounds each lane computes only the linear
+# 2 s + q in slot s (``ed25519_cuda.lane_slots``; ``ed25519_cuda.run_round``
+# evaluates a round). Between rounds each lane computes only the linear
 # values its own next products read, and the lanes trade single values.
 # A slot whose products are all squares uses the 55-product squaring.
 # ---------------------------------------------------------------------------
 
-K3_LANES_PER_ROW = 2  # lanes of a warp that serve one signature row
+K3_LANES_PER_ROW = _ec.LANES_PER_ROW  # lanes of a warp that serve one signature row
 
 ADD_ROUNDS = (
     (("X1", "X2"), ("Z1", "Z2"), ("Y1", "Y2"), ("X1+Z1", "X2+Z2"),
@@ -300,25 +301,7 @@ DOUBLE_ROUNDS = (
 )
 
 
-def lane_slots(nprod: int) -> List[List[int]]:
-    """[lane][slot] -> the product of a round a lane computes."""
-    lanes = K3_LANES_PER_ROW
-    return [list(range(q, nprod, lanes)) for q in range(lanes)]
-
-
-def _run_round(envs: Sequence[dict], round_) -> List[list]:
-    """One round as the kernel runs it: each lane its slots' products, from
-    the values that lane holds."""
-    out = []
-    for q, slots in enumerate(lane_slots(len(round_))):
-        mine = []
-        for k in slots:
-            a, b = round_[k]
-            slot = round_[k - q: k - q + K3_LANES_PER_ROW]
-            squares = all(x == y for x, y in slot)
-            mine.append(F.sq(envs[q][a]) if squares else F.mul(envs[q][a], envs[q][b]))
-        out.append(mine)
-    return out
+lane_slots = _ec.lane_slots
 
 
 def pt_add_rounds(p, q):
@@ -330,7 +313,7 @@ def pt_add_rounds(p, q):
              "X1+Y1": F.add(X1, Y1), "X2+Y2": F.add(X2, Y2)},
             {"Z1": Z1, "Z2": Z2, "X1+Z1": F.add(X1, Z1), "X2+Z2": F.add(X2, Z2),
              "Y1+Z1": F.add(Y1, Z1), "Y2+Z2": F.add(Y2, Z2)}]
-    (t0, t1, m3), (t2, m5, m4) = _run_round(envs, ADD_ROUNDS[0])
+    (t0, t1, m3), (t2, m5, m4) = _ec.run_round(envs, ADD_ROUNDS[0], F)
     # each lane: its own third product; t0, t1, t2 and m5 after the exchange
     t2b = F.mul_small(t2)
     shared = {"y3b": F.mul_small(F.sub(m5, F.add(t0, t2))),
@@ -338,7 +321,7 @@ def pt_add_rounds(p, q):
     z3, t1p = F.add(t1, t2b), F.sub(t1, t2b)  # lane 0's, lane 1's
     envs = [{"t3": F.sub(m3, F.add(t1, t0)), "z3": z3, "t1'": t1p, **shared},
             {"t4": F.sub(m4, F.add(t1, t2)), "t1'": t1p, "z3": z3, **shared}]
-    (n0, n3, n5), (n1, n4, n2) = _run_round(envs, ADD_ROUNDS[1])
+    (n0, n3, n5), (n1, n4, n2) = _ec.run_round(envs, ADD_ROUNDS[1], F)
     return F.sub(n0, n1), F.add(n3, n2), F.add(n5, n4)
 
 
@@ -347,7 +330,7 @@ def pt_double_rounds(p):
     both lanes hold after the last exchange."""
     X, Y, Z = p
     envs = [{"X": X, "Y": Y, "Z": Z}] * K3_LANES_PER_ROW
-    (t0, t1), (zz, xy) = _run_round(envs, DOUBLE_ROUNDS[0])
+    (t0, t1), (zz, xy) = _ec.run_round(envs, DOUBLE_ROUNDS[0], F)
     t2 = F.mul_small(zz)  # both lanes, after the exchange of slot 0
     z3 = F.add(t0, t0)
     z3 = F.add(z3, z3)
@@ -355,7 +338,7 @@ def pt_double_rounds(p):
     t0p = F.sub(t0, F.add(F.add(t2, t2), t2))  # lane 1's, the same three steps
     envs = [{"t2": t2, "z3": z3, "t1": t1},
             {"t0'": t0p, "y3": F.add(t0, t2), "XY": xy}]
-    (n0, n2), (n1, n3) = _run_round(envs, DOUBLE_ROUNDS[1])
+    (n0, n2), (n1, n3) = _ec.run_round(envs, DOUBLE_ROUNDS[1], F)
     return F.add(n3, n3), F.add(n0, n1), n2
 
 

@@ -14,7 +14,8 @@ Z, and timed as the mean of 20 launches (CUDA events), in the order given
 and then reversed, then at a few batch sizes. With ``cuobjdump`` on the
 path, each build's window loop is counted by instruction class, per window
 and lane (``window_mix``). Prints the card's name and power limit and, last,
-one JSON line.
+one JSON line. ``compare`` does all of this for any ladder kernel that
+``Ladder`` describes; ``tools/k2_compare.py`` runs it on K2.
 """
 
 from __future__ import annotations
@@ -28,7 +29,7 @@ import sys
 import time
 from collections import Counter
 from pathlib import Path
-from typing import Dict, List, Optional, Tuple
+from typing import Callable, Dict, List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -38,11 +39,11 @@ from tendermint_tpu_torch.ops import _build
 from tendermint_tpu_torch.ops import secp256k1_cuda as sc
 from tendermint_tpu_torch.testutil import commit as tc
 
-OUT = _build.BUILD_DIR / "k3_compare"
+OUT = _build.BUILD_DIR / "compare"
 N_ROWS = 10_000
 SCAN = (1280, 8448, 10_240, 16_896)  # 8448 = 528 warps: one for each SM sub-partition
 
-WINDOW_TRIPS = (4, 2)  # the kernel's doubling and addition loops, a window
+WINDOW_TRIPS = (4, 2)  # K3's doubling and addition loops, a window
 _INSN = re.compile(r"\s*/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)\s*([^;]*);")
 
 
@@ -62,10 +63,11 @@ def _klass(op: str) -> str:
     return "alu"
 
 
-def window_mix(sass: str) -> Optional[Dict[str, int]]:
+def window_mix(sass: str, trips: Tuple[int, ...] = WINDOW_TRIPS) -> Optional[Dict[str, int]]:
     """Instructions a lane runs per ladder window, by class, from
     ``cuobjdump -sass``: the window loop is the backward branch that holds
-    two inner loops (the 4 doublings of a window, then its 2 additions); a
+    ``len(trips)`` inner loops, which run ``trips`` times each in address
+    order (for K3 the 4 doublings of a window, then its 2 additions); a
     CALL adds its callee's body up to its RET. None if the listing has no
     such loop."""
     insns = [(int(m.group(1), 16), m.group(2), m.group(3).strip())
@@ -86,20 +88,23 @@ def window_mix(sass: str) -> Optional[Dict[str, int]]:
 
     for lo, hi in loops:
         inner = sorted((l2, h2) for l2, h2 in loops if lo < l2 and h2 < hi)
-        if len(inner) != 2:
+        if len(inner) != len(trips):
             continue
         total = body(lo, hi)
-        for (l2, h2), n in zip(inner, WINDOW_TRIPS):
+        for (l2, h2), n in zip(inner, trips):
             total.update({k: (n - 1) * v for k, v in body(l2, h2).items()})
         return dict(total)
     return None
 
 
-def build(srcs: Dict[str, Path]) -> Dict[str, Tuple[ctypes.CDLL, List[str], Optional[dict]]]:
-    """name -> (library, ptxas lines, window_mix or None); one nvcc each."""
-    OUT.mkdir(parents=True, exist_ok=True)
+def build(srcs: Dict[str, Path], out_dir: Path, trips: Tuple[Tuple[int, ...], ...],
+          ) -> Dict[str, Tuple[ctypes.CDLL, List[str], Optional[dict]]]:
+    """name -> (library, ptxas lines, window_mix or None); one nvcc each,
+    into ``out_dir``. The window loop is the first of the loop structures
+    ``trips`` that the listing holds."""
+    out_dir.mkdir(parents=True, exist_ok=True)
     procs = {name: subprocess.Popen(
-        [_build.nvcc(), *_build.FLAGS, "-o", str(OUT / f"{name}.so"), str(path)],
+        [_build.nvcc(), *_build.FLAGS, "-o", str(out_dir / f"{name}.so"), str(path)],
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
         for name, path in srcs.items()}
     dump = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
@@ -111,10 +116,10 @@ def build(srcs: Dict[str, Path]) -> Dict[str, Tuple[ctypes.CDLL, List[str], Opti
         lines = [ln.strip() for ln in log.splitlines() if "registers" in ln or "stack frame" in ln]
         mix = None
         if Path(dump).exists():
-            sass = subprocess.run([dump, "-sass", str(OUT / f"{name}.so")], capture_output=True,
+            sass = subprocess.run([dump, "-sass", str(out_dir / f"{name}.so")], capture_output=True,
                                   text=True, timeout=300).stdout
-            mix = window_mix(sass)
-        out[name] = (ctypes.CDLL(str(OUT / f"{name}.so")), lines, mix)
+            mix = next(filter(None, (window_mix(sass, t) for t in trips)), None)
+        out[name] = (ctypes.CDLL(str(out_dir / f"{name}.so")), lines, mix)
     return out
 
 
@@ -144,48 +149,69 @@ def main_path_inputs(dev: torch.device) -> tuple:
     return sc.upload(host, dev)
 
 
-def main(argv: List[str]) -> int:
+class Ladder(NamedTuple):
+    """What ``compare`` needs of one ladder kernel."""
+    name: str  # the source's name in ``_build.SOURCES``; its launcher is name + "_launch"
+    n_inputs: int  # device inputs, which the launcher takes before the outputs
+    out_rows: Tuple[int, ...]  # each output's leading dimension; 0 for a (b,) vector
+    geometry: Callable[[int], tuple]  # b -> the launcher's geometry arguments
+    ref: Callable  # the plain version: inputs -> outputs
+    main_path_inputs: Callable[[torch.device], tuple]
+    trips: Tuple[Tuple[int, ...], ...]  # window_mix's loop structures, tried in turn
+
+
+K3 = Ladder(sc.NAME, 8, (0, sc.NLIMB, sc.NLIMB), sc.k3_geometry, sc.ladder_ref,
+            main_path_inputs, (WINDOW_TRIPS,))
+
+
+def compare(kernel: Ladder, argv: List[str]) -> int:
+    """Build the tree's ``kernel`` and each ``name=path.cu`` of ``argv``,
+    check each equal to the plain version on the main-path input (which the
+    plain version must accept on every row), time them in turns and over
+    ``SCAN``, and print the card's name and power limit and one JSON line."""
     if not torch.cuda.is_available():
-        raise SystemExit("k3_compare: no CUDA device")
+        raise SystemExit(f"{kernel.name} compare: no CUDA device")
     dev = torch.device("cuda", 0)
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True, check=True).stdout.strip()
     srcs = {name: Path(path) for name, path in (arg.split("=", 1) for arg in argv)}
-    srcs["new"] = _build.SRC_DIR / _build.SOURCES[sc.NAME]
+    srcs["new"] = _build.SRC_DIR / _build.SOURCES[kernel.name]
     t0 = time.perf_counter()
-    built = build(srcs)
+    built = build(srcs, OUT / kernel.name, kernel.trips)
     print(f"built {len(built)} sources in {time.perf_counter() - t0:.1f} s", flush=True)
     fns = {}
     for name, (lib, lines, mix) in built.items():
         geometry = "lanes_per_row" in srcs[name].read_text()
-        fn = lib.secp256k1_ladder_launch
+        fn = getattr(lib, kernel.name + "_launch")
         fn.restype = ctypes.c_int
-        fn.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_int] * (6 if geometry else 2) + [
-            ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_void_p] * (kernel.n_inputs + len(kernel.out_rows)) + [
+            ctypes.c_int] * (6 if geometry else 2) + [ctypes.c_void_p]
         fns[name] = (fn, geometry)
         print(f"  {name}: {'; '.join(lines)}; window loop a lane: {mix}", flush=True)
 
     def launch(name, ins):
         fn, geometry = fns[name]
         b, nwin = ins[1].shape[1], ins[3].shape[0]
-        outs = (torch.empty((b,), dtype=torch.int32, device=dev),
-                torch.empty((sc.NLIMB, b), dtype=torch.int32, device=dev),
-                torch.empty((sc.NLIMB, b), dtype=torch.int32, device=dev))
-        geo = sc.k3_geometry(b) if geometry else ()
+        outs = tuple(torch.empty((r, b) if r else (b,), dtype=torch.int32, device=dev)
+                     for r in kernel.out_rows)
+        geo = kernel.geometry(b) if geometry else ()
         rc = fn(*(t.data_ptr() for t in ins), *(t.data_ptr() for t in outs), b, nwin, *geo,
                 torch.cuda.current_stream(dev).cuda_stream)
         if rc:
             raise RuntimeError(f"{name}: cudaError {rc}")
         return outs
 
-    ins = main_path_inputs(dev)
-    want = sc.ladder_ref(*ins)
+    ins = kernel.main_path_inputs(dev)
+    want = kernel.ref(*ins)
+    if not bool((want[0][:N_ROWS] != 0).all()):
+        raise SystemExit("the plain version rejects a main-path row")
     for name in fns:
         got = launch(name, ins)
         torch.cuda.synchronize()
         if not all(torch.equal(g, w) for g, w in zip(got, want)):
-            raise SystemExit(f"{name} differs from ladder_ref")
-    print(f"every source == ladder_ref (ok, X, Z) at b = {ins[1].shape[1]}", flush=True)
+            raise SystemExit(f"{name} differs from the plain version")
+    print(f"every source == the plain version on all {len(want)} outputs at "
+          f"b = {ins[1].shape[1]}", flush=True)
     times: Dict[str, List[float]] = {name: [] for name in fns}
     for name in list(fns) + list(fns)[::-1]:
         times[name].append(cuda_ms(lambda: launch(name, ins)))
@@ -206,4 +232,4 @@ def main(argv: List[str]) -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main(sys.argv[1:]))
+    sys.exit(compare(K3, sys.argv[1:]))

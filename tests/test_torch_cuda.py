@@ -68,6 +68,29 @@ def test_ladder_kernel_vs_plain(cuda):
             assert torch.equal(g, w)
 
 
+def test_ladder_ragged_edge_leaves_rows_past_b_unwritten(cuda):
+    """K2 at b = 200, not a multiple of the rows a block serves: the last
+    block computes past b and must write nothing there. The outputs are
+    views of longer buffers filled with a sentinel; the tails keep it."""
+    b, pad, sentinel = 200, 64, 0x5A5A5A5A
+    assert b % ec.K2_ROWS_PER_BLOCK
+    rng = np.random.default_rng(6)
+    negax, ay, rlimb = (rng.integers(0, 1 << 25, (10, b)) for _ in range(3))
+    digs, digh = (rng.integers(0, 16, (64, b)) for _ in range(2))
+    rsign = rng.integers(0, 2, (1, b))
+    ins = tuple(ec._put(a, cuda) for a in (ec._CONSTS, negax, ay, digs, digh, rlimb, rsign))
+    bufs = [torch.full((n + pad,), sentinel, dtype=torch.int32, device=cuda) for n in (b, 8 * b)]
+    ok, renc = bufs[0][:b], bufs[1][:8 * b].view(8, b)
+    before = ec.launches["ed25519_ladder"]
+    ec.ladder_into(ins, ok, renc)
+    torch.cuda.synchronize()
+    assert ec.launches["ed25519_ladder"] == before + 1
+    for g, w in zip((ok, renc), ec.ladder_ref(*ins)):
+        assert torch.equal(g.cpu(), w.cpu())
+    for t in bufs:
+        assert bool((t[-pad:] == sentinel).all())
+
+
 def test_verify_batch_on_cuda_vs_oracle(cuda):
     pa, msgs, sa = _window()
     got = ec.verify_batch(pa, msgs, sa, device=cuda)
