@@ -13,7 +13,9 @@ Phases, in order; any failure exits non-zero:
              K2's and K3's bounds;
   3. K1      the prologue kernel against its plain version on the card,
              2,048 seeded rows at each message length 0, 33, 104, 111, 112
-             and 200, exact; h also against hashlib + bigint mod L;
+             and 200, exact; h also against hashlib + bigint mod L; then
+             200 seeded rows, a ragged last block, into outputs with
+             sentinel tails that must stay unwritten;
   4. K2      the ed25519 ladder kernel against its plain version on the
              card, 256 rows (the 20-row Go-edge window and seeded
              signatures), exact; verdicts against the port's ``_verify_pure``;
@@ -24,8 +26,8 @@ Phases, in order; any failure exits non-zero:
              the commit passes, a flipped signature bit and an under-quorum
              commit are rejected, both kernels launched; wall and device
              times; each kernel against its plain version at the main
-             path's shapes, with times and bounds, and K2's geometry,
-             registers and shared memory;
+             path's shapes, with times and bounds, and K1's and K2's
+             geometry, registers and shared memory;
   6. K3      the secp256k1 ladder kernel against its plain version on the
              card, 256 rows (the 23-row secp256k1 edge window, seeded
              signatures and rows that take the r + n branch), exact on the
@@ -79,6 +81,7 @@ N_VALIDATORS = 10_000  # BASELINE.json config 2 (and config 4 at its width)
 N_MIXED = 1_000
 K1_ROWS = 2048
 K1_LENGTHS = (0, 33, 104, 111, 112, 200)
+K1_RAGGED_ROWS = 200  # not a multiple of the rows a K1 block serves
 K2_ROWS = 256
 K2_RAGGED_ROWS = 200  # not a multiple of the rows a K2 block serves
 K3_ROWS = 256
@@ -197,23 +200,33 @@ def group_inputs(pubs_a, msgs, sigs_a, dev):
     return inputs, valid
 
 
+def k1_rows(rng, n: int, ln: int):
+    """n seeded rows of message length ln: (pubs, sigs, msgs, K1's five
+    inputs as numpy arrays). Lengths 104, 112 and 200 share one template
+    with a varying fixed64 at byte 17; at the others every byte varies."""
+    pubs_a = rng.integers(0, 256, (n, 32), dtype=np.uint8)
+    sigs_a = rng.integers(0, 256, (n, 64), dtype=np.uint8)
+    if ln in (104, 112, 200):
+        m = np.tile(rng.integers(0, 256, ln, dtype=np.uint8), (n, 1))
+        m[:, 17:25] = rng.integers(0, 256, (n, 8), dtype=np.uint8)
+    else:
+        m = rng.integers(0, 256, (n, ln), dtype=np.uint8)
+    msgs = [m[i].tobytes() for i in range(n)]
+    tmpl, vrows, vwords = ec.pack_variable_words(pubs_a, msgs, sigs_a, ln, n)
+    return pubs_a, sigs_a, msgs, (tmpl, vrows, vwords, np.ascontiguousarray(pubs_a).view("<u4"),
+                                  np.ascontiguousarray(sigs_a).view("<u4"))
+
+
 def phase_k1(dev, rng) -> int:
-    phase(f"K1 prologue vs plain: {K1_ROWS} rows x lengths {K1_LENGTHS}")
+    lanes, rpb, blocks, smem = ec.k1_geometry(K1_ROWS)
+    phase(f"K1 prologue vs plain: {K1_ROWS} rows x lengths {K1_LENGTHS}; {lanes} thread a "
+          f"row, {rpb} rows a block, {blocks} blocks, {smem} B dynamic shared memory a block; "
+          f"{registers('ed25519_prologue')}")
     worst = 0
     for ln in K1_LENGTHS:
-        pubs_a = rng.integers(0, 256, (K1_ROWS, 32), dtype=np.uint8)
-        sigs_a = rng.integers(0, 256, (K1_ROWS, 64), dtype=np.uint8)
-        if ln in (104, 112, 200):  # one template, a varying fixed64 at 17
-            base = rng.integers(0, 256, ln, dtype=np.uint8)
-            m = np.tile(base, (K1_ROWS, 1))
-            m[:, 17:25] = rng.integers(0, 256, (K1_ROWS, 8), dtype=np.uint8)
-        else:  # every byte varies
-            m = rng.integers(0, 256, (K1_ROWS, ln), dtype=np.uint8)
-        msgs = [m[i].tobytes() for i in range(K1_ROWS)]
-        tmpl, vrows, vwords = ec.pack_variable_words(pubs_a, msgs, sigs_a, ln, K1_ROWS)
-        sig_words = np.ascontiguousarray(sigs_a).view("<u4")
-        pub_words = np.ascontiguousarray(pubs_a).view("<u4")
-        args = [ec._put(a, dev) for a in (tmpl, vrows, vwords, pub_words, sig_words)]
+        pubs_a, sigs_a, msgs, host = k1_rows(rng, K1_ROWS, ln)
+        tmpl, vrows = host[0], host[1]
+        args = [ec._put(a, dev) for a in host]
         got = ec.prologue(*args)
         torch.cuda.synchronize()
         want = ec.prologue_ref(*args)
@@ -230,6 +243,26 @@ def phase_k1(dev, rng) -> int:
                 got_h = (got_h << 4) | int(digh[t, i])
             check(got_h == h, f"K1 h != SHA-512 mod L at length {ln}, row {i}")
         print(f"  length {ln:3d}: rows {tmpl.shape[0]} k {vrows.shape[0]} exact", flush=True)
+    return max(worst, phase_k1_ragged(dev, rng))
+
+
+def phase_k1_ragged(dev, rng) -> int:
+    """K1 on K1_RAGGED_ROWS seeded rows of the main path's length, which
+    end inside a block: the outputs are views of longer buffers with
+    sentinel tails, which rows past b must leave unwritten."""
+    b = K1_RAGGED_ROWS
+    lanes, rpb, blocks, _ = ec.k1_geometry(b)
+    ins = tuple(ec._put(a, dev) for a in k1_rows(rng, b, 104)[3])
+    sizes = (ec.NWIN, ec.NWIN, ec.NLIMB, 1)
+    bufs = sentinel_outputs(dev, tuple(n * b for n in sizes))
+    outs = tuple(buf[:n * b].view(n, b) for buf, n in zip(bufs, sizes))
+    ec.prologue_into(ins, outs)
+    torch.cuda.synchronize()
+    worst = max_abs_diff(outs, ec.prologue_ref(*ins))
+    check(worst == 0, f"K1 differs from its plain version at b = {b}: {worst}")
+    check(tails_intact(bufs), "K1 wrote past row b")
+    print(f"  ragged b = {b}: {blocks} blocks of {rpb} rows ({blocks * rpb - b} past b), "
+          f"exact (digs, digh, rlimb, rsign); rows past b left unwritten", flush=True)
     return worst
 
 
@@ -456,6 +489,11 @@ def phase_ed25519_main(dev, op_rate: float, mul_rate: float, err: dict) -> dict:
     k1_ops = max(nblocks * SHA512_BLOCK_OPS, BARRETT_PRODUCTS) * b
     muls, squarings = ec.ladder_fe_ops()
     k2_ops = (muls * fe.NLIMB ** 2 + squarings * fe.NLIMB * (fe.NLIMB + 1) // 2) * b
+    k1_ms = cuda_ms(lambda: ec.prologue(*k1_in))
+    lanes, rpb, blocks, smem = ec.k1_geometry(b)
+    print(f"  K1 {k1_ms:.4f} ms at b = {b}: {lanes} thread a row, {rpb} rows a block, "
+          f"{blocks} blocks, {smem} B dynamic shared memory a block; "
+          f"{registers('ed25519_prologue')}", flush=True)
     k2_ms = cuda_ms(lambda: ec.ladder(*k2_in))
     lanes, rpb, blocks, smem = ec.k2_geometry(b)
     print(f"  K2 {k2_ms:.4f} ms at b = {b}: {lanes} lanes a row, {rpb} rows a block, "
@@ -463,7 +501,7 @@ def phase_ed25519_main(dev, op_rate: float, mul_rate: float, err: dict) -> dict:
           f"{registers('ed25519_ladder')}", flush=True)
     return {
         "launches": run["launches"],
-        "ms": {"ed25519_prologue": cuda_ms(lambda: ec.prologue(*k1_in)),
+        "ms": {"ed25519_prologue": k1_ms,
                "ed25519_ladder": k2_ms},
         "plain_ms": {"ed25519_prologue": cuda_ms(lambda: ec.prologue_ref(*k1_in), 2, 1),
                      "ed25519_ladder": cuda_ms(lambda: ec.ladder_ref(*k2_in), 1, 1)},

@@ -8,7 +8,8 @@ hand-written CUDA kernels (``csrc/``):
   * K1, the prologue (``prologue``): SHA-512(R || A || M) assembled on the
     device from a template row plus the words that vary per row, the exact
     reduction of the digest mod L, the 64 MSB-first 4-bit digits of h and of
-    s, R's raw y limbs and R's sign bit;
+    s, R's raw y limbs and R's sign bit; one thread a row, ``k1_geometry``
+    gives its launch geometry;
   * K2, the ladder (``ladder``): windowed Straus R' = [s]B + [h](-A) over 64
     windows (4 doublings, one mixed add from the constant niels table
     [0..15]B, one cached add from a per-row table [0..15](-A)), complete
@@ -604,9 +605,9 @@ launches: Dict[str, int] = {"ed25519_prologue": 0, "ed25519_ladder": 0}
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {
-    # tmpl, rows, vidx, k, vwords, pub_words, sig_words,
-    # digs, digh, rlimb, rsign, b, stream
-    "ed25519_prologue": [_P, _I, _P, _I, _P, _P, _P, _P, _P, _P, _P, _I, _P],
+    # tmpl, rows, vidx, k, vwords, pub_words, sig_words, digs, digh, rlimb,
+    # rsign, b, lanes_per_row, rows_per_block, blocks, smem_bytes, stream
+    "ed25519_prologue": [_P, _I, _P, _I, _P, _P, _P, _P, _P, _P, _P] + [_I] * 5 + [_P],
     # consts, negax, ay, digs, digh, rlimb, rsign, ok, renc, b, nwin,
     # lanes_per_row, rows_per_block, blocks, smem_bytes, stream
     "ed25519_ladder": [_P] * 9 + [_I] * 6 + [_P],
@@ -672,22 +673,46 @@ def prologue(tmpl, vidx, vwords, pub_words, sig_words):
     ins = (tmpl, vidx, vwords, pub_words, sig_words)
     if _on_cpu(ins):
         return prologue_ref(*ins)
+    b, dev = sig_words.shape[0], tmpl.device
+    outs = tuple(torch.empty((n, b), dtype=torch.int32, device=dev)
+                 for n in (NWIN, NWIN, NLIMB, 1))
+    prologue_into(ins, outs)
+    return outs
+
+
+K1_ROWS_PER_BLOCK = 64  # rows (threads) a K1 block serves
+
+
+def k1_geometry(b: int) -> Tuple[int, int, int, int]:
+    """(lanes_per_row, rows_per_block, blocks, smem_bytes) of K1 over b
+    rows: one thread a row, one block per 64 rows (the last one ragged; 160
+    blocks at b = 10,240, so that every SM of an H100 has work), and dynamic
+    shared memory for one SHA-512 block's staged message (32 u32 a row)."""
+    if b <= 0:
+        raise ValueError(f"bad batch size {b}")
+    rpb = K1_ROWS_PER_BLOCK
+    return 1, rpb, -(-b // rpb), 32 * 4 * rpb
+
+
+def prologue_into(ins, outs) -> None:
+    """Launch K1 on CUDA inputs ``ins`` (``prologue``'s five) into the
+    given int32 outputs digs (64, b), digh (64, b), rlimb (10, b), rsign
+    (1, b); the kernel writes rows below b only."""
+    tmpl, vidx, vwords, pub_words, sig_words = ins
     rows, k, b = tmpl.shape[0], vidx.shape[0], sig_words.shape[0]
-    if rows % 32 or rows < 32 or b == 0:
-        raise ValueError(f"bad sizes rows={rows} b={b}")
+    if rows % 32 or rows < 32 or b == 0 or k == 0:
+        raise ValueError(f"bad sizes rows={rows} k={k} b={b}")
     for nm, t, shp in (("tmpl", tmpl, (rows,)), ("vidx", vidx, (k,)),
                        ("vwords", vwords, (b, k)), ("pub_words", pub_words, (b, 8)),
                        ("sig_words", sig_words, (b, 16))):
         _check(nm, t, shp)
-    dev = tmpl.device
-    digs = torch.empty((NWIN, b), dtype=torch.int32, device=dev)
-    digh = torch.empty((NWIN, b), dtype=torch.int32, device=dev)
-    rlimb = torch.empty((NLIMB, b), dtype=torch.int32, device=dev)
-    rsign = torch.empty((1, b), dtype=torch.int32, device=dev)
-    _launch("ed25519_prologue", dev, tmpl.data_ptr(), rows, vidx.data_ptr(), k,
+    for nm, t, n in zip(("digs", "digh", "rlimb", "rsign"), outs, (NWIN, NWIN, NLIMB, 1)):
+        _check(nm, t, (n, b))
+    if _on_cpu((*ins, *outs)):
+        raise ValueError("prologue_into launches the kernel: CUDA tensors only")
+    _launch("ed25519_prologue", tmpl.device, tmpl.data_ptr(), rows, vidx.data_ptr(), k,
             vwords.data_ptr(), pub_words.data_ptr(), sig_words.data_ptr(),
-            digs.data_ptr(), digh.data_ptr(), rlimb.data_ptr(), rsign.data_ptr(), b)
-    return digs, digh, rlimb, rsign
+            *(t.data_ptr() for t in outs), b, *k1_geometry(b))
 
 
 def k2_geometry(b: int) -> Tuple[int, int, int, int]:

@@ -25,9 +25,9 @@ from tendermint_tpu_torch.testutil import commit as tc
 from tendermint_tpu_torch.tools import k3_compare
 
 
-def main_path_inputs(dev: torch.device) -> tuple:
-    """The 10,000-validator ed25519 commit's rows, packed, uploaded and run
-    through K1: K2's seven inputs."""
+def packed_main_path(dev: torch.device) -> tuple:
+    """The 10,000-validator ed25519 commit's rows, packed and uploaded:
+    ``ec.packed_inputs``'s eight device inputs, before K1."""
     n = k3_compare.N_ROWS
     sc_ = tc.build_commit(n)
     pubs = np.frombuffer(b"".join(v.pub_key.bytes() for v in sc_.valset.validators),
@@ -38,9 +38,13 @@ def main_path_inputs(dev: torch.device) -> tuple:
     neg_ax, ay, valid = ec._decompress_valset(pubs)
     if not valid.all():
         raise SystemExit("a validator key did not decompress")
-    (consts, negax, ay_d, pubw, sigw, tmpl, vidx, vwords), _ = ec.packed_inputs(
-        pubs, msgs, sigs, neg_ax, ay, valid, len(msgs[0]), dev)
-    return (consts, negax, ay_d, *ec.prologue(tmpl, vidx, vwords, pubw, sigw))
+    return ec.packed_inputs(pubs, msgs, sigs, neg_ax, ay, valid, len(msgs[0]), dev)[0]
+
+
+def main_path_inputs(dev: torch.device) -> tuple:
+    """The main-path rows run through K1: K2's seven inputs."""
+    consts, negax, ay, pubw, sigw, tmpl, vidx, vwords = packed_main_path(dev)
+    return (consts, negax, ay, *ec.prologue(tmpl, vidx, vwords, pubw, sigw))
 
 
 # the window loop's inner loops: 4 doublings, then 2 adds (the tree's

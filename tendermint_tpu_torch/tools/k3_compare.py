@@ -97,11 +97,10 @@ def window_mix(sass: str, trips: Tuple[int, ...] = WINDOW_TRIPS) -> Optional[Dic
     return None
 
 
-def build(srcs: Dict[str, Path], out_dir: Path, trips: Tuple[Tuple[int, ...], ...],
+def build(srcs: Dict[str, Path], out_dir: Path, count: Callable[[str], Optional[dict]],
           ) -> Dict[str, Tuple[ctypes.CDLL, List[str], Optional[dict]]]:
-    """name -> (library, ptxas lines, window_mix or None); one nvcc each,
-    into ``out_dir``. The window loop is the first of the loop structures
-    ``trips`` that the listing holds."""
+    """name -> (library, ptxas lines, ``count`` of its ``cuobjdump -sass``
+    listing, or None without cuobjdump); one nvcc each, into ``out_dir``."""
     out_dir.mkdir(parents=True, exist_ok=True)
     procs = {name: subprocess.Popen(
         [_build.nvcc(), *_build.FLAGS, "-o", str(out_dir / f"{name}.so"), str(path)],
@@ -118,7 +117,7 @@ def build(srcs: Dict[str, Path], out_dir: Path, trips: Tuple[Tuple[int, ...], ..
         if Path(dump).exists():
             sass = subprocess.run([dump, "-sass", str(out_dir / f"{name}.so")], capture_output=True,
                                   text=True, timeout=300).stdout
-            mix = next(filter(None, (window_mix(sass, t) for t in trips)), None)
+            mix = count(sass)
         out[name] = (ctypes.CDLL(str(out_dir / f"{name}.so")), lines, mix)
     return out
 
@@ -177,7 +176,8 @@ def compare(kernel: Ladder, argv: List[str]) -> int:
     srcs = {name: Path(path) for name, path in (arg.split("=", 1) for arg in argv)}
     srcs["new"] = _build.SRC_DIR / _build.SOURCES[kernel.name]
     t0 = time.perf_counter()
-    built = build(srcs, OUT / kernel.name, kernel.trips)
+    built = build(srcs, OUT / kernel.name, lambda sass: next(
+        filter(None, (window_mix(sass, t) for t in kernel.trips)), None))
     print(f"built {len(built)} sources in {time.perf_counter() - t0:.1f} s", flush=True)
     fns = {}
     for name, (lib, lines, mix) in built.items():

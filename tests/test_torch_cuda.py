@@ -52,6 +52,35 @@ def test_prologue_kernel_vs_plain(cuda, length):
         assert torch.equal(g, w)
 
 
+def test_prologue_ragged_edge_leaves_rows_past_b_unwritten(cuda):
+    """K1 at b = 200, not a multiple of the rows a block serves: the last
+    block's threads past b must write nothing. The outputs are views of
+    longer buffers filled with a sentinel; the tails keep it."""
+    b, pad, sentinel, length = 200, 64, 0x5A5A5A5A, 104
+    assert b % ec.K1_ROWS_PER_BLOCK
+    rng = np.random.default_rng(7)
+    pubs = rng.integers(0, 256, (b, 32), dtype=np.uint8)
+    sigs = rng.integers(0, 256, (b, 64), dtype=np.uint8)
+    m = np.tile(rng.integers(0, 256, length, dtype=np.uint8), (b, 1))
+    m[:, 17:25] = rng.integers(0, 256, (b, 8), dtype=np.uint8)
+    tmpl, vrows, vwords = ec.pack_variable_words(
+        pubs, [m[i].tobytes() for i in range(b)], sigs, length, b)
+    ins = tuple(ec._put(a, cuda) for a in (
+        tmpl, vrows, vwords, np.ascontiguousarray(pubs).view("<u4"),
+        np.ascontiguousarray(sigs).view("<u4")))
+    sizes = (ec.NWIN, ec.NWIN, ec.NLIMB, 1)
+    bufs = [torch.full((n * b + pad,), sentinel, dtype=torch.int32, device=cuda) for n in sizes]
+    outs = tuple(t[:n * b].view(n, b) for t, n in zip(bufs, sizes))
+    before = ec.launches["ed25519_prologue"]
+    ec.prologue_into(ins, outs)
+    torch.cuda.synchronize()
+    assert ec.launches["ed25519_prologue"] == before + 1
+    for g, w in zip(outs, ec.prologue_ref(*ins)):
+        assert torch.equal(g.cpu(), w.cpu())
+    for t in bufs:
+        assert bool((t[-pad:] == sentinel).all())
+
+
 def test_ladder_kernel_vs_plain(cuda):
     pa, msgs, sa = _window()
     lens = np.array([len(m) for m in msgs])
