@@ -41,9 +41,34 @@ Phases, in order; any failure exits non-zero:
              commit are rejected, K3 launched; wall, host breakdown and
              device times; K3 against its plain version at those shapes,
              with its geometry, registers and shared memory;
-  8. mixed   a 1,000-validator commit of mixed ed25519 and secp256k1 keys:
+  8. default the 10,000-validator ed25519 commit of phase 5 once more,
+             through verify_commit with no verifier given: the default that
+             the configuration root installs (node/verify_root.py, default
+             [verify]: GuardedBatchVerifier(TorchBatchVerifier) with its
+             5 % audit on the host oracle). K1 and K2 launched once, no
+             device fallback; p50 wall over 3 calls beside the seconds of
+             its device dispatch and of its audit;
+  9. mixed   a 1,000-validator commit of mixed ed25519 and secp256k1 keys:
              it passes with K1, K2 and K3 each launched, and a flipped
-             secp256k1 row and a flipped ed25519 row are each rejected.
+             secp256k1 row and a flipped ed25519 row are each rejected;
+             then once through the configuration root's guarded verifier
+             (node/verify_root.py, default [verify]), K1, K2 and K3 each
+             launched once and no device fallback;
+  10. window a fast-sync window of 512 heights x 64 validators (32,768
+             lanes in one dispatch) with planted faults, through
+             parallel/planner.verify_window on both routes: the device
+             executor (K1 -> K2 -> the int64 tally on the card) and the
+             guarded verifier (verify_generic -> GuardedBatchVerifier ->
+             K1 -> K2). Both give the same verdict grid, tallies,
+             committed and sigs_ok, equal to what the construction implies
+             and, on 256 sampled lanes, to the oracle; K1 and K2 launched
+             once per message-length group per dispatch; no device
+             fallback, the breaker closed, no audit mismatch. p50 walls
+             over 3 calls with their breakdowns (plan, pack, dispatch,
+             audit), K1 and K2 at the window's b against their plain
+             versions, and the tally's device time beside its byte bound
+             on a ``torch_ops`` JSON line of its own (the tally is torch
+             int64 ops, not a kernel).
 
 Each path's launch counts are set to 0 just before it and read just after.
 The line before the last two is the ``kernels`` JSON, then the card's name
@@ -63,18 +88,24 @@ import time
 import numpy as np
 import torch
 
+from tendermint_tpu_torch.config.verify import VerifyConfig
 from tendermint_tpu_torch.crypto import ed25519 as ed
 from tendermint_tpu_torch.crypto import secp256k1 as secp
-from tendermint_tpu_torch.crypto.batch import SigItem, TorchBatchVerifier
+from tendermint_tpu_torch.crypto.batch import SigItem, TorchBatchVerifier, get_batch_verifier
 from tendermint_tpu_torch.crypto.hashing import sha256
 from tendermint_tpu_torch.crypto.keys import PubKeyEd25519, PubKeySecp256k1
+from tendermint_tpu_torch.libs import breaker, trace
+from tendermint_tpu_torch.libs.metrics import get_verify_metrics
+from tendermint_tpu_torch.node.verify_root import configure_verify
 from tendermint_tpu_torch.ops import _build
 from tendermint_tpu_torch.ops import ed25519_cuda as ec
 from tendermint_tpu_torch.ops import fe
 from tendermint_tpu_torch.ops import imad_probe
 from tendermint_tpu_torch.ops import secp256k1_cuda as sc
+from tendermint_tpu_torch.parallel import planner
 from tendermint_tpu_torch.testutil import commit as tc
 from tendermint_tpu_torch.testutil import secp_signer
+from tendermint_tpu_torch.testutil import window as tw
 from tendermint_tpu_torch.types.validator_set import CommitError
 
 N_VALIDATORS = 10_000  # BASELINE.json config 2 (and config 4 at its width)
@@ -89,6 +120,12 @@ K3_RN_PAIRS = 4  # row pairs that take the r + n branch (rnok 1, then 0)
 K3_RAGGED_ROWS = 200  # not a multiple of the rows a K3 block serves
 WALL_REPS = 5
 TIME_ITERS = 20
+# the reference's fast-sync defaults: VERIFY_WINDOW = 512 heights
+# (blockchain/reactor.py:54) of bench_fastsync.py's 64 validators
+# (BASELINE.json config 3); 32,768 lanes, lane bucket 32,768, segments 512
+WINDOW_H, WINDOW_V = 512, 64
+WINDOW_REPS = 3
+ORACLE_LANES = 256
 
 # Rates for the least time the card could take: HBM bandwidth (H100 SXM
 # data sheet); 32-bit integer add, logic, shift and multiply-add each retire
@@ -509,6 +546,8 @@ def phase_ed25519_main(dev, op_rate: float, mul_rate: float, err: dict) -> dict:
                    "ed25519_ladder": least_ms(k2_in, k2_out, k2_ops, mul_rate)},
         "table_bound": {"ed25519_ladder": least_ms(k2_in, k2_out, k2_ops, op_rate)},
         "b": b,
+        "p50_ms": run["p50_ms"],
+        "commit": sc_,
     }
 
 
@@ -648,7 +687,66 @@ def phase_secp_main(dev, op_rate: float, mul_rate: float, err: dict) -> dict:
     }
 
 
-def phase_mixed() -> dict:
+def fallbacks() -> float:
+    """Device fallbacks counted so far, every reason together."""
+    return sum(get_verify_metrics().device_fallback._values.values())
+
+
+def audits(outcome: str) -> float:
+    return get_verify_metrics().device_audit._values.get((outcome,), 0.0)
+
+
+def check_guard_clean(fallbacks_before: float, what: str) -> None:
+    check(fallbacks() == fallbacks_before, f"{what}: a device dispatch fell back to the "
+          f"host: {get_verify_metrics().device_fallback._values}")
+    check(breaker.get_device_breaker().state == breaker.CLOSED,
+          f"{what}: breaker {breaker.get_device_breaker().state}")
+    check(audits("mismatch") == 0, f"{what}: audit mismatch")
+
+
+def phase_default_commit(root, sc_: tc.SignedCommit) -> dict:
+    phase(f"default: the {N_VALIDATORS}-validator ed25519 commit through the default "
+          f"(guarded) verifier")
+    check(get_batch_verifier() is root.verifier,
+          "the default verifier is not the configuration root's guarded one")
+    verify = lambda: sc_.valset.verify_commit(  # noqa: E731
+        sc_.chain_id, sc_.block_id, sc_.height, sc_.commit)
+    before = fallbacks()
+    audit_ok0 = audits("ok")
+    reset_launches()
+    t0 = time.perf_counter()
+    verify()
+    first_ms = (time.perf_counter() - t0) * 1e3
+    launches = read_launches()
+    for name in ("ed25519_prologue", "ed25519_ladder"):
+        check(launches[name] == 1, f"default commit launched {name} {launches[name]} times")
+    check(launches["secp256k1_ladder"] == 0, "K3 launched on an ed25519 commit")
+    walls, parts = [], {"verify.dispatch": [], "verify.audit": []}
+    trace.enable()
+    try:
+        for _ in range(WINDOW_REPS):
+            trace.reset()
+            t0 = time.perf_counter()
+            verify()
+            walls.append(time.perf_counter() - t0)
+            for n, v in span_seconds(parts).items():
+                parts[n].append(v)
+    finally:
+        trace.disable()
+    check_guard_clean(before, "default commit")
+    audited = audits("ok") - audit_ok0
+    check(audited > 0, "no audited lane on the default commit")
+    p50 = statistics.median(walls) * 1e3
+    part_ms = {n: statistics.median(v) * 1e3 for n, v in parts.items()}
+    print(f"  verify_commit (default verifier): passes; first {first_ms:.1f} ms; p50 "
+          f"{p50:.1f} ms over {WINDOW_REPS}; device dispatch p50 "
+          f"{part_ms['verify.dispatch']:.3f} ms, audit p50 {part_ms['verify.audit']:.1f} ms "
+          f"({audited / (WINDOW_REPS + 1):.0f} lanes a call); launches {launches}; "
+          f"no fallback; breaker closed", flush=True)
+    return {"first_ms": first_ms, "p50_ms": p50, **part_ms}
+
+
+def phase_mixed(root) -> dict:
     phase(f"mixed path: {N_MIXED}-validator ed25519 + secp256k1 commit")
     t0 = time.perf_counter()
     sc_ = tc.build_commit(N_MIXED, key_type="mixed")
@@ -660,7 +758,182 @@ def phase_mixed() -> dict:
     run = drive_commit(sc_, TorchBatchVerifier(), rows)
     for name in KERNELS:
         check(run["launches"][name] > 0, f"kernel {name} was not launched on the mixed path")
+
+    # the same commit once through the configuration root's guarded verifier
+    before = fallbacks()
+    reset_launches()
+    t0 = time.perf_counter()
+    sc_.valset.verify_commit(sc_.chain_id, sc_.block_id, sc_.height, sc_.commit,
+                             verifier=root.verifier)
+    guarded_ms = (time.perf_counter() - t0) * 1e3
+    guarded = read_launches()
+    for name in KERNELS:
+        check(guarded[name] == 1, f"guarded mixed commit launched {name} {guarded[name]} times")
+    check_guard_clean(before, "guarded mixed commit")
+    print(f"  guarded verifier (configuration root): passes in {guarded_ms:.1f} ms; launches "
+          f"{guarded}; no fallback; guard {root.verifier.snapshot()}", flush=True)
     return run
+
+
+def span_seconds(names) -> dict:
+    """Seconds per span name in the tracer's ring since its last reset."""
+    out = {n: 0.0 for n in names}
+    for ev in trace.export():
+        if ev.get("ph") == "X" and ev["name"] in out:
+            out[ev["name"]] += ev["dur"] / 1e6
+    return out
+
+
+def drive_window(votes, powers, totals, use_device: bool, n_groups: int):
+    """verify_window on one route: a first call with the launch counts set
+    to 0 just before and read just after (K1 and K2 once per message-length
+    group), then WINDOW_REPS timed calls, each traced; returns the first
+    verdict, the launches, the p50 wall and the p50 of each span."""
+    spans = ("planner.pack", "planner.pack_device", "planner.dispatch", "planner.audit",
+             "verify.dispatch", "verify.audit")
+    reset_launches()
+    planner.tally_launches["planner_tally"] = 0
+    t0 = time.perf_counter()
+    verdict = planner.verify_window(votes, powers, totals, use_device=use_device)
+    first_s = time.perf_counter() - t0
+    launches = {**read_launches(), **planner.tally_launches}
+    for name in ("ed25519_prologue", "ed25519_ladder"):
+        check(launches[name] == n_groups, f"window route use_device={use_device}: {name} "
+              f"launched {launches[name]} times, want {n_groups}")
+    check(launches["secp256k1_ladder"] == 0, "K3 launched on an ed25519 window")
+    check(launches["planner_tally"] == (1 if use_device else 0),
+          f"tally launches {launches['planner_tally']}")
+    walls, parts = [], {n: [] for n in spans}
+    trace.enable()
+    try:
+        for _ in range(WINDOW_REPS):
+            trace.reset()
+            t0 = time.perf_counter()
+            again = planner.verify_window(votes, powers, totals, use_device=use_device)
+            walls.append(time.perf_counter() - t0)
+            for n, v in span_seconds(spans).items():
+                parts[n].append(v)
+            for k in ("ok", "tally", "committed", "sigs_ok"):
+                check(np.array_equal(getattr(again, k), getattr(verdict, k)),
+                      f"window {k} changed between calls")
+    finally:
+        trace.disable()
+    return verdict, launches, first_s, statistics.median(walls), {
+        n: statistics.median(v) for n, v in parts.items() if any(v)}
+
+
+def phase_window(root, dev, err: dict) -> dict:
+    phase(f"window: {WINDOW_H} heights x {WINDOW_V} validators through the planner, "
+          f"both routes")
+    t0 = time.perf_counter()
+    win = tw.build_window(WINDOW_H, WINDOW_V, seed=7)
+    print(f"  built and signed {WINDOW_H * WINDOW_V} precommits in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    # planted faults: at V = 64, 21 dropped precommits leave 430 of 640
+    # (> 426.67: commits), 22 leave 420 (does not)
+    hs = [WINDOW_H * k // 6 for k in range(1, 6)]
+    most = -(-WINDOW_V // 3) - 1  # the most precommits a height may miss and commit
+    tw.flip_bit(win, hs[0], WINDOW_V // 9)
+    tw.drop_precommits(win, hs[1], most)
+    tw.drop_precommits(win, hs[2], most + 1)
+    tw.short_signature(win, hs[3], WINDOW_V // 13)
+    tw.absent_height(win, hs[4])
+    t0 = time.perf_counter()
+    votes, powers, totals = win.rows()
+    rows_ms = (time.perf_counter() - t0) * 1e3
+    want = tw.expected(win)
+    check(bool(want["committed"][hs[1]]) and not want["committed"][hs[2]],
+          "quorum construction")
+    print(f"  faults: a flipped bit at height {hs[0]}, {most} and {most + 1} dropped precommits "
+          f"at {hs[1]} and {hs[2]}, a 63-byte signature at {hs[3]}, all absent at {hs[4]}",
+          flush=True)
+
+    plan = planner.plan_window(votes, powers, totals)
+    lens = {len(plan.msgs[j]) for j in np.flatnonzero(plan.wellformed)}
+    n_groups = len(lens)
+    before = fallbacks()
+    audit_ok0 = audits("ok")
+    results = {}
+    for route, use_device in (("device", True), ("verifier", False)):
+        verdict, launches, first_s, p50, parts = drive_window(
+            votes, powers, totals, use_device, n_groups)
+        for k in ("ok", "tally", "committed", "sigs_ok"):
+            check(np.array_equal(getattr(verdict, k), want[k]),
+                  f"{route} route: {k} differs from the construction")
+        results[route] = {"verdict": verdict, "launches": launches, "first_s": first_s,
+                          "p50_s": p50, "parts": parts}
+        print(f"  {route} route: first {first_s * 1e3:.1f} ms; p50 {p50 * 1e3:.1f} ms over "
+              f"{WINDOW_REPS}; launches {launches}; breakdown (p50 s) "
+              + ", ".join(f"{k} {v:.4f}" for k, v in parts.items()), flush=True)
+    a, b = results["device"]["verdict"], results["verifier"]["verdict"]
+    for k in ("ok", "tally", "committed", "sigs_ok"):
+        check(np.array_equal(getattr(a, k), getattr(b, k)), f"routes differ on {k}")
+    check_guard_clean(before, "window")
+    check(audits("ok") > audit_ok0, "no audited lane on the window")
+    print(f"  both routes equal each other and the construction: {int(want['committed'].sum())} "
+          f"of {WINDOW_H} heights commit, {int((~want['sigs_ok']).sum())} with a bad signature; "
+          f"no fallback; breaker closed; audit ok {audits('ok') - audit_ok0:.0f} lanes, "
+          f"0 mismatches", flush=True)
+
+    rng = np.random.default_rng(11)
+    coords = np.argwhere([[pc is not None for pc in c.precommits] for c in win.commits])
+    for h, v in coords[rng.choice(len(coords), min(ORACLE_LANES, len(coords)), replace=False)]:
+        pub, msg, sig = votes[h][v]
+        check(bool(a.ok[h, v]) == ed._verify_pure(pub.bytes(), msg, sig),
+              f"window lane ({h}, {v}) differs from the oracle")
+    print(f"  {ORACLE_LANES} sampled present lanes equal _verify_pure", flush=True)
+
+    # the device route's inputs at the window's shapes: K1, K2, the tally
+    t0 = time.perf_counter()
+    pack = planner.pack_device(plan, dev)
+    torch.cuda.synchronize()
+    pack_ms = (time.perf_counter() - t0) * 1e3
+    B, S = pack.shape
+    lanes, m, inputs = pack.groups[0]
+    consts, negax, ay, pubw, sigw, tmpl, vidx, vwords = inputs
+    b = negax.shape[1]
+    k1_in = (tmpl, vidx, vwords, pubw, sigw)
+    k1_out = ec.prologue(*k1_in)
+    err["ed25519_prologue"] = max(err["ed25519_prologue"],
+                                  max_abs_diff(k1_out, ec.prologue_ref(*k1_in)))
+    k2_in = (consts, negax, ay) + tuple(k1_out)
+    k2_out = ec.ladder(*k2_in)
+    err["ed25519_ladder"] = max(err["ed25519_ladder"],
+                                max_abs_diff(k2_out, ec.ladder_ref(*k2_in)))
+    check(max(err.values()) == 0, f"kernel differs from its plain version: {err}")
+    k1_ms = cuda_ms(lambda: ec.prologue(*k1_in))
+    k2_ms = cuda_ms(lambda: ec.ladder(*k2_in))
+    ok = planner._planner_step(pack, "host")
+    t_in = (ok, pack.power, pack.is_vote, pack.seg_ids, pack.totals)
+    t_out = planner.segment_tally(*t_in)
+    ok_l = ok.cpu().numpy()[:plan.n_lanes]
+    want_t = planner._host_reduce(plan, ok_l)
+    got_t = [t.cpu().numpy()[:plan.H] for t in t_out]
+    tally_err = max(int(np.abs(g.astype(np.int64) - w.astype(np.int64)).max(initial=0))
+                    for g, w in zip(got_t, want_t))
+    check(tally_err == 0, f"the device tally differs from _host_reduce by {tally_err}")
+    tally_ms = cuda_ms(lambda: planner.segment_tally(*t_in))
+    reduce_ms = host_p50_ms(lambda: planner._host_reduce(plan, ok_l))
+    tally_bound_ms = (nbytes(t_in) + nbytes(t_out)) / HBM_BYTES_PER_S * 1e3
+    print(f"  lanes {plan.n_lanes} in bucket B = {B}, segments S = {S}; {n_groups} message-length "
+          f"group(s), K1/K2 b = {b}, vwords {tuple(vwords.shape)}; rows() {rows_ms:.1f} ms; "
+          f"pack_device (key caches warm) {pack_ms:.1f} ms", flush=True)
+    print(f"  K1 {k1_ms:.4f} ms and K2 {k2_ms:.4f} ms at b = {b} (exact against their plain "
+          f"versions); tally {tally_ms:.4f} ms against a byte bound of {tally_bound_ms:.6f} ms "
+          f"at 3.35 TB/s (int64 index_add_, exact against _host_reduce, {reduce_ms:.3f} ms on "
+          f"the host)", flush=True)
+    return {
+        "routes": {r: {k: v for k, v in res.items() if k != "verdict"}
+                   for r, res in results.items()},
+        "k1_ms": k1_ms, "k2_ms": k2_ms, "b": b,
+        "tally": {"name": "planner_tally", "route": "torch",
+                  "source": "tendermint_tpu_torch/parallel/planner.py",
+                  "replaces": "tendermint_tpu/parallel/planner.py:433",
+                  "launches": results["device"]["launches"]["planner_tally"],
+                  "max_abs_err": tally_err, "ms": tally_ms, "plain_ms": reduce_ms,
+                  "bound_ms": tally_bound_ms,
+                  "bound_by": "bytes", "B": B, "S": S},
+    }
 
 
 def main() -> int:
@@ -697,7 +970,13 @@ def main() -> int:
     ed_main = phase_ed25519_main(dev, op_rate, mul_rate, err)
     err["secp256k1_ladder"] = phase_k3(dev, rng)
     secp_main = phase_secp_main(dev, op_rate, mul_rate, err)
-    mixed = phase_mixed()
+    root = configure_verify(VerifyConfig(), device=dev)
+    check(root.verifier.deadline == 30.0 and root.verifier.audit_rate == 0.05,
+          "the configuration root did not apply the default [verify] section")
+    default = phase_default_commit(root, ed_main["commit"])
+    mixed = phase_mixed(root)
+    window = phase_window(root, dev, err)
+    print(f"  {smi_line}", flush=True)
 
     ms = {**ed_main["ms"], "secp256k1_ladder": secp_main["ms"]}
     plain_ms = {**ed_main["plain_ms"], "secp256k1_ladder": secp_main["plain_ms"]}
@@ -729,8 +1008,12 @@ def main() -> int:
             "bound_by": bounds[name][1],
             "library_ms": None,  # no single PyTorch call computes these functions
         })
+    print(f"  {N_VALIDATORS}-validator ed25519 verify_commit p50: {ed_main['p50_ms']:.3f} ms "
+          f"through TorchBatchVerifier, {default['p50_ms']:.1f} ms through the default "
+          f"guarded verifier (audit {default['verify.audit']:.1f} ms of it)", flush=True)
     print(f"  total {time.perf_counter() - t_start:.1f} s", flush=True)
 
+    print(json.dumps({"torch_ops": [window["tally"]]}))
     print(json.dumps({"kernels": kernels}))
     print(smi_line)
     print(json.dumps({"ok": True, "device": {

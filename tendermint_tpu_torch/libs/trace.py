@@ -1,0 +1,240 @@
+"""Span tracer — a lock-protected ring buffer of timed spans exported in
+Chrome trace-event JSON (load via chrome://tracing or https://ui.perfetto.dev).
+
+The port's copy of the JAX package's ``libs/trace.py``, unchanged in
+behaviour; the port's verifier and planner record ``verify.dispatch``,
+``planner.pack`` and ``planner.dispatch`` spans into it.
+
+The Go reference leans on pprof/go-trace for this (node/node.go:474-479);
+here the interesting timelines are host-side seams the device profiler never
+sees: consensus step transitions, WAL fsync, the fast-sync window pipeline,
+mempool recheck, RPC dispatch.  Usage:
+
+    from tendermint_tpu_torch.libs import trace
+    with trace.span("fastsync.window", h0=h, n=n):
+        ...
+    trace.instant("consensus.step", height=h, round=r, step=s)
+
+Disabled (the default) the hot-path cost is one attribute check and a shared
+no-op context manager — nothing is allocated and nothing is recorded; the
+host fast-sync bench gates this at <1% overhead.  Enable with TM_TRACE=1 in
+the environment, trace.enable(), or the `trace_reset` RPC; export with the
+`dump_trace` RPC or trace.chrome_trace().
+
+The buffer is a fixed-size ring: recording never blocks on a consumer and
+never grows memory — old spans are overwritten (dropped() counts them).
+"""
+
+from __future__ import annotations
+
+import os
+import threading
+import time
+from typing import List, Optional
+
+_now_ns = time.perf_counter_ns
+
+DEFAULT_CAPACITY = 8192
+
+
+class _NoopSpan:
+    """Shared do-nothing context manager — the disabled-path return value."""
+
+    __slots__ = ()
+
+    def __enter__(self) -> "_NoopSpan":
+        return self
+
+    def __exit__(self, *exc) -> bool:
+        return False
+
+
+_NOOP = _NoopSpan()
+
+
+class _Span:
+    __slots__ = ("_tracer", "name", "args", "_t0")
+
+    def __init__(self, tracer: "Tracer", name: str, args: dict):
+        self._tracer = tracer
+        self.name = name
+        self.args = args
+
+    def __enter__(self) -> "_Span":
+        self._t0 = _now_ns()
+        return self
+
+    def __exit__(self, exc_type, exc, tb) -> bool:
+        self._tracer.record(self.name, self._t0, _now_ns(), self.args)
+        return False
+
+
+class Tracer:
+    """The ring buffer.  One module-level instance serves the process; tests
+    construct their own."""
+
+    def __init__(self, capacity: int = DEFAULT_CAPACITY):
+        self._mtx = threading.Lock()
+        self.enabled = False
+        self._configure(capacity)
+
+    def _configure(self, capacity: int) -> None:
+        if capacity < 1:
+            raise ValueError(f"tracer capacity must be >= 1, got {capacity}")
+        self.capacity = capacity
+        self._buf: List[Optional[tuple]] = [None] * capacity
+        self._next = 0  # total records ever written; ring slot = _next % cap
+
+    # control ---------------------------------------------------------------
+    def enable(self, capacity: Optional[int] = None) -> None:
+        with self._mtx:
+            if capacity is not None and capacity != self.capacity:
+                self._configure(capacity)
+            self.enabled = True
+
+    def disable(self) -> None:
+        with self._mtx:
+            self.enabled = False
+
+    def reset(self, capacity: Optional[int] = None) -> None:
+        with self._mtx:
+            self._configure(capacity if capacity is not None else self.capacity)
+
+    def dropped(self) -> int:
+        """Spans overwritten by ring wraparound since the last reset."""
+        with self._mtx:
+            return max(0, self._next - self.capacity)
+
+    def __len__(self) -> int:
+        with self._mtx:
+            return min(self._next, self.capacity)
+
+    # recording -------------------------------------------------------------
+    def span(self, name: str, **args) -> object:
+        if not self.enabled:
+            return _NOOP
+        return _Span(self, name, args)
+
+    def instant(self, name: str, **args) -> None:
+        if not self.enabled:
+            return
+        t = _now_ns()
+        self.record(name, t, None, args)
+
+    def record(self, name: str, t0_ns: int, t1_ns: Optional[int],
+               args: dict) -> None:
+        """t1_ns None marks an instant event.  Called from arbitrary threads;
+        the lock covers one list store + one increment."""
+        if not self.enabled:
+            return
+        ident = threading.get_ident()
+        tname = threading.current_thread().name
+        with self._mtx:
+            self._buf[self._next % self.capacity] = (
+                name, t0_ns, t1_ns, ident, tname, args
+            )
+            self._next += 1
+
+    # export ----------------------------------------------------------------
+    def export(self) -> List[dict]:
+        """Chrome trace-event list, oldest first.  ts/dur are microseconds
+        (the trace-event spec's unit); tid carries the Python thread ident
+        with thread names emitted as metadata events."""
+        with self._mtx:
+            n = self._next
+            if n <= self.capacity:
+                records = [r for r in self._buf[:n]]
+            else:
+                cut = n % self.capacity
+                records = self._buf[cut:] + self._buf[:cut]
+        pid = os.getpid()
+        events: List[dict] = []
+        seen_tids = {}
+        for rec in records:
+            if rec is None:
+                continue
+            name, t0, t1, tid, tname, args = rec
+            seen_tids.setdefault(tid, tname)
+            ev = {
+                "name": name,
+                "cat": name.split(".", 1)[0],
+                "pid": pid,
+                "tid": tid,
+                "ts": t0 / 1000.0,
+            }
+            if t1 is None:
+                ev["ph"] = "i"
+                ev["s"] = "t"
+            else:
+                ev["ph"] = "X"
+                ev["dur"] = (t1 - t0) / 1000.0
+            if args:
+                ev["args"] = args
+            events.append(ev)
+        meta = [
+            {
+                "name": "thread_name", "ph": "M", "pid": pid, "tid": tid,
+                "args": {"name": tname},
+            }
+            for tid, tname in seen_tids.items()
+        ]
+        return meta + events
+
+    def chrome_trace(self) -> dict:
+        return {"traceEvents": self.export(), "displayTimeUnit": "ms"}
+
+
+# -- module-level default tracer ------------------------------------------------
+
+_tracer = Tracer(
+    int(os.environ.get("TM_TRACE_BUFFER", "") or DEFAULT_CAPACITY)
+)
+if os.environ.get("TM_TRACE", "") not in ("", "0"):
+    _tracer.enable()
+
+
+def get_tracer() -> Tracer:
+    return _tracer
+
+
+def enabled() -> bool:
+    return _tracer.enabled
+
+
+def enable(capacity: Optional[int] = None) -> None:
+    _tracer.enable(capacity)
+
+
+def disable() -> None:
+    _tracer.disable()
+
+
+def reset(capacity: Optional[int] = None) -> None:
+    _tracer.reset(capacity)
+
+
+def dropped() -> int:
+    return _tracer.dropped()
+
+
+def span(name: str, **args) -> object:
+    """`with trace.span("fastsync.window", h0=.., n=..): ...` — returns the
+    shared no-op when disabled (zero allocation beyond the kwargs the caller
+    already built)."""
+    if not _tracer.enabled:
+        return _NOOP
+    return _Span(_tracer, name, args)
+
+
+def instant(name: str, **args) -> None:
+    if not _tracer.enabled:
+        return
+    _tracer.instant(name, **args)
+
+
+def export() -> List[dict]:
+    return _tracer.export()
+
+
+def chrome_trace() -> dict:
+    return _tracer.chrome_trace()

@@ -184,3 +184,89 @@ def test_secp256k1_verify_batch_on_cuda_vs_oracle(cuda):
     got = sc.verify_batch(pubs, digs, sigs, device=cuda)
     want = [ts.verify(p, d, g) for p, d, g in zip(pubs, digs, sigs)]
     assert got.tolist() == want == [verdicts[i] for i in range(len(pubs))]
+
+
+def _ragged_signed_window():
+    """A ragged window (valsets of 1, 4 and 16, two message lengths) with a
+    flipped bit, an absent vote and a 63-byte signature."""
+    rng = np.random.default_rng(21)
+    votes, powers, totals = [], [], []
+    for h, V in enumerate((1, 4, 16, 4)):
+        vrow, prow = [], []
+        for v in range(V):
+            priv = ted.gen_privkey(rng.bytes(32))
+            msg = b"cuda-window-%02d-%02d" % (h, v) + b"x" * (20 * (v % 2))
+            sig = ted.sign(priv, msg)
+            if (h, v) == (2, 3):
+                sig = sig[:40] + bytes([sig[40] ^ 2]) + sig[41:]
+            if (h, v) == (2, 7):
+                sig = sig[:63]
+            vrow.append(None if (h, v) == (1, 1) else (priv[32:], msg, sig))
+            prow.append(1 + h + v)
+        votes.append(vrow)
+        powers.append(prow)
+        totals.append(sum(prow))
+    return votes, powers, totals
+
+
+@pytest.mark.parametrize("reduce", ["device", "host"])
+def test_planner_executor_on_cuda_equals_its_cpu_run(cuda, reduce):
+    from tendermint_tpu_torch.parallel import planner
+
+    votes, powers, totals = _ragged_signed_window()
+    planner.set_reduce_mode(reduce)
+    try:
+        plain = planner.device_executor("cpu")(planner.plan_window(votes, powers, totals))
+        before = dict(ec.launches)
+        got = planner.device_executor(cuda)(planner.plan_window(votes, powers, totals))
+        if cuda.type == "cuda":  # two message lengths: two groups
+            for name in ("ed25519_prologue", "ed25519_ladder"):
+                assert ec.launches[name] == before[name] + 2
+    finally:
+        planner.set_reduce_mode("device")
+    for k in ("ok", "tally", "committed", "sigs_ok"):
+        assert np.array_equal(getattr(got, k), getattr(plain, k)), k
+    assert got.sigs_ok.tolist() == [True, True, False, True]
+    assert got.lanes_dispatched == 64
+
+
+def test_planner_device_tally_equals_host_reduce(cuda):
+    from tendermint_tpu_torch.parallel import planner
+
+    votes, powers, totals = _ragged_signed_window()
+    plan = planner.plan_window(votes, powers, totals)
+    pack = planner.pack_device(plan, cuda)
+    ok = planner._planner_step(pack, "host")
+    before = planner.tally_launches["planner_tally"]
+    tally, committed, nbad = planner.segment_tally(
+        ok, pack.power, pack.is_vote, pack.seg_ids, pack.totals)
+    assert planner.tally_launches["planner_tally"] == before + 1
+    assert tally.dtype == torch.int64 and tally.device.type == "cuda"
+    want = planner._host_reduce(plan, ok.cpu().numpy()[: plan.n_lanes])
+    for g, w in zip((tally, committed, nbad), want):
+        assert np.array_equal(g.cpu().numpy()[: plan.H], w)
+
+
+def test_guarded_verifier_on_cuda_raises_rather_than_use_the_host(cuda, monkeypatch):
+    from tendermint_tpu_torch.crypto import batch as tbatch
+    from tendermint_tpu_torch.libs import breaker as brk
+
+    class NoHost:
+        def __getattr__(self, name):
+            raise AssertionError(f"the guard called the host's {name} on the card")
+
+    def boom(*a, **k):
+        raise RuntimeError("kernel launch failed")
+
+    pubs, msgs, sigs = _window()
+    g = tbatch.GuardedBatchVerifier(
+        tbatch.TorchBatchVerifier(cuda), host=NoHost(), retries=1, audit_rate=1.0,
+        breaker=brk.CircuitBreaker(threshold=2, backoff_base=60.0))
+    assert g.on_card
+    rows = [bytes(p) for p in pubs], msgs, [bytes(s) for s in sigs]
+    assert np.array_equal(g.verify_ed25519_raw(*rows),
+                          tbatch.TorchBatchVerifier("cpu").verify_ed25519_raw(*rows))
+    monkeypatch.setattr(ec, "verify_batch", boom)
+    with pytest.raises(brk.DeviceDispatchError) as e:
+        g.verify_ed25519_raw(*rows)
+    assert e.value.reason == "error" and g.breaker.state == brk.OPEN
