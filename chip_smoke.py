@@ -68,7 +68,42 @@ Phases, in order; any failure exits non-zero:
              audit), K1 and K2 at the window's b against their plain
              versions, and the tally's device time beside its byte bound
              on a ``torch_ops`` JSON line of its own (the tally is torch
-             int64 ops, not a kernel).
+             int64 ops, not a kernel);
+  11. backfill the window of phase 10 streamed as state sync's backfill
+             streams it (statesync/syncer.py): 16 sub-windows of 32 heights
+             through planner.WindowPipeline(use_device=True,
+             depth=pipeline_depth()), the worker planning ahead while the
+             guarded executor packs, uploads and dispatches. 16 verdicts
+             whose concatenation equals phase 10's verdict; K1 and K2 once
+             a sub-window and message-length group, the tally once a
+             sub-window, and on the first sub-window's launch inputs exact
+             against their plain versions; no device fallback, the breaker
+             closed, no audit mismatch. p50 wall over 3 calls against the
+             flat window's, beside the sums of its plan, pack, dispatch and
+             audit spans (each including its waits for the interpreter
+             lock);
+  12. rpc    the RPC ?verify=1 burst (rpc/core/env.py): 64 threads each
+             submit one row of the window (heights 0-63) to one
+             planner.LaneFeed(profile_kind="rpc_lane_feed") on its defaults
+             (2 ms window, 64 rows, the verifier route: the root's guarded
+             verifier, K1 -> K2). Every row verdict equals phase 10's row;
+             K1 and K2 once a feed dispatch, and on the first dispatch's
+             launch inputs exact against their plain versions; no fallback,
+             the breaker closed.
+             p50 burst wall over 3 bursts with its audit span. Then 8
+             concurrent verify_commit calls on 8 heights' commits through
+             frontend.aggregator.BatchingVerifier(feed), each ending as a
+             direct verify_commit on the same commit does;
+  13. multisig BASELINE.json config 5: 1,000 validators, each a 3-of-5
+             ed25519 threshold key (testutil/multisig.py, seed 7), through
+             verify_generic with an explicit TorchBatchVerifier() and then
+             the root's guarded verifier: all accept, 3,000 sub-signatures
+             in one K1 and one K2 launch a call, exact against their plain
+             versions on that launch's inputs; with one sub-signature
+             flipped and one aggregate below its threshold, exactly those two
+             rows reject and host_fallback{multisig_structural} rises by 1.
+             p50 walls of both verifiers, the host's flatten-and-unmarshal
+             time and the guarded call's audit span.
 
 Each path's launch counts are set to 0 just before it and read just after.
 The line before the last two is the ``kernels`` JSON, then the card's name
@@ -78,11 +113,13 @@ CUDA device is present.
 
 from __future__ import annotations
 
+import contextlib
 import hashlib
 import json
 import statistics
 import subprocess
 import sys
+import threading
 import time
 
 import numpy as np
@@ -91,9 +128,15 @@ import torch
 from tendermint_tpu_torch.config.verify import VerifyConfig
 from tendermint_tpu_torch.crypto import ed25519 as ed
 from tendermint_tpu_torch.crypto import secp256k1 as secp
-from tendermint_tpu_torch.crypto.batch import SigItem, TorchBatchVerifier, get_batch_verifier
+from tendermint_tpu_torch.crypto.batch import (
+    SigItem,
+    TorchBatchVerifier,
+    get_batch_verifier,
+    verify_generic,
+)
 from tendermint_tpu_torch.crypto.hashing import sha256
 from tendermint_tpu_torch.crypto.keys import PubKeyEd25519, PubKeySecp256k1
+from tendermint_tpu_torch.frontend.aggregator import BatchingVerifier
 from tendermint_tpu_torch.libs import breaker, trace
 from tendermint_tpu_torch.libs.metrics import get_verify_metrics
 from tendermint_tpu_torch.node.verify_root import configure_verify
@@ -104,6 +147,7 @@ from tendermint_tpu_torch.ops import imad_probe
 from tendermint_tpu_torch.ops import secp256k1_cuda as sc
 from tendermint_tpu_torch.parallel import planner
 from tendermint_tpu_torch.testutil import commit as tc
+from tendermint_tpu_torch.testutil import multisig as tm
 from tendermint_tpu_torch.testutil import secp_signer
 from tendermint_tpu_torch.testutil import window as tw
 from tendermint_tpu_torch.types.validator_set import CommitError
@@ -126,6 +170,13 @@ TIME_ITERS = 20
 WINDOW_H, WINDOW_V = 512, 64
 WINDOW_REPS = 3
 ORACLE_LANES = 256
+# state sync's backfill sub-window (statesync/syncer.py BACKFILL_SUBWINDOW)
+BACKFILL_SUBWINDOW = 32
+# the RPC burst: one row per concurrent ?verify=1 query, heights 0-63
+RPC_ROWS = 64
+RPC_COMMITS = 8
+MULTISIG_VALS = tm.N_VALS  # BASELINE.json config 5: 1k multisig validators
+RESULT_TIMEOUT = 300.0
 
 # Rates for the least time the card could take: HBM bandwidth (H100 SXM
 # data sheet); 32-bit integer add, logic, shift and multiply-add each retire
@@ -220,6 +271,43 @@ def max_abs_diff(a_list, b_list) -> int:
         d = (a.to(torch.int64) - b.to(torch.int64)).abs().max().item() if a.numel() else 0
         worst = max(worst, int(d))
     return worst
+
+
+@contextlib.contextmanager
+def captured_packs():
+    """Record the K1 + K2 inputs of every message-length group packed while
+    active: ``ed25519_cuda.packed_inputs``, which the planner's device
+    executor and ``TorchBatchVerifier`` both call for each launch. Records
+    only; launches nothing."""
+    packs, real = [], ec.packed_inputs
+
+    def record(*args, **kwargs):
+        out = real(*args, **kwargs)
+        packs.append(out[0])
+        return out
+
+    ec.packed_inputs = record
+    try:
+        yield packs
+    finally:
+        ec.packed_inputs = real
+
+
+def hold_k1_k2(inputs, err: dict, what: str) -> tuple:
+    """K1 and K2 on one launch's packed inputs against their plain versions,
+    exact; the differences fold into ``err`` (the kernels line). Returns
+    (b, K1's inputs, K2's inputs)."""
+    consts, negax, ay, pubw, sigw, tmpl, vidx, vwords = inputs
+    k1_in = (tmpl, vidx, vwords, pubw, sigw)
+    k1_out = ec.prologue(*k1_in)
+    err["ed25519_prologue"] = max(err["ed25519_prologue"],
+                                  max_abs_diff(k1_out, ec.prologue_ref(*k1_in)))
+    k2_in = (consts, negax, ay) + tuple(k1_out)
+    k2_out = ec.ladder(*k2_in)
+    err["ed25519_ladder"] = max(err["ed25519_ladder"],
+                                max_abs_diff(k2_out, ec.ladder_ref(*k2_in)))
+    check(max(err.values()) == 0, f"{what}: kernel differs from its plain version: {err}")
+    return negax.shape[1], k1_in, k2_in
 
 
 def as_arrays(pubs, sigs):
@@ -831,7 +919,7 @@ def phase_window(root, dev, err: dict) -> dict:
           f"{time.perf_counter() - t0:.1f} s", flush=True)
     # planted faults: at V = 64, 21 dropped precommits leave 430 of 640
     # (> 426.67: commits), 22 leave 420 (does not)
-    hs = [WINDOW_H * k // 6 for k in range(1, 6)]
+    hs = [WINDOW_H * k // 6 for k in range(1, 6)]  # 85, 170, 256, 341, 426 at H = 512
     most = -(-WINDOW_V // 3) - 1  # the most precommits a height may miss and commit
     tw.flip_bit(win, hs[0], WINDOW_V // 9)
     tw.drop_precommits(win, hs[1], most)
@@ -849,8 +937,7 @@ def phase_window(root, dev, err: dict) -> dict:
           flush=True)
 
     plan = planner.plan_window(votes, powers, totals)
-    lens = {len(plan.msgs[j]) for j in np.flatnonzero(plan.wellformed)}
-    n_groups = len(lens)
+    n_groups = n_length_groups(votes)
     before = fallbacks()
     audit_ok0 = audits("ok")
     results = {}
@@ -890,17 +977,8 @@ def phase_window(root, dev, err: dict) -> dict:
     pack_ms = (time.perf_counter() - t0) * 1e3
     B, S = pack.shape
     lanes, m, inputs = pack.groups[0]
-    consts, negax, ay, pubw, sigw, tmpl, vidx, vwords = inputs
-    b = negax.shape[1]
-    k1_in = (tmpl, vidx, vwords, pubw, sigw)
-    k1_out = ec.prologue(*k1_in)
-    err["ed25519_prologue"] = max(err["ed25519_prologue"],
-                                  max_abs_diff(k1_out, ec.prologue_ref(*k1_in)))
-    k2_in = (consts, negax, ay) + tuple(k1_out)
-    k2_out = ec.ladder(*k2_in)
-    err["ed25519_ladder"] = max(err["ed25519_ladder"],
-                                max_abs_diff(k2_out, ec.ladder_ref(*k2_in)))
-    check(max(err.values()) == 0, f"kernel differs from its plain version: {err}")
+    vwords = inputs[7]
+    b, k1_in, k2_in = hold_k1_k2(inputs, err, "window")
     k1_ms = cuda_ms(lambda: ec.prologue(*k1_in))
     k2_ms = cuda_ms(lambda: ec.ladder(*k2_in))
     ok = planner._planner_step(pack, "host")
@@ -925,6 +1003,7 @@ def phase_window(root, dev, err: dict) -> dict:
     return {
         "routes": {r: {k: v for k, v in res.items() if k != "verdict"}
                    for r, res in results.items()},
+        "win": win, "rows": (votes, powers, totals), "verdict": a, "fault_heights": hs,
         "k1_ms": k1_ms, "k2_ms": k2_ms, "b": b,
         "tally": {"name": "planner_tally", "route": "torch",
                   "source": "tendermint_tpu_torch/parallel/planner.py",
@@ -934,6 +1013,301 @@ def phase_window(root, dev, err: dict) -> dict:
                   "bound_ms": tally_bound_ms,
                   "bound_by": "bytes", "B": B, "S": S},
     }
+
+
+VERDICT_KEYS = ("ok", "tally", "committed", "sigs_ok")
+
+
+def n_length_groups(votes) -> int:
+    """Message-length groups of a window's wellformed lanes: the device
+    route launches K1 and K2 once for each."""
+    plan = planner.plan_window(votes, [[0] * len(r) for r in votes], [0] * len(votes))
+    return len({len(plan.msgs[j]) for j in np.flatnonzero(plan.wellformed)})
+
+
+def backfill_specs(votes, powers, totals):
+    """State sync's sub-windows, generated as statesync/syncer.py does."""
+    for s in range(0, len(votes), BACKFILL_SUBWINDOW):
+        e = s + BACKFILL_SUBWINDOW
+        yield votes[s:e], powers[s:e], totals[s:e]
+
+
+def run_pipeline(specs):
+    it = planner.WindowPipeline(use_device=True, depth=planner.pipeline_depth()).run(specs)
+    try:
+        return list(it)
+    finally:
+        it.close()
+
+
+def phase_backfill(window, err: dict) -> dict:
+    votes, powers, totals = window["rows"]
+    n_sub = -(-len(votes) // BACKFILL_SUBWINDOW)
+    phase(f"backfill: the {len(votes)}-height window as {n_sub} sub-windows of "
+          f"{BACKFILL_SUBWINDOW} heights through WindowPipeline (depth "
+          f"{planner.pipeline_depth()})")
+    groups = sum(n_length_groups(v) for v, _, _ in backfill_specs(votes, powers, totals))
+    before = fallbacks()
+    audit_ok0 = audits("ok")
+    reset_launches()
+    planner.tally_launches["planner_tally"] = 0
+    t0 = time.perf_counter()
+    with captured_packs() as packs:
+        verdicts = run_pipeline(backfill_specs(votes, powers, totals))
+    first_s = time.perf_counter() - t0
+    launches = {**read_launches(), **planner.tally_launches}
+    b, _, _ = hold_k1_k2(packs[0], err, "backfill")
+    check(len(verdicts) == n_sub, f"{len(verdicts)} sub-window verdicts, want {n_sub}")
+    for name in ("ed25519_prologue", "ed25519_ladder"):
+        check(launches[name] == groups, f"backfill launched {name} {launches[name]} times, "
+              f"want {groups} (one a sub-window and message-length group)")
+    check(launches["secp256k1_ladder"] == 0, "K3 launched on the backfill")
+    check(launches["planner_tally"] == n_sub, f"tally launches {launches['planner_tally']}")
+    want = window["verdict"]
+    for k in VERDICT_KEYS:
+        got = np.concatenate([getattr(v, k) for v in verdicts])
+        check(np.array_equal(got, getattr(want, k)),
+              f"backfill {k} differs from the window's verify_window verdict")
+    spans = ("planner.pack", "planner.pack_device", "planner.dispatch", "planner.audit")
+    walls, parts = [], {n: [] for n in spans}
+    trace.enable()
+    try:
+        for _ in range(WINDOW_REPS):
+            trace.reset()
+            t0 = time.perf_counter()
+            again = run_pipeline(backfill_specs(votes, powers, totals))
+            walls.append(time.perf_counter() - t0)
+            for n, v in span_seconds(spans).items():
+                parts[n].append(v)
+            for k in VERDICT_KEYS:
+                check(all(np.array_equal(getattr(a, k), getattr(b, k))
+                          for a, b in zip(again, verdicts)), f"backfill {k} changed")
+    finally:
+        trace.disable()
+    check_guard_clean(before, "backfill")
+    check(audits("ok") > audit_ok0, "no audited lane on the backfill")
+    p50 = statistics.median(walls)
+    part_s = {n: statistics.median(v) for n, v in parts.items()}
+    flat = window["routes"]["device"]["p50_s"]
+    print(f"  {n_sub} verdicts equal the window's; first {first_s * 1e3:.1f} ms; p50 "
+          f"{p50 * 1e3:.1f} ms over {WINDOW_REPS}, {p50 / flat - 1:+.1%} against the flat "
+          f"window's device route ({flat * 1e3:.1f} ms); launches {launches}; no fallback; "
+          f"breaker closed", flush=True)
+    print(f"  K1/K2 exact against their plain versions on the first sub-window's launch "
+          f"inputs, b = {b}", flush=True)
+    print(f"  spans (p50 of the sums over a call, each including its waits for the "
+          f"interpreter lock): plan in the worker (planner.pack) "
+          f"{part_s['planner.pack'] * 1e3:.1f} ms; in the guarded executor, pack + upload "
+          f"(planner.pack_device) {part_s['planner.pack_device'] * 1e3:.1f} ms and dispatch "
+          f"(planner.dispatch) {part_s['planner.dispatch'] * 1e3:.1f} ms; audit "
+          f"(planner.audit) {part_s['planner.audit'] * 1e3:.1f} ms; plan + pack "
+          f"{(part_s['planner.pack'] + part_s['planner.pack_device']) * 1e3:.1f} ms and all four "
+          f"{sum(part_s.values()) * 1e3:.1f} ms against the wall {p50 * 1e3:.1f} ms",
+          flush=True)
+    return {"first_s": first_s, "p50_s": p50, "parts": part_s, "launches": launches}
+
+
+def rpc_burst(rows, totals, heights):
+    """One burst: a thread per height submits its row to one fresh LaneFeed
+    on its defaults, all released together; returns (verdicts, wall s,
+    feed)."""
+    feed = planner.LaneFeed(profile_kind="rpc_lane_feed")
+    out = [None] * len(heights)
+    errors = []
+    gate = threading.Barrier(len(heights) + 1)
+
+    def query(i, h):
+        try:
+            vrow, prow = rows[h]
+            gate.wait(RESULT_TIMEOUT)
+            out[i] = feed.submit(vrow, prow, totals[h]).result(RESULT_TIMEOUT)
+        except BaseException as e:  # reported by the caller
+            errors.append(e)
+
+    ts = [threading.Thread(target=query, args=(i, h)) for i, h in enumerate(heights)]
+    try:
+        for t in ts:
+            t.start()
+        gate.wait(RESULT_TIMEOUT)
+        t0 = time.perf_counter()
+        for t in ts:
+            t.join(RESULT_TIMEOUT)
+        wall = time.perf_counter() - t0
+    finally:
+        feed.close()
+    check(not errors, f"rpc query failed: {errors[:1]}")
+    check(not any(t.is_alive() for t in ts), "an rpc query did not finish")
+    return out, wall, feed
+
+
+def commit_outcome(fn):
+    try:
+        fn()
+    except CommitError as e:
+        return str(e)
+    return None
+
+
+def phase_rpc(root, window, err: dict) -> dict:
+    phase(f"rpc: a burst of {RPC_ROWS} concurrent ?verify=1 rows through one LaneFeed, then "
+          f"{RPC_COMMITS} concurrent verify_commit calls through BatchingVerifier")
+    votes, powers, totals = window["rows"]
+    want = window["verdict"]
+    rows = list(zip(votes, powers))
+    heights = list(range(RPC_ROWS))
+    groups = n_length_groups([votes[h] for h in heights])
+    before = fallbacks()
+    reset_launches()
+    with captured_packs() as packs:
+        got, first_wall, feed = rpc_burst(rows, totals, heights)
+    launches = read_launches()
+    b, _, _ = hold_k1_k2(packs[0], err, "rpc burst")
+    for i, h in enumerate(heights):
+        v = got[i]
+        check(np.array_equal(v.ok, want.ok[h, :len(votes[h])]) and v.tally == want.tally[h]
+              and v.committed == bool(want.committed[h]) and v.sigs_ok == bool(want.sigs_ok[h]),
+              f"rpc row {h} differs from the window's verdict")
+    for name in ("ed25519_prologue", "ed25519_ladder"):
+        check(launches[name] == groups * feed.dispatches,
+              f"rpc burst launched {name} {launches[name]} times for {feed.dispatches} dispatches")
+    check(launches["secp256k1_ladder"] == 0, "K3 launched on the rpc burst")
+    shapes = [(feed.dispatches, feed.windows_out)]
+    walls, audit_s = [], []
+    trace.enable()
+    try:
+        for _ in range(WINDOW_REPS):
+            trace.reset()
+            again, wall, f = rpc_burst(rows, totals, heights)
+            walls.append(wall)
+            audit_s.append(span_seconds(("verify.audit",))["verify.audit"])
+            shapes.append((f.dispatches, f.windows_out))
+            check(all(np.array_equal(a.ok, b.ok) for a, b in zip(again, got)),
+                  "rpc verdicts changed between bursts")
+    finally:
+        trace.disable()
+    check_guard_clean(before, "rpc burst")
+    p50 = statistics.median(walls)
+    print(f"  {RPC_ROWS} row verdicts equal the window's; first burst {first_wall * 1e3:.1f} ms; "
+          f"p50 {p50 * 1e3:.1f} ms over {WINDOW_REPS}, audit (verify.audit) p50 "
+          f"{statistics.median(audit_s) * 1e3:.1f} ms; (dispatches, windows_out) per burst "
+          f"{shapes}; first burst's launches {launches}; no fallback; breaker closed",
+          flush=True)
+    print(f"  K1/K2 exact against their plain versions on the first feed dispatch's launch "
+          f"inputs, b = {b}", flush=True)
+
+    # concurrent commits through one BatchingVerifier: each ends as a direct
+    # verify_commit on the same commit does (returns, or the same error)
+    win = window["win"]
+    hs = window["fault_heights"]
+    # clean heights, and the flipped bit, the two drops and the 63-byte
+    # signature of phase 10 (not its all-absent height: no commit to check)
+    cases = sorted({0, 1, *hs[:4], len(votes) // 5, len(votes) // 2 + 1})[:RPC_COMMITS]
+
+    def verify(h, verifier):
+        return commit_outcome(lambda: win.valset.verify_commit(
+            win.chain_id, win.block_ids[h], win.height0 + h, win.commits[h], verifier=verifier))
+
+    direct = [verify(h, root.verifier) for h in cases]
+    feed = planner.LaneFeed(profile_kind="rpc_lane_feed")
+    bv = BatchingVerifier(feed, result_timeout=RESULT_TIMEOUT)
+    batched = [None] * len(cases)
+
+    def run(i):
+        batched[i] = verify(cases[i], bv)
+
+    ts = [threading.Thread(target=run, args=(i,)) for i in range(len(cases))]
+    try:
+        for t in ts:
+            t.start()
+        for t in ts:
+            t.join(RESULT_TIMEOUT)
+    finally:
+        feed.close()
+    check(not any(t.is_alive() for t in ts), "a verify_commit through the feed did not finish")
+    check(batched == direct, f"BatchingVerifier outcomes {batched} != direct {direct}")
+    check(any(d is None for d in direct) and any(d is not None for d in direct),
+          "the commit cases should both pass and fail")
+    check_guard_clean(before, "BatchingVerifier commits")
+    print(f"  {len(cases)} verify_commit calls at heights {cases} through BatchingVerifier end as "
+          f"direct calls do: {direct}; feed rows {feed.rows_in}, dispatches {feed.dispatches}",
+          flush=True)
+    return {"first_s": first_wall, "p50_s": p50, "launches": launches, "shapes": shapes}
+
+
+def drive_multisig(ms, verifier, n_sigs: int, what: str, err: dict):
+    """verify_generic over the multisig set: one first call with the launch
+    counts set to 0 just before and read just after (K1 and K2 once), K1
+    and K2 then held against their plain versions on that launch's inputs,
+    then WINDOW_REPS traced calls; returns the launches, first and p50 ms,
+    the p50 audit ms and the launch's b."""
+    reset_launches()
+    t0 = time.perf_counter()
+    with captured_packs() as packs:
+        ok = verify_generic(ms.pubkeys, ms.msgs, ms.sigs, verifier=verifier)
+    first_ms = (time.perf_counter() - t0) * 1e3
+    launches = read_launches()
+    b, _, _ = hold_k1_k2(packs[0], err, what)
+    check(bool(ok.all()), f"{what}: {int((~ok).sum())} valid aggregates rejected")
+    for name in ("ed25519_prologue", "ed25519_ladder"):
+        check(launches[name] == 1, f"{what}: {name} launched {launches[name]} times for "
+              f"{n_sigs} sub-signatures, want 1")
+    check(launches["secp256k1_ladder"] == 0, f"{what}: K3 launched")
+    walls, audit_ms = [], []
+    trace.enable()
+    try:
+        for _ in range(WINDOW_REPS):
+            trace.reset()
+            t0 = time.perf_counter()
+            verify_generic(ms.pubkeys, ms.msgs, ms.sigs, verifier=verifier)
+            walls.append(time.perf_counter() - t0)
+            audit_ms.append(span_seconds(("verify.audit",))["verify.audit"] * 1e3)
+    finally:
+        trace.disable()
+    return launches, first_ms, statistics.median(walls) * 1e3, statistics.median(audit_ms), b
+
+
+def structural_fallbacks() -> float:
+    return get_verify_metrics().host_fallback._values.get(("multisig_structural",), 0.0)
+
+
+def phase_multisig(root, err: dict) -> dict:
+    phase(f"multisig: {MULTISIG_VALS} validators, each a {tm.K}-of-{tm.N_KEYS} ed25519 "
+          f"threshold key, through verify_generic")
+    t0 = time.perf_counter()
+    ms = tm.build(MULTISIG_VALS)
+    print(f"  built and signed in {time.perf_counter() - t0:.1f} s", flush=True)
+    n_sigs = MULTISIG_VALS * tm.K
+    before = fallbacks()
+    plain = drive_multisig(ms, TorchBatchVerifier(), n_sigs, "TorchBatchVerifier", err)
+    guarded = drive_multisig(ms, root.verifier, n_sigs, "guarded verifier", err)
+    flatten_ms = host_p50_ms(lambda: [pk.flatten(m, s) for pk, m, s in
+                                      zip(ms.pubkeys, ms.msgs, ms.sigs)])
+    flip, below = MULTISIG_VALS // 3, 2 * MULTISIG_VALS // 3
+    sigs = list(ms.sigs)
+    sigs[flip] = tm.flip_sub_signature(sigs[flip], 1)
+    sigs[below] = tm.below_threshold(sigs[below])
+    s0 = structural_fallbacks()
+    reset_launches()
+    got = verify_generic(ms.pubkeys, ms.msgs, sigs, verifier=root.verifier)
+    faulted = read_launches()
+    check(np.flatnonzero(~got).tolist() == [flip, below],
+          f"rejected rows {np.flatnonzero(~got).tolist()}, want {[flip, below]}")
+    check(structural_fallbacks() == s0 + 1, "multisig_structural did not rise by 1")
+    check(faulted["ed25519_prologue"] == faulted["ed25519_ladder"] == 1,
+          f"faulted call launches {faulted}")
+    check_guard_clean(before, "multisig")
+    print(f"  TorchBatchVerifier(): all {MULTISIG_VALS} accept; {n_sigs} sub-signatures in one call, "
+          f"launches {plain[0]}; first {plain[1]:.1f} ms, p50 {plain[2]:.1f} ms over "
+          f"{WINDOW_REPS}; K1/K2 exact against their plain versions on its launch inputs, "
+          f"b = {plain[4]}", flush=True)
+    print(f"  guarded verifier (configuration root): all accept, launches {guarded[0]}; first "
+          f"{guarded[1]:.1f} ms, p50 {guarded[2]:.1f} ms, audit (verify.audit) p50 "
+          f"{guarded[3]:.1f} ms; flatten and unmarshal on the host p50 {flatten_ms:.1f} ms",
+          flush=True)
+    print(f"  a flipped sub-signature (row {flip}) and an aggregate below its threshold (row "
+          f"{below}) reject, nothing else; multisig_structural +1; launches {faulted}; no "
+          f"fallback; breaker closed", flush=True)
+    return {"plain": plain, "guarded": guarded, "flatten_ms": flatten_ms}
 
 
 def main() -> int:
@@ -976,6 +1350,9 @@ def main() -> int:
     default = phase_default_commit(root, ed_main["commit"])
     mixed = phase_mixed(root)
     window = phase_window(root, dev, err)
+    phase_backfill(window, err)
+    phase_rpc(root, window, err)
+    phase_multisig(root, err)
     print(f"  {smi_line}", flush=True)
 
     ms = {**ed_main["ms"], "secp256k1_ladder": secp_main["ms"]}

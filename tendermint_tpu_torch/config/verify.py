@@ -42,13 +42,12 @@ class VerifyConfig:
     # K1 + K2) or "msm" (one multi-scalar multiplication a window; not
     # ported yet, ROADMAP queue 1 item 6)
     ed25519_path: str = "ladder"
-    # WindowPipeline depth: packed windows allowed in flight ahead of the
-    # device. Parsed only: the pipeline is ROADMAP queue 1 item 4b, and
-    # nothing in the port reads it yet
+    # WindowPipeline depth: planned windows allowed in flight ahead of the
+    # device (planner.pipeline_depth)
     pipeline_depth: int = 2
     # multi-window superdispatch budget: how many independent small windows
-    # the planner may fold into one lane tile per device. Parsed only, as
-    # pipeline_depth (item 4b)
+    # a LaneFeed flush may fold into one lane tile per device
+    # (planner.windows_per_dispatch)
     windows_per_device: int = 4
     # where the per-height segment tallies reduce: "device" (int64
     # index_add_ on the card) or "host" (the step returns only the lane

@@ -11,19 +11,21 @@ mixed batch is split by key type and scattered back by index. The default
 verifier wraps the device verifier in the guard (breaker, deadline, retry,
 seeded audit against the host oracles; on the card a failed dispatch
 raises rather than completing on the host), and every dispatch is recorded in
-the ``tendermint_verify_*`` metrics. What later slices port (multisig keys,
-the MSM path) raises ``NotImplementedError`` naming the ROADMAP item,
-rather than running a host loop in its place.
+the ``tendermint_verify_*`` metrics. A k-of-n multisig aggregate flattens
+into the same ed25519 call. What a later slice ports (the MSM path) raises
+``NotImplementedError`` naming the ROADMAP item, rather than running a
+host loop in its place.
 """
 
 from __future__ import annotations
 
 import math
+import os
 import random
 import threading
 import time
 from dataclasses import dataclass
-from typing import Dict, NamedTuple, Optional, Sequence
+from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -31,6 +33,7 @@ from tendermint_tpu_torch.crypto import ed25519 as _ed
 from tendermint_tpu_torch.crypto import secp256k1 as _secp
 from tendermint_tpu_torch.crypto.hashing import sha256
 from tendermint_tpu_torch.crypto.keys import PubKeyEd25519, PubKeySecp256k1
+from tendermint_tpu_torch.crypto.multisig import PubKeyMultisigThreshold
 from tendermint_tpu_torch.device import DeviceLike, resolve_device
 from tendermint_tpu_torch.libs import breaker as _brk
 from tendermint_tpu_torch.libs import trace
@@ -421,13 +424,20 @@ def set_batch_verifier(v) -> None:
 
 
 def get_batch_verifier():
-    """The installed verifier, else ``GuardedBatchVerifier`` over a
-    ``TorchBatchVerifier`` on the current CUDA device. Without a card this
-    raises ``NoCudaDeviceError``: nothing latches the host path."""
+    """The installed verifier, else the one ``TM_BATCH_VERIFIER`` names
+    (the reference's deployment knob): ``host`` installs
+    ``HostBatchVerifier``, which an operator chose and which is not a
+    fallback; ``xla``, ``pallas`` or anything else install
+    ``GuardedBatchVerifier`` over a ``TorchBatchVerifier`` on the current
+    CUDA device. Without a card that raises ``NoCudaDeviceError``: nothing
+    latches the host path."""
     global _default
     with _lock:
         if _default is None:
-            _default = GuardedBatchVerifier(TorchBatchVerifier())
+            if os.environ.get("TM_BATCH_VERIFIER", "").lower() == "host":
+                _default = HostBatchVerifier()
+            else:
+                _default = GuardedBatchVerifier(TorchBatchVerifier())
         return _default
 
 
@@ -448,15 +458,28 @@ def verifier_info() -> dict:
     return info
 
 
+def _host_fallback(reason: str) -> None:
+    try:
+        get_verify_metrics().host_fallback.add(1.0, (reason,))
+    except Exception:
+        pass
+
+
 def verify_generic(pubkeys: Sequence, msgs: Sequence[bytes],
                    sigs: Sequence[bytes], verifier=None) -> np.ndarray:
     """Batch-verify over key objects, routed as the JAX package routes them:
     a homogeneous ed25519 batch with 64-byte signatures makes one column-form
     call (one ``verify_ed25519`` call over ``SigItem``s where the verifier
-    has no column form); otherwise ed25519 keys with 64-byte signatures go to
-    ``verify_ed25519`` (any other length is False: Go rejects it without
-    hashing), secp256k1 keys to ``verify_secp256k1``, and the verdicts are
-    scattered back by index."""
+    has no column form). Otherwise ed25519 keys with 64-byte signatures go
+    to one ``verify_ed25519`` call, and every k-of-n multisig aggregate
+    flattens into that call (each flagged signer's sub-signature; the
+    aggregate's verdict is the AND over its span); secp256k1 keys go to
+    ``verify_secp256k1``. A structurally bad aggregate, or one with fewer
+    flagged signers than k, is decided by its ``verify_bytes`` on the host
+    (``host_fallback{multisig_structural}``), as is any other key, such as
+    an ed25519 key with a signature that is not 64 bytes
+    (``{unbatchable_key}``): that host path is the reference's design, not a
+    device fallback."""
     if verifier is None:
         verifier = get_batch_verifier()
     if all(type(pk) is PubKeyEd25519 for pk in pubkeys) and all(
@@ -468,27 +491,36 @@ def verify_generic(pubkeys: Sequence, msgs: Sequence[bytes],
         items = [SigItem(pk.bytes(), m, s) for pk, m, s in zip(pubkeys, msgs, sigs)]
         return np.asarray(verifier.verify_ed25519(items), dtype=bool)
     out = np.zeros((len(pubkeys),), dtype=bool)
-    ed_idx, ed_items, sk_idx, sk_items = [], [], [], []
+    # (result index, position in ed_items): multisig sub-items interleave
+    ed_idx: List[Tuple[int, int]] = []
+    ed_items: List[SigItem] = []
+    sk_idx: List[int] = []
+    sk_items: List[SigItem] = []
+    ms_groups: List[Tuple[int, int, int]] = []  # (result index, start, count)
     for i, pk in enumerate(pubkeys):
-        if isinstance(pk, PubKeyEd25519):
-            if len(sigs[i]) == 64:
-                ed_idx.append(i)
-                ed_items.append(SigItem(pk.bytes(), msgs[i], sigs[i]))
-            else:  # the reference's host verify_bytes, which rejects it
-                try:
-                    get_verify_metrics().host_fallback.add(1.0, ("unbatchable_key",))
-                except Exception:
-                    pass
+        if isinstance(pk, PubKeyEd25519) and len(sigs[i]) == 64:
+            ed_idx.append((i, len(ed_items)))
+            ed_items.append(SigItem(pk.bytes(), msgs[i], sigs[i]))
         elif isinstance(pk, PubKeySecp256k1):
             sk_idx.append(i)
             sk_items.append(SigItem(pk.bytes(), msgs[i], sigs[i]))
+        elif isinstance(pk, PubKeyMultisigThreshold):
+            flat = pk.flatten(msgs[i], sigs[i])
+            if flat is None or len(flat) < pk.k:
+                _host_fallback("multisig_structural")
+                out[i] = pk.verify_bytes(msgs[i], sigs[i])
+                continue
+            ms_groups.append((i, len(ed_items), len(flat)))
+            ed_items.extend(SigItem(p, m, s) for p, m, s in flat)
         else:
-            raise NotImplementedError(
-                f"{type(pk).__name__} keys (multisig routing) are ported by "
-                "ROADMAP queue 1 item 9"
-            )
+            _host_fallback("unbatchable_key")
+            out[i] = pk.verify_bytes(msgs[i], sigs[i])
     if ed_items:
-        out[ed_idx] = verifier.verify_ed25519(ed_items)
+        res = np.asarray(verifier.verify_ed25519(ed_items), dtype=bool)
+        for i, pos in ed_idx:
+            out[i] = res[pos]
+        for i, start, cnt in ms_groups:
+            out[i] = bool(res[start: start + cnt].all())
     if sk_items:
         out[sk_idx] = verifier.verify_secp256k1(sk_items)
     return out

@@ -1,7 +1,7 @@
-"""Host-side hash functions the secp256k1 path needs: SHA-256 and
-RIPEMD-160 (the port's copy of those of the JAX package's
-``crypto/hashing.py``; RIPEMD160(SHA256(pubkey)) is the bitcoin-style
-address of crypto/secp256k1/secp256k1.go:121).
+"""Host-side hash functions: SHA-256, its 20-byte truncation (tmhash, the
+multisig address) and RIPEMD-160 (the port's copy of those of the JAX
+package's ``crypto/hashing.py``; RIPEMD160(SHA256(pubkey)) is the
+bitcoin-style address of crypto/secp256k1/secp256k1.go:121).
 """
 
 from __future__ import annotations
@@ -10,8 +10,16 @@ import hashlib
 import struct
 
 
+TRUNCATED_SIZE = 20  # crypto/tmhash/hash.go:27
+
+
 def sha256(data: bytes) -> bytes:
     return hashlib.sha256(data).digest()
+
+
+def tmhash_truncated(data: bytes) -> bytes:
+    """crypto/tmhash/hash.go:62 SumTruncated: the first 20 bytes of SHA-256."""
+    return hashlib.sha256(data).digest()[:TRUNCATED_SIZE]
 
 
 # ---------------------------------------------------------------------------

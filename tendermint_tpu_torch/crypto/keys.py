@@ -1,20 +1,45 @@
 """Public and private keys with the reference's address rules: ed25519
 (crypto/ed25519/ed25519.go:138: SHA-256(pubkey)[:20]) and secp256k1
-(crypto/secp256k1/secp256k1.go:121: RIPEMD160(SHA256(pubkey)))."""
+(crypto/secp256k1/secp256k1.go:121: RIPEMD160(SHA256(pubkey))).
+
+``PubKey`` is the interface of crypto/crypto.go:22-27 (Address, Bytes,
+VerifyBytes, Equals): the planner treats any lane key that is not a
+``PubKey`` as a raw ed25519 key, and ``crypto/multisig.py`` verifies its
+sub-keys through ``verify_bytes``, which runs the host oracles."""
 
 from __future__ import annotations
 
 import hashlib
+import hmac
 from dataclasses import dataclass
 
+from tendermint_tpu_torch.crypto import ed25519 as _ed
 from tendermint_tpu_torch.crypto import secp256k1 as _secp
 from tendermint_tpu_torch.crypto.hashing import ripemd160, sha256
 
 ADDRESS_SIZE = 20
 
 
+class PubKey:
+    type_name: str = ""
+
+    def address(self) -> bytes:
+        raise NotImplementedError
+
+    def bytes(self) -> bytes:
+        raise NotImplementedError
+
+    def verify_bytes(self, msg: bytes, sig: bytes) -> bool:
+        raise NotImplementedError
+
+    def equals(self, other: "PubKey") -> bool:
+        return type(self) is type(other) and hmac.compare_digest(
+            self.bytes(), other.bytes()
+        )
+
+
 @dataclass(frozen=True)
-class PubKeyEd25519:
+class PubKeyEd25519(PubKey):
     data: bytes  # 32 bytes
     type_name = "tendermint/PubKeyEd25519"
 
@@ -31,9 +56,12 @@ class PubKeyEd25519:
     def bytes(self) -> bytes:
         return self.data
 
+    def verify_bytes(self, msg: bytes, sig: bytes) -> bool:
+        return len(sig) == 64 and _ed._verify_pure(self.data, msg, sig)
+
 
 @dataclass(frozen=True)
-class PubKeySecp256k1:
+class PubKeySecp256k1(PubKey):
     data: bytes  # 33-byte compressed point
     type_name = "tendermint/PubKeySecp256k1"
 
@@ -47,6 +75,10 @@ class PubKeySecp256k1:
 
     def bytes(self) -> bytes:
         return self.data
+
+    def verify_bytes(self, msg: bytes, sig: bytes) -> bool:
+        # SHA-256-premixed message, DER signature, low s (secp256k1.go:140-153)
+        return _secp.verify(self.data, sha256(msg), sig)
 
 
 @dataclass(frozen=True)

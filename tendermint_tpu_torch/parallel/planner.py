@@ -34,25 +34,31 @@ on the host raises ``DeviceDispatchError``; the verifier route runs behind
 the installed verifier's own guard (``GuardedBatchVerifier``). The executor
 is a seam (``set_device_executor``): the configuration root
 (``node/verify_root.py``) installs it with its device.
-Not ported yet: ``WindowPipeline``, ``LaneFeed`` and the multi-GPU lane
-split (ROADMAP queue 1 item 4b).
+
+Two streaming entry points run windows through ``execute_plan``:
+``WindowPipeline`` (state sync's backfill sub-windows: a worker thread plans
+and packs window N+1 while window N dispatches) and ``LaneFeed`` (many
+callers with one row each, such as the RPC's ``?verify=1`` burst: rows that
+arrive within a deadline fold into one dispatch). Not ported yet: the
+multi-GPU lane split (ROADMAP queue 1 item 4b (iii)).
 """
 
 from __future__ import annotations
 
 import math
+import queue
 import random
 import threading
 import time
 from dataclasses import dataclass
-from typing import List, Optional, Sequence, Tuple
+from typing import Iterable, Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from tendermint_tpu_torch.crypto import ed25519 as _ed
 from tendermint_tpu_torch.crypto.batch import verify_generic
-from tendermint_tpu_torch.crypto.keys import PubKeyEd25519, PubKeySecp256k1
+from tendermint_tpu_torch.crypto.keys import PubKey, PubKeyEd25519
 from tendermint_tpu_torch.device import DeviceLike, resolve_device
 from tendermint_tpu_torch.libs import breaker as _brk
 from tendermint_tpu_torch.libs import trace
@@ -90,23 +96,50 @@ def segs_bucket(h: int) -> int:
 # Planner configuration ([verify] section, node/verify_root.py)
 # ---------------------------------------------------------------------------
 
+_DEFAULT_PIPELINE_DEPTH = 2
+_DEFAULT_WINDOWS_PER_DEVICE = 4
+
+_pipeline_depth = _DEFAULT_PIPELINE_DEPTH
+_windows_per_device = _DEFAULT_WINDOWS_PER_DEVICE
 _reduce_mode = "device"
 
 REDUCE_MODES = ("device", "host")
 
 
 def configure_planner(cfg=None) -> None:
-    """Apply the `[verify]` planner knob ``planner_reduce``
-    (config/verify.VerifyConfig); None restores the default.
-    ``pipeline_depth`` and ``windows_per_device`` steer ``WindowPipeline``
-    and the superdispatch, which are not ported yet (ROADMAP queue 1 item
-    4b): the section keeps them, and nothing here reads them."""
-    global _reduce_mode
+    """Apply the `[verify]` planner knobs (config/verify.VerifyConfig):
+    ``pipeline_depth`` (``WindowPipeline``), ``windows_per_device``
+    (``LaneFeed``'s superdispatch budget) and ``planner_reduce``; None
+    restores the defaults."""
+    global _pipeline_depth, _windows_per_device, _reduce_mode
+    if cfg is None:
+        _pipeline_depth = _DEFAULT_PIPELINE_DEPTH
+        _windows_per_device = _DEFAULT_WINDOWS_PER_DEVICE
+        _reduce_mode = "device"
+        return
+    _pipeline_depth = max(1, int(getattr(
+        cfg, "pipeline_depth", _DEFAULT_PIPELINE_DEPTH)))
+    _windows_per_device = max(1, int(getattr(
+        cfg, "windows_per_device", _DEFAULT_WINDOWS_PER_DEVICE)))
     mode = str(getattr(cfg, "planner_reduce", "device") or "device").lower()
     if mode not in REDUCE_MODES:
         raise ValueError(
             f"planner_reduce must be one of {REDUCE_MODES}, got {mode!r}")
     _reduce_mode = mode
+
+
+def pipeline_depth() -> int:
+    """Configured ``WindowPipeline`` depth (packed windows in flight)."""
+    return _pipeline_depth
+
+
+def windows_per_dispatch(mesh=None) -> int:
+    """How many independent windows one superdispatch folds: the configured
+    per-device budget (one card; a mesh is the multi-GPU split)."""
+    if mesh is not None:
+        raise NotImplementedError(
+            "a mesh (the multi-GPU lane split) is ported by ROADMAP queue 1 item 4b (iii)")
+    return _windows_per_device
 
 
 def reduce_mode() -> str:
@@ -126,7 +159,8 @@ def set_reduce_mode(mode: str) -> None:
 
 
 def _pub_bytes(pk) -> bytes:
-    """Raw key bytes for device packing: key objects expose .bytes()."""
+    """Raw key bytes of a lane key: key objects expose .bytes(); bytes-like
+    keys and numpy rows convert with bytes()."""
     b = getattr(pk, "bytes", None)
     return b() if callable(b) else bytes(pk)
 
@@ -166,9 +200,11 @@ class WindowPlan:
         return len(self.pubs)
 
     def all_ed25519(self) -> bool:
-        """True when every lane can ride the ed25519 kernels (raw keys or
-        ed25519 key objects; malformed lanes are handled either way)."""
-        return all(isinstance(pk, (bytes, bytearray, memoryview, PubKeyEd25519))
+        """True when every lane can ride the ed25519 kernels: any key that
+        is not a ``PubKey`` of another type counts as a raw ed25519 key
+        (bytes, numpy rows, key objects of other packages with .bytes());
+        malformed lanes are handled either way."""
+        return all(not isinstance(pk, PubKey) or isinstance(pk, PubKeyEd25519)
                    for pk in self.pubs)
 
 
@@ -469,7 +505,7 @@ def _execute_device(plan, mesh=None, *, device: torch.device) -> WindowVerdict:
     with one synchronisation (one ``.cpu()``)."""
     if mesh is not None:
         raise NotImplementedError(
-            "a mesh (the multi-GPU lane split) is ported by ROADMAP queue 1 item 4b")
+            "a mesh (the multi-GPU lane split) is ported by ROADMAP queue 1 item 4b (iii)")
     t_pack = time.perf_counter()
     with trace.span("planner.pack_device", H=plan.H, n=plan.n_lanes):
         pack = pack_device(plan, device)
@@ -567,8 +603,9 @@ def _execute_host(plan, verifier=None) -> WindowVerdict:
     tallies in int64 numpy (``_host_reduce``).
 
     Every present lane goes through verify_generic. The one structural
-    failure decided here: a raw key that is not 32 bytes cannot be any key
-    type we speak — its lane fails."""
+    failure decided here: a raw key (anything that is not a ``PubKey``)
+    that is not 32 bytes cannot be any key type we speak — its lane
+    fails."""
     t0 = time.perf_counter()
     n = plan.n_lanes
     ok_l = np.zeros((n,), dtype=bool)
@@ -577,9 +614,9 @@ def _execute_host(plan, verifier=None) -> WindowVerdict:
         pub_objs = []
         for j in range(n):
             pk = plan.pubs[j]
-            if not isinstance(pk, (PubKeyEd25519, PubKeySecp256k1)):
+            if not isinstance(pk, PubKey):
                 try:
-                    pk = PubKeyEd25519(bytes(pk))
+                    pk = PubKeyEd25519(_pub_bytes(pk))
                 except (ValueError, TypeError):
                     continue  # wrong-length raw key: lane stays failed
             idx.append(j)
@@ -636,6 +673,17 @@ def set_device_executor(fn=None) -> None:
     whatever is installed."""
     global _device_executor
     _device_executor = fn
+
+
+def _installed_executor():
+    return _device_executor if _device_executor is not None else _execute_default_device
+
+
+def _executor_on_card(exe) -> bool:
+    """The default executor (the current CUDA device) or one whose
+    ``.device`` is CUDA: where the guard raises rather than complete a
+    window on the host."""
+    return exe is _execute_default_device or _brk.on_card(exe)
 
 
 def _note_device_fallback(reason: str, plan, card: bool = False) -> None:
@@ -725,8 +773,8 @@ def _execute_device_guarded(plan, mesh=None, verifier=None) -> WindowVerdict:
     complete on the host the call raises ``DeviceDispatchError``."""
     br = _brk.get_device_breaker()
     cfg = _brk.guard_config()
-    exe = _device_executor if _device_executor is not None else _execute_default_device
-    card = exe is _execute_default_device or _brk.on_card(exe)
+    exe = _installed_executor()
+    card = _executor_on_card(exe)
     if not br.allow():
         reason = (
             "quarantined" if br.state == _brk.QUARANTINED else "breaker_open"
@@ -850,3 +898,305 @@ def rows_from_commit(precommits, pubkeys, msgs, sigs, powers):
             prow.append(powers[j])
             j += 1
     return vrow, prow
+
+
+# ---------------------------------------------------------------------------
+# Double-buffered window pipeline
+# ---------------------------------------------------------------------------
+
+
+class WindowPipeline:
+    """Overlap host planning and packing with dispatch across a stream of
+    windows (state sync's backfill sub-windows).
+
+    A worker thread named ``planner-pack`` runs ``plan_window`` for windows
+    N+1..N+depth while the consumer dispatches window N; a bounded queue
+    keeps at most ``depth`` planned windows in memory (``[verify]
+    pipeline_depth`` by default). The worker touches no device: the pack
+    and upload run inside the guarded executor, under its deadline, so a
+    failed or hung pack is a guarded failure of its window, never a stream
+    error or an unbounded wait. Exceptions from the spec iterator re-raise
+    at the consuming side, in order."""
+
+    def __init__(self, mesh=None, verifier=None,
+                 use_device: Optional[bool] = None,
+                 prefetch: Optional[int] = None,
+                 depth: Optional[int] = None):
+        self.mesh = mesh
+        self.verifier = verifier
+        self.use_device = use_device
+        # ``depth`` is the configured name, ``prefetch`` the reference's
+        # original spelling: both mean the same bound
+        d = depth if depth is not None else prefetch
+        self.prefetch = max(1, int(d) if d is not None else _pipeline_depth)
+
+    @property
+    def depth(self) -> int:
+        return self.prefetch
+
+    def _device_route(self, plan) -> bool:
+        dev = self.use_device if self.use_device is not None else self.mesh is not None
+        return bool(dev) and plan.all_ed25519()
+
+    def _execute_one(self, plan: WindowPlan) -> WindowVerdict:
+        """One window's dispatch. A device-route exception that escapes the
+        guard (a guard bug, an executor installed without it) must not
+        abandon the windows behind it: off the card this window completes
+        on the host and the stream goes on, as in the reference; on the card
+        the failure is recorded and this window raises
+        ``DeviceDispatchError``. Verifier-route exceptions re-raise: they
+        are input faults, not device faults."""
+        try:
+            return execute_plan(
+                plan, mesh=self.mesh, verifier=self.verifier,
+                use_device=self.use_device,
+            )
+        except _brk.DeviceDispatchError:
+            raise  # the guard on the card has recorded it already
+        except Exception as e:
+            if not self._device_route(plan):
+                raise
+            card = _executor_on_card(_installed_executor())
+            _brk.get_device_breaker().record_failure("pipeline_error")
+            _note_device_fallback("pipeline_error", plan, card)
+            if card:
+                raise _brk.DeviceDispatchError(
+                    "pipeline_error", f"pipelined window of {plan.H} heights") from e
+            return _execute_host(plan, verifier=self.verifier)
+
+    def run(
+        self, specs: Iterable[Tuple[Sequence, Sequence, Sequence]]
+    ) -> Iterator[WindowVerdict]:
+        q: "queue.Queue" = queue.Queue(maxsize=self.prefetch)
+        stop = threading.Event()
+
+        def _put(item) -> bool:
+            """Bounded put that gives up when the consumer is gone: a syncer
+            that rejects a snapshot abandons this generator mid-stream, and
+            a plain put would park the worker on the full queue forever,
+            holding up to ``prefetch`` planned windows."""
+            while not stop.is_set():
+                try:
+                    q.put(item, timeout=0.1)
+                    return True
+                except queue.Full:
+                    continue
+            return False
+
+        def worker():
+            try:
+                for votes, powers, totals in specs:
+                    if stop.is_set():
+                        return
+                    t0 = time.perf_counter()
+                    with trace.span("planner.pack", H=len(votes)):
+                        plan = plan_window(votes, powers, totals)
+                    plan.pack_seconds = time.perf_counter() - t0
+                    if not _put(("plan", plan)):
+                        return
+            except BaseException as e:  # re-raised on the consumer side
+                _put(("err", e))
+            else:
+                _put(("done", None))
+
+        threading.Thread(target=worker, name="planner-pack", daemon=True).start()
+        try:
+            while True:
+                kind, item = q.get()
+                if kind == "done":
+                    return
+                if kind == "err":
+                    raise item
+                yield self._execute_one(item)
+        finally:
+            # closed, abandoned or finished: stop the worker, then drop what
+            # it already queued
+            stop.set()
+            try:
+                while True:
+                    q.get_nowait()
+            except queue.Empty:
+                pass
+
+
+# ---------------------------------------------------------------------------
+# Long-lived lane feed (cross-caller micro-batch aggregation)
+# ---------------------------------------------------------------------------
+
+
+@dataclass
+class RowVerdict:
+    """One submitted row's slice of a flushed ``LaneFeed`` batch: the same
+    quorum semantics as ``WindowVerdict``, for one height row."""
+
+    ok: np.ndarray  # (len(row),) bool, per lane in row order
+    tally: int  # voting power of valid present lanes
+    committed: bool  # tally*3 > total*2 (strict)
+    sigs_ok: bool  # no present lane failed verification
+    batch_rows: int  # rows folded into the dispatch that served this row
+    batch_lanes: int  # present lanes in that dispatch
+    occupancy: float  # lane occupancy of that dispatch
+
+
+class LaneTicket:
+    """Handle for one submitted row; ``result()`` blocks until the feed's
+    worker flushes the batch the row rode in."""
+
+    __slots__ = ("_ev", "_verdict", "_err")
+
+    def __init__(self):
+        self._ev = threading.Event()
+        self._verdict: Optional[RowVerdict] = None
+        self._err: Optional[BaseException] = None
+
+    def _resolve(self, verdict=None, err=None) -> None:
+        self._verdict = verdict
+        self._err = err
+        self._ev.set()
+
+    def result(self, timeout: Optional[float] = None) -> RowVerdict:
+        if not self._ev.wait(timeout):
+            raise TimeoutError("lane feed flush did not complete in time")
+        if self._err is not None:
+            raise self._err
+        return self._verdict
+
+
+class LaneFeed:
+    """Long-lived lane feed, ``WindowPipeline``'s dual: many concurrent
+    callers each hold one row (a commit's lanes). ``submit()`` parks the row
+    for at most ``window_s`` seconds; a worker thread named
+    ``planner-lane-feed`` chunks every row pending by then into windows of
+    at most ``max_rows`` rows, folds the chunks into ONE lane tile
+    (``plan_windows``) and one guarded ``execute_plan`` dispatch, and hands
+    each caller its row's verdict. Collection stops early once
+    ``max_rows * windows_per_dispatch()`` rows wait. ``rows_in`` and
+    ``lanes_in`` count what was submitted, ``dispatches`` the flushes and
+    ``windows_out`` the windows folded into them. On the defaults
+    (``use_device=None``, no mesh) the feed takes the verifier route, as the
+    RPC's feed does: ``verify_generic`` and the installed verifier."""
+
+    def __init__(self, mesh=None, verifier=None,
+                 use_device: Optional[bool] = None, window_s: float = 0.002,
+                 max_rows: int = 64, profile_kind: str = "lane_feed",
+                 on_flush=None):
+        windows_per_dispatch(mesh)  # a mesh raises here, not in the worker
+        self.mesh = mesh
+        self.verifier = verifier
+        self.use_device = use_device
+        self.window_s = max(0.0, float(window_s))
+        self.max_rows = max(1, int(max_rows))
+        self.profile_kind = profile_kind
+        self.on_flush = on_flush  # (verdict, n_rows, seconds) per flush
+        self.dispatches = 0
+        self.windows_out = 0
+        self.rows_in = 0
+        self.lanes_in = 0
+        self._cond = threading.Condition()
+        self._pending: List[tuple] = []  # (vrow, prow, total, ticket)
+        self._deadline = 0.0
+        self._closed = False
+        self._thread: Optional[threading.Thread] = None
+
+    def submit(
+        self,
+        vrow: Sequence[Optional[SigTuple]],
+        prow: Sequence[int],
+        total: int,
+    ) -> LaneTicket:
+        """Park one height row for the next flush; returns at once."""
+        ticket = LaneTicket()
+        with self._cond:
+            if self._closed:
+                raise RuntimeError("lane feed is closed")
+            if not self._pending:
+                self._deadline = time.monotonic() + self.window_s
+            self._pending.append((list(vrow), list(prow), int(total), ticket))
+            self.rows_in += 1
+            self.lanes_in += sum(1 for it in vrow if it is not None)
+            if self._thread is None:
+                self._thread = threading.Thread(
+                    target=self._worker, name="planner-lane-feed", daemon=True
+                )
+                self._thread.start()
+            self._cond.notify_all()
+        return ticket
+
+    def flush_now(self) -> None:
+        """Collapse the current deadline: pending rows dispatch at once."""
+        with self._cond:
+            self._deadline = 0.0
+            self._cond.notify_all()
+
+    def close(self) -> None:
+        """Stop accepting rows; pending rows still flush before the worker
+        exits (their tickets resolve, never hang)."""
+        with self._cond:
+            self._closed = True
+            self._cond.notify_all()
+
+    def _worker(self) -> None:
+        while True:
+            with self._cond:
+                while not self._pending:
+                    if self._closed:
+                        return
+                    self._cond.wait(0.1)
+                # hold the batch open for the rest of the window unless a
+                # full superdispatch's rows (or close) arrive first: racing
+                # submits fold into one dispatch instead of queueing
+                cap = self.max_rows * windows_per_dispatch(self.mesh)
+                while len(self._pending) < cap and not self._closed:
+                    left = self._deadline - time.monotonic()
+                    if left <= 0:
+                        break
+                    self._cond.wait(left)
+                batch, self._pending = self._pending, []
+            self._flush(batch)
+
+    def _flush(self, batch: List[tuple]) -> None:
+        chunks = [batch[i: i + self.max_rows]
+                  for i in range(0, len(batch), self.max_rows)]
+        specs = [([b[0] for b in chunk], [b[1] for b in chunk], [b[2] for b in chunk])
+                 for chunk in chunks]
+        t0 = time.perf_counter()
+        try:
+            plan, verdict = _plan_and_execute_windows(
+                specs, mesh=self.mesh, verifier=self.verifier,
+                use_device=self.use_device,
+            )
+            parts = split_verdict(plan, verdict)
+        except BaseException as e:
+            for _, _, _, ticket in batch:
+                ticket._resolve(err=e)
+            return
+        seconds = time.perf_counter() - t0
+        self.dispatches += 1
+        self.windows_out += len(chunks)
+        try:
+            get_profiler().record(
+                self.profile_kind,
+                lanes_present=verdict.lanes_present,
+                lanes_dispatched=verdict.lanes_dispatched,
+                heights=len(batch),
+                run_seconds=seconds,
+                n_windows=len(chunks),
+            )
+        except Exception:
+            pass
+        if self.on_flush is not None:
+            try:
+                self.on_flush(verdict, len(batch), seconds)
+            except Exception:
+                pass
+        for part, chunk in zip(parts, chunks):
+            for i, (vrow, _, _, ticket) in enumerate(chunk):
+                ticket._resolve(RowVerdict(
+                    ok=np.asarray(part.ok[i, : len(vrow)], dtype=bool),
+                    tally=int(part.tally[i]),
+                    committed=bool(part.committed[i]),
+                    sigs_ok=bool(part.sigs_ok[i]),
+                    batch_rows=len(batch),
+                    batch_lanes=verdict.lanes_present,
+                    occupancy=verdict.occupancy,
+                ))

@@ -245,6 +245,17 @@ def go_edge_window(seed: int = 0) -> Tuple[List[bytes], List[bytes], List[bytes]
     return pubs, msgs, sigs, verdicts
 
 
+def go_edge_window_spec(seed: int = 3):
+    """``go_edge_window``'s 20 rows as one planner window of 4 heights x 5
+    validators with seeded powers: (votes, powers, totals, verdicts), the
+    verdicts keyed by row-major lane."""
+    pubs, msgs, sigs, verdicts = go_edge_window(seed=seed)
+    votes = [[(pubs[5 * h + v], msgs[5 * h + v], sigs[5 * h + v]) for v in range(5)]
+             for h in range(4)]
+    powers = [[(h + v) % 9 + 1 for v in range(5)] for h in range(4)]
+    return votes, powers, [sum(p) for p in powers], verdicts
+
+
 # ---------------------------------------------------------------------------
 # The secp256k1 edge window
 # ---------------------------------------------------------------------------

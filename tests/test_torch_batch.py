@@ -76,3 +76,64 @@ def test_column_form_is_still_preferred(batch):
     v = Both()
     assert tbatch.verify_generic([TPub(p) for p in pubs], msgs, sigs, verifier=v).all()
     assert v.calls == ["raw"]
+
+
+# -- TM_BATCH_VERIFIER (the reference's tests/test_device_dispatch.py:322 and
+#    tests/test_tpu_probe.py:86, restated) ------------------------------------
+
+
+@pytest.fixture()
+def fresh_default(monkeypatch):
+    monkeypatch.delenv("TM_BATCH_VERIFIER", raising=False)
+    with tbatch._lock:
+        saved, tbatch._default = tbatch._default, None
+    yield monkeypatch
+    with tbatch._lock:
+        tbatch._default = saved
+
+
+def test_unset_means_the_guarded_card_verifier(fresh_default):
+    from tendermint_tpu_torch.device import NoCudaDeviceError
+
+    real = tbatch.TorchBatchVerifier
+    fresh_default.setattr(tbatch, "TorchBatchVerifier", lambda: real("cpu"))
+    v = tbatch.get_batch_verifier()
+    assert isinstance(v, tbatch.GuardedBatchVerifier) and v.device.backend == "cpu"
+    fresh_default.setattr(tbatch, "TorchBatchVerifier", real)
+    with tbatch._lock:
+        tbatch._default = None
+    with pytest.raises(NoCudaDeviceError):  # no card here: nothing latches the host
+        tbatch.get_batch_verifier()
+    assert tbatch.verifier_info()["installed"] is False
+
+
+@pytest.mark.parametrize("value", ["host", "HOST"])
+def test_host_installs_the_host_verifier(fresh_default, value):
+    """An operator who names the host verifier gets it, as from the
+    reference; the first lazy verify_commit completes on it."""
+    from tendermint_tpu_torch.testutil import commit as tc
+
+    fresh_default.setenv("TM_BATCH_VERIFIER", value)
+    sc = tc.build_commit(4, seed=3)
+    assert sc.valset.verify_commit(sc.chain_id, sc.block_id, sc.height, sc.commit) is None
+    picked = tbatch.get_batch_verifier()
+    assert isinstance(picked, tbatch.HostBatchVerifier)
+    assert tbatch.verifier_info()["name"] == "host"
+    with jbatch._lock:
+        saved = (jbatch._default, jbatch._latched_reason)
+        jbatch._default = jbatch._latched_reason = None
+    try:
+        assert isinstance(jbatch.get_batch_verifier(), jbatch.HostBatchVerifier)
+    finally:
+        with jbatch._lock:
+            jbatch._default, jbatch._latched_reason = saved
+
+
+@pytest.mark.parametrize("value", ["xla", "pallas"])
+def test_device_values_install_the_guarded_torch_verifier(fresh_default, value):
+    real = tbatch.TorchBatchVerifier
+    fresh_default.setattr(tbatch, "TorchBatchVerifier", lambda: real("cpu"))
+    fresh_default.setenv("TM_BATCH_VERIFIER", value)
+    v = tbatch.get_batch_verifier()
+    assert isinstance(v, tbatch.GuardedBatchVerifier)
+    assert isinstance(v.device, real) and tbatch.get_batch_verifier() is v

@@ -195,9 +195,16 @@ def test_options_are_validated_and_recorded():
 def test_unported_paths_raise():
     with pytest.raises(NotImplementedError, match="item 6"):
         tbatch.TorchBatchVerifier(device="cpu", ed25519_path="msm")
+    # multisig routing is ported (ROADMAP item 9): a key of no batchable
+    # type is decided by its own verify_bytes, as in the reference
+    class OddKey:
+        def verify_bytes(self, msg, sig):
+            return msg == b"yes"
+
     v = tbatch.TorchBatchVerifier(device="cpu")
-    with pytest.raises(NotImplementedError, match="item 9"):
-        tbatch.verify_generic([object()], [b""], [b"\0" * 64], verifier=v)
+    got = tbatch.verify_generic([OddKey(), OddKey()], [b"yes", b"no"], [b"\0" * 64] * 2,
+                                verifier=v)
+    assert got.tolist() == [True, False]
 
 
 def test_default_verifier_seam():

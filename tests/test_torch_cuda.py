@@ -270,3 +270,85 @@ def test_guarded_verifier_on_cuda_raises_rather_than_use_the_host(cuda, monkeypa
     with pytest.raises(brk.DeviceDispatchError) as e:
         g.verify_ed25519_raw(*rows)
     assert e.value.reason == "error" and g.breaker.state == brk.OPEN
+
+
+def test_go_edge_window_through_the_cuda_executor(cuda):
+    """Every Go verification edge as one window through the device executor
+    on the card: K1 -> K2 -> the tally equal the CPU run of the plain
+    versions, and Go's fixed verdicts."""
+    from tendermint_tpu_torch.parallel import planner
+
+    votes, powers, totals, fixed = tc.go_edge_window_spec()
+    plain = planner.device_executor("cpu")(planner.plan_window(votes, powers, totals))
+    before = dict(ec.launches)
+    got = planner.device_executor(cuda)(planner.plan_window(votes, powers, totals))
+    assert ec.launches["ed25519_ladder"] > before["ed25519_ladder"]
+    for k in ("ok", "tally", "committed", "sigs_ok"):
+        assert np.array_equal(getattr(got, k), getattr(plain, k)), k
+    flat = got.ok.reshape(-1)
+    for i, verdict in fixed.items():
+        if verdict is not None:
+            assert bool(flat[i]) == verdict, i
+
+
+def test_pipeline_and_lane_feed_on_cuda(cuda):
+    """The backfill's WindowPipeline (packing inside the guard on the card)
+    and a LaneFeed burst through the configuration root's installs: verdicts
+    equal the construction's, no fallback."""
+    from tendermint_tpu_torch.libs import breaker as brk
+    from tendermint_tpu_torch.libs.metrics import get_verify_metrics
+    from tendermint_tpu_torch.node.verify_root import configure_verify, reset_verify
+    from tendermint_tpu_torch.parallel import planner
+    from tendermint_tpu_torch.testutil import window as tw
+
+    win = tw.build_window(8, 4, seed=13)
+    tw.flip_bit(win, 1, 2)
+    tw.drop_precommits(win, 3, 2)
+    tw.short_signature(win, 4, 0)
+    votes, powers, totals = win.rows()
+    want = tw.expected(win)
+    configure_verify(device=cuda)
+    feed = planner.LaneFeed(window_s=30.0)
+    try:
+        fell_back = sum(get_verify_metrics().device_fallback._values.values())
+        before = dict(ec.launches)
+        it = planner.WindowPipeline(use_device=True, depth=2).run(
+            (votes[s:s + 2], powers[s:s + 2], totals[s:s + 2]) for s in range(0, 8, 2))
+        try:
+            got = list(it)
+        finally:
+            it.close()
+        assert ec.launches["ed25519_prologue"] == before["ed25519_prologue"] + 4
+        for k in ("ok", "tally", "committed", "sigs_ok"):
+            assert np.array_equal(np.concatenate([getattr(g, k) for g in got]), want[k]), k
+        tickets = [feed.submit(votes[h], powers[h], totals[h]) for h in range(8)]
+        feed.flush_now()
+        rows = [t.result(120.0) for t in tickets]
+        assert feed.dispatches == 1
+        for h, r in enumerate(rows):
+            assert np.array_equal(r.ok, want["ok"][h]) and r.tally == want["tally"][h]
+            assert (r.committed, r.sigs_ok) == (want["committed"][h], want["sigs_ok"][h])
+        assert sum(get_verify_metrics().device_fallback._values.values()) == fell_back
+        assert brk.get_device_breaker().state == brk.CLOSED
+    finally:
+        feed.close()
+        reset_verify()
+
+
+def test_multisig_route_on_cuda(cuda):
+    """Multisig aggregates flatten into one K1 + K2 call on the card, with
+    the CPU plain versions' verdicts."""
+    from tendermint_tpu_torch.crypto import batch as tbatch
+    from tendermint_tpu_torch.testutil import multisig as tm
+
+    s = tm.build(8)
+    sigs = list(s.sigs)
+    sigs[2] = tm.flip_sub_signature(sigs[2], 1)
+    sigs[5] = tm.below_threshold(sigs[5])
+    plain = tbatch.verify_generic(s.pubkeys, s.msgs, sigs,
+                                  verifier=tbatch.TorchBatchVerifier("cpu"))
+    before = dict(ec.launches)
+    got = tbatch.verify_generic(s.pubkeys, s.msgs, sigs, verifier=tbatch.TorchBatchVerifier(cuda))
+    assert ec.launches["ed25519_prologue"] == before["ed25519_prologue"] + 1
+    assert ec.launches["ed25519_ladder"] == before["ed25519_ladder"] + 1
+    assert np.array_equal(got, plain) and np.flatnonzero(~got).tolist() == [2, 5]

@@ -307,15 +307,23 @@ def test_configure_planner_knobs():
     try:
         planner.configure_planner(Cfg())
         assert planner.reduce_mode() == "host"
+        assert (planner.pipeline_depth(), planner.windows_per_dispatch()) == (3, 6)
+        assert planner.WindowPipeline(use_device=False).depth == 3
         Cfg.planner_reduce = "gpu"
         with pytest.raises(ValueError):
             planner.configure_planner(Cfg())
         assert planner.reduce_mode() == "host"
         with pytest.raises(ValueError):
             planner.set_reduce_mode("gpu")
+        Cfg.pipeline_depth, Cfg.windows_per_device, Cfg.planner_reduce = 0, -2, "device"
+        planner.configure_planner(Cfg())  # floors of 1, as the reference's
+        assert (planner.pipeline_depth(), planner.windows_per_dispatch()) == (1, 1)
+        with pytest.raises(NotImplementedError, match=r"item 4b \(iii\)"):
+            planner.windows_per_dispatch(mesh=object())
     finally:
         planner.configure_planner(None)
     assert planner.reduce_mode() == "device"
+    assert (planner.pipeline_depth(), planner.windows_per_dispatch()) == (2, 4)
 
 
 def test_mesh_is_not_ported():
@@ -323,3 +331,75 @@ def test_mesh_is_not_ported():
     plan = planner.plan_window(votes, powers, totals)
     with pytest.raises(NotImplementedError, match="item 4b"):
         planner.device_executor("cpu")(plan, mesh=object())
+
+
+def _reference_profiler_kind():
+    from tendermint_tpu.libs.profile import get_profiler as jprofiler
+
+    return jprofiler().entries()[-1]["kind"]
+
+
+def _key_window(key):
+    """Two heights of raw ed25519 keys wrapped by ``key`` (a numpy row, a
+    key object of another package), one forged lane."""
+    votes, powers, totals = _ragged_window([3, 2], forged={(1, 0)}, tag=80, lengths=1)
+    votes = [[(key(pub), msg, sig) for pub, msg, sig in row] for row in votes]
+    return votes, powers, totals
+
+
+KEY_WRAPPERS = {
+    "numpy_row": lambda pub: np.frombuffer(pub, np.uint8),
+    "reference_key_object": JEd,  # .bytes() but no __bytes__
+}
+
+
+@pytest.fixture
+def reference_unsupervised():
+    """The reference's first XLA compile on a loaded CPU can outlast its
+    30 s dispatch deadline, which would end in a host fallback: run its
+    device route unsupervised here too."""
+    from tendermint_tpu.libs import breaker as jbrk
+
+    jbrk.configure_device_guard(dispatch_deadline=0)
+    yield
+    jbrk.reset_device_guard()
+
+
+@pytest.mark.parametrize("use_device", [True, False])
+@pytest.mark.parametrize("wrapper", sorted(KEY_WRAPPERS))
+def test_raw_keys_take_the_reference_route(reference_unsupervised, wrapper, use_device):
+    """A lane key that is not a port PubKey counts as a raw ed25519 key, as
+    in the reference: numpy rows take the guarded device route when asked
+    (the reference's lanes_dispatched and profiler kind), and a key object
+    with .bytes() but no __bytes__ verifies on both routes."""
+    from tendermint_tpu_torch.libs.profile import get_profiler
+
+    votes, powers, totals = _key_window(KEY_WRAPPERS[wrapper])
+    want = jplanner.verify_window(votes, powers, totals, use_device=use_device)
+    want_kind = _reference_profiler_kind()
+    got = planner.verify_window(votes, powers, totals,
+                                verifier=tbatch.TorchBatchVerifier("cpu"),
+                                use_device=use_device)
+    got_kind = get_profiler().entries()[-1]["kind"]
+    _assert_equal(got, want)
+    assert got.ok[0, :3].all() and not got.ok[1, 0] and got.ok[1, 1]
+    assert (got.lanes_dispatched, got_kind) == (want.lanes_dispatched, want_kind)
+    assert got_kind == ("planner" if use_device else "host")
+    assert planner.plan_window(votes, powers, totals).all_ed25519()
+
+
+@pytest.mark.parametrize("reduce", ["device", "host"])
+def test_go_edge_window_through_the_device_executor(reduce):
+    """ROADMAP's unchecked case: every Go verification edge as one window
+    through the device executor (K1 -> K2 -> the tally, plain versions)
+    against the reference planner's grid and tallies."""
+    votes, powers, totals, fixed = tc.go_edge_window_spec()
+    planner.set_reduce_mode(reduce)
+    got = planner.device_executor("cpu")(planner.plan_window(votes, powers, totals))
+    want = _reference(votes, powers, totals)
+    _assert_equal(got, want)
+    flat = got.ok.reshape(-1)
+    for i, verdict in fixed.items():
+        if verdict is not None:
+            assert bool(flat[i]) == verdict, i
+    assert got.lanes_dispatched == 64 and not got.sigs_ok.all()
