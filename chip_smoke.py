@@ -104,17 +104,46 @@ Phases, in order; any failure exits non-zero:
              rows reject and host_fallback{multisig_structural} rises by 1.
              p50 walls of both verifiers, the host's flatten-and-unmarshal
              time and the guarded call's audit span.
+  14. lite    the light-client frontend: a chain of 128 heights of 100
+             validators (the Cosmos SDK's DefaultMaxValidators), power 10,
+             seed 11, 34 of the 100 replaced at heights 33, 65 and 97
+             (testutil/lite_chain.py), so every long trust hop raises
+             TooMuchChangeError and bisects. Two traffic shapes, each on a
+             fresh lite.proxy.LiteProxy(source=..., pinned at height 1)
+             behind serve_proxy on 127.0.0.1, its frontend's LaneFeed on
+             the root's guarded verifier (K1 -> K2): (a) the tip burst of
+             scripts/bench_lite.py, 64 clients each GETting /verify_commit
+             and /light_block for the last 4 heights, rotated; (b) 64
+             clients each certifying one seeded height in [2, 128]. Each
+             answer is certified; every light_block equals, byte for byte,
+             a serial DynamicVerifier's on HostBatchVerifier, and both reach
+             the same trust frontier; K1 and K2 launched, exact against
+             their plain versions on one launch's inputs; no fallback, the
+             breaker closed, no audit mismatch. Per shape: the wall, p50 and
+             p99 request latency, certified headers a second, the
+             frontend's stats(), the cache's hit/miss/wait counts,
+             heights_verified, the verify.audit and verify.dispatch span
+             sums and the launches. Then three rejections through the
+             batched path, 4 concurrent clients each: a stranger set served
+             from height 60 (LiteError, validators_hash), the commit at 90
+             stripped below 2/3 (CommitError, voting power) and a flipped
+             signature bit at the first bisection midpoint (CommitError,
+             invalid signature); nothing cached, nothing trusted.
 
-Each path's launch counts are set to 0 just before it and read just after.
-The line before the last two is the ``kernels`` JSON, then the card's name
+Each path's launch counts are set to 0 just before it and read just after;
+the kernels line carries the main path's as ``launches`` and the lite
+phase's shapes' as ``lite_launches``. The line before the last two is the
+``kernels`` JSON, then the card's name
 and power limit, then ``{"ok": true, "device": {...}}``. Exits 2 when no
 CUDA device is present.
 """
 
 from __future__ import annotations
 
+import base64
 import contextlib
 import hashlib
+import http.client
 import json
 import statistics
 import subprocess
@@ -129,6 +158,7 @@ from tendermint_tpu_torch.config.verify import VerifyConfig
 from tendermint_tpu_torch.crypto import ed25519 as ed
 from tendermint_tpu_torch.crypto import secp256k1 as secp
 from tendermint_tpu_torch.crypto.batch import (
+    HostBatchVerifier,
     SigItem,
     TorchBatchVerifier,
     get_batch_verifier,
@@ -138,7 +168,10 @@ from tendermint_tpu_torch.crypto.hashing import sha256
 from tendermint_tpu_torch.crypto.keys import PubKeyEd25519, PubKeySecp256k1
 from tendermint_tpu_torch.frontend.aggregator import BatchingVerifier
 from tendermint_tpu_torch.libs import breaker, trace
-from tendermint_tpu_torch.libs.metrics import get_verify_metrics
+from tendermint_tpu_torch.libs.db.kv import MemDB
+from tendermint_tpu_torch.libs.metrics import get_frontend_metrics, get_verify_metrics
+from tendermint_tpu_torch.lite import DBProvider, DynamicVerifier, LiteError
+from tendermint_tpu_torch.lite.proxy import LiteProxy, serve_proxy
 from tendermint_tpu_torch.node.verify_root import configure_verify
 from tendermint_tpu_torch.ops import _build
 from tendermint_tpu_torch.ops import ed25519_cuda as ec
@@ -147,6 +180,7 @@ from tendermint_tpu_torch.ops import imad_probe
 from tendermint_tpu_torch.ops import secp256k1_cuda as sc
 from tendermint_tpu_torch.parallel import planner
 from tendermint_tpu_torch.testutil import commit as tc
+from tendermint_tpu_torch.testutil import lite_chain as lc
 from tendermint_tpu_torch.testutil import multisig as tm
 from tendermint_tpu_torch.testutil import secp_signer
 from tendermint_tpu_torch.testutil import window as tw
@@ -177,6 +211,17 @@ RPC_ROWS = 64
 RPC_COMMITS = 8
 MULTISIG_VALS = tm.N_VALS  # BASELINE.json config 5: 1k multisig validators
 RESULT_TIMEOUT = 300.0
+# the light-client frontend: the Cosmos SDK staking default
+# DefaultMaxValidators = 100 (x/staking/types/params.go), power 10 each, 128
+# heights; 34 of the 100 replaced at 33, 65 and 97, so an old set holds at
+# most 66 % of a later commit's power and every long hop bisects.
+# scripts/bench_lite.py's 64 clients on the last 4 heights.
+LITE_VALS, LITE_HEIGHTS, LITE_SEED = 100, 128, 11
+LITE_CHANGES, LITE_CHANGE_N = (33, 65, 97), 34
+LITE_CLIENTS, LITE_TIPS, LITE_REJECT_CLIENTS = 64, 4, 4
+# the rejections: a stranger set served from height 60, the commit at 90
+# stripped below 2/3, a flipped bit at the first bisection midpoint
+LITE_STRANGER_FROM, LITE_STRIPPED = 60, 90
 
 # Rates for the least time the card could take: HBM bandwidth (H100 SXM
 # data sheet); 32-bit integer add, logic, shift and multiply-add each retire
@@ -1310,6 +1355,234 @@ def phase_multisig(root, err: dict) -> dict:
     return {"plain": plain, "guarded": guarded, "flatten_ms": flatten_ms}
 
 
+def lite_metric_counts() -> dict:
+    m = get_frontend_metrics()
+    ev = m.cache_events._values
+    return {"hit": ev.get(("hit",), 0.0), "miss": ev.get(("miss",), 0.0),
+            "wait": ev.get(("wait",), 0.0),
+            "heights_verified": m.heights_verified._values.get((), 0.0)}
+
+
+def serial_lite(chain, heights_b, heights_a) -> dict:
+    """The serial reference: ONE port DynamicVerifier on HostBatchVerifier,
+    seeded at height 1, certifying (b)'s heights in ascending order, then
+    (a)'s. Returns the certified FullCommit bytes by height and the trust
+    frontier after each shape's heights."""
+    src = chain.provider()
+    dv = DynamicVerifier(chain.chain_id, DBProvider(MemDB()), src,
+                         batch_verifier=HostBatchVerifier())
+    dv.init_from_full_commit(src.full_commit_at(chain.chain_id, 1))
+    out = {"bytes": {}}
+    for shape, heights in (("b", heights_b), ("a", heights_a)):
+        for h in sorted(set(heights)):
+            fc = src.full_commit_at(chain.chain_id, h)
+            dv.verify(fc.signed_header)
+            out["bytes"][h] = fc.marshal()
+        out[shape] = dv.trusted.latest_full_commit(chain.chain_id, 1, 1 << 60).height
+    return out
+
+
+def pinned_proxy(chain, source=None) -> LiteProxy:
+    """A LiteProxy over the chain (or ``source``), pinned at height 1."""
+    return LiteProxy(chain.chain_id, source=source or chain.provider(), trusted_height=1,
+                     trusted_hash=chain.full_commit(1).signed_header.header.hash())
+
+
+@contextlib.contextmanager
+def served_proxy(chain):
+    """A pinned LiteProxy served on 127.0.0.1; shut down and closed on exit."""
+    proxy = pinned_proxy(chain)
+    httpd = serve_proxy(proxy, "127.0.0.1:0")
+    t = threading.Thread(target=httpd.serve_forever, name="lite-proxy", daemon=True)
+    t.start()
+    try:
+        yield proxy, httpd.server_address[1]
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        proxy.close()
+        t.join(RESULT_TIMEOUT)
+
+
+def lite_get(port: int, path: str):
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=RESULT_TIMEOUT)
+    try:
+        conn.request("GET", path)
+        resp = conn.getresponse()
+        return resp.status, json.loads(resp.read())
+    finally:
+        conn.close()
+
+
+def drive_lite_shape(chain, serial, plans, frontier: int, err: dict, what: str) -> dict:
+    """One traffic shape on a fresh proxy: client i GETs /verify_commit and
+    /light_block for each height of plans[i], all clients released
+    together. Every answer is certified, every light_block equals the
+    serial reference's bytes, the trust frontier equals the serial one,
+    K1 and K2 launched and exact on one launch's inputs, the guard clean.
+    Returns the shape's numbers."""
+    before = fallbacks()
+    counts0 = lite_metric_counts()
+    lat, bad, errors = [], [], []
+    gate = threading.Barrier(len(plans) + 1)
+    with served_proxy(chain) as (proxy, port):
+
+        def client(heights):
+            try:
+                gate.wait(RESULT_TIMEOUT)
+                for h in heights:
+                    for route in ("verify_commit", "light_block"):
+                        t0 = time.perf_counter()
+                        code, body = lite_get(port, f"/{route}?height={h}")
+                        lat.append(time.perf_counter() - t0)
+                        if code != 200:
+                            bad.append((route, h, code, body))
+                        elif route == "light_block" and base64.b64decode(
+                                body["result"]["full_commit"]) != serial["bytes"][h]:
+                            bad.append((route, h, "bytes differ from the serial reference"))
+                        elif route == "verify_commit" and body["result"]["height"] != h:
+                            bad.append((route, h, body))
+            except BaseException as e:  # reported below
+                errors.append(e)
+
+        ts = [threading.Thread(target=client, args=(hs,)) for hs in plans]
+        for t in ts:
+            t.start()
+        reset_launches()
+        trace.enable()
+        trace.reset(1 << 17)
+        try:
+            with captured_packs() as packs:
+                gate.wait(RESULT_TIMEOUT)
+                t0 = time.perf_counter()
+                for t in ts:
+                    t.join(RESULT_TIMEOUT)
+                wall = time.perf_counter() - t0
+            launches = read_launches()
+            spans = span_seconds(("verify.audit", "verify.dispatch", "frontend.certify"))
+            dropped = trace.dropped()
+        finally:
+            trace.disable()
+        check(not errors and not any(t.is_alive() for t in ts),
+              f"{what}: a client failed or hung: {errors[:1]}")
+        check(not bad, f"{what}: {len(bad)} bad answers, first {bad[:1]}")
+        got_frontier = proxy.trusted.latest_full_commit(chain.chain_id, 1, 1 << 60).height
+        check(got_frontier == frontier,
+              f"{what}: trust frontier {got_frontier}, serial reference {frontier}")
+        stats = proxy.stats()
+    for name in ("ed25519_prologue", "ed25519_ladder"):
+        check(launches[name] >= 1, f"{what}: {name} was not launched")
+    check(launches["secp256k1_ladder"] == 0, f"{what}: K3 launched")
+    b, _, _ = hold_k1_k2(packs[0], err, what)
+    check_guard_clean(before, what)
+    counts = {k: v - counts0[k] for k, v in lite_metric_counts().items()}
+    lat_ms = np.asarray(lat) * 1e3
+    headers = sum(len(hs) for hs in plans)
+    out = {"wall_s": wall, "p50_ms": float(np.percentile(lat_ms, 50)),
+           "p99_ms": float(np.percentile(lat_ms, 99)), "requests": len(lat),
+           "headers_per_s": headers / wall, "stats": stats, "cache": counts,
+           "spans": spans, "launches": launches, "b": b, "frontier": got_frontier,
+           "groups": len(packs), "trace_dropped": dropped}
+    print(f"  {what}: {len(plans)} clients, {len(lat)} requests, {headers} certified headers "
+          f"in {wall * 1e3:.1f} ms ({headers / wall:.1f} headers a second); latency p50 "
+          f"{out['p50_ms']:.1f} ms, p99 {out['p99_ms']:.1f} ms; the audit (one feed worker) "
+          f"{spans['verify.audit'] / wall:.1%} of the wall", flush=True)
+    print(f"    stats {json.dumps(stats)}; cache hit/miss/wait {counts['hit']:.0f}/"
+          f"{counts['miss']:.0f}/{counts['wait']:.0f}; heights_verified "
+          f"{counts['heights_verified']:.0f}; spans verify.audit {spans['verify.audit'] * 1e3:.1f} "
+          f"ms, verify.dispatch {spans['verify.dispatch'] * 1e3:.1f} ms, frontend.certify "
+          f"{spans['frontend.certify'] * 1e3:.1f} ms (summed over threads; {dropped} dropped)",
+          flush=True)
+    print(f"    launches {launches} ({len(packs)} message-length groups packed); frontier "
+          f"{got_frontier} = the serial reference's; light_block bytes equal its; K1/K2 exact "
+          f"on the first launch's inputs, b = {b}; no fallback; breaker closed", flush=True)
+    return out
+
+
+def lite_rejection(chain, doctor, heights, err_type, match: str, what: str) -> None:
+    """LITE_REJECT_CLIENTS concurrent clients certify ``heights`` through a
+    proxy over a doctoring source: each gets ``err_type`` matching
+    ``match``; afterwards nothing is cached and nothing beyond the pin is
+    trusted."""
+    before = fallbacks()
+    proxy = pinned_proxy(chain, lc.DoctoringProvider(chain.provider(), doctor))
+    try:
+        got = [None] * len(heights)
+
+        def client(i):
+            try:
+                proxy.certified_commit(heights[i])
+            except BaseException as e:  # checked below
+                got[i] = e
+
+        ts = [threading.Thread(target=client, args=(i,)) for i in range(len(heights))]
+        for t in ts:
+            t.start()
+        for t in ts:
+            t.join(RESULT_TIMEOUT)
+        check(not any(t.is_alive() for t in ts), f"{what}: a client hung")
+        for e in got:
+            check(isinstance(e, err_type) and match in str(e),
+                  f"{what}: got {e!r}, want {err_type.__name__} matching {match!r}")
+        check(len(proxy.frontend.cache) == 0, f"{what}: a failed certification was cached")
+        top = proxy.trusted.latest_full_commit(chain.chain_id, 1, 1 << 60).height
+        check(top == 1, f"{what}: trust reached height {top}")
+    finally:
+        proxy.close()
+    check_guard_clean(before, what)
+    print(f"  {what}: {len(heights)} concurrent clients at heights {heights} each got "
+          f"{err_type.__name__} ({match!r}); nothing cached, nothing trusted past the pin",
+          flush=True)
+
+
+def phase_lite(root, err: dict) -> dict:
+    phase(f"lite: a {LITE_VALS}-validator, {LITE_HEIGHTS}-height chain (34 of 100 replaced at "
+          f"{LITE_CHANGES}) through LiteProxy + serve_proxy, the frontend's feed over the "
+          f"root's guarded verifier")
+    check(get_batch_verifier() is root.verifier,
+          "the default verifier is not the configuration root's guarded one")
+    t_phase = time.perf_counter()
+    t0 = time.perf_counter()
+    chain = lc.build_lite_chain(LITE_VALS, LITE_HEIGHTS, change_heights=LITE_CHANGES,
+                                n_change=LITE_CHANGE_N, seed=LITE_SEED)
+    print(f"  built and signed {LITE_VALS * LITE_HEIGHTS} precommits in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    tips = list(range(LITE_HEIGHTS - LITE_TIPS + 1, LITE_HEIGHTS + 1))
+    # (a) as scripts/bench_lite.py: each client the last heights, rotated
+    plan_a = [tips[i % LITE_TIPS:] + tips[:i % LITE_TIPS] for i in range(LITE_CLIENTS)]
+    rng = np.random.default_rng(LITE_SEED)
+    plan_b = [[int(h)] for h in rng.integers(2, LITE_HEIGHTS + 1, LITE_CLIENTS)]
+    t0 = time.perf_counter()
+    serial = serial_lite(chain, [hs[0] for hs in plan_b], tips)
+    print(f"  serial reference (one DynamicVerifier on HostBatchVerifier): "
+          f"{len(serial['bytes'])} heights certified in {time.perf_counter() - t0:.1f} s; "
+          f"frontiers {serial['b']} / {serial['a']}", flush=True)
+    shape_a = drive_lite_shape(chain, serial, plan_a, serial["a"], err, "(a) tip burst")
+    shape_b = drive_lite_shape(chain, serial, plan_b, serial["b"], err, "(b) scattered")
+    strangers = lc.stranger_set(LITE_VALS, seed=LITE_SEED + 1)
+
+    def swap_valset(h, fc):
+        if h >= LITE_STRANGER_FROM:
+            fc.validators = strangers
+        return fc
+
+    lite_rejection(chain, swap_valset, np.linspace(
+        LITE_STRANGER_FROM, LITE_HEIGHTS, LITE_REJECT_CLIENTS).astype(int).tolist(),
+        LiteError, "validators_hash", f"stranger set from height {LITE_STRANGER_FROM}")
+    keep = 2 * LITE_VALS // 3  # 66 of 100 equal powers: not above 2/3
+    lite_rejection(chain, lambda h, fc: lc.strip_precommits(fc, range(keep, LITE_VALS))
+                   if h == LITE_STRIPPED else fc, [LITE_STRIPPED] * LITE_REJECT_CLIENTS,
+                   CommitError, "voting power",
+                   f"commit at height {LITE_STRIPPED} stripped below 2/3")
+    mid = (1 + LITE_HEIGHTS) // 2  # the first bisection midpoint from the pin
+    lite_rejection(chain, lambda h, fc: lc.flip_signature_bit(fc, 0) if h == mid else fc,
+                   [LITE_HEIGHTS - 1, LITE_HEIGHTS] * (LITE_REJECT_CLIENTS // 2), CommitError,
+                   "invalid signature", f"a flipped signature bit at midpoint {mid}")
+    seconds = time.perf_counter() - t_phase
+    print(f"  lite phase {seconds:.1f} s", flush=True)
+    return {"a": shape_a, "b": shape_b, "seconds": seconds}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
@@ -1353,6 +1626,7 @@ def main() -> int:
     phase_backfill(window, err)
     phase_rpc(root, window, err)
     phase_multisig(root, err)
+    lite = phase_lite(root, err)
     print(f"  {smi_line}", flush=True)
 
     ms = {**ed_main["ms"], "secp256k1_ladder": secp_main["ms"]}
@@ -1384,6 +1658,7 @@ def main() -> int:
             "bound_ms": bounds[name][0],
             "bound_by": bounds[name][1],
             "library_ms": None,  # no single PyTorch call computes these functions
+            "lite_launches": {shape: lite[shape]["launches"][name] for shape in ("a", "b")},
         })
     print(f"  {N_VALIDATORS}-validator ed25519 verify_commit p50: {ed_main['p50_ms']:.3f} ms "
           f"through TorchBatchVerifier, {default['p50_ms']:.1f} ms through the default "

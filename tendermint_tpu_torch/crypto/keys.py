@@ -103,3 +103,11 @@ class PrivKeySecp256k1:
     @staticmethod
     def generate(seed: bytes | None = None) -> "PrivKeySecp256k1":
         return PrivKeySecp256k1(_secp.gen_privkey(seed))
+
+
+# type name -> key class, for decoding a validator set's members (the
+# reference's registry: ed25519 and secp256k1 keys)
+_PUBKEY_TYPES = {
+    PubKeyEd25519.type_name: PubKeyEd25519,
+    PubKeySecp256k1.type_name: PubKeySecp256k1,
+}

@@ -3,11 +3,12 @@ text exposition (plain text format v0.0.4, which is all Prometheus needs to
 scrape).
 
 The port's copy of the registry primitives of the JAX package's
-``libs/metrics.py`` and of its ``VerifyMetrics``: the same
-``tendermint_verify_*`` family names, help texts, label names and buckets,
-so a dashboard built on the reference reads the port unchanged. The other
-metric sets of the reference (consensus, p2p, mempool, state sync) belong
-to subsystems the port has not taken over.
+``libs/metrics.py`` and of its ``VerifyMetrics`` and ``FrontendMetrics``:
+the same ``tendermint_verify_*`` and ``tendermint_lite_frontend_*`` family
+names, help texts, label names and buckets, so a dashboard built on the
+reference reads the port unchanged. The other metric sets of the reference
+(consensus, p2p, mempool, state sync) belong to subsystems the port has not
+taken over.
 """
 
 from __future__ import annotations
@@ -470,3 +471,59 @@ def get_verify_metrics() -> VerifyMetrics:
         if _verify_metrics is None:
             _verify_metrics = VerifyMetrics()
         return _verify_metrics
+
+
+class FrontendMetrics:
+    """Light-client frontend telemetry (frontend/): request outcomes per
+    route, verified-header cache effectiveness, the aggregator's batch
+    shape, and end-to-end certification latency. Process-wide like
+    VerifyMetrics: one frontend serves every client of the process."""
+
+    def __init__(self, registry: Optional[Registry] = None):
+        r = registry or Registry()
+        self.registry = r
+        self.requests = r.counter(
+            "lite_frontend_requests_total",
+            "Frontend requests by route and outcome (ok|error)",
+            label_names=("route", "outcome"),
+        )
+        self.cache_events = r.counter(
+            "lite_frontend_cache_events_total",
+            "Verified-header cache lookups by outcome (hit|miss|wait)",
+            label_names=("outcome",),
+        )
+        self.cache_size = r.gauge(
+            "lite_frontend_cache_size", "Verified headers currently cached"
+        )
+        self.heights_verified = r.counter(
+            "lite_frontend_heights_verified_total",
+            "Trust-extension operations actually performed — cache +"
+            " single-flight keep this well below requests under fan-in",
+        )
+        self.batch_rows = r.histogram(
+            "lite_frontend_batch_rows",
+            "Commit rows folded into one aggregated planner dispatch",
+            buckets=_SIZE_BUCKETS,
+        )
+        self.batch_occupancy = r.histogram(
+            "lite_frontend_batch_occupancy",
+            "Lane occupancy (present/dispatched) of aggregated dispatches",
+            buckets=(0.05, 0.1, 0.25, 0.5, 0.75, 0.9, 1.0),
+        )
+        self.verify_seconds = r.histogram(
+            "lite_frontend_verify_seconds",
+            "End-to-end certification latency per frontend request",
+        )
+
+
+_frontend_mtx = threading.Lock()
+_frontend_metrics: Optional[FrontendMetrics] = None
+
+
+def get_frontend_metrics() -> FrontendMetrics:
+    """Process-wide FrontendMetrics singleton (mirrors get_verify_metrics)."""
+    global _frontend_metrics
+    with _frontend_mtx:
+        if _frontend_metrics is None:
+            _frontend_metrics = FrontendMetrics()
+        return _frontend_metrics

@@ -1,13 +1,14 @@
 """BlockID, PartSetHeader, signed-message types and canonical vote
 sign-bytes (field order of the reference's CanonicalVote, types/canonical.go:
-type, height and round as fixed64, timestamp, block id, chain id)."""
+type, height and round as fixed64, timestamp, block id, chain id), with the
+codec of the reference package's ``types/core.py``."""
 
 from __future__ import annotations
 
 from dataclasses import dataclass, field
 from enum import IntEnum
 
-from tendermint_tpu_torch.encoding.codec import Writer
+from tendermint_tpu_torch.encoding.codec import Reader, Writer
 
 
 class SignedMsgType(IntEnum):
@@ -25,6 +26,10 @@ class PartSetHeader:
     def encode(self, w: Writer) -> None:
         w.uvarint(self.total).bytes(self.hash)
 
+    @classmethod
+    def decode(cls, r: Reader) -> "PartSetHeader":
+        return cls(total=r.uvarint(), hash=r.bytes())
+
 
 @dataclass(frozen=True)
 class BlockID:
@@ -37,6 +42,10 @@ class BlockID:
     def encode(self, w: Writer) -> None:
         w.bytes(self.hash)
         self.parts_header.encode(w)
+
+    @classmethod
+    def decode(cls, r: Reader) -> "BlockID":
+        return cls(hash=r.bytes(), parts_header=PartSetHeader.decode(r))
 
 
 def canonical_vote_sign_bytes(

@@ -1,21 +1,34 @@
-"""Validator and ValidatorSet: commit verification (ref types/validator.go,
-types/validator_set.go).
+"""Validator and ValidatorSet: proposer rotation, hashing, the wire codec
+and commit verification (ref types/validator.go, types/validator_set.go;
+the port's copy of the reference package's ``types/validator_set.py``).
 
 ``verify_commit`` is the main path of the port: it collects every non-nil
 precommit of a commit and makes ONE batch-verifier call for all of them,
 then tallies voting power. Error semantics match the reference: any invalid
 signature fails the whole commit, nil precommits are fine, and precommits
 for another block id count for availability but not for power.
+``verify_future_commit`` is the light client's hop across a validator-set
+change: the new set's ``verify_commit``, then a second call over the
+precommits of the old set's members, which must hold more than 2/3 of the
+old set's power (``TooMuchChangeError`` otherwise, the error the light
+client bisects on).
 """
 
 from __future__ import annotations
 
+import bisect
 import struct as _struct
-from dataclasses import dataclass
+from dataclasses import dataclass, replace
 from typing import List, Optional, Sequence, Tuple, Union
 
+from tendermint_tpu_torch.crypto import merkle
 from tendermint_tpu_torch.crypto.batch import verify_generic
-from tendermint_tpu_torch.crypto.keys import PubKeyEd25519, PubKeySecp256k1
+from tendermint_tpu_torch.crypto.keys import (
+    _PUBKEY_TYPES,
+    PubKeyEd25519,
+    PubKeySecp256k1,
+)
+from tendermint_tpu_torch.encoding.codec import Reader, Writer
 from tendermint_tpu_torch.types.core import (
     BlockID,
     SignedMsgType,
@@ -25,28 +38,54 @@ from tendermint_tpu_torch.types.core import (
 
 PubKey = Union[PubKeyEd25519, PubKeySecp256k1]
 
+_MAX_ACCUM = 1 << 60  # the reference's clip bound for accums and power products
+
+
+def _clip(v: int) -> int:
+    return _MAX_ACCUM if v > _MAX_ACCUM else (-_MAX_ACCUM if v < -_MAX_ACCUM else v)
+
 
 @dataclass
 class Validator:
     pub_key: PubKey
     voting_power: int
+    accum: int = 0
 
     @property
     def address(self) -> bytes:
         return self.pub_key.address()
+
+    def hash_bytes(self) -> bytes:
+        """The bytes folded into the set's hash: the key and the voting
+        power (ref validator.go:104), never the accum."""
+        return Writer().bytes(self.pub_key.bytes()).svarint(self.voting_power).build()
 
 
 class CommitError(Exception):
     pass
 
 
+class TooMuchChangeError(CommitError):
+    """The old set signed no more than 2/3 of its power of a future commit:
+    the light client's bisection trigger."""
+
+
 class ValidatorSet:
-    """Validators sorted by address."""
+    """Validators sorted by address; the proposer rotates by accumulated
+    voting power. A new set has advanced its accums once, as the
+    reference's does."""
+
+    _CODEC_VERSION = 2  # the reference's: members blob, two <q arrays, proposer
 
     def __init__(self, validators: Optional[Sequence[Validator]] = None):
         self.validators: List[Validator] = sorted(
-            validators or [], key=lambda v: v.address
+            (replace(v) for v in validators or []), key=lambda v: v.address
         )
+        self.proposer: Optional[Validator] = None
+        self._hash: Optional[bytes] = None
+        self._addresses: Optional[List[bytes]] = None
+        if self.validators:
+            self.increment_accum(1)
 
     @property
     def size(self) -> int:
@@ -54,6 +93,66 @@ class ValidatorSet:
 
     def total_voting_power(self) -> int:
         return sum(v.voting_power for v in self.validators)
+
+    def get_by_address(self, address: bytes) -> Tuple[int, Optional[Validator]]:
+        """(index, a copy of the validator), or (-1, None)."""
+        if self._addresses is None:
+            self._addresses = [v.address for v in self.validators]
+        i = bisect.bisect_left(self._addresses, address)
+        if i < len(self._addresses) and self._addresses[i] == address:
+            return i, replace(self.validators[i])
+        return -1, None
+
+    # proposer rotation (ref validator_set.go:65-88) -----------------------
+    def _find_proposer(self) -> Validator:
+        """Highest accum; ties go to the lower address."""
+        best = self.validators[0]
+        for v in self.validators[1:]:
+            if v.accum > best.accum or (v.accum == best.accum and v.address < best.address):
+                best = v
+        return best
+
+    def get_proposer(self) -> Optional[Validator]:
+        if not self.validators:
+            return None
+        if self.proposer is None:
+            self.proposer = self._find_proposer()
+        return replace(self.proposer)
+
+    def increment_accum(self, times: int) -> None:
+        """accum += power * times for every validator, then ``times``
+        rounds in which the highest accum proposes and pays the total."""
+        if not self.validators:
+            raise ValueError("empty validator set")
+        for v in self.validators:
+            v.accum = _clip(v.accum + _clip(v.voting_power * times))
+        total = self.total_voting_power()
+        for _ in range(times):
+            mostest = self._find_proposer()
+            mostest.accum = _clip(mostest.accum - total)
+            self.proposer = mostest
+
+    def copy_increment_accum(self, times: int) -> "ValidatorSet":
+        """A copy of the set (same members, own accums) advanced ``times``."""
+        new = ValidatorSet.__new__(ValidatorSet)
+        new.validators = [replace(v) for v in self.validators]
+        new._hash = self._hash
+        new._addresses = self._addresses
+        new.proposer = None
+        new.increment_accum(times)
+        return new
+
+    def _index_of(self, address: bytes) -> int:
+        for i, v in enumerate(self.validators):
+            if v.address == address:
+                return i
+        return -1
+
+    def hash(self) -> bytes:
+        if self._hash is None:
+            self._hash = merkle.hash_from_byte_slices(
+                [v.hash_bytes() for v in self.validators])
+        return self._hash
 
     def collect_commit_sigs(
         self, chain_id: str, block_id: BlockID, height: int, commit
@@ -126,3 +225,92 @@ class ValidatorSet:
                 f"insufficient voting power: got {tallied}, "
                 f"needed more than {total * 2 // 3}"
             )
+
+    def verify_future_commit(
+        self, new_set: "ValidatorSet", chain_id: str, block_id: BlockID,
+        height: int, commit, verifier=None,
+    ) -> None:
+        """The light client's rule (validator_set.go:339): the commit must be
+        valid for ``new_set``, and more than 2/3 of this (old) set's power
+        must have signed ``block_id`` in it. The old set's pass looks each
+        precommit's signer up by address (a repeated index counts once)
+        and verifies the full sign-bytes in a second batch call; raises
+        ``TooMuchChangeError`` when the old power is too low."""
+        new_set.verify_commit(chain_id, block_id, height, commit, verifier=verifier)
+
+        seen = set()
+        round = commit.round()
+        pubkeys, msgs, sigs, powers = [], [], [], []
+        for precommit in commit.precommits:
+            if precommit is None:
+                continue
+            if precommit.height != height:
+                raise CommitError("precommit height mismatch")
+            if precommit.round != round:
+                raise CommitError("precommit round mismatch")
+            if precommit.vote_type != SignedMsgType.PRECOMMIT:
+                raise CommitError("not a precommit")
+            old_idx, val = self.get_by_address(precommit.validator_address)
+            if val is None or old_idx in seen:
+                continue
+            seen.add(old_idx)
+            pubkeys.append(val.pub_key)
+            msgs.append(precommit.sign_bytes(chain_id))
+            sigs.append(precommit.signature)
+            powers.append(val.voting_power if precommit.block_id == block_id else 0)
+
+        ok = verify_generic(pubkeys, msgs, sigs, verifier=verifier)
+        old_voting_power = 0
+        for j in range(len(pubkeys)):
+            if not ok[j]:
+                raise CommitError("invalid signature (old set)")
+            old_voting_power += powers[j]
+
+        if old_voting_power * 3 <= self.total_voting_power() * 2:
+            raise TooMuchChangeError(
+                f"invalid commit -- insufficient old voting power: got "
+                f"{old_voting_power}"
+            )
+
+    # codec (version 2) ------------------------------------------------------
+    def encode(self, w: Writer) -> None:
+        vals = self.validators
+        members = Writer()
+        for v in vals:
+            members.string(v.pub_key.type_name).bytes(v.pub_key.bytes())
+        w.uvarint(self._CODEC_VERSION).uvarint(len(vals)).bytes(members.build())
+        w.bytes(_struct.pack(f"<{len(vals)}q", *(v.voting_power for v in vals)))
+        w.bytes(_struct.pack(f"<{len(vals)}q", *(v.accum for v in vals)))
+        w.svarint(-1 if self.proposer is None else self._index_of(self.proposer.address))
+
+    def marshal(self) -> bytes:
+        w = Writer()
+        self.encode(w)
+        return w.build()
+
+    @classmethod
+    def decode(cls, r: Reader) -> "ValidatorSet":
+        """Keeps the members in their encoded order with their accums and
+        the proposer, so that ``encode`` gives the same bytes back."""
+        ver = r.uvarint()
+        if ver != cls._CODEC_VERSION:
+            raise ValueError(
+                f"validator-set codec version {ver} unsupported "
+                f"(this build reads {cls._CODEC_VERSION})"
+            )
+        n = r.uvarint()
+        mr = Reader(r.bytes())
+        pks = [_PUBKEY_TYPES[mr.string()](mr.bytes()) for _ in range(n)]
+        powers = _struct.unpack(f"<{n}q", r.bytes())
+        accums = _struct.unpack(f"<{n}q", r.bytes())
+        prop_idx = r.svarint()
+        vs = cls.__new__(cls)
+        vs.validators = [Validator(pk, p, a) for pk, p, a in zip(pks, powers, accums)]
+        vs._hash = None
+        vs._addresses = None
+        vs.proposer = vs.validators[prop_idx] if 0 <= prop_idx < n else None
+        return vs
+
+    @classmethod
+    def unmarshal(cls, data: bytes) -> "ValidatorSet":
+        return cls.decode(Reader(data))

@@ -1,9 +1,11 @@
-"""Vote: a prevote or precommit from one validator (ref types/vote.go)."""
+"""Vote: a prevote or precommit from one validator (ref types/vote.go),
+with the wire codec of the reference package's ``types/vote.py``."""
 
 from __future__ import annotations
 
 from dataclasses import dataclass, replace
 
+from tendermint_tpu_torch.encoding.codec import Reader, Writer
 from tendermint_tpu_torch.types.core import (
     BlockID,
     SignedMsgType,
@@ -34,3 +36,32 @@ class Vote:
 
     def with_signature(self, sig: bytes) -> "Vote":
         return replace(self, signature=sig)
+
+    def encode(self, w: Writer) -> None:
+        w.uvarint(int(self.vote_type)).svarint(self.height).svarint(self.round)
+        w.fixed64(self.timestamp_ns)
+        self.block_id.encode(w)
+        w.bytes(self.validator_address).uvarint(self.validator_index)
+        w.bytes(self.signature)
+
+    def marshal(self) -> bytes:
+        w = Writer()
+        self.encode(w)
+        return w.build()
+
+    @classmethod
+    def decode(cls, r: Reader) -> "Vote":
+        return cls(
+            vote_type=SignedMsgType(r.uvarint()),
+            height=r.svarint(),
+            round=r.svarint(),
+            timestamp_ns=r.fixed64(),
+            block_id=BlockID.decode(r),
+            validator_address=r.bytes(),
+            validator_index=r.uvarint(),
+            signature=r.bytes(),
+        )
+
+    @classmethod
+    def unmarshal(cls, data: bytes) -> "Vote":
+        return cls.decode(Reader(data))

@@ -352,3 +352,44 @@ def test_multisig_route_on_cuda(cuda):
     assert ec.launches["ed25519_prologue"] == before["ed25519_prologue"] + 1
     assert ec.launches["ed25519_ladder"] == before["ed25519_ladder"] + 1
     assert np.array_equal(got, plain) and np.flatnonzero(~got).tolist() == [2, 5]
+
+
+def test_lite_frontend_on_cuda_equals_its_cpu_run(cuda):
+    """A churn chain (7 validators, 3 replaced every 8 heights, so every
+    long hop bisects) through LiteFrontend on the card, its feed over the
+    configuration root's guarded verifier (K1 + K2), against the same
+    frontend on the CPU over HostBatchVerifier: equal light_block bytes at
+    every height asked and an equal trust frontier; no fallback."""
+    from tendermint_tpu_torch.crypto import batch as tbatch
+    from tendermint_tpu_torch.frontend import LiteFrontend
+    from tendermint_tpu_torch.libs import breaker as brk
+    from tendermint_tpu_torch.libs.metrics import get_verify_metrics
+    from tendermint_tpu_torch.node.verify_root import configure_verify, reset_verify
+    from tendermint_tpu_torch.testutil import lite_chain as lc
+
+    ch = lc.build_lite_chain(7, 24, change_heights=(9, 17), n_change=3, seed=5)
+    heights = (24, 5, 13, 20)
+
+    def run(**kw):
+        fe = LiteFrontend(ch.chain_id, ch.provider(), **kw)
+        try:
+            fe.init_trust(ch.full_commit(1))
+            raws = [fe.light_block(h) for h in heights]
+            return raws, fe.trusted.latest_full_commit(ch.chain_id, 1, 1 << 60).height
+        finally:
+            fe.close()
+
+    want = run(inner_verifier=tbatch.HostBatchVerifier())
+    configure_verify(device=cuda)
+    try:
+        fell_back = sum(get_verify_metrics().device_fallback._values.values())
+        before = dict(ec.launches)
+        got = run()
+        for name in ("ed25519_prologue", "ed25519_ladder"):
+            assert ec.launches[name] > before[name]
+        assert sum(get_verify_metrics().device_fallback._values.values()) == fell_back
+        assert brk.get_device_breaker().state == brk.CLOSED
+    finally:
+        reset_verify()
+    assert got == want
+    assert want[0] == [ch.full_commits[h] for h in heights]
