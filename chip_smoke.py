@@ -129,10 +129,45 @@ Phases, in order; any failure exits non-zero:
              stripped below 2/3 (CommitError, voting power) and a flipped
              signature bit at the first bisection midpoint (CommitError,
              invalid signature); nothing cached, nothing trusted.
+  15. votes  the live-vote storm of scripts/bench_votes.py at its headline
+             width: 256 validators of power 10, seed 7, 6 waves, rounds 0
+             and 1, prevotes and precommits, its fault mix (garbage
+             signatures, equivocations, re-gossiped duplicates, mutated
+             block ids; testutil/votes.py). The serial path (VoteSet.add_vote
+             with host verification), then wave by wave prevalidate ->
+             planner.VoteFeed(window_s=0.05, max_rows=512) -> flush_now ->
+             add_vote(verified=True) on two routes: the defaults on the card
+             (the root's guarded verifier, K1 -> K2) and use_device=True
+             (the device executor, K1 -> K2 -> the tally). On each route the
+             outcome labels, evidence pairs and the final state of all four
+             sets equal the serial path's, the round-1 precommit set's
+             make_commit() passes verify_commit and is rejected with one
+             signature bit flipped, K1 and K2 launched and exact against
+             their plain versions on one flush's launch inputs, no fallback,
+             the breaker closed. Then a storm on a set in which every 8th
+             validator holds a secp256k1 key, on the verifier route: the
+             same equalities, and K3 launched and exact too. Votes a second
+             (serial and each route), dispatches, flushes by reason, rows
+             and lanes a dispatch, occupancy, the queue wait from
+             flush_records() and the verify/planner span sums;
+  16. txs    the signed stage of scripts/bench_mempool.py: 64 ed25519
+             senders, 512 signed txs in CheckTx windows of 128 through
+             mempool.tx_verify.BatchTxVerifier(planner.TxFeed(window_s=0.005,
+             max_rows=64), extract_signed_tx_sig) on the card, then its
+             mixed stream (valid, garbage-signature, wrong-nonce and mutant
+             txs) and tests/test_tx_batch.py's (with a secp256k1 and an
+             undecodable tx). Every verdict equals a serial decode +
+             verify_bytes (None for the undecodable one); K1, K2 and K3
+             launched and exact on one launch's inputs; a recheck of the
+             accepted txs answers every one from the cache with no launch;
+             no fallback, the breaker closed. Serial and batched txs a
+             second, dispatches and rows a dispatch.
 
 Each path's launch counts are set to 0 just before it and read just after;
-the kernels line carries the main path's as ``launches`` and the lite
-phase's shapes' as ``lite_launches``. The line before the last two is the
+the kernels line carries the main path's as ``launches``, the lite
+phase's shapes' as ``lite_launches``, the votes phase's routes' as
+``votes_launches`` (verifier, executor, secp: the mixed-key storm) and the
+txs phase's as ``txs_launches``. The line before the last two is the
 ``kernels`` JSON, then the card's name
 and power limit, then ``{"ok": true, "device": {...}}``. Exits 2 when no
 CUDA device is present.
@@ -154,6 +189,7 @@ import time
 import numpy as np
 import torch
 
+from tendermint_tpu_torch.abci.examples.kvstore import extract_signed_tx_sig
 from tendermint_tpu_torch.config.verify import VerifyConfig
 from tendermint_tpu_torch.crypto import ed25519 as ed
 from tendermint_tpu_torch.crypto import secp256k1 as secp
@@ -172,6 +208,7 @@ from tendermint_tpu_torch.libs.db.kv import MemDB
 from tendermint_tpu_torch.libs.metrics import get_frontend_metrics, get_verify_metrics
 from tendermint_tpu_torch.lite import DBProvider, DynamicVerifier, LiteError
 from tendermint_tpu_torch.lite.proxy import LiteProxy, serve_proxy
+from tendermint_tpu_torch.mempool.tx_verify import BatchTxVerifier
 from tendermint_tpu_torch.node.verify_root import configure_verify
 from tendermint_tpu_torch.ops import _build
 from tendermint_tpu_torch.ops import ed25519_cuda as ec
@@ -183,7 +220,9 @@ from tendermint_tpu_torch.testutil import commit as tc
 from tendermint_tpu_torch.testutil import lite_chain as lc
 from tendermint_tpu_torch.testutil import multisig as tm
 from tendermint_tpu_torch.testutil import secp_signer
+from tendermint_tpu_torch.testutil import votes as tv
 from tendermint_tpu_torch.testutil import window as tw
+from tendermint_tpu_torch.types.core import SignedMsgType
 from tendermint_tpu_torch.types.validator_set import CommitError
 
 N_VALIDATORS = 10_000  # BASELINE.json config 2 (and config 4 at its width)
@@ -222,6 +261,14 @@ LITE_CLIENTS, LITE_TIPS, LITE_REJECT_CLIENTS = 64, 4, 4
 # the rejections: a stranger set served from height 60, the commit at 90
 # stripped below 2/3, a flipped bit at the first bisection midpoint
 LITE_STRANGER_FROM, LITE_STRIPPED = 60, 90
+# scripts/bench_votes.py at its headline width: 256 validators of power 10,
+# seed 7, 6 waves, rounds 0 and 1, its window and rows (_make_feed); the
+# mixed-key storm gives every 8th validator a secp256k1 key
+VOTE_VALS, VOTE_POWER, VOTE_SEED, VOTE_WAVES = 256, 10, 7, 6
+VOTE_WINDOW_S, VOTE_MAX_ROWS, VOTE_SECP_EVERY = 0.05, 512, 8
+# scripts/bench_mempool.py --signed: 64 senders, 512 txs in CheckTx windows
+# of 128, TxFeed(window_s=0.005, max_rows=64)
+TX_N, TX_SENDERS, TX_WINDOW, TX_WINDOW_S, TX_MAX_ROWS = 512, 64, 128, 0.005, 64
 
 # Rates for the least time the card could take: HBM bandwidth (H100 SXM
 # data sheet); 32-bit integer add, logic, shift and multiply-add each retire
@@ -1583,6 +1630,254 @@ def phase_lite(root, err: dict) -> dict:
     return {"a": shape_a, "b": shape_b, "seconds": seconds}
 
 
+@contextlib.contextmanager
+def captured_k3():
+    """Record the K3 inputs of every secp256k1 batch uploaded while active
+    (``secp256k1_cuda.upload``, which ``verify_batch`` calls once a
+    launch). Records only; launches nothing."""
+    ins, real = [], sc.upload
+
+    def record(*args, **kwargs):
+        out = real(*args, **kwargs)
+        ins.append(out)
+        return out
+
+    sc.upload = record
+    try:
+        yield ins
+    finally:
+        sc.upload = real
+
+
+def hold_k3(ins, err: dict, what: str) -> int:
+    """K3 on one launch's inputs against its plain version, exact; the
+    difference folds into ``err``. Returns the launch's b."""
+    worst = max_abs_diff(sc.ladder(*ins), sc.ladder_ref(*ins))
+    err["secp256k1_ladder"] = max(err["secp256k1_ladder"], worst)
+    check(worst == 0, f"{what}: K3 differs from its plain version: {worst}")
+    return ins[1].shape[1]
+
+
+def vote_commit_check(sets, what: str) -> None:
+    """The round-1 precommit set's commit passes verify_commit on the
+    root's guarded verifier; with one precommit's signature bit flipped it
+    is rejected."""
+    vset = sets[(1, SignedMsgType.PRECOMMIT)]
+    commit = vset.make_commit()
+    verify = lambda c: vset.val_set.verify_commit(  # noqa: E731
+        vset.chain_id, commit.block_id, vset.height, c)
+    verify(commit)
+    i = next(j for j, pc in enumerate(commit.precommits)
+             if pc is not None and pc.block_id == commit.block_id)
+    sig = commit.precommits[i].signature
+    bad = tc.flip_signature_bit(commit, i, 300 if len(sig) == 64 else 8 * (len(sig) - 1))
+    expect_commit_error(lambda: verify(bad), "invalid signature")
+    print(f"  {what}: make_commit() of the round-1 precommits passes verify_commit "
+          f"({sum(pc is not None for pc in commit.precommits)} precommits); flipped "
+          f"precommit {i} rejected", flush=True)
+
+
+def drive_votes(vs, waves, want, what: str, err: dict, **feed_kw) -> dict:
+    """The storm through prevalidate -> VoteFeed -> add_vote(verified=True)
+    on the card, wave by wave, twice (the first with launch counts set to 0
+    just before and read just after, and K1/K2 (K3) held against their
+    plain versions on one launch's inputs; the second traced). Outcomes,
+    evidence and the final state of all four sets equal the serial run's;
+    the guard stays clean."""
+    n_votes = sum(len(w) for w in waves)
+    before = fallbacks()
+    out = {}
+    for rep in range(2):
+        flushes = []
+        feed = planner.VoteFeed(window_s=VOTE_WINDOW_S, max_rows=VOTE_MAX_ROWS,
+                                on_flush=lambda *a: flushes.append(a), **feed_kw)
+        sets = tv.fresh_sets(vs)
+        reset_launches()
+        planner.tally_launches["planner_tally"] = 0
+        if rep:
+            trace.enable()
+            trace.reset()
+        try:
+            with captured_packs() as packs, captured_k3() as k3_ins:
+                t0 = time.perf_counter()
+                outcomes, evidence = tv.run_batched(sets, waves, feed, timeout=RESULT_TIMEOUT)
+                wall = time.perf_counter() - t0
+        finally:
+            feed.close()
+            feed.join(RESULT_TIMEOUT)
+            if rep:
+                spans = span_seconds(("verify.dispatch", "verify.audit", "planner.dispatch",
+                                      "planner.audit"))
+                trace.disable()
+        launches = {**read_launches(), **planner.tally_launches}
+        check(outcomes == want["outcomes"], f"{what}: outcomes differ from the serial path's")
+        check(tv.evidence_key(evidence) == want["evidence"], f"{what}: evidence differs")
+        check(tv.vote_set_state(sets) == want["state"], f"{what}: vote-set state differs")
+        recs = feed.flush_records()["records"]
+        if rep == 0:
+            out = {"first_s": wall, "launches": launches, "sets": sets,
+                   "dispatches": feed.dispatches}
+            check(packs, f"{what}: no ed25519 launch captured")
+            b, _, _ = hold_k1_k2(packs[0], err, what)
+            out["k3_b"] = hold_k3(k3_ins[0], err, what) if k3_ins else 0
+            out["b"] = b
+            continue
+        out.update(wall_s=wall, spans=spans, feed=feed, flushes=flushes, recs=recs,
+                   launches2=launches)
+    check_guard_clean(before, what)
+    feed, flushes, recs = out["feed"], out["flushes"], out["recs"]
+    rows = [f[2] for f in flushes]
+    lanes = [f[3].lanes_present for f in flushes]
+    occ = [f[3].occupancy for f in flushes]
+    print(f"  {what}: {n_votes} votes equal the serial path's (outcomes, evidence, four "
+          f"sets); first run {out['first_s'] * 1e3:.1f} ms, second {out['wall_s'] * 1e3:.1f} "
+          f"ms: {n_votes / out['wall_s']:.2f} votes/s; dispatches {feed.dispatches} (first run "
+          f"{out['dispatches']}), flushes {feed.flushes}; rows a dispatch {statistics.mean(rows):.2f}, lanes a dispatch "
+          f"{statistics.mean(lanes):.1f}, occupancy {statistics.mean(occ):.4f}; queue wait "
+          f"(flush_records) p50 {statistics.median(r['wait_mean_s'] for r in recs) * 1e3:.2f} "
+          f"ms, max {max(r['wait_max_s'] for r in recs) * 1e3:.2f} ms; spans "
+          f"{ {k: round(v * 1e3, 3) for k, v in out['spans'].items()} } ms; first run's "
+          f"launches {out['launches']}; K1/K2 exact on one launch's inputs (b = {out['b']})"
+          + (f", K3 (b = {out['k3_b']})" if out["k3_b"] else "")
+          + "; no fallback; breaker closed", flush=True)
+    return out
+
+
+def serial_votes(vs, waves, what: str) -> dict:
+    sets = tv.fresh_sets(vs)
+    t0 = time.perf_counter()
+    outcomes, evidence = tv.run_serial(sets, waves)
+    wall = time.perf_counter() - t0
+    n_votes = sum(len(w) for w in waves)
+    labels = {}
+    for o in outcomes:
+        labels[o[0]] = labels.get(o[0], 0) + 1
+    print(f"  {what} serial (VoteSet.add_vote, host verification): {n_votes} votes in "
+          f"{wall * 1e3:.1f} ms, {n_votes / wall:.2f} votes/s; outcomes {labels}; "
+          f"evidence pairs {len(evidence)}", flush=True)
+    return {"outcomes": outcomes, "evidence": tv.evidence_key(evidence),
+            "state": tv.vote_set_state(sets), "wall_s": wall, "sets": sets}
+
+
+def phase_votes(root, err: dict) -> dict:
+    phase(f"votes: scripts/bench_votes.py's storm, {VOTE_VALS} validators, seed {VOTE_SEED}, "
+          f"{VOTE_WAVES} waves, through VoteFeed on both routes")
+    check(get_batch_verifier() is root.verifier,
+          "the default verifier is not the configuration root's guarded one")
+    t0 = time.perf_counter()
+    vs, pvs = tv.make_vals(VOTE_VALS, power=VOTE_POWER)
+    waves = tv.build_storm(vs, pvs, seed=VOTE_SEED, waves=VOTE_WAVES)
+    n_votes = sum(len(w) for w in waves)
+    print(f"  built and signed {n_votes} votes in {time.perf_counter() - t0:.1f} s", flush=True)
+    want = serial_votes(vs, waves, "ed25519 storm")
+    vote_commit_check(want["sets"], "serial sets")
+    runs = {}
+    for route, kw in (("verifier", {}), ("executor", {"use_device": True})):
+        run = drive_votes(vs, waves, want, f"route {route}", err, **kw)
+        for name in ("ed25519_prologue", "ed25519_ladder"):
+            check(run["launches"][name] > 0, f"route {route}: {name} not launched")
+        check(run["launches"]["secp256k1_ladder"] == 0, f"route {route}: K3 launched")
+        check(run["launches"]["planner_tally"] == (run["dispatches"]
+                                                   if route == "executor" else 0),
+              f"route {route}: tally launches {run['launches']['planner_tally']}")
+        vote_commit_check(run["sets"], f"route {route}")
+        runs[route] = run
+
+    t0 = time.perf_counter()
+    svs, spvs = tv.make_vals(VOTE_VALS, power=VOTE_POWER, secp_every=VOTE_SECP_EVERY)
+    swaves = tv.build_storm(svs, spvs, seed=VOTE_SEED, waves=VOTE_WAVES)
+    n_secp = sum(type(v.pub_key) is PubKeySecp256k1 for v in svs.validators)
+    print(f"  built and signed the storm of a set with {n_secp} secp256k1 validators (every "
+          f"{VOTE_SECP_EVERY}th) in {time.perf_counter() - t0:.1f} s", flush=True)
+    swant = serial_votes(svs, swaves, "mixed-key storm")
+    run = drive_votes(svs, swaves, swant, "mixed keys, route verifier", err)
+    for name in KERNELS:
+        check(run["launches"][name] > 0, f"mixed-key storm: {name} not launched")
+    vote_commit_check(run["sets"], "mixed keys")
+    runs["secp"] = run
+    serial_rate = n_votes / want["wall_s"]
+    print(f"  votes {n_votes}; serial {serial_rate:.2f} votes/s; batched "
+          f"{n_votes / runs['verifier']['wall_s']:.2f} (verifier route) and "
+          f"{n_votes / runs['executor']['wall_s']:.2f} (executor route) votes/s; mixed keys "
+          f"serial {sum(len(w) for w in swaves) / swant['wall_s']:.2f}, batched "
+          f"{sum(len(w) for w in swaves) / run['wall_s']:.2f} votes/s", flush=True)
+    return runs
+
+
+def serial_tx_verdicts(txs):
+    out = []
+    for tx in txs:
+        item = extract_signed_tx_sig(tx)
+        out.append(None if item is None else item[0].verify_bytes(item[1], item[2]))
+    return out
+
+
+def phase_txs(root, err: dict) -> dict:
+    phase(f"txs: scripts/bench_mempool.py --signed, {TX_SENDERS} senders, {TX_N} txs in "
+          f"windows of {TX_WINDOW}, then the mixed streams, through BatchTxVerifier + TxFeed")
+    check(get_batch_verifier() is root.verifier,
+          "the default verifier is not the configuration root's guarded one")
+    t0 = time.perf_counter()
+    _, txs, mixed = tv.signed_stream(TX_N, TX_SENDERS)
+    stream = txs + mixed + tv.mixed_stream()
+    print(f"  built and signed {len(stream)} txs in {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    t0 = time.perf_counter()
+    want = serial_tx_verdicts(stream)
+    serial_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    serial_tx_verdicts(txs)
+    serial_signed_s = time.perf_counter() - t0
+    before = fallbacks()
+    feed = planner.TxFeed(window_s=TX_WINDOW_S, max_rows=TX_MAX_ROWS)
+    ver = BatchTxVerifier(feed, extract_signed_tx_sig)
+    try:
+        reset_launches()
+        with captured_packs() as packs, captured_k3() as k3_ins:
+            got, walls = [], []
+            for lo in range(0, len(stream), TX_WINDOW):
+                t0 = time.perf_counter()
+                got += ver(stream[lo: lo + TX_WINDOW])
+                walls.append(time.perf_counter() - t0)
+        launches = read_launches()
+        check(got == want, "tx verdicts differ from the serial decode + verify_bytes")
+        check(got[-1] is None and got.count(None) == 1, "the undecodable tx is not None")
+        for name in KERNELS:
+            check(launches[name] > 0, f"txs: {name} not launched")
+        b, _, _ = hold_k1_k2(packs[0], err, "txs")
+        k3_b = hold_k3(k3_ins[0], err, "txs")
+        dispatches, rows = feed.dispatches, feed.rows_out
+        accepted = [tx for tx, ok in zip(stream, got) if ok]
+        hits0, submitted0 = ver.cache_hits, ver.submitted
+        reset_launches()
+        again = []
+        for lo in range(0, len(accepted), TX_WINDOW):
+            again += ver(accepted[lo: lo + TX_WINDOW])
+        check(again == [True] * len(accepted), "recheck verdicts changed")
+        check(ver.cache_hits - hits0 == len(accepted) and ver.submitted == submitted0,
+              f"recheck: {ver.cache_hits - hits0} cache hits for {len(accepted)} txs")
+        check(all(v == 0 for v in read_launches().values()), "the recheck launched a kernel")
+        check(feed.dispatches == dispatches, "the recheck dispatched")
+        check(ver.feed_errors == 0, f"feed errors {ver.feed_errors}")
+    finally:
+        feed.close()
+        feed.join(RESULT_TIMEOUT)
+    check_guard_clean(before, "txs")
+    signed_windows = TX_N // TX_WINDOW
+    batched_signed_s = sum(walls[:signed_windows])
+    print(f"  {len(stream)} verdicts equal a serial decode + verify_bytes ({got.count(True)} "
+          f"accepted, {got.count(False)} rejected, 1 undecodable); serial {TX_N / serial_signed_s:.2f} "
+          f"txs/s on the {TX_N} signed txs ({len(stream) / serial_s:.2f} on all); batched "
+          f"{TX_N / batched_signed_s:.2f} txs/s ({len(stream) / sum(walls):.2f} on all); "
+          f"dispatches {dispatches}, rows a dispatch {rows / dispatches:.2f}, windows "
+          f"{ver.windows - len(range(0, len(accepted), TX_WINDOW))}; launches {launches}; "
+          f"K1/K2 exact on one launch's inputs (b = {b}), K3 (b = {k3_b}); recheck of "
+          f"{len(accepted)} accepted txs answered from the cache with no launch; no fallback; "
+          f"breaker closed", flush=True)
+    return {"launches": launches, "serial_txs_s": TX_N / serial_signed_s,
+            "batched_txs_s": TX_N / batched_signed_s}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
@@ -1627,6 +1922,8 @@ def main() -> int:
     phase_rpc(root, window, err)
     phase_multisig(root, err)
     lite = phase_lite(root, err)
+    votes = phase_votes(root, err)
+    txs = phase_txs(root, err)
     print(f"  {smi_line}", flush=True)
 
     ms = {**ed_main["ms"], "secp256k1_ladder": secp_main["ms"]}
@@ -1659,6 +1956,8 @@ def main() -> int:
             "bound_by": bounds[name][1],
             "library_ms": None,  # no single PyTorch call computes these functions
             "lite_launches": {shape: lite[shape]["launches"][name] for shape in ("a", "b")},
+            "votes_launches": {route: votes[route]["launches"][name] for route in votes},
+            "txs_launches": txs["launches"][name],
         })
     print(f"  {N_VALIDATORS}-validator ed25519 verify_commit p50: {ed_main['p50_ms']:.3f} ms "
           f"through TorchBatchVerifier, {default['p50_ms']:.1f} ms through the default "

@@ -54,7 +54,8 @@ class VerifyConfig:
     # verdicts and the int64 tallies fold on the host). Bit-identical.
     planner_reduce: str = "device"
     # live-vote micro-batcher window (ms); 0 = every vote verifies serially
-    # on the host (the consensus reactor is not ported; recorded only)
+    # on the host. node/verify_root.vote_feed builds the feed from it (the
+    # consensus state that would own the feed is not ported)
     vote_batch_window_ms: float = 0.0
-    # vote-set rows per window of a vote-batch flush (recorded only)
+    # vote-set rows per window of a vote-batch flush (vote_feed's max_rows)
     vote_batch_rows: int = 64

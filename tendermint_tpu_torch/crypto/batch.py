@@ -1,9 +1,10 @@
 """The batch-verifier boundary of the port: ``HostBatchVerifier``,
-``TorchBatchVerifier``, ``GuardedBatchVerifier`` and ``verify_generic``.
+``RLCHostVerifier``, ``TorchBatchVerifier``, ``GuardedBatchVerifier`` and
+``verify_generic``.
 
 Counterpart of the JAX package's ``crypto/batch.py`` (``HostBatchVerifier``,
-``TPUBatchVerifier``, ``GuardedBatchVerifier``, ``verify_generic``,
-``set_batch_verifier`` / ``get_batch_verifier``, ``verifier_info``). Commit
+``RLCHostVerifier``, ``TPUBatchVerifier``, ``GuardedBatchVerifier``,
+``verify_generic``, ``set_batch_verifier`` / ``get_batch_verifier``, ``verifier_info``). Commit
 verification collects every precommit signature of a height and makes one
 call: ed25519 signatures go to ``ops.ed25519_cuda.verify_batch`` (K1, K2),
 secp256k1 signatures to ``ops.secp256k1_cuda.verify_batch`` (K3), and a
@@ -121,6 +122,37 @@ class HostBatchVerifier:
                 dtype=bool,
             )
         _record_dispatch("host", "secp256k1", len(items), t0, ok)
+        return ok
+
+
+class RLCHostVerifier(HostBatchVerifier):
+    """Host batch verification by the random-linear-combination check
+    (``ed25519.verify_batch``): one Pippenger MSM a clean batch, with a
+    failed batch localized by chunk and re-checked per signature. The
+    default backend of the vote and tx feeds off the card, as in the
+    reference; secp256k1 items keep the serial host loop."""
+
+    name = "host_rlc"
+
+    def verify_ed25519(self, items: Sequence[SigItem]) -> np.ndarray:
+        t0 = time.perf_counter()
+        with trace.span("verify.dispatch", backend="host_rlc",
+                        algo="ed25519", n=len(items)):
+            ok = np.array(
+                _ed.verify_batch([(it.pubkey, it.msg, it.sig) for it in items]),
+                dtype=bool,
+            ) if items else np.zeros((0,), dtype=bool)
+        _record_dispatch("host_rlc", "ed25519", len(items), t0, ok)
+        return ok
+
+    def verify_ed25519_raw(self, pubs, msgs, sigs) -> np.ndarray:
+        t0 = time.perf_counter()
+        with trace.span("verify.dispatch", backend="host_rlc",
+                        algo="ed25519", n=len(pubs)):
+            ok = np.array(
+                _ed.verify_batch(list(zip(pubs, msgs, sigs))), dtype=bool,
+            ) if len(pubs) else np.zeros((0,), dtype=bool)
+        _record_dispatch("host_rlc", "ed25519", len(pubs), t0, ok)
         return ok
 
 

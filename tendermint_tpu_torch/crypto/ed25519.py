@@ -15,13 +15,20 @@ accept set that every batch path must reproduce:
 
 Key layout mirrors the reference: private key = seed || pubkey (64 bytes),
 pubkey 32 bytes, signature 64 bytes.
+
+``verify_batch`` is the reference's host random-linear-combination batch
+check (one Pippenger MSM a clean batch, chunk RLCs and exact leaf checks
+to localize a dirty one), the default backend of the vote and tx feeds.
+It is not an exact per-lane oracle on rows whose equation leaves a
+small-order point (the RLC omits the cofactor), so the guards' audits keep
+``_verify_pure``.
 """
 
 from __future__ import annotations
 
 import hashlib
 import os
-from typing import Optional, Tuple
+from typing import List, Optional, Tuple
 
 P = 2**255 - 19
 L = 2**252 + 27742317777372353535851937790883648493  # group order
@@ -173,6 +180,169 @@ def _mul_b(k: int):
         k >>= 8
         w += 1
     return IDENT if acc is None else acc
+
+
+def _is_identity(pt) -> bool:
+    X, Y, Z, _ = pt
+    return X % P == 0 and (Y - Z) % P == 0
+
+
+def _msm(pairs):
+    """Pippenger multi-scalar multiplication: the sum of [k]P over (k, P)
+    pairs. The bucket width follows the pair count; scalars of different
+    widths (128-bit coefficients, 252-bit hash scalars) pay only for the
+    windows they occupy, and the bucket fold bridges a gap of empty
+    buckets with one [gap]running instead of walking it."""
+    pairs = [(k, p) for k, p in pairs if k]
+    if not pairs:
+        return IDENT
+    n = len(pairs)
+    c = 4 if n < 32 else 5 if n < 128 else 6 if n < 512 else 7 if n < 2048 else 8
+    maxbits = max(k.bit_length() for k, _ in pairs)
+    nwin = (maxbits + c - 1) // c
+    mask = (1 << c) - 1
+    acc = IDENT
+    for w in range(nwin - 1, -1, -1):
+        if not _is_identity(acc):
+            for _ in range(c):
+                acc = pt_double(acc)
+        shift = w * c
+        buckets = {}
+        for k, p in pairs:
+            d = (k >> shift) & mask
+            if d:
+                b = buckets.get(d)
+                buckets[d] = p if b is None else pt_add(b, p)
+        if not buckets:
+            continue
+        # window_sum = sum(d * bucket[d]): a running sum over the nonzero
+        # buckets in descending d, a gap bridged by [gap]running
+        running = None
+        window_sum = None
+        prev_d = None
+        for d in sorted(buckets, reverse=True):
+            if running is not None:
+                gap = prev_d - d
+                stride = running if gap == 1 else pt_scalar_mult(running, gap)
+                window_sum = (stride if window_sum is None
+                              else pt_add(window_sum, stride))
+            running = (buckets[d] if running is None
+                       else pt_add(running, buckets[d]))
+            prev_d = d
+        stride = running if prev_d == 1 else pt_scalar_mult(running, prev_d)
+        window_sum = stride if window_sum is None else pt_add(window_sum, stride)
+        acc = window_sum if _is_identity(acc) else pt_add(acc, window_sum)
+    return acc
+
+
+def _rlc_holds(parsed) -> bool:
+    """One random linear combination over parsed rows:
+    sum_i z_i ([s_i]B - [h_i]A_i - R_i) == identity, with 128-bit z_i from
+    ``os.urandom`` drawn after the signatures are fixed, in row order. The
+    shared base point rides the window table as one [sum z_i s_i]B."""
+    s_b = 0
+    pairs = []
+    for _, neg_a, neg_r, h, s in parsed:
+        z = int.from_bytes(os.urandom(16), "little") or 1
+        s_b = (s_b + z * s) % L
+        pairs.append(((z * h) % L, neg_a))
+        pairs.append((z, neg_r))
+    acc = _msm(pairs)
+    return _is_identity(pt_add(acc, _mul_b(s_b)))
+
+
+def _leaf_verify(item) -> bool:
+    """The exact check of one parsed row: [s]B - [h]A == R as group
+    elements. Parsing pinned R's encoding to its canonical bytes, where
+    group equality is Go's byte compare; the compare cross-multiplies."""
+    _, neg_a, neg_r, h, s = item
+    t = pt_add(_mul_b(s), pt_scalar_mult(neg_a, h))
+    x_r, y_r = (P - neg_r[0]) % P, neg_r[1]
+    X, Y, Z, _ = t
+    return (X - x_r * Z) % P == 0 and (Y - y_r * Z) % P == 0
+
+
+_CHUNK = 32  # localization chunk: a failed RLC re-checks N/32 groups
+
+
+def _resolve_batch(parsed, out) -> None:
+    """One RLC for the whole batch (a clean flush, the common case); when
+    it fails, one RLC a chunk of ``_CHUNK`` rows, and an exact leaf check
+    for each row of a chunk that fails (or of a chunk of 4 rows or
+    fewer)."""
+    if not parsed:
+        return
+    if _rlc_holds(parsed):
+        for item in parsed:
+            out[item[0]] = True
+        return
+    for lo in range(0, len(parsed), _CHUNK):
+        chunk = parsed[lo: lo + _CHUNK]
+        if len(chunk) > 4 and _rlc_holds(chunk):
+            for item in chunk:
+                out[item[0]] = True
+            continue
+        for item in chunk:
+            out[item[0]] = _leaf_verify(item)
+
+
+# -A in extended coordinates by raw pubkey bytes (None: the key does not
+# decompress): a validator's key is decompressed once a process, not once a
+# flush. Points are immutable tuples; the bound caps a stream of fresh keys.
+_A_NEG_CACHE: dict = {}
+_A_NEG_CACHE_MAX = 16384
+
+
+def _parse_batch(items, compute_h: bool = True) -> Tuple[list, List[bool]]:
+    """[(public_key, message, sig), ...] -> (parsed, out). Go's edges are
+    applied here: a row with a bad length, a set top-3 bit in s, an A or R
+    that does not decompress, or a non-canonical R encoding stays False in
+    ``out`` and never reaches the MSM. ``parsed`` holds (i, -A, -R, h, s)
+    rows; ``compute_h=False`` leaves h at 0 for a caller that hashes
+    elsewhere."""
+    out = [False] * len(items)
+    parsed = []
+    a_cache = _A_NEG_CACHE
+    if len(a_cache) > _A_NEG_CACHE_MAX:
+        a_cache.clear()
+    for i, (pub, msg, sig) in enumerate(items):
+        pub, sig = bytes(pub), bytes(sig)
+        if len(pub) != 32 or len(sig) != 64 or sig[63] & 224 != 0:
+            continue
+        if pub in a_cache:
+            neg_a = a_cache[pub]
+        else:
+            A = _decompress_xy(pub)
+            neg_a = None if A is None else _to_extended(((P - A[0]) % P, A[1]))
+            a_cache[pub] = neg_a
+        if neg_a is None:
+            continue
+        R = _decompress_xy(sig[:32])
+        if R is None:
+            continue
+        # Go compares bytes with the canonical re-encoding of R': an R whose
+        # encoding is not its own canonical form can never match
+        if (R[1] | ((R[0] & 1) << 255)).to_bytes(32, "little") != sig[:32]:
+            continue
+        if compute_h:
+            h = int.from_bytes(
+                hashlib.sha512(sig[:32] + pub + bytes(msg)).digest(), "little"
+            ) % L
+        else:
+            h = 0
+        s = int.from_bytes(sig[32:], "little") % L  # [s]B == [s mod L]B
+        neg_r = _to_extended(((P - R[0]) % P, R[1]))
+        parsed.append((i, neg_a, neg_r, h, s))
+    return parsed, out
+
+
+def verify_batch(items) -> List[bool]:
+    """Batch verification of [(public_key, message, sig), ...]: the RLC
+    route of the reference's ``verify_batch``, which is what the reference
+    runs on a host without the ``cryptography`` package."""
+    parsed, out = _parse_batch(items)
+    _resolve_batch(parsed, out)
+    return out
 
 
 def _clamped_scalar(seed: bytes) -> Tuple[int, bytes]:

@@ -61,6 +61,34 @@ class PubKeyEd25519(PubKey):
 
 
 @dataclass(frozen=True)
+class PrivKeyEd25519:
+    data: bytes  # 64 bytes: seed || pubkey
+    type_name = "tendermint/PrivKeyEd25519"
+
+    def __post_init__(self):
+        if len(self.data) != 64:
+            raise ValueError("ed25519 privkey must be 64 bytes")
+
+    def bytes(self) -> bytes:
+        return self.data
+
+    def sign(self, msg: bytes) -> bytes:
+        return _ed.sign(self.data, msg)
+
+    def pub_key(self) -> PubKeyEd25519:
+        return PubKeyEd25519(self.data[32:])
+
+    @staticmethod
+    def generate(seed: bytes | None = None) -> "PrivKeyEd25519":
+        return PrivKeyEd25519(_ed.gen_privkey(seed))
+
+    @staticmethod
+    def from_secret(secret: bytes) -> "PrivKeyEd25519":
+        """The reference's GenPrivKeyFromSecret: seed = SHA-256(secret)."""
+        return PrivKeyEd25519(_ed.gen_privkey(sha256(secret)))
+
+
+@dataclass(frozen=True)
 class PubKeySecp256k1(PubKey):
     data: bytes  # 33-byte compressed point
     type_name = "tendermint/PubKeySecp256k1"

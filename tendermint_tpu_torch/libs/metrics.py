@@ -3,12 +3,14 @@ text exposition (plain text format v0.0.4, which is all Prometheus needs to
 scrape).
 
 The port's copy of the registry primitives of the JAX package's
-``libs/metrics.py`` and of its ``VerifyMetrics`` and ``FrontendMetrics``:
-the same ``tendermint_verify_*`` and ``tendermint_lite_frontend_*`` family
-names, help texts, label names and buckets, so a dashboard built on the
-reference reads the port unchanged. The other metric sets of the reference
-(consensus, p2p, mempool, state sync) belong to subsystems the port has not
-taken over.
+``libs/metrics.py`` and of its ``VerifyMetrics``, ``FrontendMetrics``,
+``VoteBatchMetrics`` and ``MempoolBatchMetrics``: the same
+``tendermint_verify_*``, ``tendermint_lite_frontend_*``,
+``tendermint_consensus_vote_batch_*`` and ``tendermint_mempool_batch_*``
+family names, help texts, label names and buckets, so a dashboard built on
+the reference reads the port unchanged. The other metric sets of the
+reference (consensus, p2p, mempool, state sync) belong to subsystems the
+port has not taken over.
 """
 
 from __future__ import annotations
@@ -527,3 +529,118 @@ def get_frontend_metrics() -> FrontendMetrics:
         if _frontend_metrics is None:
             _frontend_metrics = FrontendMetrics()
         return _frontend_metrics
+
+
+class VoteBatchMetrics:
+    """The live-vote micro-batcher's telemetry (parallel/planner.VoteFeed):
+    vote-set rows a flush, the lane tile's fill, the flush's trigger
+    (deadline|quorum|close) and each vote's queue wait. Process-wide, like
+    VerifyMetrics."""
+
+    def __init__(self, registry: Optional[Registry] = None):
+        r = registry or Registry()
+        self.registry = r
+        self.batch_rows = r.histogram(
+            "consensus_vote_batch_rows",
+            "Vote-set rows folded into one batched vote-verify dispatch",
+            buckets=_SIZE_BUCKETS,
+        )
+        self.batch_lanes = r.histogram(
+            "consensus_vote_batch_lanes",
+            "Votes (present lanes) per batched vote-verify dispatch",
+            buckets=_SIZE_BUCKETS,
+        )
+        self.lane_occupancy = r.histogram(
+            "consensus_vote_batch_lane_occupancy",
+            "Lane occupancy (present/dispatched) of batched vote dispatches",
+            buckets=(0.05, 0.1, 0.25, 0.5, 0.75, 0.9, 1.0),
+        )
+        self.flushes = r.counter(
+            "consensus_vote_batch_flush_total",
+            "Vote micro-batcher flushes by trigger (deadline|quorum|close)",
+            label_names=("reason",),
+        )
+        self.batch_wait = r.histogram(
+            "consensus_vote_batch_wait_seconds",
+            "Queue wait a vote spent parked in the micro-batcher between "
+            "ticket submit and flush (batching-added latency, separable "
+            "from network propagation in the quorum reports)",
+            buckets=[b / 100 for b in _DEFAULT_BUCKETS],
+        )
+
+    def record_flush(self, reason: str, rows: int, lanes: int,
+                     occupancy: float) -> None:
+        """One VoteFeed flush: its shape and trigger."""
+        self.batch_rows.observe(float(rows))
+        self.batch_lanes.observe(float(lanes))
+        self.lane_occupancy.observe(float(occupancy))
+        self.flushes.add(1.0, (reason,))
+
+    def record_wait(self, seconds: float) -> None:
+        """One ticket's submit-to-flush queue wait."""
+        if seconds >= 0.0:
+            self.batch_wait.observe(seconds)
+
+
+_vote_batch_mtx = threading.Lock()
+_vote_batch_metrics: Optional[VoteBatchMetrics] = None
+
+
+def get_vote_batch_metrics() -> VoteBatchMetrics:
+    """Process-wide VoteBatchMetrics singleton."""
+    global _vote_batch_metrics
+    with _vote_batch_mtx:
+        if _vote_batch_metrics is None:
+            _vote_batch_metrics = VoteBatchMetrics()
+        return _vote_batch_metrics
+
+
+class MempoolBatchMetrics:
+    """The CheckTx micro-batcher's telemetry (parallel/planner.TxFeed):
+    CheckTx-window rows a flush, the lane tile's fill and the flush's
+    trigger (deadline|quorum|close). Process-wide, like VoteBatchMetrics."""
+
+    def __init__(self, registry: Optional[Registry] = None):
+        r = registry or Registry()
+        self.registry = r
+        self.batch_rows = r.histogram(
+            "mempool_batch_rows",
+            "CheckTx-window rows folded into one batched tx-verify dispatch",
+            buckets=_SIZE_BUCKETS,
+        )
+        self.batch_lanes = r.histogram(
+            "mempool_batch_lanes",
+            "Txs (present lanes) per batched tx-verify dispatch",
+            buckets=_SIZE_BUCKETS,
+        )
+        self.lane_occupancy = r.histogram(
+            "mempool_batch_lane_occupancy",
+            "Lane occupancy (present/dispatched) of batched tx dispatches",
+            buckets=(0.05, 0.1, 0.25, 0.5, 0.75, 0.9, 1.0),
+        )
+        self.flushes = r.counter(
+            "mempool_batch_flush_total",
+            "Tx micro-batcher flushes by trigger (deadline|quorum|close)",
+            label_names=("reason",),
+        )
+
+    def record_flush(self, reason: str, rows: int, lanes: int,
+                     occupancy: float) -> None:
+        """One TxFeed flush: its shape and trigger."""
+        self.batch_rows.observe(float(rows))
+        self.batch_lanes.observe(float(lanes))
+        self.lane_occupancy.observe(float(occupancy))
+        self.flushes.add(1.0, (reason,))
+
+
+_mempool_batch_mtx = threading.Lock()
+_mempool_batch_metrics: Optional[MempoolBatchMetrics] = None
+
+
+def get_mempool_batch_metrics() -> MempoolBatchMetrics:
+    """Process-wide MempoolBatchMetrics singleton."""
+    global _mempool_batch_metrics
+    with _mempool_batch_mtx:
+        if _mempool_batch_metrics is None:
+            _mempool_batch_metrics = MempoolBatchMetrics()
+        return _mempool_batch_metrics

@@ -20,6 +20,9 @@ Counterpart of the ``[verify]`` wiring in the JAX package's node
      it records) and the planner's device executor on the same device.
      On the card both raise ``DeviceDispatchError`` where the reference
      would complete a failed dispatch on the host.
+
+``vote_feed(cfg)`` builds the live-vote micro-batcher the reference's node
+wires when ``[verify] vote_batch_window_ms > 0`` (``node/node.py:254-262``).
 """
 
 from __future__ import annotations
@@ -81,3 +84,17 @@ def reset_verify() -> None:
     planner.set_device_executor(None)
     _brk.reset_device_guard()
     planner.configure_planner(None)
+
+
+def vote_feed(cfg: Optional[VerifyConfig] = None,
+              device: DeviceLike = None) -> Optional[planner.VoteFeed]:
+    """The live-vote feed of the ``[verify]`` section: None when
+    ``vote_batch_window_ms`` is 0, else ``VoteFeed(window_s=ms / 1000,
+    max_rows=vote_batch_rows)``. On the card with no verifier given, its
+    flushes run the installed verifier (the root's guarded one)."""
+    cfg = cfg if cfg is not None else VerifyConfig()
+    ms = float(cfg.vote_batch_window_ms or 0.0)
+    if ms <= 0:
+        return None
+    return planner.VoteFeed(window_s=ms / 1000.0, max_rows=cfg.vote_batch_rows,
+                            device=device)

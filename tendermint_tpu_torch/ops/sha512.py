@@ -14,6 +14,8 @@ from typing import List, Tuple
 import numpy as np
 import torch
 
+from tendermint_tpu_torch.device import DeviceLike, resolve_device
+
 # FIPS 180-4 round constants and initial state
 K = (
     0x428A2F98D728AE22, 0x7137449123EF65CD, 0xB5C0FBCFEC4D3B2F, 0xE9B5DBA58189DBBC,
@@ -143,7 +145,9 @@ def digest_bytes(state: List[Pair]) -> np.ndarray:
         words.astype(">u4")).view(np.uint8).reshape(words.shape[0], 64)
 
 
-def sha512_batch(data: np.ndarray, device="cpu") -> np.ndarray:
-    """SHA-512 of n equal-length messages: (n, length) uint8 -> (n, 64)."""
-    words = torch.from_numpy(be_words(pad(data)).astype(np.int64)).to(device)
+def sha512_batch(data: np.ndarray, device: DeviceLike = None) -> np.ndarray:
+    """SHA-512 of n equal-length messages: (n, length) uint8 -> (n, 64),
+    on ``device`` (``cuda`` unless the caller passes ``"cpu"``)."""
+    words = torch.from_numpy(be_words(pad(data)).astype(np.int64)).to(
+        resolve_device(device))
     return digest_bytes(sha512_words(words))

@@ -35,12 +35,14 @@ the installed verifier's own guard (``GuardedBatchVerifier``). The executor
 is a seam (``set_device_executor``): the configuration root
 (``node/verify_root.py``) installs it with its device.
 
-Two streaming entry points run windows through ``execute_plan``:
+Four streaming entry points run windows through ``execute_plan``:
 ``WindowPipeline`` (state sync's backfill sub-windows: a worker thread plans
-and packs window N+1 while window N dispatches) and ``LaneFeed`` (many
-callers with one row each, such as the RPC's ``?verify=1`` burst: rows that
-arrive within a deadline fold into one dispatch). Not ported yet: the
-multi-GPU lane split (ROADMAP queue 1 item 4b (iii)).
+window N+1 while window N dispatches), ``LaneFeed`` (many callers with one
+row each, such as the RPC's ``?verify=1`` burst: rows that arrive within a
+deadline fold into one dispatch), ``VoteFeed`` (live consensus votes, one
+lane each, one row per vote set) and ``TxFeed`` (mempool CheckTx
+signatures, one row per CheckTx window). Not ported yet: the multi-GPU
+lane split (ROADMAP queue 1 item 4b (iii)).
 """
 
 from __future__ import annotations
@@ -57,12 +59,16 @@ import numpy as np
 import torch
 
 from tendermint_tpu_torch.crypto import ed25519 as _ed
-from tendermint_tpu_torch.crypto.batch import verify_generic
+from tendermint_tpu_torch.crypto.batch import RLCHostVerifier, verify_generic
 from tendermint_tpu_torch.crypto.keys import PubKey, PubKeyEd25519
 from tendermint_tpu_torch.device import DeviceLike, resolve_device
 from tendermint_tpu_torch.libs import breaker as _brk
 from tendermint_tpu_torch.libs import trace
-from tendermint_tpu_torch.libs.metrics import get_verify_metrics
+from tendermint_tpu_torch.libs.metrics import (
+    get_mempool_batch_metrics,
+    get_verify_metrics,
+    get_vote_batch_metrics,
+)
 from tendermint_tpu_torch.libs.profile import get_profiler
 from tendermint_tpu_torch.ops import ed25519_cuda as _k
 
@@ -1038,15 +1044,17 @@ class RowVerdict:
     occupancy: float  # lane occupancy of that dispatch
 
 
-class LaneTicket:
-    """Handle for one submitted row; ``result()`` blocks until the feed's
-    worker flushes the batch the row rode in."""
+class _Ticket:
+    """Handle for one submission; ``result()`` blocks until the feed's
+    worker flushes the batch it rode in, and raises what the flush raised
+    (on the card, ``DeviceDispatchError`` for a failed dispatch)."""
 
     __slots__ = ("_ev", "_verdict", "_err")
+    _what = "feed"
 
     def __init__(self):
         self._ev = threading.Event()
-        self._verdict: Optional[RowVerdict] = None
+        self._verdict = None
         self._err: Optional[BaseException] = None
 
     def _resolve(self, verdict=None, err=None) -> None:
@@ -1054,12 +1062,20 @@ class LaneTicket:
         self._err = err
         self._ev.set()
 
-    def result(self, timeout: Optional[float] = None) -> RowVerdict:
+    def result(self, timeout: Optional[float] = None):
         if not self._ev.wait(timeout):
-            raise TimeoutError("lane feed flush did not complete in time")
+            raise TimeoutError(f"{self._what} flush did not complete in time")
         if self._err is not None:
             raise self._err
         return self._verdict
+
+
+class LaneTicket(_Ticket):
+    """Handle for one submitted row of a ``LaneFeed``: ``result()`` gives
+    its ``RowVerdict``."""
+
+    __slots__ = ()
+    _what = "lane feed"
 
 
 class LaneFeed:
@@ -1200,3 +1216,404 @@ class LaneFeed:
                     batch_lanes=verdict.lanes_present,
                     occupancy=verdict.occupancy,
                 ))
+
+
+# ---------------------------------------------------------------------------
+# Long-lived vote and tx feeds (live consensus votes, mempool CheckTx)
+# ---------------------------------------------------------------------------
+
+
+@dataclass
+class VoteVerdict:
+    """One submitted vote's verdict and the shape of the dispatch that
+    served it (the ``tendermint_consensus_vote_batch_*`` family)."""
+
+    ok: bool  # signature verified
+    batch_rows: int  # group rows folded into the dispatch
+    batch_lanes: int  # present lanes in the dispatch
+    occupancy: float  # lane occupancy of the dispatch
+    flush_reason: str  # deadline | quorum | close
+
+
+@dataclass
+class TxVerdict(VoteVerdict):
+    """One submitted transaction's verdict and the shape of its dispatch
+    (the ``tendermint_mempool_batch_*`` family)."""
+
+
+class VoteTicket(_Ticket):
+    """A vote's ticket; ``submitted_ns`` and ``flushed_ns`` (the feed's
+    clock) bound the queue wait the micro-batcher added."""
+
+    __slots__ = ("submitted_ns", "flushed_ns")
+    _what = "vote feed"
+
+    def __init__(self):
+        super().__init__()
+        self.submitted_ns = 0
+        self.flushed_ns = 0
+
+
+class TxTicket(_Ticket):
+    """A transaction's ticket."""
+
+    __slots__ = ()
+    _what = "tx feed"
+
+
+class _GroupFeed:
+    """The micro-batcher under ``VoteFeed`` and ``TxFeed``: one submission
+    is one lane; lanes sharing a group key pack into one lane row; a worker
+    thread holds a batch open for ``window_s`` (less after ``flush_now()``,
+    ``close()`` or ``max_rows * windows_per_dispatch()`` pending
+    submissions), chunks the rows into windows of at most ``max_rows``,
+    folds them into ONE ``plan_windows`` tile and one guarded
+    ``execute_plan`` dispatch (``_plan_and_execute_windows``), and resolves
+    every ticket.
+
+    ``device`` is resolved at construction (``cuda`` unless the caller
+    passes ``"cpu"``; with no card and no device given it raises
+    ``NoCudaDeviceError``). With ``verifier=None`` the feed passes no
+    verifier down on the card, so the verifier route runs the installed
+    verifier (the configuration root's guarded ``TorchBatchVerifier``: K1 +
+    K2, K3 for secp256k1 lanes); on the CPU it takes the reference's
+    default, ``RLCHostVerifier``. ``use_device=True`` takes the guarded
+    device executor (K1 -> K2 -> the tally). On the card a failed, hung or
+    audit-failed dispatch raises ``DeviceDispatchError`` into every ticket
+    of its flush."""
+
+    _thread_name = "planner-feed"
+    _what = "feed"
+    _ticket_cls = _Ticket
+    _verdict_cls = VoteVerdict
+
+    def __init__(self, mesh, verifier, use_device, window_s, max_rows,
+                 profile_kind, on_flush, device):
+        windows_per_dispatch(mesh)  # a mesh raises here, not in the worker
+        self.device = resolve_device(device)
+        if verifier is None and self.device.type == "cpu":
+            verifier = RLCHostVerifier()
+        self.mesh = mesh
+        self.verifier = verifier
+        self.use_device = use_device
+        self.window_s = max(0.0, float(window_s))
+        self.max_rows = max(1, int(max_rows))
+        self.profile_kind = profile_kind
+        self.on_flush = on_flush  # (reason, n_in, n_rows, verdict, seconds)
+        # submissions in, the group rows they packed into, the dispatches,
+        # and the windows folded into them
+        self._n_in = 0
+        self.rows_out = 0
+        self.dispatches = 0
+        self.windows_out = 0
+        self.flushes: dict = {"deadline": 0, "quorum": 0, "close": 0}
+        self._cond = threading.Condition()
+        self._pending: List[tuple] = []  # (group_key, ..., ticket)
+        self._deadline = 0.0
+        self._urgent = False
+        self._closed = False
+        self._thread: Optional[threading.Thread] = None
+
+    def _park(self, entry: tuple, urgent: bool) -> None:
+        """Queue one submission (its ticket last) for the next flush."""
+        with self._cond:
+            if self._closed:
+                raise RuntimeError(f"{self._what} is closed")
+            if not self._pending:
+                self._deadline = time.monotonic() + self.window_s
+            self._stamp(entry[-1])
+            self._pending.append(entry)
+            self._n_in += 1
+            if urgent:
+                self._urgent = True
+            if self._thread is None:
+                self._thread = threading.Thread(
+                    target=self._worker, name=self._thread_name, daemon=True)
+                self._thread.start()
+            self._cond.notify_all()
+
+    def _stamp(self, ticket) -> None:
+        pass
+
+    def flush_now(self) -> None:
+        """Collapse the current deadline: what is pending dispatches at
+        once (counted as a quorum flush)."""
+        with self._cond:
+            self._urgent = True
+            self._cond.notify_all()
+
+    def close(self) -> None:
+        """Stop accepting submissions; pending ones still flush before the
+        worker exits (their tickets resolve, never hang)."""
+        with self._cond:
+            self._closed = True
+            self._cond.notify_all()
+
+    def join(self, timeout: Optional[float] = None) -> None:
+        """Wait for the worker to drain after close()."""
+        t = self._thread
+        if t is not None:
+            t.join(timeout)
+
+    def _worker(self) -> None:
+        while True:
+            with self._cond:
+                while not self._pending:
+                    if self._closed:
+                        return
+                    self._cond.wait(0.1)
+                # hold the batch open for the rest of the window unless a
+                # quorum flush, close, or a full superdispatch's worth of
+                # submissions comes first
+                cap = self.max_rows * windows_per_dispatch(self.mesh)
+                while (
+                    len(self._pending) < cap
+                    and not self._closed
+                    and not self._urgent
+                ):
+                    left = self._deadline - time.monotonic()
+                    if left <= 0:
+                        break
+                    self._cond.wait(left)
+                if self._closed:
+                    reason = "close"
+                elif self._urgent:
+                    reason = "quorum"
+                else:
+                    reason = "deadline"
+                self._urgent = False
+                batch, self._pending = self._pending, []
+            self._flush(batch, reason)
+
+    def _flush(self, batch: List[tuple], reason: str) -> None:
+        raise NotImplementedError
+
+    def _metrics(self):
+        raise NotImplementedError
+
+    def _dispatch(self, rows: List[tuple], keys, reason: str, n_in: int) -> None:
+        """One guarded dispatch of ``rows`` ((vrow, prow, total, tickets),
+        in first-seen group order) and every ticket resolved."""
+        chunks = [rows[i: i + self.max_rows]
+                  for i in range(0, len(rows), self.max_rows)]
+        specs = [([r[0] for r in chunk], [r[1] for r in chunk], [r[2] for r in chunk])
+                 for chunk in chunks]
+        t0 = time.perf_counter()
+        try:
+            plan, verdict = _plan_and_execute_windows(
+                specs, mesh=self.mesh, verifier=self.verifier,
+                use_device=self.use_device,
+            )
+            parts = split_verdict(plan, verdict)
+        except BaseException as e:
+            for row in rows:
+                for ticket in row[3]:
+                    ticket._resolve(err=e)
+            return
+        seconds = time.perf_counter() - t0
+        self.dispatches += 1
+        self.windows_out += len(chunks)
+        self.rows_out += len(rows)
+        self.flushes[reason] = self.flushes.get(reason, 0) + 1
+        try:
+            # group keys lead with a height ((height, round, type) for
+            # votes, (height, window_seq) for txs): the ledger entry covers
+            # the batch's height span, as the reference's does
+            hs = sorted({
+                gk[0] for gk in keys
+                if isinstance(gk, tuple) and gk and isinstance(gk[0], int)
+            })
+            prof = get_profiler()
+            fields = dict(lanes_present=verdict.lanes_present,
+                          lanes_dispatched=verdict.lanes_dispatched,
+                          run_seconds=seconds, n_windows=len(chunks))
+            if hs:
+                with prof.window(hs[0], heights=hs[-1] - hs[0] + 1):
+                    prof.record(self.profile_kind, **fields)
+            else:
+                prof.record(self.profile_kind, heights=len(rows), **fields)
+        except Exception:
+            pass
+        try:
+            self._metrics().record_flush(
+                reason, rows=len(rows), lanes=verdict.lanes_present,
+                occupancy=verdict.occupancy)
+        except Exception:
+            pass
+        if self.on_flush is not None:
+            try:
+                self.on_flush(reason, n_in, len(rows), verdict, seconds)
+            except Exception:
+                pass
+        for part, chunk in zip(parts, chunks):
+            for ri, row in enumerate(chunk):
+                for j, ticket in enumerate(row[3]):
+                    ticket._resolve(self._verdict_cls(
+                        ok=bool(part.ok[ri, j]),
+                        batch_rows=len(rows),
+                        batch_lanes=verdict.lanes_present,
+                        occupancy=verdict.occupancy,
+                        flush_reason=reason,
+                    ))
+
+
+class VoteFeed(_GroupFeed):
+    """``LaneFeed``'s sibling for live consensus votes: the
+    deadline-bounded micro-batcher behind ``VoteSet.add_vote``'s
+    verification seam. The unit of submission is one vote; votes are keyed
+    by their vote set, the ``(height, round, type)`` group whose validator
+    set they share, and each group becomes one lane row, so concurrent vote
+    sets ride one dispatch. ``flush_now()`` (or ``submit(urgent=True)``)
+    collapses the window when a vote could complete a +2/3. Each flush
+    records its trigger, its shape and its tickets' queue waits
+    (``flush_records()``, ``tendermint_consensus_vote_batch_*``)."""
+
+    FLUSH_RECORD_CAPACITY = 256  # the flush-attribution ring
+    _thread_name = "planner-vote-feed"
+    _what = "vote feed"
+    _verdict_cls = VoteVerdict
+
+    def __init__(self, mesh=None, verifier=None,
+                 use_device: Optional[bool] = None, window_s: float = 0.002,
+                 max_rows: int = 64,
+                 profile_kind: str = "consensus.vote_batch", on_flush=None,
+                 now_ns=None, device: DeviceLike = None):
+        super().__init__(mesh, verifier, use_device, window_s, max_rows,
+                         profile_kind, on_flush, device)
+        # the clock of the tickets' stamps; injectable so that a simulated
+        # node's skewed clock stamps them
+        self.now_ns = now_ns if now_ns is not None else time.time_ns
+        self._flush_recs: List[dict] = []
+        self._flush_recs_dropped = 0
+
+    @property
+    def votes_in(self) -> int:
+        return self._n_in
+
+    def submit(self, group_key, pub, msg: bytes, sig: bytes, power: int = 1,
+               total: int = 1, urgent: bool = False) -> VoteTicket:
+        """Park one vote for the next flush; returns at once. Votes that
+        share ``group_key`` (their vote set) pack into one lane row."""
+        ticket = VoteTicket()
+        self._park((group_key, pub, bytes(msg), bytes(sig), int(power),
+                    int(total), ticket), urgent)
+        return ticket
+
+    def _stamp(self, ticket) -> None:
+        ticket.submitted_ns = self.now_ns()
+
+    def flush_records(self) -> dict:
+        """A copy of the recent-flush ledger: each flush's trigger, shape,
+        (height, round, type) groups, window-open and flush stamps, and the
+        worst and mean queue wait of its tickets."""
+        with self._cond:
+            return {
+                "capacity": self.FLUSH_RECORD_CAPACITY,
+                "dropped": self._flush_recs_dropped,
+                "records": [dict(r) for r in self._flush_recs],
+            }
+
+    def _metrics(self):
+        return get_vote_batch_metrics()
+
+    def _flush(self, batch: List[tuple], reason: str) -> None:
+        # the batch leaves the feed now: the queue wait is submit -> flush,
+        # not submit -> verdict (the dispatch has its own spans)
+        t_flush = self.now_ns()
+        waits: List[float] = []
+        for item in batch:
+            ticket = item[6]
+            ticket.flushed_ns = t_flush
+            if ticket.submitted_ns:
+                waits.append(max(0.0, (t_flush - ticket.submitted_ns) / 1e9))
+        # one lane row per vote-set group, in first-seen order
+        rows: List[tuple] = []  # (vrow, prow, total, tickets)
+        by_key: dict = {}
+        for group_key, pub, msg, sig, power, total, ticket in batch:
+            row = by_key.get(group_key)
+            if row is None:
+                row = ([], [], total, [])
+                by_key[group_key] = row
+                rows.append(row)
+            row[0].append((pub, msg, sig))
+            row[1].append(power)
+            row[3].append(ticket)
+        rec = {
+            "reason": reason,
+            "votes": len(batch),
+            "rows": len(rows),
+            "groups": [list(gk) if isinstance(gk, tuple) else gk for gk in by_key],
+            "t_open_ns": min(
+                (it[6].submitted_ns for it in batch if it[6].submitted_ns),
+                default=t_flush,
+            ),
+            "t_flush_ns": t_flush,
+            "wait_max_s": max(waits) if waits else 0.0,
+            "wait_mean_s": (sum(waits) / len(waits)) if waits else 0.0,
+        }
+        with self._cond:
+            self._flush_recs.append(rec)
+            if len(self._flush_recs) > self.FLUSH_RECORD_CAPACITY:
+                del self._flush_recs[0]
+                self._flush_recs_dropped += 1
+        try:
+            vm = get_vote_batch_metrics()
+            for w in waits:
+                vm.record_wait(w)
+        except Exception:
+            pass
+        self._dispatch(rows, by_key, reason, len(batch))
+
+
+class TxFeed(_GroupFeed):
+    """``VoteFeed``'s ingest sibling: the deadline-bounded transaction
+    micro-batcher behind the mempool's verdict-bearing CheckTx hook
+    (``mempool/tx_verify.BatchTxVerifier``). The unit of submission is one
+    transaction's ``(pub, sign_bytes, sig)``; each ``group_key`` (a
+    ``(height, window_seq)`` CheckTx window) becomes one lane row. The
+    quorum math is vestigial: power 1 a lane and total = the row's lane
+    count. ``flush_now()`` collapses the window once a whole CheckTx window
+    is in (counted as a quorum flush); flushes are counted in
+    ``tendermint_mempool_batch_*``."""
+
+    _thread_name = "planner-tx-feed"
+    _what = "tx feed"
+    _verdict_cls = TxVerdict
+
+    def __init__(self, mesh=None, verifier=None,
+                 use_device: Optional[bool] = None, window_s: float = 0.002,
+                 max_rows: int = 64, profile_kind: str = "mempool.tx_batch",
+                 on_flush=None, device: DeviceLike = None):
+        super().__init__(mesh, verifier, use_device, window_s, max_rows,
+                         profile_kind, on_flush, device)
+
+    @property
+    def txs_in(self) -> int:
+        return self._n_in
+
+    def submit(self, group_key, pub, msg: bytes, sig: bytes,
+               urgent: bool = False) -> TxTicket:
+        """Park one tx signature for the next flush; returns at once. Txs
+        that share ``group_key`` (their CheckTx window) pack into one lane
+        row."""
+        ticket = TxTicket()
+        self._park((group_key, pub, bytes(msg), bytes(sig), ticket), urgent)
+        return ticket
+
+    def _metrics(self):
+        return get_mempool_batch_metrics()
+
+    def _flush(self, batch: List[tuple], reason: str) -> None:
+        rows: List[tuple] = []  # (vrow, prow, total, tickets)
+        by_key: dict = {}
+        for group_key, pub, msg, sig, ticket in batch:
+            row = by_key.get(group_key)
+            if row is None:
+                row = ([], [], 0, [])
+                by_key[group_key] = row
+                rows.append(row)
+            row[0].append((pub, msg, sig))
+            row[3].append(ticket)
+        rows = [(vrow, [1] * len(vrow), len(vrow), tickets)
+                for vrow, _, _, tickets in rows]
+        self._dispatch(rows, by_key, reason, len(batch))

@@ -18,10 +18,17 @@ class SignedMsgType(IntEnum):
     HEARTBEAT = 0x30
 
 
+def is_vote_type_valid(t: int) -> bool:
+    return t in (SignedMsgType.PREVOTE, SignedMsgType.PRECOMMIT)
+
+
 @dataclass(frozen=True)
 class PartSetHeader:
     total: int = 0
     hash: bytes = b""
+
+    def is_zero(self) -> bool:
+        return self.total == 0 and len(self.hash) == 0
 
     def encode(self, w: Writer) -> None:
         w.uvarint(self.total).bytes(self.hash)
@@ -38,6 +45,16 @@ class BlockID:
 
     hash: bytes = b""
     parts_header: PartSetHeader = field(default_factory=PartSetHeader)
+
+    def is_zero(self) -> bool:
+        return len(self.hash) == 0 and self.parts_header.is_zero()
+
+    def key(self) -> bytes:
+        """Stable map key: the encoded BlockID (the reference keys on the
+        amino encoding)."""
+        w = Writer()
+        self.encode(w)
+        return w.build()
 
     def encode(self, w: Writer) -> None:
         w.bytes(self.hash)

@@ -94,6 +94,13 @@ class ValidatorSet:
     def total_voting_power(self) -> int:
         return sum(v.voting_power for v in self.validators)
 
+    def get_by_index(self, index: int) -> Tuple[bytes, Optional[Validator]]:
+        """(address, a copy of the validator), or (b"", None)."""
+        if 0 <= index < len(self.validators):
+            v = self.validators[index]
+            return v.address, replace(v)
+        return b"", None
+
     def get_by_address(self, address: bytes) -> Tuple[int, Optional[Validator]]:
         """(index, a copy of the validator), or (-1, None)."""
         if self._addresses is None:

@@ -393,3 +393,44 @@ def test_lite_frontend_on_cuda_equals_its_cpu_run(cuda):
         reset_verify()
     assert got == want
     assert want[0] == [ch.full_commits[h] for h in heights]
+
+
+@pytest.mark.parametrize("use_device", [False, True])
+def test_vote_storm_on_cuda_equals_its_cpu_run(cuda, use_device):
+    """The 64-validator wave storm through VoteFeed on the card (the
+    verifier route over the configuration root's guarded verifier, or the
+    device executor) against the same feed on the CPU (RLCHostVerifier):
+    equal outcomes, evidence and vote-set states; K1 and K2 launched; no
+    fallback, the breaker closed."""
+    from tendermint_tpu_torch.libs import breaker as brk
+    from tendermint_tpu_torch.libs.metrics import get_verify_metrics
+    from tendermint_tpu_torch.node.verify_root import configure_verify, reset_verify
+    from tendermint_tpu_torch.parallel import planner
+    from tendermint_tpu_torch.testutil import votes as tv
+
+    vs, pvs = tv.make_vals(64)
+    storm = tv.build_storm(vs, pvs, seed=7, waves=6)
+
+    def run(**kw):
+        feed = planner.VoteFeed(window_s=30.0, max_rows=512, **kw)
+        try:
+            sets = tv.fresh_sets(vs)
+            outcomes, evidence = tv.run_batched(sets, storm, feed, timeout=300.0)
+            return outcomes, tv.evidence_key(evidence), tv.vote_set_state(sets)
+        finally:
+            feed.close()
+            feed.join(10.0)
+
+    want = run(device="cpu", use_device=False)
+    configure_verify(device=cuda)
+    try:
+        fell_back = sum(get_verify_metrics().device_fallback._values.values())
+        before = dict(ec.launches)
+        got = run(use_device=use_device)
+        for name in ("ed25519_prologue", "ed25519_ladder"):
+            assert ec.launches[name] > before[name]
+        assert sum(get_verify_metrics().device_fallback._values.values()) == fell_back
+        assert brk.get_device_breaker().state == brk.CLOSED
+    finally:
+        reset_verify()
+    assert got == want

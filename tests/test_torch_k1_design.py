@@ -242,6 +242,7 @@ def test_staged_message_is_the_padded_input(length):
     digests = np.ascontiguousarray(_sha512_ring(words).astype(">u8")).view(np.uint8)
     digests = digests.reshape(N, 64)
     assert np.array_equal(digests, jsha.sha512_batch(data, data.shape[1]))
+    assert np.array_equal(digests, tsha.sha512_batch(data, device="cpu"))
     for i in range(N):
         assert digests[i].tobytes() == hashlib.sha512(data[i].tobytes()).digest()
 

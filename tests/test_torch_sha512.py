@@ -34,10 +34,20 @@ LENGTHS = (0, 104, 111, 112, 200, 239)
 def test_sha512_vs_hashlib_and_jax(length):
     rng = np.random.default_rng(100 + length)
     data = rng.integers(0, 256, (7, length), dtype=np.uint8)
-    got = tsha.sha512_batch(data)
+    got = tsha.sha512_batch(data, device="cpu")
     assert np.array_equal(got, jsha.sha512_batch(data, length))
     for i in range(data.shape[0]):
         assert got[i].tobytes() == hashlib.sha512(data[i].tobytes()).digest()
+
+
+@pytest.mark.skipif(torch.cuda.is_available(), reason="checks the CPU-only default")
+def test_sha512_batch_defaults_to_the_card():
+    """No device given means ``cuda``: without a card it raises rather
+    than hashing on the CPU."""
+    from tendermint_tpu_torch.device import NoCudaDeviceError
+
+    with pytest.raises(NoCudaDeviceError):
+        tsha.sha512_batch(np.zeros((1, 8), np.uint8))
 
 
 def test_padding_rule():
