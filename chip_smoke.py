@@ -1730,8 +1730,9 @@ def drive_votes(vs, waves, want, what: str, err: dict, **feed_kw) -> dict:
     lanes = [f[3].lanes_present for f in flushes]
     occ = [f[3].occupancy for f in flushes]
     print(f"  {what}: {n_votes} votes equal the serial path's (outcomes, evidence, four "
-          f"sets); first run {out['first_s'] * 1e3:.1f} ms, second {out['wall_s'] * 1e3:.1f} "
-          f"ms: {n_votes / out['wall_s']:.2f} votes/s; dispatches {feed.dispatches} (first run "
+          f"sets); first run {out['first_s'] * 1e3:.1f} ms ({n_votes / out['first_s']:.2f} "
+          f"votes/s, key caches cold), second {out['wall_s'] * 1e3:.1f} ms "
+          f"({n_votes / out['wall_s']:.2f} votes/s, warm); dispatches {feed.dispatches} (first run "
           f"{out['dispatches']}), flushes {feed.flushes}; rows a dispatch {statistics.mean(rows):.2f}, lanes a dispatch "
           f"{statistics.mean(lanes):.1f}, occupancy {statistics.mean(occ):.4f}; queue wait "
           f"(flush_records) p50 {statistics.median(r['wait_mean_s'] for r in recs) * 1e3:.2f} "
@@ -1796,11 +1797,13 @@ def phase_votes(root, err: dict) -> dict:
     vote_commit_check(run["sets"], "mixed keys")
     runs["secp"] = run
     serial_rate = n_votes / want["wall_s"]
+    n_mixed = sum(len(w) for w in swaves)
+    rate = lambda n, r: f"{n / r['first_s']:.2f} first run, {n / r['wall_s']:.2f} warm"  # noqa: E731
     print(f"  votes {n_votes}; serial {serial_rate:.2f} votes/s; batched "
-          f"{n_votes / runs['verifier']['wall_s']:.2f} (verifier route) and "
-          f"{n_votes / runs['executor']['wall_s']:.2f} (executor route) votes/s; mixed keys "
-          f"serial {sum(len(w) for w in swaves) / swant['wall_s']:.2f}, batched "
-          f"{sum(len(w) for w in swaves) / run['wall_s']:.2f} votes/s", flush=True)
+          f"{rate(n_votes, runs['verifier'])} (verifier route) and "
+          f"{rate(n_votes, runs['executor'])} (executor route) votes/s; mixed keys "
+          f"serial {n_mixed / swant['wall_s']:.2f}, batched {rate(n_mixed, run)} votes/s "
+          f"(the warm run follows the first on the same keys)", flush=True)
     return runs
 
 

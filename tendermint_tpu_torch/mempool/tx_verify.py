@@ -9,11 +9,15 @@ keyed by the window, flushes, and waits on the tickets: one guarded
 dispatch a window. Verdicts are cached by tx hash, so a recheck of
 admitted txs answers from the cache and never verifies a signature twice.
 
-As in the reference, an unsigned or odd tx, a closed feed, a failed flush
-or a ticket timeout leaves that tx's verdict ``None`` (the app verifies it
-itself), with one exception on the card: a ``DeviceDispatchError`` (a
-failed, hung or audit-failed dispatch) raises out of the call instead of
-handing the signatures back to a host check.
+An unsigned or odd tx leaves that tx's verdict ``None``: the app decides
+it. Off the card (``feed.device`` is the CPU), a closed feed, a failed
+flush or a ticket timeout also leave the verdict ``None``, as in the
+reference. On the card they raise out of the call instead of handing the
+signatures back to a host check: a failed submit or flush raises what it
+raised (``DeviceDispatchError`` for a failed, hung or audit-failed
+dispatch), and a ticket that is not resolved within ``timeout_s``, or the
+guard's dispatch deadline if that is longer, raises
+``DeviceDispatchError('timeout')``.
 """
 
 from __future__ import annotations
@@ -23,7 +27,7 @@ import threading
 from typing import Callable, List, Optional
 
 from tendermint_tpu_torch.crypto.hashing import sha256 as tmhash
-from tendermint_tpu_torch.libs.breaker import DeviceDispatchError
+from tendermint_tpu_torch.libs.breaker import DeviceDispatchError, guard_config, on_card
 
 
 class BatchTxVerifier:
@@ -53,7 +57,7 @@ class BatchTxVerifier:
         self.submitted = 0  # txs dispatched to the feed
         self.cache_hits = 0  # verdicts served from the tx-hash cache
         self.unsigned = 0  # txs the extractor declined (the app decides)
-        self.feed_errors = 0  # submit, flush or timeout failures (the app decides)
+        self.feed_errors = 0  # submit, flush or timeout failures
 
     def __call__(self, batch_txs: List[bytes]) -> List[Optional[bool]]:
         n = len(batch_txs)
@@ -69,6 +73,7 @@ class BatchTxVerifier:
             except Exception:
                 height = 0
         group_key = (height, seq)
+        card = on_card(self.feed)
         tickets = []  # (batch index, tx hash, ticket)
         for i, tx in enumerate(batch_txs):
             h = tmhash(tx)
@@ -90,20 +95,33 @@ class BatchTxVerifier:
                 tickets.append((i, h, self.feed.submit(group_key, pub, msg, sig)))
             except Exception:
                 self.feed_errors += 1
+                if card:
+                    raise
                 continue
             self.submitted += 1
         if tickets:
             # the window is a whole mempool batch: collapse the feed's
             # deadline so admission never waits it out
             self.feed.flush_now()
+            timeout = self.timeout_s
+            if card:
+                # a dispatch the guard still supervises is not yet a failure
+                timeout = max(timeout, guard_config().dispatch_deadline)
             for i, h, ticket in tickets:
                 try:
-                    ok = bool(ticket.result(timeout=self.timeout_s).ok)
+                    ok = bool(ticket.result(timeout=timeout).ok)
                 except DeviceDispatchError:
                     self.feed_errors += 1
                     raise
+                except TimeoutError as e:
+                    self.feed_errors += 1
+                    if card:
+                        raise DeviceDispatchError("timeout", "tx feed flush") from e
+                    continue
                 except Exception:
                     self.feed_errors += 1
+                    if card:
+                        raise
                     continue
                 verdicts[i] = ok
                 with self._mtx:

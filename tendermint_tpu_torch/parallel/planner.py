@@ -1078,151 +1078,6 @@ class LaneTicket(_Ticket):
     _what = "lane feed"
 
 
-class LaneFeed:
-    """Long-lived lane feed, ``WindowPipeline``'s dual: many concurrent
-    callers each hold one row (a commit's lanes). ``submit()`` parks the row
-    for at most ``window_s`` seconds; a worker thread named
-    ``planner-lane-feed`` chunks every row pending by then into windows of
-    at most ``max_rows`` rows, folds the chunks into ONE lane tile
-    (``plan_windows``) and one guarded ``execute_plan`` dispatch, and hands
-    each caller its row's verdict. Collection stops early once
-    ``max_rows * windows_per_dispatch()`` rows wait. ``rows_in`` and
-    ``lanes_in`` count what was submitted, ``dispatches`` the flushes and
-    ``windows_out`` the windows folded into them. On the defaults
-    (``use_device=None``, no mesh) the feed takes the verifier route, as the
-    RPC's feed does: ``verify_generic`` and the installed verifier."""
-
-    def __init__(self, mesh=None, verifier=None,
-                 use_device: Optional[bool] = None, window_s: float = 0.002,
-                 max_rows: int = 64, profile_kind: str = "lane_feed",
-                 on_flush=None):
-        windows_per_dispatch(mesh)  # a mesh raises here, not in the worker
-        self.mesh = mesh
-        self.verifier = verifier
-        self.use_device = use_device
-        self.window_s = max(0.0, float(window_s))
-        self.max_rows = max(1, int(max_rows))
-        self.profile_kind = profile_kind
-        self.on_flush = on_flush  # (verdict, n_rows, seconds) per flush
-        self.dispatches = 0
-        self.windows_out = 0
-        self.rows_in = 0
-        self.lanes_in = 0
-        self._cond = threading.Condition()
-        self._pending: List[tuple] = []  # (vrow, prow, total, ticket)
-        self._deadline = 0.0
-        self._closed = False
-        self._thread: Optional[threading.Thread] = None
-
-    def submit(
-        self,
-        vrow: Sequence[Optional[SigTuple]],
-        prow: Sequence[int],
-        total: int,
-    ) -> LaneTicket:
-        """Park one height row for the next flush; returns at once."""
-        ticket = LaneTicket()
-        with self._cond:
-            if self._closed:
-                raise RuntimeError("lane feed is closed")
-            if not self._pending:
-                self._deadline = time.monotonic() + self.window_s
-            self._pending.append((list(vrow), list(prow), int(total), ticket))
-            self.rows_in += 1
-            self.lanes_in += sum(1 for it in vrow if it is not None)
-            if self._thread is None:
-                self._thread = threading.Thread(
-                    target=self._worker, name="planner-lane-feed", daemon=True
-                )
-                self._thread.start()
-            self._cond.notify_all()
-        return ticket
-
-    def flush_now(self) -> None:
-        """Collapse the current deadline: pending rows dispatch at once."""
-        with self._cond:
-            self._deadline = 0.0
-            self._cond.notify_all()
-
-    def close(self) -> None:
-        """Stop accepting rows; pending rows still flush before the worker
-        exits (their tickets resolve, never hang)."""
-        with self._cond:
-            self._closed = True
-            self._cond.notify_all()
-
-    def _worker(self) -> None:
-        while True:
-            with self._cond:
-                while not self._pending:
-                    if self._closed:
-                        return
-                    self._cond.wait(0.1)
-                # hold the batch open for the rest of the window unless a
-                # full superdispatch's rows (or close) arrive first: racing
-                # submits fold into one dispatch instead of queueing
-                cap = self.max_rows * windows_per_dispatch(self.mesh)
-                while len(self._pending) < cap and not self._closed:
-                    left = self._deadline - time.monotonic()
-                    if left <= 0:
-                        break
-                    self._cond.wait(left)
-                batch, self._pending = self._pending, []
-            self._flush(batch)
-
-    def _flush(self, batch: List[tuple]) -> None:
-        chunks = [batch[i: i + self.max_rows]
-                  for i in range(0, len(batch), self.max_rows)]
-        specs = [([b[0] for b in chunk], [b[1] for b in chunk], [b[2] for b in chunk])
-                 for chunk in chunks]
-        t0 = time.perf_counter()
-        try:
-            plan, verdict = _plan_and_execute_windows(
-                specs, mesh=self.mesh, verifier=self.verifier,
-                use_device=self.use_device,
-            )
-            parts = split_verdict(plan, verdict)
-        except BaseException as e:
-            for _, _, _, ticket in batch:
-                ticket._resolve(err=e)
-            return
-        seconds = time.perf_counter() - t0
-        self.dispatches += 1
-        self.windows_out += len(chunks)
-        try:
-            get_profiler().record(
-                self.profile_kind,
-                lanes_present=verdict.lanes_present,
-                lanes_dispatched=verdict.lanes_dispatched,
-                heights=len(batch),
-                run_seconds=seconds,
-                n_windows=len(chunks),
-            )
-        except Exception:
-            pass
-        if self.on_flush is not None:
-            try:
-                self.on_flush(verdict, len(batch), seconds)
-            except Exception:
-                pass
-        for part, chunk in zip(parts, chunks):
-            for i, (vrow, _, _, ticket) in enumerate(chunk):
-                ticket._resolve(RowVerdict(
-                    ok=np.asarray(part.ok[i, : len(vrow)], dtype=bool),
-                    tally=int(part.tally[i]),
-                    committed=bool(part.committed[i]),
-                    sigs_ok=bool(part.sigs_ok[i]),
-                    batch_rows=len(batch),
-                    batch_lanes=verdict.lanes_present,
-                    occupancy=verdict.occupancy,
-                ))
-
-
-# ---------------------------------------------------------------------------
-# Long-lived vote and tx feeds (live consensus votes, mempool CheckTx)
-# ---------------------------------------------------------------------------
-
-
 @dataclass
 class VoteVerdict:
     """One submitted vote's verdict and the shape of the dispatch that
@@ -1262,59 +1117,47 @@ class TxTicket(_Ticket):
 
 
 class _GroupFeed:
-    """The micro-batcher under ``VoteFeed`` and ``TxFeed``: one submission
-    is one lane; lanes sharing a group key pack into one lane row; a worker
-    thread holds a batch open for ``window_s`` (less after ``flush_now()``,
-    ``close()`` or ``max_rows * windows_per_dispatch()`` pending
-    submissions), chunks the rows into windows of at most ``max_rows``,
-    folds them into ONE ``plan_windows`` tile and one guarded
-    ``execute_plan`` dispatch (``_plan_and_execute_windows``), and resolves
-    every ticket.
-
-    ``device`` is resolved at construction (``cuda`` unless the caller
-    passes ``"cpu"``; with no card and no device given it raises
-    ``NoCudaDeviceError``). With ``verifier=None`` the feed passes no
-    verifier down on the card, so the verifier route runs the installed
-    verifier (the configuration root's guarded ``TorchBatchVerifier``: K1 +
-    K2, K3 for secp256k1 lanes); on the CPU it takes the reference's
-    default, ``RLCHostVerifier``. ``use_device=True`` takes the guarded
-    device executor (K1 -> K2 -> the tally). On the card a failed, hung or
-    audit-failed dispatch raises ``DeviceDispatchError`` into every ticket
-    of its flush."""
+    """The one micro-batcher under ``LaneFeed``, ``VoteFeed`` and
+    ``TxFeed``. ``_park`` queues a submission; a worker thread holds the
+    batch open for ``window_s`` (less after ``flush_now()``, ``close()`` or
+    ``max_rows * windows_per_dispatch()`` pending submissions), then the
+    subclass's ``_flush`` packs the batch into lane rows and ``_dispatch``
+    chunks them into windows of at most ``max_rows``, folds those into ONE
+    ``plan_windows`` tile and one guarded ``execute_plan`` dispatch
+    (``_plan_and_execute_windows``), and resolves every ticket through the
+    subclass's ``_resolve_row``. A failed dispatch raises into every ticket
+    of its flush (on the card, ``DeviceDispatchError``)."""
 
     _thread_name = "planner-feed"
     _what = "feed"
-    _ticket_cls = _Ticket
     _verdict_cls = VoteVerdict
 
     def __init__(self, mesh, verifier, use_device, window_s, max_rows,
-                 profile_kind, on_flush, device):
+                 profile_kind, on_flush):
         windows_per_dispatch(mesh)  # a mesh raises here, not in the worker
-        self.device = resolve_device(device)
-        if verifier is None and self.device.type == "cpu":
-            verifier = RLCHostVerifier()
         self.mesh = mesh
         self.verifier = verifier
         self.use_device = use_device
         self.window_s = max(0.0, float(window_s))
         self.max_rows = max(1, int(max_rows))
         self.profile_kind = profile_kind
-        self.on_flush = on_flush  # (reason, n_in, n_rows, verdict, seconds)
-        # submissions in, the group rows they packed into, the dispatches,
-        # and the windows folded into them
+        self.on_flush = on_flush
+        # submissions and lanes in, the lane rows they packed into, the
+        # dispatches, and the windows folded into them
         self._n_in = 0
+        self.lanes_in = 0
         self.rows_out = 0
         self.dispatches = 0
         self.windows_out = 0
         self.flushes: dict = {"deadline": 0, "quorum": 0, "close": 0}
         self._cond = threading.Condition()
-        self._pending: List[tuple] = []  # (group_key, ..., ticket)
+        self._pending: List[tuple] = []  # one entry a submission, its ticket last
         self._deadline = 0.0
         self._urgent = False
         self._closed = False
         self._thread: Optional[threading.Thread] = None
 
-    def _park(self, entry: tuple, urgent: bool) -> None:
+    def _park(self, entry: tuple, urgent: bool = False, lanes: int = 1) -> None:
         """Queue one submission (its ticket last) for the next flush."""
         with self._cond:
             if self._closed:
@@ -1324,6 +1167,7 @@ class _GroupFeed:
             self._stamp(entry[-1])
             self._pending.append(entry)
             self._n_in += 1
+            self.lanes_in += lanes
             if urgent:
                 self._urgent = True
             if self._thread is None:
@@ -1364,7 +1208,8 @@ class _GroupFeed:
                     self._cond.wait(0.1)
                 # hold the batch open for the rest of the window unless a
                 # quorum flush, close, or a full superdispatch's worth of
-                # submissions comes first
+                # submissions comes first: racing submits fold into one
+                # dispatch instead of queueing
                 cap = self.max_rows * windows_per_dispatch(self.mesh)
                 while (
                     len(self._pending) < cap
@@ -1388,12 +1233,46 @@ class _GroupFeed:
     def _flush(self, batch: List[tuple], reason: str) -> None:
         raise NotImplementedError
 
+    @staticmethod
+    def _group(lanes: Iterable[tuple]) -> Tuple[List[tuple], dict]:
+        """``(group_key, (pub, msg, sig), power, total, ticket)`` lanes into
+        lane rows ``(vrow, prow, total, tickets)``, one a group key in
+        first-seen order, and the rows by key."""
+        rows: List[tuple] = []
+        by_key: dict = {}
+        for group_key, item, power, total, ticket in lanes:
+            row = by_key.get(group_key)
+            if row is None:
+                row = ([], [], total, [])
+                by_key[group_key] = row
+                rows.append(row)
+            row[0].append(item)
+            row[1].append(power)
+            row[3].append(ticket)
+        return rows, by_key
+
+    def _resolve_row(self, part: WindowVerdict, ri: int, row: tuple,
+                     n_rows: int, verdict: WindowVerdict, reason: str) -> None:
+        """Each lane's ticket of a dispatched row gets its own verdict."""
+        for j, ticket in enumerate(row[3]):
+            ticket._resolve(self._verdict_cls(
+                ok=bool(part.ok[ri, j]),
+                batch_rows=n_rows,
+                batch_lanes=verdict.lanes_present,
+                occupancy=verdict.occupancy,
+                flush_reason=reason,
+            ))
+
     def _metrics(self):
-        raise NotImplementedError
+        return None
+
+    def _notify(self, reason: str, n_in: int, n_rows: int,
+                verdict: WindowVerdict, seconds: float) -> None:
+        self.on_flush(reason, n_in, n_rows, verdict, seconds)
 
     def _dispatch(self, rows: List[tuple], keys, reason: str, n_in: int) -> None:
         """One guarded dispatch of ``rows`` ((vrow, prow, total, tickets),
-        in first-seen group order) and every ticket resolved."""
+        in arrival order) and every ticket resolved."""
         chunks = [rows[i: i + self.max_rows]
                   for i in range(0, len(rows), self.max_rows)]
         specs = [([r[0] for r in chunk], [r[1] for r in chunk], [r[2] for r in chunk])
@@ -1435,26 +1314,93 @@ class _GroupFeed:
         except Exception:
             pass
         try:
-            self._metrics().record_flush(
-                reason, rows=len(rows), lanes=verdict.lanes_present,
-                occupancy=verdict.occupancy)
+            m = self._metrics()
+            if m is not None:
+                m.record_flush(reason, rows=len(rows), lanes=verdict.lanes_present,
+                               occupancy=verdict.occupancy)
         except Exception:
             pass
         if self.on_flush is not None:
             try:
-                self.on_flush(reason, n_in, len(rows), verdict, seconds)
+                self._notify(reason, n_in, len(rows), verdict, seconds)
             except Exception:
                 pass
         for part, chunk in zip(parts, chunks):
             for ri, row in enumerate(chunk):
-                for j, ticket in enumerate(row[3]):
-                    ticket._resolve(self._verdict_cls(
-                        ok=bool(part.ok[ri, j]),
-                        batch_rows=len(rows),
-                        batch_lanes=verdict.lanes_present,
-                        occupancy=verdict.occupancy,
-                        flush_reason=reason,
-                    ))
+                self._resolve_row(part, ri, row, len(rows), verdict, reason)
+
+
+def _card_feed_verifier(device: DeviceLike, verifier):
+    """A vote or tx feed's device and verifier: ``device`` resolved (``cuda``
+    unless the caller passes ``"cpu"``; no card and no device raises
+    ``NoCudaDeviceError``); ``verifier=None`` stays None on the card (the
+    installed verifier runs) and is the reference's ``RLCHostVerifier`` on
+    the CPU."""
+    device = resolve_device(device)
+    if verifier is None and device.type == "cpu":
+        verifier = RLCHostVerifier()
+    return device, verifier
+
+
+class LaneFeed(_GroupFeed):
+    """Long-lived lane feed, ``WindowPipeline``'s dual: many concurrent
+    callers each hold one row (a commit's lanes). ``submit()`` parks the row
+    for at most ``window_s`` seconds; a worker thread named
+    ``planner-lane-feed`` chunks every row pending by then into windows of
+    at most ``max_rows`` rows, folds the chunks into ONE lane tile
+    (``plan_windows``) and one guarded ``execute_plan`` dispatch, and hands
+    each caller its row's verdict. Collection stops early once
+    ``max_rows * windows_per_dispatch()`` rows wait. ``rows_in`` and
+    ``lanes_in`` count what was submitted, ``dispatches`` the flushes and
+    ``windows_out`` the windows folded into them. On the defaults
+    (``use_device=None``, no mesh) the feed takes the verifier route, as the
+    RPC's feed does: ``verify_generic`` and the installed verifier."""
+
+    _thread_name = "planner-lane-feed"
+    _what = "lane feed"
+
+    def __init__(self, mesh=None, verifier=None,
+                 use_device: Optional[bool] = None, window_s: float = 0.002,
+                 max_rows: int = 64, profile_kind: str = "lane_feed",
+                 on_flush=None):
+        # on_flush: (verdict, n_rows, seconds) per flush
+        super().__init__(mesh, verifier, use_device, window_s, max_rows,
+                         profile_kind, on_flush)
+
+    @property
+    def rows_in(self) -> int:
+        return self._n_in
+
+    def submit(
+        self,
+        vrow: Sequence[Optional[SigTuple]],
+        prow: Sequence[int],
+        total: int,
+    ) -> LaneTicket:
+        """Park one height row for the next flush; returns at once."""
+        ticket = LaneTicket()
+        self._park((list(vrow), list(prow), int(total), ticket),
+                   lanes=sum(1 for it in vrow if it is not None))
+        return ticket
+
+    def _flush(self, batch: List[tuple], reason: str) -> None:
+        # each submission is its own row
+        rows = [(vrow, prow, total, [ticket]) for vrow, prow, total, ticket in batch]
+        self._dispatch(rows, (), reason, len(batch))
+
+    def _notify(self, reason, n_in, n_rows, verdict, seconds) -> None:
+        self.on_flush(verdict, n_rows, seconds)
+
+    def _resolve_row(self, part, ri, row, n_rows, verdict, reason) -> None:
+        row[3][0]._resolve(RowVerdict(
+            ok=np.asarray(part.ok[ri, : len(row[0])], dtype=bool),
+            tally=int(part.tally[ri]),
+            committed=bool(part.committed[ri]),
+            sigs_ok=bool(part.sigs_ok[ri]),
+            batch_rows=n_rows,
+            batch_lanes=verdict.lanes_present,
+            occupancy=verdict.occupancy,
+        ))
 
 
 class VoteFeed(_GroupFeed):
@@ -1466,20 +1412,30 @@ class VoteFeed(_GroupFeed):
     sets ride one dispatch. ``flush_now()`` (or ``submit(urgent=True)``)
     collapses the window when a vote could complete a +2/3. Each flush
     records its trigger, its shape and its tickets' queue waits
-    (``flush_records()``, ``tendermint_consensus_vote_batch_*``)."""
+    (``flush_records()``, ``tendermint_consensus_vote_batch_*``).
+
+    ``device`` is resolved at construction (``cuda`` unless the caller
+    passes ``"cpu"``; with no card and no device given it raises
+    ``NoCudaDeviceError``). With ``verifier=None`` the feed passes no
+    verifier down on the card, so the verifier route runs the installed
+    verifier (the configuration root's guarded ``TorchBatchVerifier``: K1 +
+    K2, K3 for secp256k1 lanes); on the CPU it takes the reference's
+    default, ``RLCHostVerifier``. ``use_device=True`` takes the guarded
+    device executor (K1 -> K2 -> the tally). ``on_flush`` gets ``(reason,
+    n_in, n_rows, verdict, seconds)`` per flush."""
 
     FLUSH_RECORD_CAPACITY = 256  # the flush-attribution ring
     _thread_name = "planner-vote-feed"
     _what = "vote feed"
-    _verdict_cls = VoteVerdict
 
     def __init__(self, mesh=None, verifier=None,
                  use_device: Optional[bool] = None, window_s: float = 0.002,
                  max_rows: int = 64,
                  profile_kind: str = "consensus.vote_batch", on_flush=None,
                  now_ns=None, device: DeviceLike = None):
+        self.device, verifier = _card_feed_verifier(device, verifier)
         super().__init__(mesh, verifier, use_device, window_s, max_rows,
-                         profile_kind, on_flush, device)
+                         profile_kind, on_flush)
         # the clock of the tickets' stamps; injectable so that a simulated
         # node's skewed clock stamps them
         self.now_ns = now_ns if now_ns is not None else time.time_ns
@@ -1495,7 +1451,7 @@ class VoteFeed(_GroupFeed):
         """Park one vote for the next flush; returns at once. Votes that
         share ``group_key`` (their vote set) pack into one lane row."""
         ticket = VoteTicket()
-        self._park((group_key, pub, bytes(msg), bytes(sig), int(power),
+        self._park((group_key, (pub, bytes(msg), bytes(sig)), int(power),
                     int(total), ticket), urgent)
         return ticket
 
@@ -1522,29 +1478,19 @@ class VoteFeed(_GroupFeed):
         t_flush = self.now_ns()
         waits: List[float] = []
         for item in batch:
-            ticket = item[6]
+            ticket = item[-1]
             ticket.flushed_ns = t_flush
             if ticket.submitted_ns:
                 waits.append(max(0.0, (t_flush - ticket.submitted_ns) / 1e9))
         # one lane row per vote-set group, in first-seen order
-        rows: List[tuple] = []  # (vrow, prow, total, tickets)
-        by_key: dict = {}
-        for group_key, pub, msg, sig, power, total, ticket in batch:
-            row = by_key.get(group_key)
-            if row is None:
-                row = ([], [], total, [])
-                by_key[group_key] = row
-                rows.append(row)
-            row[0].append((pub, msg, sig))
-            row[1].append(power)
-            row[3].append(ticket)
+        rows, by_key = self._group(batch)
         rec = {
             "reason": reason,
             "votes": len(batch),
             "rows": len(rows),
             "groups": [list(gk) if isinstance(gk, tuple) else gk for gk in by_key],
             "t_open_ns": min(
-                (it[6].submitted_ns for it in batch if it[6].submitted_ns),
+                (it[-1].submitted_ns for it in batch if it[-1].submitted_ns),
                 default=t_flush,
             ),
             "t_flush_ns": t_flush,
@@ -1574,7 +1520,8 @@ class TxFeed(_GroupFeed):
     quorum math is vestigial: power 1 a lane and total = the row's lane
     count. ``flush_now()`` collapses the window once a whole CheckTx window
     is in (counted as a quorum flush); flushes are counted in
-    ``tendermint_mempool_batch_*``."""
+    ``tendermint_mempool_batch_*``. ``device`` and ``verifier`` default as
+    ``VoteFeed``'s do."""
 
     _thread_name = "planner-tx-feed"
     _what = "tx feed"
@@ -1584,8 +1531,9 @@ class TxFeed(_GroupFeed):
                  use_device: Optional[bool] = None, window_s: float = 0.002,
                  max_rows: int = 64, profile_kind: str = "mempool.tx_batch",
                  on_flush=None, device: DeviceLike = None):
+        self.device, verifier = _card_feed_verifier(device, verifier)
         super().__init__(mesh, verifier, use_device, window_s, max_rows,
-                         profile_kind, on_flush, device)
+                         profile_kind, on_flush)
 
     @property
     def txs_in(self) -> int:
@@ -1597,23 +1545,13 @@ class TxFeed(_GroupFeed):
         that share ``group_key`` (their CheckTx window) pack into one lane
         row."""
         ticket = TxTicket()
-        self._park((group_key, pub, bytes(msg), bytes(sig), ticket), urgent)
+        self._park((group_key, (pub, bytes(msg), bytes(sig)), 1, 0, ticket), urgent)
         return ticket
 
     def _metrics(self):
         return get_mempool_batch_metrics()
 
     def _flush(self, batch: List[tuple], reason: str) -> None:
-        rows: List[tuple] = []  # (vrow, prow, total, tickets)
-        by_key: dict = {}
-        for group_key, pub, msg, sig, ticket in batch:
-            row = by_key.get(group_key)
-            if row is None:
-                row = ([], [], 0, [])
-                by_key[group_key] = row
-                rows.append(row)
-            row[0].append((pub, msg, sig))
-            row[3].append(ticket)
-        rows = [(vrow, [1] * len(vrow), len(vrow), tickets)
-                for vrow, _, _, tickets in rows]
+        rows, by_key = self._group(batch)
+        rows = [(vrow, prow, len(vrow), tickets) for vrow, prow, _, tickets in rows]
         self._dispatch(rows, by_key, reason, len(batch))

@@ -339,3 +339,57 @@ def test_a_device_failure_raises_and_other_failures_leave_none(feeds):
     with pytest.raises(brk.DeviceDispatchError):
         ver(txs)
     assert not ver._cache
+
+
+class _CardFeed:
+    """A feed that claims the card and fails in one way: its flush never
+    completes, its submit fails (a closed feed), or its flush raises."""
+
+    device = torch.device("cuda")
+
+    def __init__(self, fault):
+        self.fault = fault
+        self.tickets = []
+
+    def submit(self, group_key, pub, msg, sig):
+        if self.fault == "submit":
+            raise RuntimeError("tx feed is closed")
+        ticket = planner.TxTicket()
+        if self.fault == "flush":
+            ticket._resolve(err=RuntimeError("flaky"))
+        self.tickets.append(ticket)
+        return ticket
+
+    def flush_now(self):
+        pass
+
+
+@pytest.mark.parametrize("fault", ["hung", "submit", "flush"])
+def test_on_the_card_every_feed_failure_raises(fault):
+    """On the card no feed failure hands a tx back to the app's host check:
+    a flush that does not complete in time raises
+    ``DeviceDispatchError('timeout')``, a failed submit or flush raises what
+    it raised; nothing is cached."""
+    txs = [kv.make_signed_tx(PRIVS[0], 1, b"x=1"), kv.make_signed_tx(PRIVS[1], 1, b"y=1")]
+    ver = BatchTxVerifier(_CardFeed(fault), kv.extract_signed_tx_sig, timeout_s=0.05)
+    t0 = time.monotonic()
+    if fault == "hung":
+        with pytest.raises(brk.DeviceDispatchError) as ei:
+            ver(txs)
+        assert ei.value.reason == "timeout"
+    else:
+        with pytest.raises(RuntimeError, match="closed" if fault == "submit" else "flaky"):
+            ver(txs)
+    assert time.monotonic() - t0 < 10.0
+    assert ver.feed_errors == 1 and not ver._cache
+
+
+def test_on_the_card_a_ticket_waits_out_the_guards_deadline():
+    """A dispatch the guard still supervises is not yet a failure: on the
+    card the ticket wait is at least the guard's dispatch deadline."""
+    brk.configure_device_guard(dispatch_deadline=0.3)
+    ver = BatchTxVerifier(_CardFeed("hung"), kv.extract_signed_tx_sig, timeout_s=0.01)
+    t0 = time.monotonic()
+    with pytest.raises(brk.DeviceDispatchError):
+        ver([kv.make_signed_tx(PRIVS[0], 1, b"x=1")])
+    assert time.monotonic() - t0 >= 0.3
