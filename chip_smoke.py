@@ -6,7 +6,7 @@
 Phases, in order; any failure exits non-zero:
 
   1. device  the card's name and power limit (nvidia-smi) and torch's name;
-  2. build   the three CUDA kernels and the multiply probe from the
+  2. build   the four CUDA kernels and the multiply probe from the
              checkout's sources, in parallel, with each one's registers,
              spills and stack frame; then the probe's IMAD.WIDE and IMAD
              rates (products a clock an SM): the IMAD.WIDE rate prices
@@ -162,12 +162,49 @@ Phases, in order; any failure exits non-zero:
              accepted txs answers every one from the cache with no launch;
              no fallback, the breaker closed. Serial and batched txs a
              second, dispatches and rows a dispatch.
+  17. k4     the ed25519 MSM kernel (K4, ops/csrc/ed25519_msm.cu) against
+             its plain version ed25519_msm.msm_ref on the card, on one
+             schedule each at the adversarial window's size (the Go-edge
+             window's first 16 rows: verdict 0) and at the 10,000-validator
+             commit's (n 10,000, m 20,000, c 8, nwin 32: verdict 1), RLC
+             seed 1234; verdict and canonical final point exact. K4's ms
+             with each sub-launch's (every tree level, the fold, the
+             finish), the plain version's, and the bound at the probe's
+             IMAD.WIDE rate over the products the schedule that ran needs;
+  18. msm    ed25519_path = "msm": the adversarial 16 rows through
+             ed25519_cuda.rlc_verify_batch on the card equal the expected
+             verdicts and the K1 + K2 ladder's; the whole Go-edge window
+             equals the CPU run at the same seed and _verify_pure; the
+             10,000-validator commit through verify_commit with
+             TorchBatchVerifier(ed25519_path="msm") passes with K1 = 1, K4 =
+             1 and K2 = 0 and verdicts equal to the ladder's (p50 wall over
+             3 with its parse, prologue_h, schedule, pool, K4 spans), a
+             flipped signature is rejected through the localization (K2
+             once), and the commit through the guarded verifier of
+             configure_verify(VerifyConfig(ed25519_path="msm")) passes with
+             K1 = 1, K4 = 1, K2 = 0, no fallback, the breaker closed; then
+             the default [verify] root is installed again;
+  19. commit_window the window of phase 10 packed by
+             parallel/commit_verify.pack_commit_window and verified by
+             verify_commit_window on the ladder path (the K8 step: K1 -> K2
+             once a message-length group, the int64 tally on the card) and
+             on the msm path (one K4 launch, the dirty window localized by
+             chunk RLCs to K1 -> K2), then planner.verify_window(
+             use_device=True) under the msm default (its two msm calls with
+             a dispatch deadline of 120 s: the dirty window outlasts the
+             default 30): ok, tally and committed
+             equal phase 10's planner verdict on all three, no fallback,
+             the breaker closed, no audit mismatch; walls with their parts
+             (msm.localize is the chunk localization), and the K8 tally's
+             device time beside its byte bound on the ``torch_ops`` line.
 
 Each path's launch counts are set to 0 just before it and read just after;
 the kernels line carries the main path's as ``launches``, the lite
 phase's shapes' as ``lite_launches``, the votes phase's routes' as
 ``votes_launches`` (verifier, executor, secp: the mixed-key storm) and the
-txs phase's as ``txs_launches``. The line before the last two is the
+txs phase's as ``txs_launches``, and phases 18 and 19's as
+``msm_launches`` and ``commit_window_launches``; K4's own ``launches`` are
+the msm route's 10,000-validator commit's. The line before the last two is the
 ``kernels`` JSON, then the card's name
 and power limit, then ``{"ok": true, "device": {...}}``. Exits 2 when no
 CUDA device is present.
@@ -180,6 +217,7 @@ import contextlib
 import hashlib
 import http.client
 import json
+import random
 import statistics
 import subprocess
 import sys
@@ -191,6 +229,7 @@ import torch
 
 from tendermint_tpu_torch.abci.examples.kvstore import extract_signed_tx_sig
 from tendermint_tpu_torch.config.verify import VerifyConfig
+from tendermint_tpu_torch.crypto import batch as tbatch
 from tendermint_tpu_torch.crypto import ed25519 as ed
 from tendermint_tpu_torch.crypto import secp256k1 as secp
 from tendermint_tpu_torch.crypto.batch import (
@@ -212,9 +251,11 @@ from tendermint_tpu_torch.mempool.tx_verify import BatchTxVerifier
 from tendermint_tpu_torch.node.verify_root import configure_verify
 from tendermint_tpu_torch.ops import _build
 from tendermint_tpu_torch.ops import ed25519_cuda as ec
+from tendermint_tpu_torch.ops import ed25519_msm as em
 from tendermint_tpu_torch.ops import fe
 from tendermint_tpu_torch.ops import imad_probe
 from tendermint_tpu_torch.ops import secp256k1_cuda as sc
+from tendermint_tpu_torch.parallel import commit_verify as cv
 from tendermint_tpu_torch.parallel import planner
 from tendermint_tpu_torch.testutil import commit as tc
 from tendermint_tpu_torch.testutil import lite_chain as lc
@@ -297,6 +338,8 @@ REPLACES = {
     "secp256k1_ladder": "tendermint_tpu/ops/secp256k1_pallas.py:283",
 }
 KERNELS = tuple(REPLACES)
+# K4 runs on the msm path only (phases 17-19), beside the three above
+K4, K4_REPLACES = "ed25519_msm", "tendermint_tpu/ops/ed25519_msm.py:255"
 
 
 class SmokeFailure(RuntimeError):
@@ -587,10 +630,11 @@ def host_p50_ms(fn) -> float:
 def reset_launches() -> None:
     ec.reset_launches()
     sc.reset_launches()
+    em.reset_launches()
 
 
 def read_launches() -> dict:
-    return {**ec.launches, **sc.launches}
+    return {**ec.launches, **sc.launches, **em.launches}
 
 
 def flipped(sc_: tc.SignedCommit, i: int):
@@ -1881,6 +1925,293 @@ def phase_txs(root, err: dict) -> dict:
             "batched_txs_s": TX_N / batched_signed_s}
 
 
+# the adversarial matrix of tests/test_msm_path.py: the Go-edge window's
+# first 16 rows (10 clean, then forged s, mutant R, s + L, sig[63] | 0xE0,
+# non-canonical R, another key's signature)
+ADV_ROWS = 16
+MSM_SEED = 1234
+K4_ITERS = 5
+MSM_WINDOW_DEADLINE = 120.0  # s: the [verify] dispatch_deadline of phase 19's msm calls
+# 32x32 -> 64 products of K4's point formulas: an addition is 9 field
+# multiplications of 100 products, a doubling 4 squarings of 55 and 4
+# multiplications, a mixed addition 7 multiplications
+PT_ADD_PRODUCTS, PT_DOUBLE_PRODUCTS, PT_MADD_PRODUCTS = 900, 4 * 55 + 4 * 100, 700
+
+
+def k4_products(sched) -> int:
+    """The products the schedule that ran needs: the tree's additions, the
+    fold's, Horner's (nwin - 1 additions, (nwin - 1) c doublings), [s_b]B's
+    (64 mixed additions, 256 doublings) and the final addition."""
+    tree, fold = em.schedule_adds(sched)
+    adds = tree + fold + (sched.nwin - 1) + 1
+    doubles = (sched.nwin - 1) * sched.c + 4 * 64
+    return adds * PT_ADD_PRODUCTS + doubles * PT_DOUBLE_PRODUCTS + 64 * PT_MADD_PRODUCTS
+
+
+def flat_tensors(ins):
+    pool, ias, ibs, bkt, sb = ins
+    return [pool, *ias, *ibs, bkt, sb]
+
+
+def time_k4_parts(ins, sched) -> dict:
+    """Device ms of each of K4's sub-launches (CUDA events, K4_ITERS calls
+    each): every tree level, the fold and the finish."""
+    pool, ias, ibs, bkt, sb = ins
+    rows = em.msm_rows(pool, ias)
+    em.msm_levels(rows, ias, ibs, pool.shape[0])
+    levels = [cuda_ms(lambda ia=ia, ib=ib, s=s, d=d: em.msm_level(rows, ia, ib, s, d),
+                      K4_ITERS, 1)
+              for ia, ib, (s, d) in zip(ias, ibs, em.level_spans(ias, pool.shape[0]))]
+    fold = cuda_ms(lambda: em.msm_fold(rows, bkt), K4_ITERS, 1)
+    acc = em.msm_fold(rows, bkt)
+    finish = cuda_ms(lambda: em.msm_finish(acc, sb, sched.c), K4_ITERS, 1)
+    return {"levels_ms": levels, "fold_ms": fold, "finish_ms": finish,
+            "level_rows": [int(a.shape[0]) for a in ias]}
+
+
+def phase_k4(dev, sc_: tc.SignedCommit, mul_rate: float, err: dict) -> dict:
+    phase(f"k4: the ed25519 MSM kernel vs plain at the adversarial window's size ({ADV_ROWS} "
+          f"rows) and the {N_VALIDATORS}-validator commit's, seed {MSM_SEED}")
+    pubs, msgs, sigs, _ = tc.go_edge_window(seed=0)
+    shapes = {
+        "adversarial": list(zip(pubs[:ADV_ROWS], msgs[:ADV_ROWS], sigs[:ADV_ROWS])),
+        "commit": [(v.pub_key.bytes(), pc.sign_bytes(sc_.chain_id), pc.signature)
+                   for v, pc in zip(sc_.valset.validators, sc_.commit.precommits)],
+    }
+    out = {}
+    for label, items in shapes.items():
+        t0 = time.perf_counter()
+        rows = [p[1:] for p in ed._parse_batch(items)[0]]
+        parse_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        sched, pool, sb = em.rlc_inputs(rows, random.Random(MSM_SEED))
+        inputs_s = time.perf_counter() - t0
+        ins = em.device_inputs(sched, pool, sb, dev)
+        got = em.msm(*ins)
+        torch.cuda.synchronize()
+        ref = em.msm_ref(*ins)
+        e = max_abs_diff(got, ref)
+        err["ed25519_msm"] = max(err["ed25519_msm"], e)
+        check(e == 0, f"k4 {label}: K4 differs from msm_ref by {e}")
+        check(int(got[0].item()) == (1 if label == "commit" else 0),
+              f"k4 {label}: verdict {int(got[0].item())}")
+        ms = cuda_ms(lambda: em.msm(*ins), K4_ITERS, 1)
+        parts = time_k4_parts(ins, sched)
+        plain_ms = cuda_ms(lambda: em.msm_ref(*ins), 1, 0)
+        products = k4_products(sched)
+        bound = least_ms(flat_tensors(ins), list(got), products, mul_rate)
+        tree, fold = em.schedule_adds(sched)
+        nz = int(sum(np.count_nonzero(a) for a in sched.ias))
+        print(f"  {label}: n {len(rows)}, m {2 * len(rows)}, c {sched.c}, nwin {sched.nwin}, "
+              f"pool {pool.shape[0]} rows, {len(sched.ias)} levels {parts['level_rows']}, "
+              f"tree adds {tree} ({nz} entries), fold adds {fold}; parse {parse_s:.3f} s, "
+              f"z draws + schedule + pool {inputs_s:.3f} s; K4 {ms:.4f} ms (levels "
+              + ", ".join(f"{t:.4f}" for t in parts["levels_ms"])
+              + f"; fold {parts['fold_ms']:.4f}; finish {parts['finish_ms']:.4f}); plain "
+              f"{plain_ms:.1f} ms; bound {bound[0]:.4f} ms by {bound[1]} ({products:.3g} "
+              f"products); verdict {int(got[0].item())}, exact", flush=True)
+        out[label] = {"ms": ms, "plain_ms": plain_ms, "bound": bound, "parts": parts,
+                      "products": products, "c": sched.c, "nwin": sched.nwin,
+                      "tree_adds": tree, "fold_adds": fold}
+    print(f"  K4: {registers('ed25519_msm')}", flush=True)
+    return out
+
+
+def msm_spans() -> tuple:
+    return ("msm.parse", "msm.prologue_h", "msm.schedule", "msm.pool", "msm.k4",
+            "msm.localize", "verify.dispatch", "verify.audit", "verify.window_dispatch",
+            "planner.dispatch", "planner.audit")
+
+
+def traced(fn):
+    """fn() once with the tracer on; returns (result, wall s, seconds a span)."""
+    trace.enable()
+    trace.reset()
+    try:
+        t0 = time.perf_counter()
+        res = fn()
+        wall = time.perf_counter() - t0
+        return res, wall, {k: v for k, v in span_seconds(msm_spans()).items() if v}
+    finally:
+        trace.disable()
+
+
+def phase_msm(dev, sc_: tc.SignedCommit, err: dict) -> dict:
+    phase(f"msm: ed25519_path = msm; the adversarial window, the Go-edge window and the "
+          f"{N_VALIDATORS}-validator commit through one MSM")
+    pubs, msgs, sigs, fixed = tc.go_edge_window(seed=0)
+    expected = np.array([fixed[i] for i in range(ADV_ROWS)])
+    pa, sa = as_arrays(pubs[:ADV_ROWS], sigs[:ADV_ROWS])
+    reset_launches()
+    adv = ec.rlc_verify_batch(pa, msgs[:ADV_ROWS], sa, device=dev, seed=MSM_SEED)
+    adv_launches = read_launches()
+    check(np.array_equal(adv, expected), f"msm adversarial verdicts {adv.astype(int)}")
+    check(np.array_equal(adv, ec.verify_batch(pa, msgs[:ADV_ROWS], sa, device=dev)),
+          "msm adversarial verdicts differ from the K1 + K2 ladder's")
+    check(adv_launches["ed25519_msm"] == 1 and adv_launches["ed25519_ladder"] >= 1,
+          f"adversarial launches {adv_launches}")  # K1 + K2 once a message length
+    pe, se = as_arrays(pubs, sigs)
+    edge = ec.rlc_verify_batch(pe, msgs, se, device=dev, seed=MSM_SEED)
+    edge_cpu = ec.rlc_verify_batch(pe, msgs, se, device="cpu", seed=MSM_SEED)
+    check(np.array_equal(edge, edge_cpu), "the Go-edge window differs between card and CPU")
+    check(edge.tolist() == [ed._verify_pure(*t) for t in zip(pubs, msgs, sigs)],
+          "the Go-edge window differs from _verify_pure")
+    print(f"  adversarial {ADV_ROWS} rows: verdicts equal expected and the ladder's; launches "
+          f"{adv_launches}; the Go-edge window ({len(pubs)} rows) equals the CPU run and "
+          f"_verify_pure", flush=True)
+
+    verify = lambda v, commit=sc_.commit: sc_.valset.verify_commit(  # noqa: E731
+        sc_.chain_id, sc_.block_id, sc_.height, commit, verifier=v)
+    raw = ([v.pub_key.bytes() for v in sc_.valset.validators],
+           [pc.sign_bytes(sc_.chain_id) for pc in sc_.commit.precommits],
+           [pc.signature for pc in sc_.commit.precommits])
+    v = TorchBatchVerifier(ed25519_path="msm")
+    check(v.device == dev and v.ed25519_path == "msm", "msm verifier")
+    reset_launches()
+    t0 = time.perf_counter()
+    verify(v)
+    first_ms = (time.perf_counter() - t0) * 1e3
+    launches = read_launches()
+    check((launches["ed25519_prologue"], launches["ed25519_msm"],
+           launches["ed25519_ladder"]) == (1, 1, 0), f"msm commit launches {launches}")
+    check(np.array_equal(v.verify_ed25519_raw(*raw),
+                         TorchBatchVerifier().verify_ed25519_raw(*raw)),
+          "msm verdicts differ from the ladder's on the commit")
+    walls, parts = [], []
+    for _ in range(WINDOW_REPS):
+        _, wall, sp = traced(lambda: verify(v))
+        walls.append(wall)
+        parts.append(sp)
+    p50 = statistics.median(walls) * 1e3
+    part_ms = {k: statistics.median(p.get(k, 0.0) for p in parts) * 1e3 for k in parts[0]}
+    reset_launches()
+    _, bad_wall, bad_parts = traced(lambda: expect_commit_error(
+        lambda: verify(v, flipped(sc_, N_VALIDATORS // 3)), "invalid signature in commit"))
+    bad_launches = read_launches()
+    check(bad_launches["ed25519_msm"] == 1 and bad_launches["ed25519_ladder"] == 1,
+          f"dirty commit launches {bad_launches}")
+    print(f"  verify_commit (TorchBatchVerifier(ed25519_path='msm')): passes; first "
+          f"{first_ms:.1f} ms; p50 {p50:.1f} ms over {WINDOW_REPS}; parts (p50 ms) "
+          + ", ".join(f"{k} {t:.1f}" for k, t in part_ms.items())
+          + f"; launches {launches}; a flipped signature rejected in {bad_wall * 1e3:.1f} ms "
+          f"(localize {bad_parts.get('msm.localize', 0.0) * 1e3:.1f} ms), launches "
+          f"{bad_launches}", flush=True)
+
+    root = configure_verify(VerifyConfig(ed25519_path="msm"), device=dev)
+    check(root.verifier.device.ed25519_path == "msm", "the root's verifier is not on msm")
+    before = fallbacks()
+    reset_launches()
+    _, g_wall, g_parts = traced(lambda: verify(root.verifier))
+    guarded = read_launches()
+    check((guarded["ed25519_prologue"], guarded["ed25519_msm"],
+           guarded["ed25519_ladder"]) == (1, 1, 0), f"guarded msm launches {guarded}")
+    check_guard_clean(before, "guarded msm commit")
+    print(f"  guarded verifier (configure_verify(VerifyConfig(ed25519_path='msm'))): passes in "
+          f"{g_wall * 1e3:.1f} ms (audit {g_parts.get('verify.audit', 0.0) * 1e3:.1f} ms); "
+          f"launches {guarded}; no fallback; breaker closed", flush=True)
+    return {"launches": launches, "adversarial_launches": adv_launches,
+            "dirty_launches": bad_launches, "guarded_launches": guarded,
+            "first_ms": first_ms, "p50_ms": p50, "parts_ms": part_ms,
+            "guarded_ms": g_wall * 1e3}
+
+
+def phase_commit_window(dev, window: dict, err: dict) -> dict:
+    votes, powers, totals = window["rows"]
+    H, V = len(votes), len(votes[0])
+    phase(f"commit_window: the {H} x {V} window through parallel/commit_verify on the ladder "
+          f"(K8) and msm paths, and verify_window under the msm default")
+    raw_votes = [[None if x is None else (x[0].bytes(), x[1], x[2]) for x in row]
+                 for row in votes]
+    check(len(set(totals)) == 1, "the window's heights carry different total powers")
+    total = totals[0]
+    t0 = time.perf_counter()
+    win = cv.pack_commit_window(raw_votes, powers)
+    pack_s = time.perf_counter() - t0
+    want = window["verdict"]
+    n_groups = n_length_groups(votes)
+    before = fallbacks()
+
+    def same(got, what):
+        for k, g in zip(("ok", "tally", "committed"), got):
+            check(np.array_equal(g, getattr(want, k)), f"{what}: {k} differs from the planner's")
+
+    reset_launches()
+    cv.tally_launches["window_tally"] = 0
+    got, first_s, _ = traced(lambda: cv.verify_commit_window(win, total, device=dev))
+    same(got, "commit window (ladder)")
+    launches = {**read_launches(), **cv.tally_launches}
+    check(launches["ed25519_prologue"] == n_groups and launches["ed25519_ladder"] == n_groups
+          and launches["window_tally"] == 1 and launches["ed25519_msm"] == 0,
+          f"commit window launches {launches}")
+    walls, parts = [], []
+    for _ in range(WINDOW_REPS):
+        again, wall, sp = traced(lambda: cv.verify_commit_window(win, total, device=dev))
+        same(again, "commit window (ladder) again")
+        walls.append(wall)
+        parts.append(sp)
+    ladder_p50 = statistics.median(walls)
+    ladder_parts = {k: statistics.median(p.get(k, 0.0) for p in parts) for k in parts[0]}
+    print(f"  ladder (K8): pack_commit_window {pack_s:.2f} s; first {first_s:.2f} s; p50 "
+          f"{ladder_p50:.3f} s over {WINDOW_REPS}; parts (p50 s) "
+          + ", ".join(f"{k} {t:.4f}" for k, t in ladder_parts.items())
+          + f"; launches {launches}", flush=True)
+
+    # the K8 tally at the window's shapes, against its host version
+    ok_d = torch.from_numpy(got[0]).to(dev)
+    power_d = torch.from_numpy(win.power).to(dev)
+    t_out = cv.window_tally(ok_d, power_d, total)
+    host = np.where(got[0], win.power, 0).sum(-1)
+    tally_err = int(np.abs(t_out[0].cpu().numpy() - host).max(initial=0))
+    check(tally_err == 0, f"the K8 tally differs from the host's by {tally_err}")
+    tally_ms = cuda_ms(lambda: cv.window_tally(ok_d, power_d, total))
+    host_ms = host_p50_ms(lambda: np.where(got[0], win.power, 0).sum(-1))
+    tally_bound = (nbytes((ok_d, power_d)) + nbytes(t_out)) / HBM_BYTES_PER_S * 1e3
+
+    # the msm route's dirty window outlasts the default 30 s dispatch
+    # deadline (a timeout, then DeviceDispatchError after the retry: PERF.md
+    # §6), so it runs under a [verify] dispatch_deadline that fits it
+    breaker.configure_device_guard(VerifyConfig(dispatch_deadline=MSM_WINDOW_DEADLINE))
+    tbatch.set_default_ed25519_path("msm")
+    try:
+        reset_launches()
+        got_m, msm_s, msm_parts = traced(lambda: cv.verify_commit_window(win, total, device=dev))
+        same(got_m, "commit window (msm)")
+        msm_launches = read_launches()
+        check(msm_launches["ed25519_msm"] == 1 and msm_launches["ed25519_ladder"] >= 1,
+              f"msm commit window launches {msm_launches}")
+        reset_launches()
+        plan_v, plan_s, plan_parts = traced(
+            lambda: planner.verify_window(votes, powers, totals, use_device=True))
+        plan_launches = read_launches()
+        for k in VERDICT_KEYS:
+            check(np.array_equal(getattr(plan_v, k), getattr(want, k)),
+                  f"verify_window under msm: {k} differs")
+        check(plan_launches["ed25519_msm"] == 1, f"planner msm launches {plan_launches}")
+        check_guard_clean(before, "commit window")
+    finally:
+        tbatch.set_default_ed25519_path(None)
+        breaker.configure_device_guard(VerifyConfig())
+    print(f"  msm: verify_commit_window {msm_s:.2f} s, parts (s) "
+          + ", ".join(f"{k} {t:.3f}" for k, t in msm_parts.items())
+          + f"; launches {msm_launches}", flush=True)
+    print(f"  msm: verify_window(use_device=True) {plan_s:.2f} s, parts (s) "
+          + ", ".join(f"{k} {t:.3f}" for k, t in plan_parts.items())
+          + f"; launches {plan_launches}; all equal the planner's ladder verdict; no "
+          f"fallback; breaker closed", flush=True)
+    print(f"  K8 tally {tally_ms:.4f} ms against a byte bound of {tally_bound:.6f} ms "
+          f"(torch int64, exact against the host's {host_ms:.3f} ms)", flush=True)
+    return {
+        "launches": launches, "msm_launches": msm_launches, "planner_msm_launches": plan_launches,
+        "ladder_p50_s": ladder_p50, "msm_s": msm_s, "planner_msm_s": plan_s,
+        "tally": {"name": "window_tally", "route": "torch",
+                  "source": "tendermint_tpu_torch/parallel/commit_verify.py",
+                  "replaces": "tendermint_tpu/parallel/commit_verify.py:129",
+                  "launches": launches["window_tally"], "max_abs_err": tally_err,
+                  "ms": tally_ms, "plain_ms": host_ms, "bound_ms": tally_bound,
+                  "bound_by": "bytes", "H": H, "V": V},
+    }
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
@@ -1927,6 +2258,11 @@ def main() -> int:
     lite = phase_lite(root, err)
     votes = phase_votes(root, err)
     txs = phase_txs(root, err)
+    err[K4] = 0
+    k4 = phase_k4(dev, ed_main["commit"], mul_rate, err)
+    msm = phase_msm(dev, ed_main["commit"], err)
+    root = configure_verify(VerifyConfig(), device=dev)  # back to the default [verify]
+    cwin = phase_commit_window(dev, window, err)
     print(f"  {smi_line}", flush=True)
 
     ms = {**ed_main["ms"], "secp256k1_ladder": secp_main["ms"]}
@@ -1961,13 +2297,48 @@ def main() -> int:
             "lite_launches": {shape: lite[shape]["launches"][name] for shape in ("a", "b")},
             "votes_launches": {route: votes[route]["launches"][name] for route in votes},
             "txs_launches": txs["launches"][name],
+            "msm_launches": msm["launches"][name],
+            "commit_window_launches": {"ladder": cwin["launches"][name],
+                                       "msm": cwin["msm_launches"][name],
+                                       "planner_msm": cwin["planner_msm_launches"][name]},
         })
+    k4c = k4["commit"]
+    kernels.append({
+        "name": K4,
+        "route": "cuda",
+        "source": f"tendermint_tpu_torch/ops/csrc/{_build.SOURCES[K4]}",
+        "replaces": K4_REPLACES,
+        # the main path of K4 is the msm route's 10k commit (phase 18)
+        "launches": msm["launches"][K4],
+        "max_abs_err": err[K4],
+        "ms": k4c["ms"],
+        "plain_ms": k4c["plain_ms"],
+        "bound_ms": k4c["bound"][0],
+        "bound_by": k4c["bound"][1],
+        "library_ms": None,  # no single PyTorch call computes this function
+        "sub_ms": {"levels": k4c["parts"]["levels_ms"], "fold": k4c["parts"]["fold_ms"],
+                   "finish": k4c["parts"]["finish_ms"]},
+        "adversarial_ms": k4["adversarial"]["ms"],
+        "lite_launches": {shape: lite[shape]["launches"][K4] for shape in ("a", "b")},
+        "votes_launches": {route: votes[route]["launches"][K4] for route in votes},
+        "txs_launches": txs["launches"][K4],
+        "msm_launches": {"commit": msm["launches"][K4],
+                         "adversarial": msm["adversarial_launches"][K4],
+                         "dirty_commit": msm["dirty_launches"][K4],
+                         "guarded": msm["guarded_launches"][K4]},
+        "commit_window_launches": {"ladder": cwin["launches"][K4],
+                                   "msm": cwin["msm_launches"][K4],
+                                   "planner_msm": cwin["planner_msm_launches"][K4]},
+    })
     print(f"  {N_VALIDATORS}-validator ed25519 verify_commit p50: {ed_main['p50_ms']:.3f} ms "
           f"through TorchBatchVerifier, {default['p50_ms']:.1f} ms through the default "
           f"guarded verifier (audit {default['verify.audit']:.1f} ms of it)", flush=True)
+    print(f"  {N_VALIDATORS}-validator ed25519 verify_commit p50 on the msm path: "
+          f"{msm['p50_ms']:.1f} ms (K4 {k4c['ms']:.4f} ms of it); the {WINDOW_H} x {WINDOW_V} "
+          f"commit window {cwin['ladder_p50_s']:.3f} s on the ladder (K8), {cwin['msm_s']:.2f} s "
+          f"on the msm path", flush=True)
     print(f"  total {time.perf_counter() - t_start:.1f} s", flush=True)
-
-    print(json.dumps({"torch_ops": [window["tally"]]}))
+    print(json.dumps({"torch_ops": [window["tally"], cwin["tally"]]}))
     print(json.dumps({"kernels": kernels}))
     print(smi_line)
     print(json.dumps({"ok": True, "device": {

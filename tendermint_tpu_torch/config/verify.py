@@ -39,8 +39,8 @@ class VerifyConfig:
     # schedule, as the reference derives it.
     fe_backend: str = "vpu"
     # device verify strategy: "ladder" (per-signature double-scalar ladder,
-    # K1 + K2) or "msm" (one multi-scalar multiplication a window; not
-    # ported yet, ROADMAP queue 1 item 6)
+    # K1 + K2) or "msm" (one multi-scalar multiplication a window, K1 + K4,
+    # with K1 + K2 on the rows of a rejected window)
     ed25519_path: str = "ladder"
     # WindowPipeline depth: planned windows allowed in flight ahead of the
     # device (planner.pipeline_depth)

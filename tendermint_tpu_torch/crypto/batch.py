@@ -13,9 +13,10 @@ verifier wraps the device verifier in the guard (breaker, deadline, retry,
 seeded audit against the host oracles; on the card a failed dispatch
 raises rather than completing on the host), and every dispatch is recorded in
 the ``tendermint_verify_*`` metrics. A k-of-n multisig aggregate flattens
-into the same ed25519 call. What a later slice ports (the MSM path) raises
-``NotImplementedError`` naming the ROADMAP item, rather than running a
-host loop in its place.
+into the same ed25519 call. With ``ed25519_path="msm"`` (``[verify]
+ed25519_path``, ``TM_ED25519_PATH``) ed25519 batches go through
+``ops.ed25519_cuda.rlc_verify_batch`` instead: K1, one MSM (K4), and K1 +
+K2 on the rows a rejected batch localizes to.
 """
 
 from __future__ import annotations
@@ -63,6 +64,31 @@ def _record_dispatch(backend: str, algo: str, n: int, t0: float, ok,
         )
     except Exception:
         pass
+
+
+# the process-wide [verify] ed25519_path (the configuration root installs it)
+_default_ed25519_path: Optional[str] = None
+
+
+def set_default_ed25519_path(value: Optional[str]) -> None:
+    """Install the process-wide ``[verify] ed25519_path`` choice;
+    ``TM_ED25519_PATH`` still overrides it. Stored unvalidated: resolution
+    is where a bad value raises."""
+    global _default_ed25519_path
+    _default_ed25519_path = value or None
+
+
+def _resolve_ed25519_path(explicit: Optional[str]) -> str:
+    """The explicit value, else ``TM_ED25519_PATH``, else the installed
+    ``[verify]`` value, else "ladder"; "auto" means "ladder"."""
+    v = explicit or os.environ.get("TM_ED25519_PATH", "") or \
+        _default_ed25519_path or "ladder"
+    v = v.strip().lower()
+    if v in ("", "auto"):
+        return "ladder"
+    if v not in ED25519_PATHS:
+        raise ValueError(f"ed25519_path must be one of {ED25519_PATHS}, got {v!r}")
+    return v
 
 
 def _choice(value: Optional[str], default: str, allowed, name: str) -> str:
@@ -191,7 +217,10 @@ class TorchBatchVerifier:
     values and recorded; the port has one limb multiplier (32x32 -> 64
     integer products) and one carry schedule. With no ``carry_mode`` the
     JAX verifier's is recorded: lazy, but eager for "mxu16".
-    ``ed25519_path="msm"`` is not ported yet."""
+    ``ed25519_path`` ("ladder": K1 + K2 a signature; "msm": one MSM a
+    batch, ``rlc_verify_batch``) resolves as ``_resolve_ed25519_path``
+    does: the argument, ``TM_ED25519_PATH``, the ``[verify]`` value, then
+    "ladder"."""
 
     name = "torch"
 
@@ -204,12 +233,7 @@ class TorchBatchVerifier:
         self.carry_mode = _choice(
             carry_mode, "eager" if self.fe_backend == "mxu16" else "lazy",
             CARRY_MODES, "carry_mode")
-        path = _choice(ed25519_path, "ladder", ED25519_PATHS, "ed25519_path")
-        if path == "msm":
-            raise NotImplementedError(
-                "ed25519_path='msm' is ported by ROADMAP queue 1 item 6 (the MSM path)"
-            )
-        self.ed25519_path = path
+        self.ed25519_path = _resolve_ed25519_path(ed25519_path)
         self.stats: Dict[str, DispatchStats] = {a: DispatchStats() for a in ALGORITHMS}
 
     def verify_ed25519(self, items: Sequence[SigItem]) -> np.ndarray:
@@ -228,7 +252,9 @@ class TorchBatchVerifier:
                         algo="ed25519", n=n):
             pubs_a = np.frombuffer(b"".join(pubs), dtype=np.uint8).reshape(n, 32)
             sigs_a = np.frombuffer(b"".join(sigs), dtype=np.uint8).reshape(n, 64)
-            ok = _kernel.verify_batch(pubs_a, msgs, sigs_a, device=self.device)
+            verify = (_kernel.rlc_verify_batch if self.ed25519_path == "msm"
+                      else _kernel.verify_batch)
+            ok = verify(pubs_a, msgs, sigs_a, device=self.device)
         self._record("ed25519", ok, t0)
         return ok
 

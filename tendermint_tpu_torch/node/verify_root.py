@@ -5,16 +5,19 @@ Counterpart of the ``[verify]`` wiring in the JAX package's node
 
   1. resolves the device (``cuda`` unless the caller passes ``"cpu"``;
      with no device given and no CUDA present it raises
-     ``NoCudaDeviceError``) and validates the knobs
-     (``ed25519_path="msm"`` is not ported yet and raises
-     ``NotImplementedError`` naming ROADMAP queue 1 item 6);
-  2. builds every kernel the path launches (K1, K2, K3) with
+     ``NoCudaDeviceError``) and validates the knobs (``ed25519_path`` is
+     "ladder" or "msm");
+  2. builds every kernel the path launches (K1, K2, K3, and K4 for the
+     MSM path, whichever path is configured: ``TM_ED25519_PATH`` can
+     switch it later) with
      ``ops/_build.build_all`` before any guarded call, so that no first
      dispatch pays ``nvcc`` under the dispatch deadline (a build that ran
      into the deadline would become a timeout and a host fallback hiding
      the kernel); a build error raises out of here;
-  3. configures the process-wide guard (``configure_device_guard``) and
-     the planner (``configure_planner``);
+  3. configures the process-wide guard (``configure_device_guard``), the
+     planner (``configure_planner``) and the process-wide verify path
+     (``set_default_ed25519_path``, which the planner's executor and the
+     commit window read);
   4. installs ``GuardedBatchVerifier(TorchBatchVerifier(device))`` as the
      default verifier (with the fe backend, carry schedule and verify path
      it records) and the planner's device executor on the same device.
@@ -39,8 +42,9 @@ from tendermint_tpu_torch.libs import breaker as _brk
 from tendermint_tpu_torch.ops import _build
 from tendermint_tpu_torch.parallel import planner
 
-# the kernels of the verify path: K1 and K2 (ed25519), K3 (secp256k1)
-PATH_KERNELS = ("ed25519_prologue", "ed25519_ladder", "secp256k1_ladder")
+# the kernels of the verify path: K1 and K2 (ed25519), K3 (secp256k1), K4
+# (the ed25519 MSM path)
+PATH_KERNELS = ("ed25519_prologue", "ed25519_ladder", "secp256k1_ladder", "ed25519_msm")
 
 
 @dataclass
@@ -57,8 +61,8 @@ def configure_verify(cfg: Optional[VerifyConfig] = None,
     returns what was installed."""
     cfg = cfg if cfg is not None else VerifyConfig()
     dev = resolve_device(device)
-    torch_verifier = _batch.TorchBatchVerifier(
-        dev, fe_backend=cfg.fe_backend, ed25519_path=cfg.ed25519_path)
+    _batch._resolve_ed25519_path(cfg.ed25519_path)  # a bad value raises here
+    _batch._choice(cfg.fe_backend, "vpu", _batch.FE_BACKENDS, "fe_backend")
     if str(cfg.planner_reduce or "device").lower() not in planner.REDUCE_MODES:
         raise ValueError(
             f"planner_reduce must be one of {planner.REDUCE_MODES}, "
@@ -70,7 +74,11 @@ def configure_verify(cfg: Optional[VerifyConfig] = None,
             _build.load(name)
     _brk.configure_device_guard(cfg)
     planner.configure_planner(cfg)
-    verifier = _batch.GuardedBatchVerifier(torch_verifier)
+    _batch.set_default_ed25519_path(cfg.ed25519_path)
+    # the verify path resolves as in the reference: TM_ED25519_PATH, then
+    # the [verify] value just installed
+    verifier = _batch.GuardedBatchVerifier(
+        _batch.TorchBatchVerifier(dev, fe_backend=cfg.fe_backend))
     executor = planner.device_executor(dev)
     _batch.set_batch_verifier(verifier)
     planner.set_device_executor(executor)
@@ -84,6 +92,7 @@ def reset_verify() -> None:
     planner.set_device_executor(None)
     _brk.reset_device_guard()
     planner.configure_planner(None)
+    _batch.set_default_ed25519_path(None)
 
 
 def vote_feed(cfg: Optional[VerifyConfig] = None,

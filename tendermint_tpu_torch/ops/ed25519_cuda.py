@@ -30,6 +30,11 @@ Field elements are ten radix-2^25.5 limbs (``ops/fe.py``). The device tensors
 are int32 holding uint32 bit patterns; the plain versions compute in int64.
 A wrapper runs the plain version only for tensors on the CPU; for CUDA
 tensors it launches its kernel or raises.
+
+``rlc_verify_batch`` is the one-MSM-per-batch route (``[verify]
+ed25519_path = "msm"``): K1 hashes, K4 (``ops/ed25519_msm.py``) checks the
+batch as one random linear combination, and K1 + K2 re-check the rows a
+rejected batch localizes to.
 """
 
 from __future__ import annotations
@@ -43,6 +48,7 @@ import torch
 
 from tendermint_tpu_torch.crypto import ed25519 as _ed
 from tendermint_tpu_torch.device import DeviceLike, resolve_device
+from tendermint_tpu_torch.libs import trace
 from tendermint_tpu_torch.ops import _build, fe
 from tendermint_tpu_torch.ops import sha512 as _sha
 
@@ -620,10 +626,10 @@ def reset_launches() -> None:
         launches[k] = 0
 
 
-def _kernel_fn(name: str, argtypes):
+def _kernel_fn(name: str, argtypes, lib: Optional[str] = None):
     fn = _fns.get(name)
     if fn is None:
-        fn = getattr(_build.load(name), name + "_launch")
+        fn = getattr(_build.load(lib or name), name + "_launch")
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
         _fns[name] = fn
@@ -652,10 +658,11 @@ def _check(name: str, t: torch.Tensor, shape: Tuple[int, ...]) -> None:
 
 
 def launch_kernel(name: str, argtypes, counts: Dict[str, int],
-                  dev: torch.device, *args) -> None:
-    """Launch kernel ``name`` on ``dev``'s current stream and add one to
-    ``counts[name]``; raises if the launch failed."""
-    fn = _kernel_fn(name, argtypes)
+                  dev: torch.device, *args, lib: Optional[str] = None) -> None:
+    """Launch kernel ``name`` (the library ``lib``'s ``name_launch``; the
+    library of that name by default) on ``dev``'s current stream and add
+    one to ``counts[name]``; raises if the launch failed."""
+    fn = _kernel_fn(name, argtypes, lib)
     with torch.cuda.device(dev):
         rc = fn(*args, torch.cuda.current_stream(dev).cuda_stream)
     counts[name] += 1
@@ -820,3 +827,78 @@ def verify_batch(pubs: np.ndarray, msgs: Sequence[bytes], sigs: np.ndarray,
             neg_ax[idx], ay[idx], valid[idx], int(ln), dev,
         )
     return out
+
+
+# ---------------------------------------------------------------------------
+# The RLC entry: one MSM a batch (ops/ed25519_msm.py, K4)
+# ---------------------------------------------------------------------------
+
+
+def rlc_seed(pubs: np.ndarray, sigs: np.ndarray) -> int:
+    """Deterministic RLC coefficient seed, the reference's: SHA-256 over
+    b"ed25519-rlc" + the batch's keys and signatures, the first 8 bytes
+    little-endian. The coefficients need only be unpredictable before the
+    signatures are fixed, so a replay of the same batch draws the same."""
+    dig = hashlib.sha256(b"ed25519-rlc" + pubs.tobytes() + sigs.tobytes()).digest()
+    return int.from_bytes(dig[:8], "little")
+
+
+def _prologue_h(pubs: np.ndarray, msgs: Sequence[bytes], sigs: np.ndarray,
+                device: torch.device) -> List[int]:
+    """h = SHA-512(R || A || M) mod L for every row, read from K1's digh
+    output: one K1 call a message-length group, its 64 MSB-first 4-bit
+    digits reassembled into host ints for the MSM schedule."""
+    n = pubs.shape[0]
+    lanes = LANES if device.type == "cuda" else CPU_LANES
+    lens = np.array([len(m) for m in msgs])
+    hs = [0] * n
+    for ln in np.unique(lens):
+        idx = np.nonzero(lens == ln)[0]
+        k = idx.size
+        b = _bucket(k, lanes)
+        p, s = pubs[idx], sigs[idx]
+        tmpl, vrows, vwords = pack_variable_words(p, [bytes(msgs[i]) for i in idx], s,
+                                                  int(ln), b)
+        _, digh, _, _ = prologue(
+            _put(tmpl, device), _put(vrows, device), _put(vwords, device),
+            _put(_pad_rows(np.ascontiguousarray(p).view("<u4"), b), device),
+            _put(_pad_rows(np.ascontiguousarray(s).view("<u4"), b), device))
+        d = (digh[:, :k].cpu().numpy().T & 15).astype(np.uint8)  # (k, 64) MSB first
+        be = (d[:, 0::2] << 4) | d[:, 1::2]
+        for j, i in enumerate(idx):
+            hs[i] = int.from_bytes(be[j].tobytes(), "big")
+    return hs
+
+
+def rlc_verify_batch(pubs: np.ndarray, msgs: Sequence[bytes], sigs: np.ndarray, *,
+                     device: DeviceLike = None, seed: Optional[int] = None) -> np.ndarray:
+    """Go-exact batched verify through one multi-scalar multiplication:
+    the host parse keeps Go's edges (``crypto.ed25519._parse_batch``), K1
+    hashes (``_prologue_h``), K4 checks the whole batch as one random
+    linear combination, and a rejected batch localizes through host chunk
+    RLCs to rows that K1 + K2 (``verify_batch``) re-check in one call.
+    Same contract as ``verify_batch``; ``seed`` pins the coefficients
+    (default ``rlc_seed``: a replay draws the same)."""
+    from tendermint_tpu_torch.ops import ed25519_msm as _msm
+
+    dev = resolve_device(device)
+    pubs = np.ascontiguousarray(pubs, dtype=np.uint8)
+    sigs = np.ascontiguousarray(sigs, dtype=np.uint8)
+    n = pubs.shape[0]
+    if n == 0:
+        return np.zeros((0,), dtype=bool)
+    items = [(pubs[i].tobytes(), bytes(msgs[i]), sigs[i].tobytes()) for i in range(n)]
+    with trace.span("msm.parse", n=n):
+        parsed, out = _ed._parse_batch(items, compute_h=False)
+    if parsed:
+        with trace.span("msm.prologue_h", n=n):
+            hs = _prologue_h(pubs, msgs, sigs, dev)
+        parsed = [(i, na, nr, hs[i], s) for (i, na, nr, _h, s) in parsed]
+    if seed is None:
+        seed = rlc_seed(pubs, sigs)
+
+    def ladder_fn(idx: List[int]) -> np.ndarray:
+        return verify_batch(pubs[idx], [msgs[i] for i in idx], sigs[idx], device=dev)
+
+    _msm.rlc_resolve(parsed, out, ladder_fn, seed=seed, device=dev)
+    return np.asarray(out, dtype=bool)

@@ -25,7 +25,11 @@ Two routes run a plan, as in the reference (``execute_plan``):
     power and of failed votes over the segment ids, then the strict +2/3
     compare) — the reference's K7 step. Where the reference packs h on the
     host and runs its XLA ladder, the port runs K1 + K2; parity is per lane
-    verdict and per int64 tally.
+    verdict and per int64 tally. With ``ed25519_path="msm"`` the executor
+    folds every wellformed lane into one MSM instead
+    (``_execute_device_msm``: ``ed25519_cuda.rlc_verify_batch``, K1 -> K4,
+    and K1 -> K2 on the rows of a rejected window) and tallies on the host,
+    as the reference's does.
 
 The device route runs behind ``_execute_device_guarded`` (breaker, deadline,
 retry, seeded audit, host fallback), the line-for-line counterpart of the
@@ -59,7 +63,11 @@ import numpy as np
 import torch
 
 from tendermint_tpu_torch.crypto import ed25519 as _ed
-from tendermint_tpu_torch.crypto.batch import RLCHostVerifier, verify_generic
+from tendermint_tpu_torch.crypto.batch import (
+    RLCHostVerifier,
+    _resolve_ed25519_path,
+    verify_generic,
+)
 from tendermint_tpu_torch.crypto.keys import PubKey, PubKeyEd25519
 from tendermint_tpu_torch.device import DeviceLike, resolve_device
 from tendermint_tpu_torch.libs import breaker as _brk
@@ -506,12 +514,90 @@ def _host_reduce(plan, ok_l: np.ndarray):
 FE_BACKEND, CARRY_MODE = "vpu", "lazy"
 
 
+# devices whose MSM route has dispatched once: the first pays the warm-up
+_msm_warm: set = set()
+
+
+def _execute_device_msm(plan, mesh=None, *, device: torch.device) -> WindowVerdict:
+    """One MSM per window (``[verify] ed25519_path = "msm"``): every
+    wellformed lane folds into one random-linear-combination check
+    (``ed25519_cuda.rlc_verify_batch``: K1, K4, and K1 + K2 on the rows a
+    rejected window localizes to), and the tallies fold on the host
+    (``_host_reduce``), as in the reference. The verdicts equal the
+    per-lane route's; the guard wraps it unchanged."""
+    n = plan.n_lanes
+    ok_l = np.zeros((n,), dtype=bool)
+    wf = np.asarray(plan.wellformed, dtype=bool)
+    rows = np.flatnonzero(wf)
+    first = device not in _msm_warm
+    t0 = time.perf_counter()
+    with trace.span(
+        "planner.dispatch", backend="planner_msm", H=plan.H, lanes=n, n=n,
+        windows=plan.n_windows, compiled=first,
+    ):
+        if rows.size:
+            pubs_a = np.frombuffer(
+                b"".join(_pub_bytes(plan.pubs[j]) for j in rows), np.uint8
+            ).reshape(rows.size, 32)
+            sigs_a = np.frombuffer(
+                b"".join(bytes(plan.sigs[j]) for j in rows), np.uint8
+            ).reshape(rows.size, 64)
+            ok_l[rows] = _k.rlc_verify_batch(
+                pubs_a, [bytes(plan.msgs[j]) for j in rows], sigs_a, device=device)
+    _msm_warm.add(device)
+    dt = time.perf_counter() - t0
+    tally, committed, nbad = _host_reduce(plan, ok_l)
+    try:
+        m = get_verify_metrics()
+        m.record_planner(n, n, compiled=first)
+        m.record_dispatch(
+            "planner_msm", "ed25519", n, dt,
+            rejects=int(np.count_nonzero(wf & ~ok_l)),
+            first=first, fe_backend=FE_BACKEND, carry_mode=CARRY_MODE,
+            ed25519_path="msm",
+        )
+        get_profiler().record(
+            "planner_msm",
+            bucket=(n, plan.H),
+            lanes_present=n,
+            lanes_dispatched=n,
+            heights=plan.H,
+            pack_seconds=plan.pack_seconds,
+            run_seconds=dt,
+            compiled=first,
+            # the upload is about the extended-point pool: two points a
+            # lane, 4 coordinates of 10 u32 limbs
+            bytes_to_device=int(rows.size) * 2 * 4 * _k.NLIMB * 4,
+            fe_backend=FE_BACKEND,
+            carry_mode=CARRY_MODE,
+            ed25519_path="msm",
+            n_windows=plan.n_windows,
+            n_devices=1,
+        )
+    except Exception:
+        pass
+    ok = np.zeros((plan.H, plan.V), dtype=bool)
+    if n:
+        ok[plan.coords[:, 0], plan.coords[:, 1]] = ok_l
+    return WindowVerdict(
+        ok=ok,
+        tally=tally.astype(np.int64, copy=False),
+        committed=committed,
+        sigs_ok=nbad == 0,
+        lanes_present=n,
+        lanes_dispatched=n,
+    )
+
+
 def _execute_device(plan, mesh=None, *, device: torch.device) -> WindowVerdict:
     """Pack, run ``_planner_step`` and read the verdict and tallies back
-    with one synchronisation (one ``.cpu()``)."""
+    with one synchronisation (one ``.cpu()``); on the MSM path,
+    ``_execute_device_msm``."""
     if mesh is not None:
         raise NotImplementedError(
             "a mesh (the multi-GPU lane split) is ported by ROADMAP queue 1 item 4b (iii)")
+    if _resolve_ed25519_path(None) == "msm":
+        return _execute_device_msm(plan, mesh, device=device)
     t_pack = time.perf_counter()
     with trace.span("planner.pack_device", H=plan.H, n=plan.n_lanes):
         pack = pack_device(plan, device)

@@ -193,8 +193,11 @@ def test_options_are_validated_and_recorded():
 
 
 def test_unported_paths_raise():
-    with pytest.raises(NotImplementedError, match="item 6"):
-        tbatch.TorchBatchVerifier(device="cpu", ed25519_path="msm")
+    # the MSM path is ported (ROADMAP item 6): the knob is accepted and
+    # recorded, and a bad value still raises
+    assert tbatch.TorchBatchVerifier(device="cpu", ed25519_path="msm").ed25519_path == "msm"
+    with pytest.raises(ValueError):
+        tbatch.TorchBatchVerifier(device="cpu", ed25519_path="pippenger")
     # multisig routing is ported (ROADMAP item 9): a key of no batchable
     # type is decided by its own verify_bytes, as in the reference
     class OddKey:

@@ -4,6 +4,8 @@ where no CUDA device is present (run them on the GPU with
 ``python -m pytest tests/test_torch_cuda.py -q``; ``chip_smoke.py`` runs the
 same checks at full size)."""
 
+import random
+
 import numpy as np
 import pytest
 import torch
@@ -11,6 +13,7 @@ import torch
 from tendermint_tpu_torch.crypto import ed25519 as ted
 from tendermint_tpu_torch.crypto import secp256k1 as ts
 from tendermint_tpu_torch.ops import ed25519_cuda as ec
+from tendermint_tpu_torch.ops import ed25519_msm as em
 from tendermint_tpu_torch.ops import secp256k1_cuda as sc
 from tendermint_tpu_torch.testutil import commit as tc
 
@@ -434,3 +437,45 @@ def test_vote_storm_on_cuda_equals_its_cpu_run(cuda, use_device):
     finally:
         reset_verify()
     assert got == want
+
+
+def _k4_inputs(dev, n, seed, bad=()):
+    """K4's inputs for the RLC of n seeded signatures (``bad`` forged in s)."""
+    rng = np.random.default_rng(seed)
+    items = []
+    for j in range(n):
+        priv = ted.gen_privkey(rng.bytes(32))
+        msg = b"k4-%d-%d" % (seed, j)
+        sig = bytearray(ted.sign(priv, msg))
+        if j in bad:
+            sig[40] ^= 1
+        items.append((priv[32:], msg, bytes(sig)))
+    rows = [r[1:] for r in ted._parse_batch(items)[0]]
+    return em.device_inputs(*em.rlc_inputs(rows, random.Random(1234)), dev)
+
+
+@pytest.mark.parametrize("n, bad", [(16, ()), (16, (3,)), (300, ()), (1100, (7, 900))])
+def test_msm_kernel_vs_plain(cuda, n, bad):
+    """K4 against msm_ref on one schedule, at every bucket width from c = 5
+    to c = 8: the verdict and the canonical final point exact, one launch a
+    call."""
+    ins = _k4_inputs(cuda, n, n, bad)
+    before = em.launches["ed25519_msm"]
+    ok, pt = em.msm(*ins)
+    torch.cuda.synchronize()
+    assert em.launches["ed25519_msm"] == before + 1
+    ok_ref, pt_ref = em.msm_ref(*ins)
+    assert torch.equal(ok.cpu(), ok_ref.cpu()) and torch.equal(pt.cpu(), pt_ref.cpu())
+    assert ok.item() == (0 if bad else 1)
+
+
+def test_rlc_verify_batch_on_the_card(cuda):
+    """The Go-edge window through one MSM on the card: K1, K4, and K1 + K2
+    on the localized rows; the verdicts equal the CPU run's at the same
+    seed and the ladder's."""
+    pa, msgs, sa = _window()
+    before = em.launches["ed25519_msm"]
+    got = ec.rlc_verify_batch(pa, msgs, sa, device=cuda, seed=1234)
+    assert em.launches["ed25519_msm"] == before + 1
+    assert np.array_equal(got, ec.rlc_verify_batch(pa, msgs, sa, device="cpu", seed=1234))
+    assert np.array_equal(got, ec.verify_batch(pa, msgs, sa, device=cuda))

@@ -1,6 +1,6 @@
 """The configuration root (tendermint_tpu_torch/node/verify_root.py) and the
 slice as a whole on the CPU: the ``[verify]`` knobs flow into the guard, the
-verifier and the planner; ``ed25519_path="msm"`` raises; with no CUDA a
+verifier and the planner; a bad ``ed25519_path`` raises; with no CUDA a
 root without a device raises; and a seeded signed window
 (testutil/window.py) with planted faults gives, on both routes of the
 installed path, the verdict its construction implies and the reference
@@ -74,9 +74,10 @@ def test_knobs_flow_through():
 
 
 def test_msm_and_bad_knobs_raise_before_anything_is_installed():
-    with pytest.raises(NotImplementedError, match="item 6"):
-        configure_verify(VerifyConfig(ed25519_path="msm"), device="cpu")
-    for cfg in (VerifyConfig(fe_backend="gpu"), VerifyConfig(planner_reduce="both")):
+    # "msm" is ported (ROADMAP item 6) and accepted; a bad knob, the path's
+    # included, raises before anything is installed
+    for cfg in (VerifyConfig(fe_backend="gpu"), VerifyConfig(planner_reduce="both"),
+                VerifyConfig(ed25519_path="pippenger")):
         with pytest.raises(ValueError):
             configure_verify(cfg, device="cpu")
     assert planner._device_executor is None
