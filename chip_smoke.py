@@ -229,7 +229,6 @@ import torch
 
 from tendermint_tpu_torch.abci.examples.kvstore import extract_signed_tx_sig
 from tendermint_tpu_torch.config.verify import VerifyConfig
-from tendermint_tpu_torch.crypto import batch as tbatch
 from tendermint_tpu_torch.crypto import ed25519 as ed
 from tendermint_tpu_torch.crypto import secp256k1 as secp
 from tendermint_tpu_torch.crypto.batch import (
@@ -918,6 +917,11 @@ def fallbacks() -> float:
 
 def audits(outcome: str) -> float:
     return get_verify_metrics().device_audit._values.get((outcome,), 0.0)
+
+
+def retries() -> float:
+    """Device dispatches retried so far (a timeout or a device error)."""
+    return sum(get_verify_metrics().device_retries._values.values())
 
 
 def check_guard_clean(fallbacks_before: float, what: str) -> None:
@@ -1931,7 +1935,6 @@ def phase_txs(root, err: dict) -> dict:
 ADV_ROWS = 16
 MSM_SEED = 1234
 K4_ITERS = 5
-MSM_WINDOW_DEADLINE = 120.0  # s: the [verify] dispatch_deadline of phase 19's msm calls
 # 32x32 -> 64 products of K4's point formulas: an addition is 9 field
 # multiplications of 100 products, a doubling 4 squarings of 55 and 4
 # multiplications, a mixed addition 7 multiplications
@@ -1969,15 +1972,27 @@ def time_k4_parts(ins, sched) -> dict:
             "level_rows": [int(a.shape[0]) for a in ias]}
 
 
-def phase_k4(dev, sc_: tc.SignedCommit, mul_rate: float, err: dict) -> dict:
+def window_items(window: dict) -> list:
+    """The window phase's present cells as (pub, msg, sig) rows, in the
+    order the commit window's msm route hands them to the MSM."""
+    return [(x[0].bytes(), x[1], x[2]) for row in window["rows"][0] for x in row
+            if x is not None]
+
+
+def phase_k4(dev, sc_: tc.SignedCommit, window: dict, mul_rate: float, err: dict) -> dict:
     phase(f"k4: the ed25519 MSM kernel vs plain at the adversarial window's size ({ADV_ROWS} "
-          f"rows) and the {N_VALIDATORS}-validator commit's, seed {MSM_SEED}")
+          f"rows), the {N_VALIDATORS}-validator commit's and the {WINDOW_H} x {WINDOW_V} "
+          f"window's, seed {MSM_SEED}")
     pubs, msgs, sigs, _ = tc.go_edge_window(seed=0)
     shapes = {
         "adversarial": list(zip(pubs[:ADV_ROWS], msgs[:ADV_ROWS], sigs[:ADV_ROWS])),
         "commit": [(v.pub_key.bytes(), pc.sign_bytes(sc_.chain_id), pc.signature)
                    for v, pc in zip(sc_.valset.validators, sc_.commit.precommits)],
+        # the window as it is, forged lanes and all: K4 rejects it, and the
+        # non-identity final point it reaches must equal msm_ref's limb for limb
+        "window": window_items(window),
     }
+    verdicts = {"adversarial": 0, "commit": 1, "window": 0}
     out = {}
     for label, items in shapes.items():
         t0 = time.perf_counter()
@@ -1993,8 +2008,7 @@ def phase_k4(dev, sc_: tc.SignedCommit, mul_rate: float, err: dict) -> dict:
         e = max_abs_diff(got, ref)
         err["ed25519_msm"] = max(err["ed25519_msm"], e)
         check(e == 0, f"k4 {label}: K4 differs from msm_ref by {e}")
-        check(int(got[0].item()) == (1 if label == "commit" else 0),
-              f"k4 {label}: verdict {int(got[0].item())}")
+        check(int(got[0].item()) == verdicts[label], f"k4 {label}: verdict {int(got[0].item())}")
         ms = cuda_ms(lambda: em.msm(*ins), K4_ITERS, 1)
         parts = time_k4_parts(ins, sched)
         plain_ms = cuda_ms(lambda: em.msm_ref(*ins), 1, 0)
@@ -2167,11 +2181,11 @@ def phase_commit_window(dev, window: dict, err: dict) -> dict:
     host_ms = host_p50_ms(lambda: np.where(got[0], win.power, 0).sum(-1))
     tally_bound = (nbytes((ok_d, power_d)) + nbytes(t_out)) / HBM_BYTES_PER_S * 1e3
 
-    # the msm route's dirty window outlasts the default 30 s dispatch
-    # deadline (a timeout, then DeviceDispatchError after the retry: PERF.md
-    # §6), so it runs under a [verify] dispatch_deadline that fits it
-    breaker.configure_device_guard(VerifyConfig(dispatch_deadline=MSM_WINDOW_DEADLINE))
-    tbatch.set_default_ed25519_path("msm")
+    # the msm route as a node configures it: [verify] ed25519_path = "msm"
+    # and every other knob at its default (the 30 s dispatch deadline)
+    msm_root = configure_verify(VerifyConfig(ed25519_path="msm"), device=dev)
+    check(msm_root.verifier.deadline == 30.0, "the msm root's dispatch deadline is not 30 s")
+    retries_before = retries()
     try:
         reset_launches()
         got_m, msm_s, msm_parts = traced(lambda: cv.verify_commit_window(win, total, device=dev))
@@ -2188,16 +2202,17 @@ def phase_commit_window(dev, window: dict, err: dict) -> dict:
                   f"verify_window under msm: {k} differs")
         check(plan_launches["ed25519_msm"] == 1, f"planner msm launches {plan_launches}")
         check_guard_clean(before, "commit window")
+        check(retries() == retries_before, "an msm window dispatch was retried (a timeout or "
+              "a device error under the default deadline)")
     finally:
-        tbatch.set_default_ed25519_path(None)
-        breaker.configure_device_guard(VerifyConfig())
+        configure_verify(VerifyConfig(), device=dev)
     print(f"  msm: verify_commit_window {msm_s:.2f} s, parts (s) "
           + ", ".join(f"{k} {t:.3f}" for k, t in msm_parts.items())
           + f"; launches {msm_launches}", flush=True)
     print(f"  msm: verify_window(use_device=True) {plan_s:.2f} s, parts (s) "
           + ", ".join(f"{k} {t:.3f}" for k, t in plan_parts.items())
           + f"; launches {plan_launches}; all equal the planner's ladder verdict; no "
-          f"fallback; breaker closed", flush=True)
+          f"fallback or retry under the default 30 s deadline; breaker closed", flush=True)
     print(f"  K8 tally {tally_ms:.4f} ms against a byte bound of {tally_bound:.6f} ms "
           f"(torch int64, exact against the host's {host_ms:.3f} ms)", flush=True)
     return {
@@ -2259,9 +2274,9 @@ def main() -> int:
     votes = phase_votes(root, err)
     txs = phase_txs(root, err)
     err[K4] = 0
-    k4 = phase_k4(dev, ed_main["commit"], mul_rate, err)
+    k4 = phase_k4(dev, ed_main["commit"], window, mul_rate, err)
     msm = phase_msm(dev, ed_main["commit"], err)
-    root = configure_verify(VerifyConfig(), device=dev)  # back to the default [verify]
+    configure_verify(VerifyConfig(), device=dev)  # back to the default [verify]
     cwin = phase_commit_window(dev, window, err)
     print(f"  {smi_line}", flush=True)
 
@@ -2319,6 +2334,13 @@ def main() -> int:
         "sub_ms": {"levels": k4c["parts"]["levels_ms"], "fold": k4c["parts"]["fold_ms"],
                    "finish": k4c["parts"]["finish_ms"]},
         "adversarial_ms": k4["adversarial"]["ms"],
+        # the 512 x 64 window's schedule (the commit window's msm route)
+        "window_ms": k4["window"]["ms"],
+        "window_plain_ms": k4["window"]["plain_ms"],
+        "window_bound_ms": k4["window"]["bound"][0],
+        "window_sub_ms": {"levels": k4["window"]["parts"]["levels_ms"],
+                          "fold": k4["window"]["parts"]["fold_ms"],
+                          "finish": k4["window"]["parts"]["finish_ms"]},
         "lite_launches": {shape: lite[shape]["launches"][K4] for shape in ("a", "b")},
         "votes_launches": {route: votes[route]["launches"][K4] for route in votes},
         "txs_launches": txs["launches"][K4],

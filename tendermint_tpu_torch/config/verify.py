@@ -40,7 +40,7 @@ class VerifyConfig:
     fe_backend: str = "vpu"
     # device verify strategy: "ladder" (per-signature double-scalar ladder,
     # K1 + K2) or "msm" (one multi-scalar multiplication a window, K1 + K4,
-    # with K1 + K2 on the rows of a rejected window)
+    # with K1 + K2 over the rows of a rejected window)
     ed25519_path: str = "ladder"
     # WindowPipeline depth: planned windows allowed in flight ahead of the
     # device (planner.pipeline_depth)

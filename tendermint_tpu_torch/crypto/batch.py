@@ -15,8 +15,8 @@ raises rather than completing on the host), and every dispatch is recorded in
 the ``tendermint_verify_*`` metrics. A k-of-n multisig aggregate flattens
 into the same ed25519 call. With ``ed25519_path="msm"`` (``[verify]
 ed25519_path``, ``TM_ED25519_PATH``) ed25519 batches go through
-``ops.ed25519_cuda.rlc_verify_batch`` instead: K1, one MSM (K4), and K1 +
-K2 on the rows a rejected batch localizes to.
+``ops.ed25519_cuda.rlc_verify_batch`` instead: K1, one MSM (K4), and on a
+reject K1 + K2 over the batch with host chunk RLCs where a row fails.
 """
 
 from __future__ import annotations

@@ -3,8 +3,10 @@
 Each ``csrc/*.cu`` file has a plain C interface and is compiled by ``nvcc``
 into its own shared library (``-gencode arch=compute_90a,code=sm_90a``),
 loaded with ``ctypes``. Libraries land in ``build/tendermint_tpu_torch/`` at
-the root of the checkout, named by a hash of the source and the flags, so a
-changed source rebuilds and an unchanged one is reused. ``build_all`` starts
+the root of the checkout, named by a hash of the source, of every header it
+includes from ``csrc`` (``#include "..."``, followed recursively) and of the
+flags, so a changed source or header rebuilds and an unchanged one is
+reused. ``build_all`` starts
 one ``nvcc`` per missing library, all at once. Nothing is built at import.
 """
 
@@ -13,6 +15,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -55,8 +58,24 @@ def nvcc() -> str:
     raise KernelBuildError("nvcc not found (set CUDA_HOME or put nvcc on PATH)")
 
 
+_INCLUDE = re.compile(rb'^[ \t]*#[ \t]*include[ \t]+"([^"]+)"', re.M)
+
+
+def _source_bytes(path: Path, seen: set) -> bytes:
+    """``path``'s bytes followed by those of each header it includes with
+    quotes (from its own directory, once each)."""
+    src = path.read_bytes()
+    parts = [src]
+    for inc in _INCLUDE.findall(src):
+        dep = path.parent / inc.decode()
+        if dep not in seen:
+            seen.add(dep)
+            parts.append(_source_bytes(dep, seen))
+    return b"".join(parts)
+
+
 def target(name: str) -> Path:
-    src = (SRC_DIR / SOURCES[name]).read_bytes()
+    src = _source_bytes(SRC_DIR / SOURCES[name], set())
     digest = hashlib.sha256(src + " ".join(FLAGS).encode()).hexdigest()[:16]
     return BUILD_DIR / f"{name}-{digest}.so"
 

@@ -33,8 +33,9 @@ tensors it launches its kernel or raises.
 
 ``rlc_verify_batch`` is the one-MSM-per-batch route (``[verify]
 ed25519_path = "msm"``): K1 hashes, K4 (``ops/ed25519_msm.py``) checks the
-batch as one random linear combination, and K1 + K2 re-check the rows a
-rejected batch localizes to.
+batch as one random linear combination, and a rejected batch is checked
+row by row on K1 + K2, with host chunk RLCs only where that finds a
+rejected row (``ed25519_msm.rlc_resolve``).
 """
 
 from __future__ import annotations
@@ -875,8 +876,9 @@ def rlc_verify_batch(pubs: np.ndarray, msgs: Sequence[bytes], sigs: np.ndarray, 
     """Go-exact batched verify through one multi-scalar multiplication:
     the host parse keeps Go's edges (``crypto.ed25519._parse_batch``), K1
     hashes (``_prologue_h``), K4 checks the whole batch as one random
-    linear combination, and a rejected batch localizes through host chunk
-    RLCs to rows that K1 + K2 (``verify_batch``) re-check in one call.
+    linear combination, and a rejected batch goes through K1 + K2
+    (``verify_batch``) in one call, with the reference's host chunk RLCs
+    on the chunks that hold a rejected row (``ed25519_msm.rlc_resolve``).
     Same contract as ``verify_batch``; ``seed`` pins the coefficients
     (default ``rlc_seed``: a replay draws the same)."""
     from tendermint_tpu_torch.ops import ed25519_msm as _msm

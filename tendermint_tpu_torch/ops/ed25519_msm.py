@@ -21,10 +21,11 @@ formulas (``ed25519_cuda._pt_add`` / ``_pt_double`` / ``_pt_madd``), and it
 also returns the final point's canonical limbs, so that the kernel is held
 to it exactly.
 
-A rejected window localizes as the reference's does: seeded host chunk
-RLCs of ``crypto.ed25519._CHUNK`` rows (a chunk of 4 rows or fewer is
-always dirty), then the dirty rows in one call of the exact per-row path
-(``ladder_fn``: K1 + K2).
+A rejected window resolves (``rlc_resolve``) to the reference's verdicts
+with the reference's draws: one call of the exact per-row path
+(``ladder_fn``: K1 + K2) over every parsed row, and the seeded host chunk
+RLC of ``crypto.ed25519._CHUNK`` rows only where a chunk holds a row that
+call rejects.
 """
 
 from __future__ import annotations
@@ -450,10 +451,14 @@ def _chunk_rlc_holds(chunk, rng: random.Random) -> bool:
 def rlc_resolve(parsed: list, out: list, ladder_fn: Callable[[List[int]], np.ndarray],
                 *, seed: int, device: DeviceLike = None) -> None:
     """Verdicts for one window: a K4 accept sets every parsed row; on a
-    reject, host chunk RLCs (``_CHUNK`` rows) localize the dirty spans and
-    their rows go to ``ladder_fn`` (the exact per-row path) in one call.
-    ``parsed`` / ``out`` as ``crypto.ed25519._parse_batch``; mutates
-    ``out`` in place."""
+    reject, ``ladder_fn`` (the exact per-row path) checks every parsed row
+    in one call, and chunks of ``_CHUNK`` rows resolve as the reference's
+    host chunk RLCs do: a chunk whose RLC holds is accepted, any other
+    takes the ladder's verdicts. The RLC runs only on a chunk with a row
+    the ladder rejects; a chunk the ladder accepts whole ends accepted
+    either way and only draws its coefficients, so the draws, and every
+    later chunk's RLC, stay the reference's. ``parsed`` / ``out`` as
+    ``crypto.ed25519._parse_batch``; mutates ``out`` in place."""
     if not parsed:
         return
     dev = resolve_device(device)
@@ -464,15 +469,14 @@ def rlc_resolve(parsed: list, out: list, ladder_fn: Callable[[List[int]], np.nda
             out[item[0]] = True
         return
     with trace.span("msm.localize", n=len(parsed)):
-        dirty: List[int] = []
+        ok = np.asarray(ladder_fn([item[0] for item in parsed]), dtype=bool)
         for lo in range(0, len(parsed), _ed._CHUNK):
             chunk = parsed[lo: lo + _ed._CHUNK]
-            if len(chunk) > 4 and _chunk_rlc_holds(chunk, rng):
-                for item in chunk:
-                    out[item[0]] = True
+            if len(chunk) > 4 and ok[lo: lo + len(chunk)].all():
+                for _ in chunk:  # the draws of _chunk_rlc_holds
+                    rng.getrandbits(128)
+                held = True
             else:
-                dirty.extend(item[0] for item in chunk)
-        if dirty:
-            ok = np.asarray(ladder_fn(dirty))
-            for j, i in enumerate(dirty):
-                out[i] = bool(ok[j])
+                held = len(chunk) > 4 and _chunk_rlc_holds(chunk, rng)
+            for j, item in enumerate(chunk):
+                out[item[0]] = held or bool(ok[lo + j])

@@ -324,8 +324,8 @@ def _verify_window_device_msm(
 ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
     """One MSM per commit window (``[verify] ed25519_path = "msm"``): the
     raw signature columns fold into one random-linear-combination check
-    (``ed25519_cuda.rlc_verify_batch``: K1, K4, and K1 + K2 on the rows a
-    rejected window localizes to); the tally folds on the host, as in the
+    (``ed25519_cuda.rlc_verify_batch``: K1, K4, and on a reject K1 + K2
+    over the window's rows with host chunk RLCs where a row fails); the tally folds on the host, as in the
     reference. The verdicts equal the ladder route's."""
     H, V = win.shape
     coords, pubs_l, msgs_l, sigs_l = win.raw

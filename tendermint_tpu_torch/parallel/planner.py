@@ -521,8 +521,8 @@ _msm_warm: set = set()
 def _execute_device_msm(plan, mesh=None, *, device: torch.device) -> WindowVerdict:
     """One MSM per window (``[verify] ed25519_path = "msm"``): every
     wellformed lane folds into one random-linear-combination check
-    (``ed25519_cuda.rlc_verify_batch``: K1, K4, and K1 + K2 on the rows a
-    rejected window localizes to), and the tallies fold on the host
+    (``ed25519_cuda.rlc_verify_batch``: K1, K4, and on a reject K1 + K2
+    over the window's rows with host chunk RLCs where a row fails), and the tallies fold on the host
     (``_host_reduce``), as in the reference. The verdicts equal the
     per-lane route's; the guard wraps it unchanged."""
     n = plan.n_lanes

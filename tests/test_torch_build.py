@@ -66,6 +66,30 @@ def test_changed_source_gets_a_new_library(sandbox):
     assert _build.target("ed25519_prologue").name.startswith("ed25519_prologue-")
 
 
+def test_changed_header_rebuilds_the_sources_that_include_it(sandbox):
+    src, _ = sandbox
+    (src / "field.cuh").write_text('#pragma once\n#include "limbs.cuh"\n')
+    (src / "limbs.cuh").write_text("// limbs v1")
+    for name in ("ed25519_ladder", "ed25519_msm"):
+        (src / _build.SOURCES[name]).write_text(f'#include <cstdint>\n#include "field.cuh"\n// {name}')
+    names = ("ed25519_ladder", "ed25519_msm", "ed25519_prologue")
+    before = {n: _build.target(n) for n in names}
+    (src / "limbs.cuh").write_text("// limbs v2")  # two includes deep
+    after = {n: _build.target(n) for n in names}
+    assert after["ed25519_ladder"] != before["ed25519_ladder"]
+    assert after["ed25519_msm"] != before["ed25519_msm"]
+    assert after["ed25519_prologue"] == before["ed25519_prologue"]  # includes neither
+
+
+def test_kernel_sources_hash_the_shared_field_header():
+    """K2 and K4 include csrc/ed25519_field.cuh; their library names cover it."""
+    header = (_build.SRC_DIR / "ed25519_field.cuh").read_bytes()
+    for name in ("ed25519_ladder", "ed25519_msm"):
+        path = _build.SRC_DIR / _build.SOURCES[name]
+        assert b'#include "ed25519_field.cuh"' in path.read_bytes()
+        assert header in _build._source_bytes(path, set())
+
+
 def test_failed_build_raises_and_leaves_nothing(sandbox):
     _, install = sandbox
     install(fail="bad kernel")

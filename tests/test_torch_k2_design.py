@@ -27,7 +27,9 @@ from tendermint_tpu_torch.tools import k3_compare
 
 P = fe.P
 S = fe.closed_set()
-SRC = (Path(ec.__file__).parent / "csrc" / "ed25519_ladder.cu").read_text()
+# K2's source with the field header it includes (csrc/ed25519_field.cuh)
+SRC = "".join((Path(ec.__file__).parent / "csrc" / f).read_text()
+              for f in ("ed25519_ladder.cu", "ed25519_field.cuh"))
 NPTS = 64
 SMEM_LIMIT = 232_448  # dynamic shared memory one block may use on Hopper
 D2 = torch.tensor(fe.int_to_limbs(ted.D2), dtype=torch.int64)

@@ -219,16 +219,26 @@ def _signed_items(n, seed, bad=()):
     return items
 
 
-def test_rejected_window_draw_path_equals_the_reference(monkeypatch):
-    """A rejected window (both device verdicts forced False): the chunk
-    RLCs draw the same coefficients after the window's, mark the same
-    chunks dirty and send the same rows to the ladder, in one call."""
-    items = _signed_items(75, 1, bad={0, 31, 33, 64, 74})
+@pytest.mark.parametrize("bad", [(0, 31, 33, 64, 74), (0, 74)])
+def test_rejected_window_draw_path_equals_the_reference(monkeypatch, bad):
+    """A rejected window (both device verdicts forced False): the same
+    verdicts and the same coefficient draws as the reference's, the
+    window's and then one a row of every chunk of more than 4 rows. The
+    port sends every row to the ladder in one call and runs a chunk's RLC
+    only where the ladder rejects one of its rows; the reference sends its
+    dirty chunks' rows. With (0, 74) the middle chunk is clean: the port
+    only draws its coefficients, and the last chunk's RLC still draws the
+    reference's."""
+    items = _signed_items(75, 1, bad=set(bad))
     got_rows, want_rows = _parsed_both(items)
     expect = [ted._verify_pure(*it) for it in items]
     monkeypatch.setattr(rm, "_compiled_msm", lambda *a: (lambda *x: False))
     monkeypatch.setattr(tm, "msm", lambda *a: (torch.zeros(1, dtype=torch.int32), None))
     monkeypatch.setattr(random, "Random", _Draws)
+    chunk_rlcs = []
+    real_holds = tm._chunk_rlc_holds
+    monkeypatch.setattr(tm, "_chunk_rlc_holds",
+                        lambda chunk, rng: chunk_rlcs.append(chunk[0][0]) or real_holds(chunk, rng))
     runs = []
     for mod, rows, kw in ((rm, want_rows, {}), (tm, got_rows, {"device": "cpu"})):
         _Draws.log = []
@@ -241,10 +251,12 @@ def test_rejected_window_draw_path_equals_the_reference(monkeypatch):
 
         mod.rlc_resolve(rows, out, ladder, seed=SEED, **kw)
         runs.append((out, calls, list(_Draws.log)))
-    assert runs[0] == runs[1]
-    out, calls, draws = runs[1]
-    assert out == expect and len(calls) == 1
+    (want_out, want_calls, want_draws), (out, calls, draws) = runs
+    assert out == want_out == expect and draws == want_draws
     assert len(draws) == 75 + 75  # the window's draws, then those of its three chunks
+    dirty_chunks = sorted({i // 32 * 32 for i in bad})
+    assert want_calls == [[i for lo in dirty_chunks for i in range(lo, min(lo + 32, 75))]]
+    assert calls == [list(range(75))] and chunk_rlcs == dirty_chunks
 
 
 # -- K4's plain version ---------------------------------------------------------------
