@@ -197,13 +197,35 @@ Phases, in order; any failure exits non-zero:
              the breaker closed, no audit mismatch; walls with their parts
              (msm.localize is the chunk localization), and the K8 tally's
              device time beside its byte bound on the ``torch_ops`` line.
+  20. mempool the mempool's CheckTx path as the node wires it
+             (node/verify_root.mempool): a [mempool] section at its defaults
+             (size 5,000, cache 10,000, lanes (1, 1024), recheck on) with
+             scripts/bench_mempool.py --signed's batching (CheckTx windows of
+             128, a 50 ms wait, TxFeed(5 ms, 64 rows) on the root's guarded
+             verifier), each Mempool over a local connection to a fresh
+             SignedKVStoreApp. (1) the bench's 512 signed txs of 64 senders
+             through a serial mempool (the defaults: checktx_batch 1, no
+             hook, the app verifies) and the node-wired one, each timed from
+             the first check_tx to the last callback; (2) the bench's mixed
+             stream on both, then tests/test_tx_batch.py's (a secp256k1 and
+             an undecodable tx) on fresh ones: per-tx codes, pool order,
+             lane sizes and reap order equal the serial mempool's, and
+             app.serial_verifies is 0; (3) a fresh node-wired mempool filled
+             with 5,000 signed txs (64 senders, round robin), timed; (4)
+             app.commit and update(2, []): all 5,000 stay, the recheck
+             answers from BatchTxVerifier's cache, no kernel launches. K1
+             and K2 launched in each timed part, K3 on test_tx_batch's
+             stream, each exact on one launch's inputs; no fallback, the
+             breaker closed, no audit mismatch. Rates, dispatches, rows a
+             dispatch and the verify.audit share of each part's wall.
 
 Each path's launch counts are set to 0 just before it and read just after;
 the kernels line carries the main path's as ``launches``, the lite
 phase's shapes' as ``lite_launches``, the votes phase's routes' as
 ``votes_launches`` (verifier, executor, secp: the mixed-key storm) and the
-txs phase's as ``txs_launches``, and phases 18 and 19's as
-``msm_launches`` and ``commit_window_launches``; K4's own ``launches`` are
+txs phase's as ``txs_launches``, phases 18 and 19's as ``msm_launches`` and
+``commit_window_launches``, and phase 20's parts' as ``mempool_launches``
+(rate, parity, secp, fill, recheck); K4's own ``launches`` are
 the msm route's 10,000-validator commit's. The line before the last two is the
 ``kernels`` JSON, then the card's name
 and power limit, then ``{"ok": true, "device": {...}}``. Exits 2 when no
@@ -227,7 +249,9 @@ import time
 import numpy as np
 import torch
 
-from tendermint_tpu_torch.abci.examples.kvstore import extract_signed_tx_sig
+from tendermint_tpu_torch.abci import types as abci
+from tendermint_tpu_torch.abci.examples.kvstore import SignedKVStoreApp, extract_signed_tx_sig
+from tendermint_tpu_torch.config.mempool import MempoolConfig
 from tendermint_tpu_torch.config.verify import VerifyConfig
 from tendermint_tpu_torch.crypto import ed25519 as ed
 from tendermint_tpu_torch.crypto import secp256k1 as secp
@@ -246,7 +270,9 @@ from tendermint_tpu_torch.libs.db.kv import MemDB
 from tendermint_tpu_torch.libs.metrics import get_frontend_metrics, get_verify_metrics
 from tendermint_tpu_torch.lite import DBProvider, DynamicVerifier, LiteError
 from tendermint_tpu_torch.lite.proxy import LiteProxy, serve_proxy
+from tendermint_tpu_torch.mempool.mempool import MempoolError
 from tendermint_tpu_torch.mempool.tx_verify import BatchTxVerifier
+from tendermint_tpu_torch.node import verify_root
 from tendermint_tpu_torch.node.verify_root import configure_verify
 from tendermint_tpu_torch.ops import _build
 from tendermint_tpu_torch.ops import ed25519_cuda as ec
@@ -256,6 +282,7 @@ from tendermint_tpu_torch.ops import imad_probe
 from tendermint_tpu_torch.ops import secp256k1_cuda as sc
 from tendermint_tpu_torch.parallel import commit_verify as cv
 from tendermint_tpu_torch.parallel import planner
+from tendermint_tpu_torch.proxy.app_conn import LocalClientCreator, MultiAppConn
 from tendermint_tpu_torch.testutil import commit as tc
 from tendermint_tpu_torch.testutil import lite_chain as lc
 from tendermint_tpu_torch.testutil import multisig as tm
@@ -309,6 +336,12 @@ VOTE_WINDOW_S, VOTE_MAX_ROWS, VOTE_SECP_EVERY = 0.05, 512, 8
 # scripts/bench_mempool.py --signed: 64 senders, 512 txs in CheckTx windows
 # of 128, TxFeed(window_s=0.005, max_rows=64)
 TX_N, TX_SENDERS, TX_WINDOW, TX_WINDOW_S, TX_MAX_ROWS = 512, 64, 128, 0.005, 64
+# the mempool phase: the [mempool] defaults (size 5,000, cache 10,000, lanes
+# (1, 1024), recheck on) with scripts/bench_mempool.py --signed's batching
+# (CheckTx windows of 128, a 50 ms wait, TxFeed(5 ms, 64 rows)); the pool is
+# then filled to its configured size by 64 senders, round robin
+MP_BATCH, MP_WAIT, MP_WINDOW_MS, MP_ROWS = 128, 0.05, 5.0, 64
+MP_FILL = MempoolConfig().size
 
 # Rates for the least time the card could take: HBM bandwidth (H100 SXM
 # data sheet); 32-bit integer add, logic, shift and multiply-add each retire
@@ -1929,6 +1962,190 @@ def phase_txs(root, err: dict) -> dict:
             "batched_txs_s": TX_N / batched_signed_s}
 
 
+class NodeMempool:
+    """A mempool as the node wires it (node/verify_root.mempool) over a
+    started local app connection to a fresh SignedKVStoreApp: with
+    ``batched`` the phase's section (the TxFeed + BatchTxVerifier hook on the
+    card), else the [mempool] defaults (checktx_batch 1, no hook: the app
+    verifies serially)."""
+
+    def __init__(self, dev, batched: bool):
+        self.app = SignedKVStoreApp()
+        self.conn = MultiAppConn(LocalClientCreator(self.app))
+        self.conn.start()
+        cfg = (MempoolConfig(checktx_batch=MP_BATCH, tx_batch_window_ms=MP_WINDOW_MS,
+                             tx_batch_rows=MP_ROWS) if batched else MempoolConfig())
+        self.mp, self.feed, self.ver = verify_root.mempool(
+            cfg, self.conn, self.app, checktx_batch_wait=MP_WAIT, device=dev)
+        check((self.feed is not None) == batched, "the wiring did not follow [mempool]")
+
+    def push(self, txs) -> tuple:
+        """Every tx through check_tx, the trailing window flushed: (codes,
+        seconds from the first check_tx to the last callback)."""
+        codes, last = [None] * len(txs), [0.0]
+
+        def done(i):
+            def cb(res):
+                codes[i] = res.code
+                last[0] = time.perf_counter()
+            return cb
+
+        t0 = time.perf_counter()
+        for i, tx in enumerate(txs):
+            try:
+                self.mp.check_tx(tx, done(i))
+            except MempoolError:
+                codes[i] = -1
+        self.mp._flush_checktx_batch()
+        deadline = time.perf_counter() + RESULT_TIMEOUT
+        while any(c is None for c in codes):
+            check(time.perf_counter() < deadline, "CheckTx callbacks did not settle")
+            time.sleep(0.001)
+        return codes, max(last[0], t0) - t0
+
+    def state(self) -> tuple:
+        """What parity compares: the pool in list order, the lane sizes and
+        the reap order."""
+        return ([m.tx for m in self.mp._txs], self.mp.lane_sizes(),
+                self.mp.reap_max_bytes_max_gas(-1, -1))
+
+    def close(self) -> None:
+        if self.feed is not None:
+            self.feed.close()
+            self.feed.join(RESULT_TIMEOUT)
+        self.conn.stop()
+
+
+def mempool_part(node: NodeMempool, txs, what: str, k3: bool = False) -> dict:
+    """``txs`` through the node-wired mempool with the launch counts set to 0
+    just before and read just after, traced: codes, wall, launches, the
+    verify.audit seconds and the feed's dispatches and rows in the part;
+    K1 and K2 (and K3) launched and exact on one launch's inputs."""
+    d0, r0 = node.feed.dispatches, node.feed.rows_out
+    reset_launches()
+    trace.enable()
+    trace.reset()
+    try:
+        with captured_packs() as packs, captured_k3() as k3_ins:
+            codes, wall = node.push(txs)
+    finally:
+        audit = span_seconds(("verify.audit",))["verify.audit"]
+        trace.disable()
+    launches = read_launches()
+    for name in ("ed25519_prologue", "ed25519_ladder") + (("secp256k1_ladder",) if k3 else ()):
+        check(launches[name] > 0, f"mempool {what}: {name} not launched")
+    check(packs, f"mempool {what}: no ed25519 launch captured")
+    return {"codes": codes, "wall_s": wall, "launches": launches, "audit_s": audit,
+            "dispatches": node.feed.dispatches - d0, "rows": node.feed.rows_out - r0,
+            "packs": packs, "k3_ins": k3_ins}
+
+
+def phase_mempool(root, dev, err: dict) -> dict:
+    """Phase 20: the mempool's CheckTx path as a node wires it. The serial
+    rate is taken at 512 txs only (about 2.5 s at 200 txs/s; 5,000 would
+    take about 25 s); the filled pool's rate is the batched path's alone."""
+    phase(f"mempool: Mempool + SignedKVStoreApp as the node wires them ([mempool] "
+          f"defaults, windows of {MP_BATCH}, TxFeed({MP_WINDOW_MS:g} ms, {MP_ROWS} rows)); "
+          f"rate and parity against the serial mempool, the fill to {MP_FILL} txs and "
+          f"its recheck")
+    t_phase = time.perf_counter()
+    check(get_batch_verifier() is root.verifier,
+          "the default verifier is not the configuration root's guarded one")
+    fill_n = MP_FILL
+    t0 = time.perf_counter()
+    _, txs, mixed = tv.signed_stream(TX_N, TX_SENDERS)
+    _, fill, _ = tv.signed_stream(fill_n, TX_SENDERS)
+    test_mixed = tv.mixed_stream()
+    print(f"  built and signed {len(txs) + len(mixed) + len(fill) + len(test_mixed)} txs in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    before = fallbacks()
+    out, parts = {}, {}
+    serial, batched = NodeMempool(dev, False), NodeMempool(dev, True)
+    try:
+        # 1. rate: the bench's 512 valid txs, serial then batched
+        s_codes, s_wall = serial.push(txs)
+        part = mempool_part(batched, txs, "rate")
+        check(s_codes == part["codes"] == [0] * TX_N, "mempool rate: a valid tx was rejected")
+        b, _, _ = hold_k1_k2(part["packs"][0], err, "mempool rate")
+        out["serial_txs_s"], out["batched_txs_s"] = TX_N / s_wall, TX_N / part["wall_s"]
+        parts["rate"] = part
+        # 2. parity: the bench's mixed stream on the same pools, then
+        # tests/test_tx_batch.py's (a secp256k1 and an undecodable tx) on
+        # fresh ones
+        s_mixed, _ = serial.push(mixed)
+        part = mempool_part(batched, mixed, "bench mixed")
+        check(part["codes"] == s_mixed, "mempool: the mixed stream's codes differ")
+        check(batched.state() == serial.state(), "mempool: pool, lanes or reap order differ")
+        check(batched.app.serial_verifies == 0,
+              f"mempool: the app paid {batched.app.serial_verifies} serial verifies")
+        parts["parity"] = part
+        n_pool, lanes = batched.mp.size(), batched.mp.lane_sizes()
+    finally:
+        serial.close()
+        batched.close()
+    serial, batched = NodeMempool(dev, False), NodeMempool(dev, True)
+    try:
+        t_codes, _ = serial.push(test_mixed)
+        part = mempool_part(batched, test_mixed, "test mixed", k3=True)
+        check(part["codes"] == t_codes, "mempool: test_tx_batch's stream's codes differ")
+        check(batched.state() == serial.state(), "mempool: pool, lanes or reap order differ "
+              "on test_tx_batch's stream")
+        check(batched.app.serial_verifies == 0 and batched.ver.unsigned == 1,
+              "mempool: the app verified serially on test_tx_batch's stream")
+        k3_b = hold_k3(part["k3_ins"][0], err, "mempool")
+        parts["secp"] = part
+    finally:
+        serial.close()
+        batched.close()
+    # 3. the fill to the configured size; 4. its recheck after a commit
+    node = NodeMempool(dev, True)
+    try:
+        part = mempool_part(node, fill, "fill")
+        check(part["codes"] == [0] * fill_n and node.mp.size() == fill_n,
+              f"mempool fill: {node.mp.size()} of {fill_n} admitted")
+        hold_k1_k2(part["packs"][0], err, "mempool fill")
+        parts["fill"] = part
+        out["fill_txs_s"] = fill_n / part["wall_s"]
+        hits0, sub0, disp0 = node.ver.cache_hits, node.ver.submitted, node.feed.dispatches
+        node.app.commit(abci.RequestCommit())
+        reset_launches()
+        t0 = time.perf_counter()
+        node.mp.lock()
+        try:
+            node.mp.update(2, [])
+        finally:
+            node.mp.unlock()
+        recheck_s = time.perf_counter() - t0
+        launches = read_launches()
+        check(node.mp.size() == fill_n, f"mempool recheck: {node.mp.size()} of {fill_n} stay")
+        check(all(v == 0 for v in launches.values()), f"the recheck launched {launches}")
+        check(node.ver.cache_hits - hits0 == fill_n and node.ver.submitted == sub0
+              and node.feed.dispatches == disp0, "the recheck did not answer from the cache")
+        check(node.app.serial_verifies == 0 and node.ver.feed_errors == 0,
+              "mempool fill: serial verifies or feed errors")
+        parts["recheck"] = {"launches": launches}
+    finally:
+        node.close()
+    check_guard_clean(before, "mempool")
+    for what in ("rate", "parity", "secp", "fill"):
+        p = parts[what]
+        print(f"  {what}: {len(p['codes'])} txs in {p['wall_s'] * 1e3:.1f} ms "
+              f"({len(p['codes']) / p['wall_s']:.2f} txs/s); dispatches {p['dispatches']}, rows "
+              f"a dispatch {p['rows'] / max(1, p['dispatches']):.2f}; verify.audit "
+              f"{p['audit_s'] * 1e3:.1f} ms ({p['audit_s'] / p['wall_s']:.1%} of the wall); "
+              f"launches {p['launches']}", flush=True)
+    print(f"  serial {out['serial_txs_s']:.2f} txs/s, batched {out['batched_txs_s']:.2f} txs/s "
+          f"({out['batched_txs_s'] / out['serial_txs_s']:.2f}x) on the {TX_N} signed txs; the "
+          f"mixed streams' codes, pool, lanes and reap order equal the serial mempool's "
+          f"({n_pool} pooled, lanes {lanes}), app.serial_verifies 0; fill {fill_n} txs at "
+          f"{out['fill_txs_s']:.2f} txs/s; recheck of {fill_n} from the cache in "
+          f"{recheck_s * 1e3:.1f} ms with no launch; K1/K2 exact on one launch's inputs "
+          f"(b = {b}), K3 (b = {k3_b}); no fallback; breaker closed; phase "
+          f"{time.perf_counter() - t_phase:.1f} s", flush=True)
+    out["launches"] = {what: p["launches"] for what, p in parts.items()}
+    return out
+
+
 # the adversarial matrix of tests/test_msm_path.py: the Go-edge window's
 # first 16 rows (10 clean, then forged s, mutant R, s + L, sig[63] | 0xE0,
 # non-canonical R, another key's signature)
@@ -2278,6 +2495,8 @@ def main() -> int:
     msm = phase_msm(dev, ed_main["commit"], err)
     configure_verify(VerifyConfig(), device=dev)  # back to the default [verify]
     cwin = phase_commit_window(dev, window, err)
+    # the mempool phase sets its path up through a default [verify] root of its own
+    mempool = phase_mempool(configure_verify(VerifyConfig(), device=dev), dev, err)
     print(f"  {smi_line}", flush=True)
 
     ms = {**ed_main["ms"], "secp256k1_ladder": secp_main["ms"]}
@@ -2312,6 +2531,7 @@ def main() -> int:
             "lite_launches": {shape: lite[shape]["launches"][name] for shape in ("a", "b")},
             "votes_launches": {route: votes[route]["launches"][name] for route in votes},
             "txs_launches": txs["launches"][name],
+            "mempool_launches": {what: n[name] for what, n in mempool["launches"].items()},
             "msm_launches": msm["launches"][name],
             "commit_window_launches": {"ladder": cwin["launches"][name],
                                        "msm": cwin["msm_launches"][name],
@@ -2344,6 +2564,7 @@ def main() -> int:
         "lite_launches": {shape: lite[shape]["launches"][K4] for shape in ("a", "b")},
         "votes_launches": {route: votes[route]["launches"][K4] for route in votes},
         "txs_launches": txs["launches"][K4],
+        "mempool_launches": {what: n[K4] for what, n in mempool["launches"].items()},
         "msm_launches": {"commit": msm["launches"][K4],
                          "adversarial": msm["adversarial_launches"][K4],
                          "dirty_commit": msm["dirty_launches"][K4],

@@ -1,10 +1,22 @@
-"""The signed-transaction codec of the example kvstore (the port's copy of
-the signed-tx part of the reference package's ``abci/examples/kvstore.py``):
-every tx carries a sender key (ed25519 or secp256k1), a per-sender nonce
-and a signature over canonical sign-bytes. ``extract_signed_tx_sig`` is the
-mempool's signature extractor, which ``mempool/tx_verify.BatchTxVerifier``
-feeds to ``parallel/planner.TxFeed``. ``SignedKVStoreApp`` and the mempool
-are not ported yet (ROADMAP queue 1 item 13 (ii)).
+"""The example apps and the signed-transaction codec (ref
+abci/example/kvstore/kvstore.go, counter/counter.go): the port's copy of
+the reference package's ``abci/examples/kvstore.py`` without
+``PersistentKVStoreApp`` (it waits for the DB-backed node):
+
+  * ``KVStoreApp``: an in-memory key=value store whose app hash is the
+    merkle root over its sorted pairs;
+  * ``PriorityKVStoreApp``: a ``pri<N>:`` payload prefix is its CheckTx
+    priority (the mempool's lanes);
+  * ``SignedKVStoreApp``: every tx carries a sender key (ed25519 or
+    secp256k1), a per-sender nonce and a signature over canonical
+    sign-bytes, checked on CheckTx and DeliverTx. CheckTx trusts
+    ``RequestCheckTx.sig_verified`` when the mempool's batched hook
+    verified the signature, and counts every serial verify it pays in
+    ``serial_verifies``;
+  * ``CounterApp``: serial-number txs (the CheckTx/DeliverTx split).
+
+``extract_signed_tx_sig`` is the mempool's signature extractor, which
+``mempool/tx_verify.BatchTxVerifier`` feeds to ``parallel/planner.TxFeed``.
 
 Wire format (integers big-endian):
 
@@ -18,14 +30,98 @@ or nonce mutation invalidates the signature.
 
 from __future__ import annotations
 
+import json
 import struct
-from typing import Optional
+from typing import Dict, Optional
 
+from tendermint_tpu_torch.abci import types as abci
+from tendermint_tpu_torch.crypto import ed25519 as _ed
+from tendermint_tpu_torch.crypto import merkle
+from tendermint_tpu_torch.crypto import secp256k1 as _secp
+from tendermint_tpu_torch.crypto.hashing import sha256
 from tendermint_tpu_torch.crypto.keys import (
     PrivKeySecp256k1,
     PubKeyEd25519,
     PubKeySecp256k1,
 )
+
+class KVStoreApp(abci.Application):
+    """tx ``key=value`` (or ``v`` alone: v=v); the app hash is the merkle
+    root over the sorted ``key=value`` pairs."""
+
+    def __init__(self):
+        self.state: Dict[bytes, bytes] = {}
+        self.height = 0
+        self.size = 0
+
+    def _app_hash(self) -> bytes:
+        items = [k + b"=" + v for k, v in sorted(self.state.items())]
+        return merkle.hash_from_byte_slices(items)
+
+    def info(self, req: abci.RequestInfo) -> abci.ResponseInfo:
+        return abci.ResponseInfo(
+            data=json.dumps({"size": self.size}),
+            version="0.1.0",
+            last_block_height=self.height,
+            last_block_app_hash=self._app_hash() if self.height else b"",
+        )
+
+    @staticmethod
+    def _split(tx: bytes):
+        if b"=" in tx:
+            return tx.split(b"=", 1)
+        return tx, tx
+
+    def deliver_tx(self, req: abci.RequestDeliverTx) -> abci.ResponseDeliverTx:
+        k, v = self._split(req.tx)
+        self.state[k] = v
+        self.size += 1
+        return abci.ResponseDeliverTx(
+            code=abci.CODE_TYPE_OK,
+            tags=[abci.KVPair(key=b"app.key", value=k),
+                  abci.KVPair(key=b"app.creator", value=b"kvstore")],
+        )
+
+    def check_tx(self, req: abci.RequestCheckTx) -> abci.ResponseCheckTx:
+        return abci.ResponseCheckTx(code=abci.CODE_TYPE_OK)
+
+    def commit(self, req: abci.RequestCommit) -> abci.ResponseCommit:
+        self.height += 1
+        return abci.ResponseCommit(data=self._app_hash())
+
+    def query(self, req: abci.RequestQuery) -> abci.ResponseQuery:
+        if req.path == "/store" or req.path == "":
+            value = self.state.get(req.data, b"")
+            return abci.ResponseQuery(
+                code=abci.CODE_TYPE_OK, key=req.data, value=value, height=self.height,
+                log="exists" if value else "does not exist",
+            )
+        if req.path.startswith("/p2p/filter/"):
+            return abci.ResponseQuery(code=abci.CODE_TYPE_OK)  # admit every peer
+        return abci.ResponseQuery(code=1, log=f"unknown path {req.path}")
+
+
+PRIORITY_TX_PREFIX = b"pri"
+
+
+class PriorityKVStoreApp(KVStoreApp):
+    """KVStore whose CheckTx reports a mempool priority: a tx shaped
+    ``pri<N>:key=value`` carries priority N (any other tx is priority 0),
+    the stand-in for a real app's gas price."""
+
+    @staticmethod
+    def tx_priority(tx: bytes) -> int:
+        if tx.startswith(PRIORITY_TX_PREFIX):
+            head, _, _ = tx.partition(b":")
+            try:
+                return int(head[len(PRIORITY_TX_PREFIX):])
+            except ValueError:
+                return 0
+        return 0
+
+    def check_tx(self, req: abci.RequestCheckTx) -> abci.ResponseCheckTx:
+        return abci.ResponseCheckTx(code=abci.CODE_TYPE_OK, priority=self.tx_priority(req.tx))
+
 
 SIGNED_TX_MAGIC = b"stx1"
 ALGO_ED25519 = 0
@@ -122,3 +218,127 @@ def extract_signed_tx_sig(tx: bytes):
     else:
         pk = PubKeySecp256k1(stx.pub)
     return pk, stx.sign_bytes, stx.sig
+
+
+class SignedKVStoreApp(KVStoreApp):
+    """KVStore over signed transactions: CheckTx and DeliverTx verify the
+    sender's signature and enforce strictly sequential per-sender nonces.
+
+    ``RequestCheckTx.sig_verified`` is the batched verdict: when the
+    mempool's hook already verified the signature in a batched dispatch
+    (the same accept set as ``_verify_sig``), CheckTx trusts it and skips
+    its own check; None (no hook, an unsigned or odd tx) keeps the serial
+    check. DeliverTx always verifies. Payloads are the kvstore's
+    ``key=value`` form with PriorityKVStoreApp's ``pri<N>:`` prefix."""
+
+    def __init__(self):
+        super().__init__()
+        self.nonces: Dict[bytes, int] = {}  # committed per-sender nonce
+        # CheckTx overlay: nonces admitted this block, reset at commit so the
+        # post-commit recheck replays the survivors against committed state
+        self._check_nonces: Dict[bytes, int] = {}
+        self.serial_verifies = 0  # serial signature checks actually paid
+
+    tx_sig_extractor = staticmethod(extract_signed_tx_sig)
+    tx_priority = staticmethod(PriorityKVStoreApp.tx_priority)
+
+    def _verify_sig(self, stx: SignedTx) -> bool:
+        self.serial_verifies += 1
+        if stx.algo == ALGO_ED25519:
+            # Go's single verify (the reference's ed25519.verify has the
+            # same accept set; the port has no OpenSSL fast path)
+            return _ed._verify_pure(stx.pub, stx.sign_bytes, stx.sig)
+        # the secp256k1 premix: sign and verify over SHA-256 of the message
+        # (secp256k1.go:140)
+        return _secp.verify(stx.pub, sha256(stx.sign_bytes), stx.sig)
+
+    def check_tx(self, req: abci.RequestCheckTx) -> abci.ResponseCheckTx:
+        stx = decode_signed_tx(req.tx)
+        if stx is None:
+            return abci.ResponseCheckTx(code=CODE_BAD_TX, log="malformed signed tx")
+        verified = getattr(req, "sig_verified", None)
+        ok = verified if verified is not None else self._verify_sig(stx)
+        if not ok:
+            return abci.ResponseCheckTx(code=CODE_BAD_SIG, log="invalid signature")
+        expected = self._check_nonces.get(stx.pub, self.nonces.get(stx.pub, 0)) + 1
+        if stx.nonce != expected:
+            return abci.ResponseCheckTx(
+                code=CODE_BAD_NONCE, log=f"bad nonce {stx.nonce}, want {expected}")
+        self._check_nonces[stx.pub] = stx.nonce
+        return abci.ResponseCheckTx(
+            code=abci.CODE_TYPE_OK, priority=self.tx_priority(stx.payload))
+
+    def deliver_tx(self, req: abci.RequestDeliverTx) -> abci.ResponseDeliverTx:
+        stx = decode_signed_tx(req.tx)
+        if stx is None:
+            return abci.ResponseDeliverTx(code=CODE_BAD_TX, log="malformed signed tx")
+        if not self._verify_sig(stx):
+            return abci.ResponseDeliverTx(code=CODE_BAD_SIG, log="invalid signature")
+        expected = self.nonces.get(stx.pub, 0) + 1
+        if stx.nonce != expected:
+            return abci.ResponseDeliverTx(
+                code=CODE_BAD_NONCE, log=f"bad nonce {stx.nonce}, want {expected}")
+        self.nonces[stx.pub] = stx.nonce
+        return super().deliver_tx(abci.RequestDeliverTx(tx=stx.payload))
+
+    def commit(self, req: abci.RequestCommit) -> abci.ResponseCommit:
+        self._check_nonces = {}
+        return super().commit(req)
+
+
+class CounterApp(abci.Application):
+    """Txs must be big-endian serial numbers when serial is on
+    (ref counter.go)."""
+
+    def __init__(self, serial: bool = True):
+        self.serial = serial
+        self.tx_count = 0
+        self.height = 0
+
+    def info(self, req: abci.RequestInfo) -> abci.ResponseInfo:
+        return abci.ResponseInfo(
+            data=json.dumps({"txs": self.tx_count}),
+            last_block_height=self.height,
+            last_block_app_hash=struct.pack(">Q", self.tx_count) if self.height else b"",
+        )
+
+    def set_option(self, req: abci.RequestSetOption) -> abci.ResponseSetOption:
+        if req.key == "serial":
+            self.serial = req.value == "on"
+        return abci.ResponseSetOption()
+
+    def _check(self, tx: bytes, expected: int) -> Optional[str]:
+        if not self.serial:
+            return None
+        if len(tx) > 8:
+            return f"tx too long: {len(tx)}"
+        val = int.from_bytes(tx, "big")
+        if val != expected:
+            return f"invalid nonce: got {val}, expected {expected}"
+        return None
+
+    def check_tx(self, req: abci.RequestCheckTx) -> abci.ResponseCheckTx:
+        err = self._check(req.tx, self.tx_count)
+        if err:
+            return abci.ResponseCheckTx(code=2, log=err)
+        return abci.ResponseCheckTx(code=abci.CODE_TYPE_OK)
+
+    def deliver_tx(self, req: abci.RequestDeliverTx) -> abci.ResponseDeliverTx:
+        err = self._check(req.tx, self.tx_count)
+        if err:
+            return abci.ResponseDeliverTx(code=2, log=err)
+        self.tx_count += 1
+        return abci.ResponseDeliverTx(code=abci.CODE_TYPE_OK)
+
+    def commit(self, req: abci.RequestCommit) -> abci.ResponseCommit:
+        self.height += 1
+        if self.tx_count == 0:
+            return abci.ResponseCommit()
+        return abci.ResponseCommit(data=struct.pack(">Q", self.tx_count))
+
+    def query(self, req: abci.RequestQuery) -> abci.ResponseQuery:
+        if req.path == "tx":
+            return abci.ResponseQuery(value=str(self.tx_count).encode())
+        if req.path == "hash":
+            return abci.ResponseQuery(value=str(self.height).encode())
+        return abci.ResponseQuery(log=f"invalid query path {req.path}")

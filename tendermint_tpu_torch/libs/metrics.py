@@ -8,9 +8,11 @@ The port's copy of the registry primitives of the JAX package's
 ``tendermint_verify_*``, ``tendermint_lite_frontend_*``,
 ``tendermint_consensus_vote_batch_*`` and ``tendermint_mempool_batch_*``
 family names, help texts, label names and buckets, so a dashboard built on
-the reference reads the port unchanged. The other metric sets of the
-reference (consensus, p2p, mempool, state sync) belong to subsystems the
-port has not taken over.
+the reference reads the port unchanged. ``MempoolMetrics`` is the mempool
+family of the reference's ``NodeMetrics`` that ``mempool/mempool.py``
+writes, under the same attribute names. The other metric sets of the
+reference (consensus, p2p, the mempool's QoS, state sync) belong to
+subsystems the port has not taken over.
 """
 
 from __future__ import annotations
@@ -644,3 +646,39 @@ def get_mempool_batch_metrics() -> MempoolBatchMetrics:
         if _mempool_batch_metrics is None:
             _mempool_batch_metrics = MempoolBatchMetrics()
         return _mempool_batch_metrics
+
+
+class MempoolMetrics:
+    """The mempool family of the reference's ``NodeMetrics`` that
+    ``mempool/mempool.py`` writes (mempool/metrics.go): the pool's size, the
+    accepted txs' sizes, CheckTx rejections, rechecks, the priority lanes'
+    sizes, the CheckTx/recheck windows' sizes and the lane evictions."""
+
+    def __init__(self, registry: Optional[Registry] = None):
+        r = registry or Registry()
+        self.registry = r
+        self.mempool_size = r.gauge("mempool_size", "Unconfirmed txs in the mempool")
+        self.mempool_tx_size_bytes = r.histogram(
+            "mempool_tx_size_bytes", "Size of accepted mempool txs",
+            buckets=_SIZE_BUCKETS,
+        )
+        self.mempool_failed_txs = r.counter(
+            "mempool_failed_txs", "Txs rejected by CheckTx"
+        )
+        self.mempool_recheck_times = r.counter(
+            "mempool_recheck_times", "Txs re-checked after a commit"
+        )
+        self.mempool_qos_evicted_total = r.counter(
+            "mempool_qos_evicted_total",
+            "Txs evicted from lower lanes to admit higher-priority txs",
+            label_names=("lane",),
+        )
+        self.mempool_lane_txs = r.gauge(
+            "mempool_lane_txs", "Unconfirmed txs per priority lane",
+            label_names=("lane",),
+        )
+        self.mempool_checktx_batch_size = r.histogram(
+            "mempool_checktx_batch_size",
+            "Txs coalesced per CheckTx/recheck app-conn window",
+            buckets=_SIZE_BUCKETS,
+        )

@@ -59,6 +59,13 @@ class BatchTxVerifier:
         self.unsigned = 0  # txs the extractor declined (the app decides)
         self.feed_errors = 0  # submit, flush or timeout failures
 
+    @property
+    def device(self):
+        """The feed's device: ``on_card(verifier)`` holds when its flushes
+        run on the card, where the mempool raises a failed window instead
+        of handing it to the app's serial check."""
+        return getattr(self.feed, "device", None)
+
     def __call__(self, batch_txs: List[bytes]) -> List[Optional[bool]]:
         n = len(batch_txs)
         verdicts: List[Optional[bool]] = [None] * n

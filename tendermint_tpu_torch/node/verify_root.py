@@ -25,20 +25,26 @@ Counterpart of the ``[verify]`` wiring in the JAX package's node
      would complete a failed dispatch on the host.
 
 ``vote_feed(cfg)`` builds the live-vote micro-batcher the reference's node
-wires when ``[verify] vote_batch_window_ms > 0`` (``node/node.py:254-262``).
+wires when ``[verify] vote_batch_window_ms > 0`` (``node/node.py:254-262``),
+and ``mempool(cfg, proxy_app, app)`` the mempool of the ``[mempool]``
+section with its batched CheckTx signature hook (``node/node.py:200-219``
+and ``:263-283``).
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass, field
-from typing import Callable, Dict, Optional
+from typing import Callable, Dict, NamedTuple, Optional
 
 import torch
 
+from tendermint_tpu_torch.config.mempool import MempoolConfig
 from tendermint_tpu_torch.config.verify import VerifyConfig
 from tendermint_tpu_torch.crypto import batch as _batch
 from tendermint_tpu_torch.device import DeviceLike, resolve_device
 from tendermint_tpu_torch.libs import breaker as _brk
+from tendermint_tpu_torch.mempool.mempool import Mempool
+from tendermint_tpu_torch.mempool.tx_verify import BatchTxVerifier
 from tendermint_tpu_torch.ops import _build
 from tendermint_tpu_torch.parallel import planner
 
@@ -107,3 +113,47 @@ def vote_feed(cfg: Optional[VerifyConfig] = None,
         return None
     return planner.VoteFeed(window_s=ms / 1000.0, max_rows=cfg.vote_batch_rows,
                             device=device)
+
+
+class MempoolRoot(NamedTuple):
+    mempool: Mempool
+    feed: Optional[planner.TxFeed]  # None: the app verifies serially
+    verifier: Optional[BatchTxVerifier]
+
+
+def mempool(cfg: Optional[MempoolConfig], proxy_app, app, metrics=None, *,
+            height: int = 0, checktx_batch_wait: float = 0.005,
+            device: DeviceLike = None) -> MempoolRoot:
+    """The node's mempool from the ``[mempool]`` section: ``Mempool`` on
+    ``proxy_app.mempool`` (a started ``proxy/app_conn.MultiAppConn``) at
+    ``height``; and when ``tx_batch_window_ms > 0`` and ``app`` publishes a
+    ``tx_sig_extractor``, a ``planner.TxFeed(window_s=ms / 1000,
+    max_rows=tx_batch_rows, device=device)`` behind a ``BatchTxVerifier``
+    keyed by the mempool's height, installed as the verdict-bearing hook.
+    On the card with no verifier given, the feed's flushes run the
+    installed verifier (the root's guarded one). ``checktx_batch_wait`` is
+    the Mempool's own knob (the reference's node leaves it at its default).
+    The mempool WAL is not ported: a ``wal_path`` raises."""
+    cfg = cfg if cfg is not None else MempoolConfig()
+    if cfg.wal_path:
+        raise NotImplementedError("the mempool WAL is not ported (wal_path must be empty)")
+    mp = Mempool(
+        proxy_app.mempool,
+        height=height,
+        size=cfg.size,
+        cache_size=cfg.cache_size,
+        recheck=cfg.recheck,
+        metrics=metrics,
+        lane_bounds=cfg.lane_bounds,
+        checktx_batch=cfg.checktx_batch,
+        checktx_batch_wait=checktx_batch_wait,
+        recheck_batch=cfg.recheck_batch,
+    )
+    extractor = getattr(app, "tx_sig_extractor", None)
+    if float(cfg.tx_batch_window_ms or 0.0) <= 0 or extractor is None:
+        return MempoolRoot(mp, None, None)
+    feed = planner.TxFeed(window_s=cfg.tx_batch_window_ms / 1000.0,
+                          max_rows=cfg.tx_batch_rows, device=device)
+    ver = BatchTxVerifier(feed, extractor, height_fn=mp.height)
+    mp.set_batch_check_hook(ver, verdicts=True)
+    return MempoolRoot(mp, feed, ver)
