@@ -218,14 +218,48 @@ Phases, in order; any failure exits non-zero:
              stream, each exact on one launch's inputs; no fallback, the
              breaker closed, no audit mismatch. Rates, dispatches, rows a
              dispatch and the verify.audit share of each part's wall.
+  21. block_exec the state layer and block execution, on a default
+             [verify] root of its own. (1) A chain of 100 ed25519
+             validators of power 10 (the Cosmos SDK's DefaultMaxValidators,
+             seed 11) over a SignedKVStoreApp, its mempool wired as phase 20
+             wires it and its executor by node/verify_root.block_executor
+             (the evidence pool, verifier None: the root's guarded one). At
+             each of 16 heights 64 signed txs of 64 senders go through
+             check_tx (K1 + K2 through TxFeed), create_proposal_block reaps
+             them, the 100 validators sign the block's precommits (the next
+             LastCommit) and apply_block applies it, launching K1 + K2 once
+             for the 100-row LastCommit from height 2 on (exact on height
+             2's inputs). Every DeliverTx OK, last_block_total_tx 1,024, the
+             pool empty, app.serial_verifies 1,024 (DeliverTx only), every
+             stored ABCIResponses' results hash equal to the state's, every
+             block and seen commit back from the BlockStore. Blocks a second
+             and apply_block's parts (state.validate with verify.dispatch
+             and verify.audit, state.exec, state.update, state.commit,
+             state.save). (2) Phase 5's 10,000 keys as a genesis (power 10):
+             block 1, then block 2 whose 10,000-row LastCommit goes through
+             validate_block and the root's guarded verifier, K1 = K2 = 1 at
+             b = 10,240, exact on that launch's inputs; apply_block p50 over
+             3 applications to the height-1 state (a fresh state DB and app
+             each) with its parts and whether the key caches were warm; a
+             flipped LastCommit bit raises InvalidBlockError and leaves the
+             state DB at height 1. (3) A BlockExecutor on part 1's mempool
+             whose verifier is a fresh guarded one with its breaker tripped
+             raises DeviceDispatchError, not InvalidBlockError, with no
+             launch, the state DB at height 1 and the mempool's lock free.
+             No fallback, the default breaker closed, no audit mismatch.
+
+The window phase's routes and the backfill phase take the p50 of 2 traced
+calls after the first (3 before phase 21 came; about 22 s).
 
 Each path's launch counts are set to 0 just before it and read just after;
 the kernels line carries the main path's as ``launches``, the lite
 phase's shapes' as ``lite_launches``, the votes phase's routes' as
 ``votes_launches`` (verifier, executor, secp: the mixed-key storm) and the
 txs phase's as ``txs_launches``, phases 18 and 19's as ``msm_launches`` and
-``commit_window_launches``, and phase 20's parts' as ``mempool_launches``
-(rate, parity, secp, fill, recheck); K4's own ``launches`` are
+``commit_window_launches``, phase 20's parts' as ``mempool_launches``
+(rate, parity, secp, fill, recheck) and phase 21's as
+``block_exec_launches`` (chain: CheckTx and apply_block; 10k: the first
+application of block 2); K4's own ``launches`` are
 the msm route's 10,000-validator commit's. The line before the last two is the
 ``kernels`` JSON, then the card's name
 and power limit, then ``{"ok": true, "device": {...}}``. Exits 2 when no
@@ -250,12 +284,18 @@ import numpy as np
 import torch
 
 from tendermint_tpu_torch.abci import types as abci
-from tendermint_tpu_torch.abci.examples.kvstore import SignedKVStoreApp, extract_signed_tx_sig
+from tendermint_tpu_torch.abci.examples.kvstore import (
+    KVStoreApp,
+    SignedKVStoreApp,
+    extract_signed_tx_sig,
+)
+from tendermint_tpu_torch.blockchain.store import BlockStore
 from tendermint_tpu_torch.config.mempool import MempoolConfig
 from tendermint_tpu_torch.config.verify import VerifyConfig
 from tendermint_tpu_torch.crypto import ed25519 as ed
 from tendermint_tpu_torch.crypto import secp256k1 as secp
 from tendermint_tpu_torch.crypto.batch import (
+    GuardedBatchVerifier,
     HostBatchVerifier,
     SigItem,
     TorchBatchVerifier,
@@ -267,7 +307,11 @@ from tendermint_tpu_torch.crypto.keys import PubKeyEd25519, PubKeySecp256k1
 from tendermint_tpu_torch.frontend.aggregator import BatchingVerifier
 from tendermint_tpu_torch.libs import breaker, trace
 from tendermint_tpu_torch.libs.db.kv import MemDB
-from tendermint_tpu_torch.libs.metrics import get_frontend_metrics, get_verify_metrics
+from tendermint_tpu_torch.libs.metrics import (
+    StateMetrics,
+    get_frontend_metrics,
+    get_verify_metrics,
+)
 from tendermint_tpu_torch.lite import DBProvider, DynamicVerifier, LiteError
 from tendermint_tpu_torch.lite.proxy import LiteProxy, serve_proxy
 from tendermint_tpu_torch.mempool.mempool import MempoolError
@@ -283,14 +327,20 @@ from tendermint_tpu_torch.ops import secp256k1_cuda as sc
 from tendermint_tpu_torch.parallel import commit_verify as cv
 from tendermint_tpu_torch.parallel import planner
 from tendermint_tpu_torch.proxy.app_conn import LocalClientCreator, MultiAppConn
+from tendermint_tpu_torch.state import store as sm_store
+from tendermint_tpu_torch.state.execution import BlockExecutor, InvalidBlockError
+from tendermint_tpu_torch.state.state_types import state_from_genesis
 from tendermint_tpu_torch.testutil import commit as tc
 from tendermint_tpu_torch.testutil import lite_chain as lc
 from tendermint_tpu_torch.testutil import multisig as tm
 from tendermint_tpu_torch.testutil import secp_signer
 from tendermint_tpu_torch.testutil import votes as tv
 from tendermint_tpu_torch.testutil import window as tw
-from tendermint_tpu_torch.types.core import SignedMsgType
+from tendermint_tpu_torch.types.block import Commit
+from tendermint_tpu_torch.types.core import BlockID, SignedMsgType
+from tendermint_tpu_torch.types.genesis import GenesisDoc, GenesisValidator
 from tendermint_tpu_torch.types.validator_set import CommitError
+from tendermint_tpu_torch.types.vote import Vote
 
 N_VALIDATORS = 10_000  # BASELINE.json config 2 (and config 4 at its width)
 N_MIXED = 1_000
@@ -309,6 +359,10 @@ TIME_ITERS = 20
 # (BASELINE.json config 3); 32,768 lanes, lane bucket 32,768, segments 512
 WINDOW_H, WINDOW_V = 512, 64
 WINDOW_REPS = 3
+# the window's routes (phase 10) and the backfill stream (phase 11) take the
+# p50 of 2 traced calls after the first (3 before the block_exec phase came:
+# about 22 s of the script's wall paid for it)
+WINDOW_ROUTE_REPS = 2
 ORACLE_LANES = 256
 # state sync's backfill sub-window (statesync/syncer.py BACKFILL_SUBWINDOW)
 BACKFILL_SUBWINDOW = 32
@@ -342,6 +396,16 @@ TX_N, TX_SENDERS, TX_WINDOW, TX_WINDOW_S, TX_MAX_ROWS = 512, 64, 128, 0.005, 64
 # then filled to its configured size by 64 senders, round robin
 MP_BATCH, MP_WAIT, MP_WINDOW_MS, MP_ROWS = 128, 0.05, 5.0, 64
 MP_FILL = MempoolConfig().size
+# the block_exec phase: a chain of the Cosmos SDK's DefaultMaxValidators (100,
+# power 10, seed 11) fed by the node-wired mempool at the mempool phase's
+# settings, 16 heights of 64 signed txs (64 senders, nonces in order); then
+# BASELINE.json config 2's 10,000-validator LastCommit through validate_block
+BX_VALS, BX_POWER, BX_SEED = 100, 10, 11
+BX_HEIGHTS, BX_TXS = 16, 64
+BX_REPS = 3
+BX_TIME0 = 1_700_000_000_000_000_000
+BX_SPANS = ("state.validate", "verify.dispatch", "verify.audit", "state.exec",
+            "state.begin_block_info", "state.update", "state.commit", "state.save")
 
 # Rates for the least time the card could take: HBM bandwidth (H100 SXM
 # data sheet); 32-bit integer add, logic, shift and multiply-add each retire
@@ -1048,7 +1112,7 @@ def span_seconds(names) -> dict:
 def drive_window(votes, powers, totals, use_device: bool, n_groups: int):
     """verify_window on one route: a first call with the launch counts set
     to 0 just before and read just after (K1 and K2 once per message-length
-    group), then WINDOW_REPS timed calls, each traced; returns the first
+    group), then WINDOW_ROUTE_REPS timed calls, each traced; returns the first
     verdict, the launches, the p50 wall and the p50 of each span."""
     spans = ("planner.pack", "planner.pack_device", "planner.dispatch", "planner.audit",
              "verify.dispatch", "verify.audit")
@@ -1067,7 +1131,7 @@ def drive_window(votes, powers, totals, use_device: bool, n_groups: int):
     walls, parts = [], {n: [] for n in spans}
     trace.enable()
     try:
-        for _ in range(WINDOW_REPS):
+        for _ in range(WINDOW_ROUTE_REPS):
             trace.reset()
             t0 = time.perf_counter()
             again = planner.verify_window(votes, powers, totals, use_device=use_device)
@@ -1123,7 +1187,7 @@ def phase_window(root, dev, err: dict) -> dict:
         results[route] = {"verdict": verdict, "launches": launches, "first_s": first_s,
                           "p50_s": p50, "parts": parts}
         print(f"  {route} route: first {first_s * 1e3:.1f} ms; p50 {p50 * 1e3:.1f} ms over "
-              f"{WINDOW_REPS}; launches {launches}; breakdown (p50 s) "
+              f"{WINDOW_ROUTE_REPS}; launches {launches}; breakdown (p50 s) "
               + ", ".join(f"{k} {v:.4f}" for k, v in parts.items()), flush=True)
     a, b = results["device"]["verdict"], results["verifier"]["verdict"]
     for k in ("ok", "tally", "committed", "sigs_ok"):
@@ -1245,7 +1309,7 @@ def phase_backfill(window, err: dict) -> dict:
     walls, parts = [], {n: [] for n in spans}
     trace.enable()
     try:
-        for _ in range(WINDOW_REPS):
+        for _ in range(WINDOW_ROUTE_REPS):
             trace.reset()
             t0 = time.perf_counter()
             again = run_pipeline(backfill_specs(votes, powers, totals))
@@ -1263,8 +1327,8 @@ def phase_backfill(window, err: dict) -> dict:
     part_s = {n: statistics.median(v) for n, v in parts.items()}
     flat = window["routes"]["device"]["p50_s"]
     print(f"  {n_sub} verdicts equal the window's; first {first_s * 1e3:.1f} ms; p50 "
-          f"{p50 * 1e3:.1f} ms over {WINDOW_REPS}, {p50 / flat - 1:+.1%} against the flat "
-          f"window's device route ({flat * 1e3:.1f} ms); launches {launches}; no fallback; "
+          f"{p50 * 1e3:.1f} ms over {WINDOW_ROUTE_REPS}, {p50 / flat - 1:+.1%} against the "
+          f"flat window's device route ({flat * 1e3:.1f} ms); launches {launches}; no fallback; "
           f"breaker closed", flush=True)
     print(f"  K1/K2 exact against their plain versions on the first sub-window's launch "
           f"inputs, b = {b}", flush=True)
@@ -2146,6 +2210,277 @@ def phase_mempool(root, dev, err: dict) -> dict:
     return out
 
 
+# -- phase 21: the state layer and block execution ------------------------------------
+
+
+def bx_privs(n: int, seed: int) -> list:
+    """n seeded ed25519 private keys (64 bytes: seed || pubkey)."""
+    raw = np.random.default_rng(seed).bytes(32 * n)
+    return [ed.gen_privkey(raw[32 * i: 32 * (i + 1)]) for i in range(n)]
+
+
+def bx_genesis(chain_id: str, privs) -> tuple:
+    """The genesis state of one validator of power BX_POWER a key, and the
+    keys by address."""
+    pubs = [PubKeyEd25519(p[32:]) for p in privs]
+    doc = GenesisDoc(chain_id=chain_id, genesis_time_ns=BX_TIME0,
+                     validators=[GenesisValidator(pk, BX_POWER) for pk in pubs])
+    return state_from_genesis(doc), {pk.address(): p for pk, p in zip(pubs, privs)}
+
+
+def bx_commit(st, block, block_id: BlockID, by_addr) -> Commit:
+    """Every validator of ``st`` precommits ``block`` a second after its
+    time (so the next block's median time passes the monotonic check): the
+    next block's LastCommit. The sign-bytes are the same for every
+    validator; each signs them with its own key."""
+    ts = block.header.time_ns + 1_000_000_000
+    vals = st.validators.validators
+    msg = Vote(SignedMsgType.PRECOMMIT, block.height, 0, ts, block_id, b"",
+               0).sign_bytes(st.chain_id)
+    return Commit(block_id=block_id, precommits=[
+        Vote(SignedMsgType.PRECOMMIT, block.height, 0, ts, block_id, v.address, i,
+             ed.sign(by_addr[v.address], msg)) for i, v in enumerate(vals)])
+
+
+def bx_block(st, height: int, txs, last_commit: Commit) -> tuple:
+    block = st.make_block(height, txs, last_commit, [], st.validators.get_proposer().address)
+    return block, BlockID(block.hash(), block.make_part_set().header())
+
+
+def bx_apply(ex: BlockExecutor, st, block_id: BlockID, block) -> tuple:
+    """``apply_block`` traced, with the launch counts set to 0 just before
+    and read just after: (state, wall s, seconds by span, launches)."""
+    reset_launches()
+    trace.enable()
+    trace.reset()
+    try:
+        t0 = time.perf_counter()
+        new = ex.apply_block(st, block_id, block)
+        wall = time.perf_counter() - t0
+        parts = span_seconds(BX_SPANS)
+    finally:
+        trace.disable()
+    return new, wall, parts, read_launches()
+
+
+def bx_parts_line(parts: list) -> str:
+    return ", ".join(f"{n} {statistics.median(p[n] for p in parts) * 1e3:.1f}"
+                     for n in BX_SPANS)
+
+
+def bx_consensus_conn(app):
+    conn = MultiAppConn(LocalClientCreator(app))
+    conn.start()
+    return conn
+
+
+def bx_chain(node: NodeMempool, err: dict) -> dict:
+    """Part 1: BX_HEIGHTS heights of BX_TXS signed txs each through the
+    node-wired mempool (CheckTx: K1 + K2 through TxFeed), reaped by
+    ``create_proposal_block``, signed by the BX_VALS validators and applied;
+    each apply_block from height 2 on verifies its 100-row LastCommit with one
+    K1 + K2 launch through the root's guarded verifier."""
+    st, by_addr = bx_genesis("block-exec-chain", bx_privs(BX_VALS, BX_SEED))
+    state_db = MemDB()
+    sm_store.save_state(state_db, st)
+    evpool, ex = verify_root.block_executor(state_db, MemDB(), node.conn, node.mp, st,
+                                            metrics=StateMetrics())
+    check(ex.verifier is None and ex.mempool is node.mp, "the executor is not the node's")
+    bs = BlockStore(MemDB())
+    t0 = time.perf_counter()
+    _, txs, _ = tv.signed_stream(BX_HEIGHTS * BX_TXS, BX_TXS)
+    sign_s = time.perf_counter() - t0
+    launches = {"checktx": dict.fromkeys(read_launches(), 0),
+                "apply": dict.fromkeys(read_launches(), 0)}
+    last, saved, walls, parts, checktx_s = Commit(), [], [], [], 0.0
+    t_chain = time.perf_counter()
+    for h in range(1, BX_HEIGHTS + 1):
+        reset_launches()
+        codes, wall = node.push(txs[(h - 1) * BX_TXS: h * BX_TXS])
+        checktx_s += wall
+        got = read_launches()
+        check(codes == [0] * BX_TXS, f"block_exec height {h}: CheckTx codes {codes}")
+        check(got["ed25519_prologue"] > 0 and got["ed25519_ladder"] > 0,
+              f"block_exec height {h}: CheckTx launched {got}")
+        for k, v in got.items():
+            launches["checktx"][k] += v
+        block, ps = ex.create_proposal_block(h, st, last, st.validators.get_proposer().address)
+        check(len(block.data.txs) == BX_TXS, f"height {h}: reaped {len(block.data.txs)} txs")
+        bid = BlockID(block.hash(), ps.header())
+        t0 = time.perf_counter()
+        commit = bx_commit(st, block, bid, by_addr)
+        sign_s += time.perf_counter() - t0
+        bs.save_block(block, ps, commit)
+        with captured_packs() as packs:
+            st, wall, part, got = bx_apply(ex, st, bid, block)
+        want = 0 if h == 1 else 1
+        check(got["ed25519_prologue"] == want and got["ed25519_ladder"] == want
+              and got["secp256k1_ladder"] == 0,
+              f"block_exec height {h}: apply_block launched {got}, want K1 = K2 = {want}")
+        if h == 2:
+            b, _, _ = hold_k1_k2(packs[0], err, "block_exec chain LastCommit")
+        for k, v in got.items():
+            launches["apply"][k] += v
+        responses = sm_store.load_abci_responses(state_db, h)
+        check([r.code for r in responses.deliver_tx] == [0] * BX_TXS,
+              f"block_exec height {h}: a DeliverTx failed")
+        check(responses.results_hash() == st.last_results_hash,
+              f"block_exec height {h}: the stored results hash differs from the state's")
+        saved.append((block.hash(), commit.marshal()))
+        walls.append(wall)
+        if h > 1:
+            parts.append(part)
+        last = commit
+    chain_s = time.perf_counter() - t_chain
+    n_tx = BX_HEIGHTS * BX_TXS
+    check(st.last_block_total_tx == n_tx, f"last_block_total_tx {st.last_block_total_tx}")
+    check(node.mp.size() == 0, f"the pool holds {node.mp.size()} txs at the end")
+    check(node.app.serial_verifies == n_tx,
+          f"app.serial_verifies {node.app.serial_verifies}, want the {n_tx} DeliverTx verifies")
+    check(sm_store.load_state(state_db).marshal() == st.marshal(), "the stored state differs")
+    check(evpool.state is st, "the evidence pool did not follow the state")
+    for h, (bh, cm) in enumerate(saved, start=1):
+        check(bs.load_block(h).hash() == bh and bs.load_seen_commit(h).marshal() == cm,
+              f"the block store does not give back height {h}")
+    apply_s = sum(walls)
+    out = {"blocks_s": BX_HEIGHTS / apply_s, "chain_blocks_s": BX_HEIGHTS / chain_s,
+           "apply_p50_ms": statistics.median(walls[1:]) * 1e3,
+           "parts_ms": {n: statistics.median(p[n] for p in parts) * 1e3 for n in BX_SPANS},
+           "launches": {k: launches["checktx"][k] + launches["apply"][k]
+                        for k in launches["apply"]}}
+    print(f"  chain: {BX_HEIGHTS} heights x {BX_TXS} txs, {BX_VALS} validators; every "
+          f"DeliverTx OK, last_block_total_tx {n_tx}, pool empty, app.serial_verifies "
+          f"{node.app.serial_verifies} (DeliverTx only), results hashes and the block store "
+          f"check; apply_block {out['blocks_s']:.2f} blocks/s ({apply_s * 1e3:.1f} ms for "
+          f"{BX_HEIGHTS}), the whole loop {out['chain_blocks_s']:.2f} blocks/s "
+          f"({chain_s:.1f} s: CheckTx {checktx_s:.1f} s, signing {sign_s:.1f} s)", flush=True)
+    print(f"  chain apply_block p50 {out['apply_p50_ms']:.1f} ms at heights 2-{BX_HEIGHTS}; "
+          f"parts (p50 ms) {bx_parts_line(parts)}; launches CheckTx {launches['checktx']}, "
+          f"apply_block {launches['apply']}; K1/K2 exact on the height-2 LastCommit's "
+          f"inputs (b = {b})", flush=True)
+    return out
+
+
+def bx_10k(sc_: tc.SignedCommit, node: NodeMempool, dev, err: dict) -> dict:
+    """Parts 2 and 3: phase 5's 10,000 keys as a genesis; block 2's
+    10,000-row LastCommit through validate_block and the root's guarded
+    verifier, applied 3 times to the height-1 state in a fresh state DB and
+    app each time; a flipped bit; then the tripped breaker."""
+    t0 = time.perf_counter()
+    st0, by_addr = bx_genesis("block-exec-10k", sc_.privs)
+    check(st0.validators.hash() == sc_.valset.hash(), "the genesis set is not phase 5's")
+    setup_s = time.perf_counter() - t0
+
+    def fresh(st, **kw):
+        db = MemDB()
+        sm_store.save_state(db, st)
+        conn = bx_consensus_conn(KVStoreApp())
+        return db, conn, BlockExecutor(db, conn.consensus, **kw)
+
+    db, conn, ex = fresh(st0)
+    block1, bid1 = bx_block(st0, 1, [], Commit())
+    st1 = ex.apply_block(st0, bid1, block1)
+    conn.stop()
+    t0 = time.perf_counter()
+    commit1 = bx_commit(st0, block1, bid1, by_addr)
+    sign_s = time.perf_counter() - t0
+    block2, bid2 = bx_block(st1, 2, [], commit1)
+    key = hashlib.sha256(b"".join(v.pub_key.bytes()
+                                  for v in st1.last_validators.validators)).digest()
+    warm = {"host": key in ec._valset_cache,
+            "device": any(k[0] == key for k in ec._dev_valset_cache)}
+    walls, parts = [], []
+    for rep in range(BX_REPS):
+        db, conn, ex = fresh(st1)
+        try:
+            with captured_packs() as packs:
+                st2, wall, part, got = bx_apply(ex, st1, bid2, block2)
+        finally:
+            conn.stop()
+        check(st2.last_block_height == 2 and sm_store.load_state(db).last_block_height == 2,
+              "block 2 did not apply")
+        walls.append(wall)
+        parts.append(part)
+        if rep == 0:
+            launches = got
+            check(got["ed25519_prologue"] == 1 and got["ed25519_ladder"] == 1
+                  and got["secp256k1_ladder"] == 0,
+                  f"the 10k LastCommit launched {got}, want K1 = K2 = 1")
+            b, _, _ = hold_k1_k2(packs[0], err, "block_exec 10k LastCommit")
+            check(b >= N_VALIDATORS, f"the 10k LastCommit ran at b = {b}")
+    # a flipped bit: an invalid block, nothing saved
+    block_bad, bid_bad = bx_block(st1, 2, [], tc.flip_signature_bit(commit1, 7, 300))
+    db, conn, ex = fresh(st1)
+    before = list(db.iterator())
+    try:
+        ex.apply_block(st1, bid_bad, block_bad)
+        raise SmokeFailure("a flipped LastCommit bit applied")
+    except InvalidBlockError as e:
+        check("invalid signature" in str(e), f"the flipped bit raised {e!r}")
+    finally:
+        conn.stop()
+    check(list(db.iterator()) == before and sm_store.load_state(db).last_block_height == 1,
+          "the rejected block changed the state DB")
+    # a device fault: a guarded verifier whose breaker is tripped, with part 1's mempool
+    br = breaker.CircuitBreaker(threshold=1, backoff_base=600.0, backoff_max=600.0)
+    br.record_failure("error")
+    tripped = GuardedBatchVerifier(TorchBatchVerifier(dev), breaker=br)
+    check(tripped.on_card, "the tripped verifier is not on the card")
+    db, conn, ex = fresh(st1, mempool=node.mp, verifier=tripped)
+    before = list(db.iterator())
+    reset_launches()
+    try:
+        ex.apply_block(st1, bid2, block2)
+        raise SmokeFailure("block 2 applied through a tripped breaker")
+    except InvalidBlockError as e:
+        raise SmokeFailure(f"a device fault read as an invalid block: {e}") from e
+    except breaker.DeviceDispatchError as e:
+        fault = str(e)
+    finally:
+        conn.stop()
+    check(list(db.iterator()) == before and sm_store.load_state(db).last_block_height == 1,
+          "the device fault changed the state DB")
+    check(all(v == 0 for v in read_launches().values()), "the tripped breaker launched")
+    check(node.mp._mtx.acquire(timeout=5.0), "the mempool's lock cannot be taken")
+    node.mp._mtx.release()
+    out = {"p50_ms": statistics.median(walls) * 1e3, "first_ms": walls[0] * 1e3,
+           "parts_ms": {n: statistics.median(p[n] for p in parts) * 1e3 for n in BX_SPANS},
+           "launches": launches, "warm": warm}
+    print(f"  10k: genesis of phase 5's {N_VALIDATORS} keys in {setup_s:.1f} s, the LastCommit "
+          f"signed in {sign_s:.1f} s; block 2 applies with K1 = K2 = 1 (b = {b}), exact on "
+          f"that launch's inputs; apply_block p50 {out['p50_ms']:.1f} ms over {BX_REPS} "
+          f"(first {out['first_ms']:.1f} ms), key caches warm before the first: {warm}",
+          flush=True)
+    print(f"  10k parts (p50 ms): {bx_parts_line(parts)}", flush=True)
+    print(f"  a flipped LastCommit bit: InvalidBlockError, the state DB at height 1; a "
+          f"tripped breaker: DeviceDispatchError ({fault}), no launch, the state DB at "
+          f"height 1, the mempool's lock free", flush=True)
+    return out
+
+
+def phase_block_exec(root, dev, sc_: tc.SignedCommit, err: dict) -> dict:
+    """Phase 21: the state layer and block execution on the card, on a root
+    of its own at the [verify] defaults."""
+    phase(f"block_exec: BlockExecutor over the node-wired mempool, {BX_HEIGHTS} heights of "
+          f"{BX_VALS} validators, then a {N_VALIDATORS}-validator LastCommit through "
+          f"validate_block, a flipped bit and a tripped breaker")
+    t_phase = time.perf_counter()
+    check(get_batch_verifier() is root.verifier,
+          "the default verifier is not the configuration root's guarded one")
+    before = fallbacks()
+    node = NodeMempool(dev, True)
+    try:
+        chain = bx_chain(node, err)
+        tenk = bx_10k(sc_, node, dev, err)
+    finally:
+        node.close()
+    check_guard_clean(before, "block_exec")
+    print(f"  no fallback; breaker closed; no audit mismatch; phase "
+          f"{time.perf_counter() - t_phase:.1f} s", flush=True)
+    return {"chain": chain, "10k": tenk,
+            "launches": {"chain": chain["launches"], "10k": tenk["launches"]}}
+
+
 # the adversarial matrix of tests/test_msm_path.py: the Go-edge window's
 # first 16 rows (10 clean, then forged s, mutant R, s + L, sig[63] | 0xE0,
 # non-canonical R, another key's signature)
@@ -2497,6 +2832,9 @@ def main() -> int:
     cwin = phase_commit_window(dev, window, err)
     # the mempool phase sets its path up through a default [verify] root of its own
     mempool = phase_mempool(configure_verify(VerifyConfig(), device=dev), dev, err)
+    # so does the block_exec phase
+    bx = phase_block_exec(configure_verify(VerifyConfig(), device=dev), dev, ed_main["commit"],
+                          err)
     print(f"  {smi_line}", flush=True)
 
     ms = {**ed_main["ms"], "secp256k1_ladder": secp_main["ms"]}
@@ -2532,6 +2870,7 @@ def main() -> int:
             "votes_launches": {route: votes[route]["launches"][name] for route in votes},
             "txs_launches": txs["launches"][name],
             "mempool_launches": {what: n[name] for what, n in mempool["launches"].items()},
+            "block_exec_launches": {what: n[name] for what, n in bx["launches"].items()},
             "msm_launches": msm["launches"][name],
             "commit_window_launches": {"ladder": cwin["launches"][name],
                                        "msm": cwin["msm_launches"][name],
@@ -2565,6 +2904,7 @@ def main() -> int:
         "votes_launches": {route: votes[route]["launches"][K4] for route in votes},
         "txs_launches": txs["launches"][K4],
         "mempool_launches": {what: n[K4] for what, n in mempool["launches"].items()},
+        "block_exec_launches": {what: n[K4] for what, n in bx["launches"].items()},
         "msm_launches": {"commit": msm["launches"][K4],
                          "adversarial": msm["adversarial_launches"][K4],
                          "dirty_commit": msm["dirty_launches"][K4],
@@ -2580,6 +2920,10 @@ def main() -> int:
           f"{msm['p50_ms']:.1f} ms (K4 {k4c['ms']:.4f} ms of it); the {WINDOW_H} x {WINDOW_V} "
           f"commit window {cwin['ladder_p50_s']:.3f} s on the ladder (K8), {cwin['msm_s']:.2f} s "
           f"on the msm path", flush=True)
+    print(f"  block_exec: the {BX_VALS}-validator chain at {bx['chain']['blocks_s']:.2f} "
+          f"blocks/s (apply_block p50 {bx['chain']['apply_p50_ms']:.1f} ms); the "
+          f"{N_VALIDATORS}-validator LastCommit's apply_block p50 {bx['10k']['p50_ms']:.1f} ms "
+          f"(validate {bx['10k']['parts_ms']['state.validate']:.1f} ms of it)", flush=True)
     print(f"  total {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"torch_ops": [window["tally"], cwin["tally"]]}))
     print(json.dumps({"kernels": kernels}))

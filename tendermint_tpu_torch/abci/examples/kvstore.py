@@ -1,10 +1,14 @@
 """The example apps and the signed-transaction codec (ref
 abci/example/kvstore/kvstore.go, counter/counter.go): the port's copy of
-the reference package's ``abci/examples/kvstore.py`` without
-``PersistentKVStoreApp`` (it waits for the DB-backed node):
+the reference package's ``abci/examples/kvstore.py`` without the
+state-sync snapshot half of ``PersistentKVStoreApp``:
 
   * ``KVStoreApp``: an in-memory key=value store whose app hash is the
     merkle root over its sorted pairs;
+  * ``PersistentKVStoreApp``: the store persisted in a key-value store
+    with validator-set changes: InitChain seeds the validators, a
+    ``val:PUBKEY!POWER`` DeliverTx stages an update, EndBlock returns
+    them;
   * ``PriorityKVStoreApp``: a ``pri<N>:`` payload prefix is its CheckTx
     priority (the mempool's lanes);
   * ``SignedKVStoreApp``: every tx carries a sender key (ed25519 or
@@ -30,9 +34,10 @@ or nonce mutation invalidates the signature.
 
 from __future__ import annotations
 
+import base64
 import json
 import struct
-from typing import Dict, Optional
+from typing import Dict, List, Optional
 
 from tendermint_tpu_torch.abci import types as abci
 from tendermint_tpu_torch.crypto import ed25519 as _ed
@@ -44,6 +49,9 @@ from tendermint_tpu_torch.crypto.keys import (
     PubKeyEd25519,
     PubKeySecp256k1,
 )
+from tendermint_tpu_torch.libs.db.kv import MemDB
+
+VALIDATOR_TX_PREFIX = b"val:"
 
 class KVStoreApp(abci.Application):
     """tx ``key=value`` (or ``v`` alone: v=v); the app hash is the merkle
@@ -284,6 +292,75 @@ class SignedKVStoreApp(KVStoreApp):
     def commit(self, req: abci.RequestCommit) -> abci.ResponseCommit:
         self._check_nonces = {}
         return super().commit(req)
+
+
+class PersistentKVStoreApp(KVStoreApp):
+    """KVStore with height persistence and validator-set changes (ref
+    persistent_kvstore.go:199): InitChain seeds the validators, a DeliverTx
+    of ``val:<base64 pubkey>!<power>`` stages an ed25519 update (power 0
+    removes), EndBlock returns the block's updates, Commit persists."""
+
+    def __init__(self, db=None):
+        super().__init__()
+        self._db = db or MemDB()
+        self._val_updates: List[abci.ValidatorUpdate] = []
+        self.validators: Dict[bytes, int] = {}  # raw pubkey -> power
+        self._load()
+
+    def _load(self) -> None:
+        raw = self._db.get(b"kvstore:state")
+        if raw:
+            obj = json.loads(raw.decode())
+            self.height = obj["height"]
+            self.size = obj["size"]
+            self.state = {base64.b64decode(k): base64.b64decode(v)
+                          for k, v in obj["kv"].items()}
+            self.validators = {base64.b64decode(k): p for k, p in obj["vals"].items()}
+
+    def _save(self) -> None:
+        obj = {
+            "height": self.height,
+            "size": self.size,
+            "kv": {base64.b64encode(k).decode(): base64.b64encode(v).decode()
+                   for k, v in self.state.items()},
+            "vals": {base64.b64encode(k).decode(): p for k, p in self.validators.items()},
+        }
+        self._db.set_sync(b"kvstore:state", json.dumps(obj, sort_keys=True).encode())
+
+    def init_chain(self, req: abci.RequestInitChain) -> abci.ResponseInitChain:
+        for vu in req.validators:
+            self.validators[vu.pub_key] = vu.power
+        self._save()
+        return abci.ResponseInitChain()
+
+    def begin_block(self, req: abci.RequestBeginBlock) -> abci.ResponseBeginBlock:
+        self._val_updates = []
+        return abci.ResponseBeginBlock()
+
+    def deliver_tx(self, req: abci.RequestDeliverTx) -> abci.ResponseDeliverTx:
+        if req.tx.startswith(VALIDATOR_TX_PREFIX):
+            try:
+                pub_b64, power_s = req.tx[len(VALIDATOR_TX_PREFIX):].split(b"!", 1)
+                pub = base64.b64decode(pub_b64)
+                power = int(power_s)
+            except Exception:
+                return abci.ResponseDeliverTx(code=1, log="bad validator tx")
+            self._val_updates.append(
+                abci.ValidatorUpdate(pub_key_type="ed25519", pub_key=pub, power=power))
+            if power == 0:
+                self.validators.pop(pub, None)
+            else:
+                self.validators[pub] = power
+            return abci.ResponseDeliverTx(code=abci.CODE_TYPE_OK)
+        return super().deliver_tx(req)
+
+    def end_block(self, req: abci.RequestEndBlock) -> abci.ResponseEndBlock:
+        return abci.ResponseEndBlock(validator_updates=list(self._val_updates))
+
+    def commit(self, req: abci.RequestCommit) -> abci.ResponseCommit:
+        res = super().commit(req)
+        self._save()
+        return res
 
 
 class CounterApp(abci.Application):

@@ -9,14 +9,18 @@ Ten methods over three logical connections (consensus / mempool / query):
   (+ Flush on every connection)
 
 Plain dataclasses: an in-proc app (the local client) takes them as they
-are. The state-sync snapshot messages and the JSON wire form of the socket
-transport are not ported yet.
+are. ``msg_to_json`` / ``msg_from_json`` are the reference's JSON form,
+which ``state/store.ABCIResponses`` persists; its type table holds every
+dataclass here. The state-sync snapshot messages and the socket transport
+are not ported yet.
 """
 
 from __future__ import annotations
 
-from dataclasses import dataclass, field
-from typing import List, Optional
+import base64
+import json
+from dataclasses import dataclass, field, fields, is_dataclass
+from typing import Any, Dict, List, Optional, Type
 
 CODE_TYPE_OK = 0
 
@@ -267,6 +271,46 @@ class ResponseEndBlock:
 @dataclass
 class ResponseCommit:
     data: bytes = b""  # the app hash
+
+
+# -- the JSON form --------------------------------------------------------------------
+
+_MSG_TYPES: Dict[str, Type] = {
+    c.__name__: c for c in list(globals().values()) if is_dataclass(c) and isinstance(c, type)
+}
+
+
+def _to_jsonable(obj: Any) -> Any:
+    if is_dataclass(obj) and not isinstance(obj, type):
+        out = {"_t": type(obj).__name__}
+        for f in fields(obj):
+            out[f.name] = _to_jsonable(getattr(obj, f.name))
+        return out
+    if isinstance(obj, bytes):
+        return {"_b": base64.b64encode(obj).decode()}
+    if isinstance(obj, list):
+        return [_to_jsonable(x) for x in obj]
+    return obj
+
+
+def _from_jsonable(obj: Any) -> Any:
+    if isinstance(obj, dict):
+        if "_b" in obj:
+            return base64.b64decode(obj["_b"])
+        if "_t" in obj:
+            return _MSG_TYPES[obj["_t"]](
+                **{k: _from_jsonable(v) for k, v in obj.items() if k != "_t"})
+    if isinstance(obj, list):
+        return [_from_jsonable(x) for x in obj]
+    return obj
+
+
+def msg_to_json(msg: Any) -> bytes:
+    return json.dumps(_to_jsonable(msg), separators=(",", ":")).encode()
+
+
+def msg_from_json(data: bytes) -> Any:
+    return _from_jsonable(json.loads(data.decode()))
 
 
 # -- the application base class: apps override what they need ---------------------

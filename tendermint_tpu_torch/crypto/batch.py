@@ -499,6 +499,13 @@ def get_batch_verifier():
         return _default
 
 
+def installed_batch_verifier():
+    """The installed verifier, or None; unlike ``get_batch_verifier`` it
+    installs nothing."""
+    with _lock:
+        return _default
+
+
 def verifier_info() -> dict:
     """The installed default verifier's identity and, for a guarded one,
     its guard's snapshot. The port has no host latch, so

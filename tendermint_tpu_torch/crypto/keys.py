@@ -9,6 +9,7 @@ sub-keys through ``verify_bytes``, which runs the host oracles."""
 
 from __future__ import annotations
 
+import base64
 import hashlib
 import hmac
 from dataclasses import dataclass
@@ -36,6 +37,10 @@ class PubKey:
         return type(self) is type(other) and hmac.compare_digest(
             self.bytes(), other.bytes()
         )
+
+    def to_json_obj(self) -> dict:
+        """The JSON form of the reference's keys: type name and base64."""
+        return {"type": self.type_name, "value": base64.b64encode(self.bytes()).decode()}
 
 
 @dataclass(frozen=True)
@@ -139,3 +144,7 @@ _PUBKEY_TYPES = {
     PubKeyEd25519.type_name: PubKeyEd25519,
     PubKeySecp256k1.type_name: PubKeySecp256k1,
 }
+
+
+def pubkey_from_json_obj(obj: dict) -> PubKey:
+    return _PUBKEY_TYPES[obj["type"]](base64.b64decode(obj["value"]))

@@ -10,9 +10,11 @@ The port's copy of the registry primitives of the JAX package's
 family names, help texts, label names and buckets, so a dashboard built on
 the reference reads the port unchanged. ``MempoolMetrics`` is the mempool
 family of the reference's ``NodeMetrics`` that ``mempool/mempool.py``
-writes, under the same attribute names. The other metric sets of the
-reference (consensus, p2p, the mempool's QoS, state sync) belong to
-subsystems the port has not taken over.
+writes, under the same attribute names; ``StateMetrics`` is its state
+family (``state_block_processing_time``, which ``BlockExecutor.apply_block``
+observes). The other metric sets of the reference (consensus, p2p, the
+mempool's QoS, state sync) belong to subsystems the port has not taken
+over.
 """
 
 from __future__ import annotations
@@ -681,4 +683,18 @@ class MempoolMetrics:
             "mempool_checktx_batch_size",
             "Txs coalesced per CheckTx/recheck app-conn window",
             buckets=_SIZE_BUCKETS,
+        )
+
+
+class StateMetrics:
+    """The state family of the reference's ``NodeMetrics``
+    (libs/metrics.py:937): the seconds of each block's execution on the
+    app, which ``state/execution.BlockExecutor.apply_block`` observes."""
+
+    def __init__(self, registry: Optional[Registry] = None):
+        r = registry or Registry()
+        self.registry = r
+        self.block_processing_time = r.histogram(
+            "state_block_processing_time", "ApplyBlock seconds",
+            buckets=[b / 10 for b in _DEFAULT_BUCKETS],
         )

@@ -2,17 +2,18 @@
 port's copy of the reference package's ``lite/provider.py``).
 
 ``DBProvider`` is the trust store the DynamicVerifier saves verified
-commits into. The reference's ``NodeProvider`` reads a full node's block
-store and state store, which the port has not taken over yet (ROADMAP
-queue 1 item 12); ``lite/proxy.RPCProvider`` and any object with the
-``Provider`` methods serve as sources meanwhile.
+commits into; ``NodeProvider`` is a source over a full node's block store
+and state store (``blockchain/store.BlockStore``, ``state/store.py``),
+served in process as the reference's RPC client provider serves them over
+the network.
 """
 
 from __future__ import annotations
 
 import struct
 
-from tendermint_tpu_torch.lite.types import FullCommit, LiteError
+from tendermint_tpu_torch.lite.types import FullCommit, LiteError, SignedHeader
+from tendermint_tpu_torch.state import store as sm_store
 
 
 class ProviderError(LiteError):
@@ -54,3 +55,34 @@ class DBProvider(Provider):
         for _, v in self._db.iterator(lo, hi, reverse=True):
             return FullCommit.unmarshal(v)
         raise ProviderError(f"no full commit for {chain_id} in [{min_height},{max_height}]")
+
+
+class NodeProvider(Provider):
+    """A source over a full node's block store and state store (ref
+    lite/client/provider.go, read in process)."""
+
+    def __init__(self, block_store, state_db):
+        self._store = block_store
+        self._state_db = state_db
+
+    def latest_full_commit(self, chain_id: str, min_height: int,
+                           max_height: int) -> FullCommit:
+        for h in range(min(max_height, self._store.height()), min_height - 1, -1):
+            try:
+                return self.full_commit_at(chain_id, h)
+            except ProviderError:
+                continue
+        raise ProviderError(f"no full commit for {chain_id} in [{min_height},{max_height}]")
+
+    def full_commit_at(self, chain_id: str, height: int) -> FullCommit:
+        meta = self._store.load_block_meta(height)
+        commit = self._store.load_block_commit(height) or self._store.load_seen_commit(height)
+        if meta is None or commit is None:
+            raise ProviderError(f"height {height} not in store")
+        try:
+            vals = sm_store.load_validators(self._state_db, height)
+            next_vals = sm_store.load_validators(self._state_db, height + 1)
+        except Exception as e:
+            raise ProviderError(f"no validators for height {height}: {e}") from e
+        return FullCommit(signed_header=SignedHeader(header=meta.header, commit=commit),
+                          validators=vals, next_validators=next_vals)

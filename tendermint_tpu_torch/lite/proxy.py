@@ -12,10 +12,10 @@ shared ``frontend.LiteFrontend`` (verified-header cache, single-flight
 dedup, cross-client lane aggregation). ``serve_proxy`` serves /status,
 /commit, /verify_commit, /light_block and /frontend_stats, whose responses
 are only ever derived from headers the frontend certified: a caller needs
-no trust in the backing node. A full node's own stores as the source
-(``block_store`` / ``state_db``), ``run_lite_proxy`` and the ``lite``
-command wait for the stores and the command-line tools (ROADMAP queue 1
-item 12).
+no trust in the backing node. A full node's own stores serve as the source
+in process (``block_store`` + ``state_db``: ``NodeProvider``);
+``run_lite_proxy`` and the ``lite`` command wait for the command-line
+tools (ROADMAP queue 1 item 12).
 """
 
 from __future__ import annotations
@@ -32,7 +32,7 @@ from urllib.parse import parse_qs, urlparse
 
 from tendermint_tpu_torch.encoding.codec import Reader
 from tendermint_tpu_torch.frontend.frontend import LiteFrontend
-from tendermint_tpu_torch.lite.provider import Provider, ProviderError
+from tendermint_tpu_torch.lite.provider import NodeProvider, Provider, ProviderError
 from tendermint_tpu_torch.lite.types import FullCommit, LiteError, SignedHeader
 from tendermint_tpu_torch.rpc.client import HTTPClient, RPCClientError
 from tendermint_tpu_torch.types.block import Commit, Header
@@ -122,17 +122,14 @@ class LiteProxy:
         first run trusts on first use: the UNTRUSTED backing node's height-1
         FullCommit defines the chain for good (the trust DB keeps it).
 
-        The source: an explicit ``source`` wins, else ``node_addr`` over
-        RPC. A full node's ``block_store`` + ``state_db`` raise: the stores
-        are not ported yet (ROADMAP queue 1 item 12)."""
+        The source: an explicit ``source`` wins, else a full node's own
+        ``block_store`` + ``state_db`` in process (``NodeProvider``, no RPC
+        hop), else ``node_addr`` over RPC."""
         self.chain_id = chain_id
         if source is not None:
             self.source = source
         elif block_store is not None and state_db is not None:
-            raise NotImplementedError(
-                "block_store + state_db need NodeProvider and the block and state "
-                "stores, which are not ported yet (ROADMAP queue 1 item 12)"
-            )
+            self.source = NodeProvider(block_store, state_db)
         elif node_addr:
             self.source = RPCProvider(node_addr, timeout=provider_timeout,
                                       retries=provider_retries)

@@ -26,9 +26,11 @@ Counterpart of the ``[verify]`` wiring in the JAX package's node
 
 ``vote_feed(cfg)`` builds the live-vote micro-batcher the reference's node
 wires when ``[verify] vote_batch_window_ms > 0`` (``node/node.py:254-262``),
-and ``mempool(cfg, proxy_app, app)`` the mempool of the ``[mempool]``
+``mempool(cfg, proxy_app, app)`` the mempool of the ``[mempool]``
 section with its batched CheckTx signature hook (``node/node.py:200-219``
-and ``:263-283``).
+and ``:263-283``), and ``block_executor(...)`` the evidence pool and the
+block executor that owns that mempool (``node/node.py:220-230``), whose
+``apply_block`` verifies each LastCommit through the installed verifier.
 """
 
 from __future__ import annotations
@@ -42,11 +44,13 @@ from tendermint_tpu_torch.config.mempool import MempoolConfig
 from tendermint_tpu_torch.config.verify import VerifyConfig
 from tendermint_tpu_torch.crypto import batch as _batch
 from tendermint_tpu_torch.device import DeviceLike, resolve_device
+from tendermint_tpu_torch.evidence.pool import EvidencePool
 from tendermint_tpu_torch.libs import breaker as _brk
 from tendermint_tpu_torch.mempool.mempool import Mempool
 from tendermint_tpu_torch.mempool.tx_verify import BatchTxVerifier
 from tendermint_tpu_torch.ops import _build
 from tendermint_tpu_torch.parallel import planner
+from tendermint_tpu_torch.state.execution import BlockExecutor
 
 # the kernels of the verify path: K1 and K2 (ed25519), K3 (secp256k1), K4
 # (the ed25519 MSM path)
@@ -157,3 +161,22 @@ def mempool(cfg: Optional[MempoolConfig], proxy_app, app, metrics=None, *,
     ver = BatchTxVerifier(feed, extractor, height_fn=mp.height)
     mp.set_batch_check_hook(ver, verdicts=True)
     return MempoolRoot(mp, feed, ver)
+
+
+class ExecutorRoot(NamedTuple):
+    evidence_pool: EvidencePool
+    block_executor: BlockExecutor
+
+
+def block_executor(state_db, evidence_db, proxy_app, mempool, state, event_bus=None,
+                   metrics=None) -> ExecutorRoot:
+    """The node's evidence pool over ``evidence_db`` and its
+    ``BlockExecutor`` on ``proxy_app.consensus`` (a started
+    ``MultiAppConn``), owning ``mempool`` (``mempool(...).mempool``) and
+    publishing to ``event_bus``. The executor's verifier is None: each
+    block's LastCommit goes to the installed verifier, on the card the
+    configuration root's guarded one (K1 + K2, K3). ``metrics`` is a
+    ``libs/metrics.StateMetrics``."""
+    evpool = EvidencePool(state_db, evidence_db, state)
+    return ExecutorRoot(evpool, BlockExecutor(state_db, proxy_app.consensus, mempool, evpool,
+                                              event_bus, verifier=None, metrics=metrics))

@@ -1,6 +1,7 @@
-"""The mempool interface the block executor needs, and its mock (ref
-state/services.go): the port's copy of ``Mempool`` and ``MockMempool``
-from the reference package's ``state/services.py``."""
+"""The interfaces the block executor needs and their mocks (ref
+state/services.go), the port's copy of the reference package's
+``state/services.py``: ``Mempool`` and ``MockMempool``, ``EvidencePool``
+and ``MockEvidencePool``, and ``BlockStoreBase``."""
 
 from __future__ import annotations
 
@@ -65,3 +66,42 @@ class MockMempool(Mempool):
 
     def enable_txs_available(self) -> None:
         pass
+
+
+class EvidencePool:
+    """Interface (services.go:90)."""
+
+    def pending_evidence(self, max_bytes: int) -> list: ...
+
+    def add_evidence(self, ev) -> None: ...
+
+    def update(self, block, state) -> None: ...
+
+    def is_committed(self, ev) -> bool: ...
+
+
+class MockEvidencePool(EvidencePool):
+    def __init__(self):
+        self.added: list = []  # kept for tests; never proposed
+
+    def pending_evidence(self, max_bytes: int) -> list:
+        return []
+
+    def add_evidence(self, ev) -> None:
+        self.added.append(ev)
+
+    def update(self, block, state) -> None:
+        pass
+
+    def is_committed(self, ev) -> bool:
+        return False
+
+
+class BlockStoreBase:
+    """Interface of the block store (services.go BlockStoreRPC/BlockStore)."""
+
+    def height(self) -> int: ...
+
+    def load_block(self, height: int): ...
+
+    def save_block(self, block, parts, seen_commit) -> None: ...

@@ -38,11 +38,14 @@ from tendermint_tpu_torch.types.core import (
 
 PubKey = Union[PubKeyEd25519, PubKeySecp256k1]
 
-_MAX_ACCUM = 1 << 60  # the reference's clip bound for accums and power products
+# the reference's clip bound for accums and power products, and the most
+# voting power an EndBlock update may grant (state/execution.update_validators)
+_MAX_TOTAL_POWER = 1 << 60
 
 
 def _clip(v: int) -> int:
-    return _MAX_ACCUM if v > _MAX_ACCUM else (-_MAX_ACCUM if v < -_MAX_ACCUM else v)
+    return (_MAX_TOTAL_POWER if v > _MAX_TOTAL_POWER
+            else (-_MAX_TOTAL_POWER if v < -_MAX_TOTAL_POWER else v))
 
 
 @dataclass
@@ -59,6 +62,16 @@ class Validator:
         """The bytes folded into the set's hash: the key and the voting
         power (ref validator.go:104), never the accum."""
         return Writer().bytes(self.pub_key.bytes()).svarint(self.voting_power).build()
+
+    def copy(self) -> "Validator":
+        return Validator(self.pub_key, self.voting_power, self.accum)
+
+    def compare_accum(self, other: "Validator") -> "Validator":
+        """The higher accum; a tie goes to the lower address (ref
+        validator.go CompareAccum)."""
+        if self.accum != other.accum:
+            return self if self.accum > other.accum else other
+        return self if self.address < other.address else other
 
 
 class CommitError(Exception):
@@ -90,6 +103,19 @@ class ValidatorSet:
     @property
     def size(self) -> int:
         return len(self.validators)
+
+    def is_nil_or_empty(self) -> bool:
+        return len(self.validators) == 0
+
+    def has_address(self, address: bytes) -> bool:
+        return self.get_by_address(address)[0] != -1
+
+    def _invalidate(self) -> None:
+        """Membership changed: drop every derived cache (the reference
+        clears the proposer and the total power on Add/Update/Remove)."""
+        self.proposer = None
+        self._hash = None
+        self._addresses = None
 
     def total_voting_power(self) -> int:
         return sum(v.voting_power for v in self.validators)
@@ -139,15 +165,52 @@ class ValidatorSet:
             mostest.accum = _clip(mostest.accum - total)
             self.proposer = mostest
 
-    def copy_increment_accum(self, times: int) -> "ValidatorSet":
-        """A copy of the set (same members, own accums) advanced ``times``."""
+    def copy(self) -> "ValidatorSet":
+        """A copy with its own validators (accums included) and the same
+        proposer; the hash and address caches are shared until either set
+        changes its members."""
         new = ValidatorSet.__new__(ValidatorSet)
-        new.validators = [replace(v) for v in self.validators]
+        new.validators = [v.copy() for v in self.validators]
         new._hash = self._hash
         new._addresses = self._addresses
         new.proposer = None
+        if self.proposer is not None:
+            i = self._index_of(self.proposer.address)
+            new.proposer = new.validators[i] if i >= 0 else self.proposer.copy()
+        return new
+
+    def copy_increment_accum(self, times: int) -> "ValidatorSet":
+        """A copy of the set (same members, own accums) advanced ``times``."""
+        new = self.copy()
         new.increment_accum(times)
         return new
+
+    # membership changes (ABCI EndBlock; ref validator_set.go:189-240) --------
+    def add(self, val: Validator) -> bool:
+        """Insert in address order; False if the address is a member."""
+        if self.has_address(val.address):
+            return False
+        self.validators = sorted(self.validators + [val.copy()], key=lambda v: v.address)
+        self._invalidate()
+        return True
+
+    def update(self, val: Validator) -> bool:
+        """Replace the member of ``val``'s address wholesale, accum included
+        (ref validator_set.go:216-226); False if it is not a member."""
+        idx, _ = self.get_by_address(val.address)
+        if idx == -1:
+            return False
+        self.validators[idx] = val.copy()
+        self._invalidate()
+        return True
+
+    def remove(self, address: bytes) -> Optional[Validator]:
+        idx, _ = self.get_by_address(address)
+        if idx == -1:
+            return None
+        removed = self.validators.pop(idx)
+        self._invalidate()
+        return removed
 
     def _index_of(self, address: bytes) -> int:
         for i, v in enumerate(self.validators):

@@ -8,7 +8,9 @@ static 4 x 10 and churn chains) reach the port as codec bytes through
 ``TestDBProvider``, ``TestDynamicVerifier`` and
 ``TestDynamicVerifierRejections`` restate the 12 cases of
 tests/test_lite.py against the port. A chain from the port's own
-``build_lite_chain`` is decoded and certified by the reference too.
+``build_lite_chain`` is decoded and certified by the reference too; a
+``LiteProxy`` over the stores of the port's own ``build_chain``
+(``NodeProvider``) certifies what one over the reference's chain does.
 Signatures verify on the port's ``HostBatchVerifier``: the kernels are not
 the subject here.
 """
@@ -43,6 +45,7 @@ from tendermint_tpu_torch.lite import (
     LiteError,
     ProviderError,
 )
+from tendermint_tpu_torch.lite.provider import NodeProvider
 from tendermint_tpu_torch.lite.proxy import LiteProxy, serve_proxy
 from tendermint_tpu_torch.testutil import lite_chain as lc
 from tendermint_tpu_torch.types.validator_set import CommitError, Validator, ValidatorSet
@@ -380,8 +383,53 @@ def test_proxy_without_a_source_or_with_stores_raises(churn_chain):
     fx, _ = churn_chain
     with pytest.raises(ValueError):
         LiteProxy(fx.chain_id)
-    with pytest.raises(NotImplementedError, match="item 12"):
-        LiteProxy(fx.chain_id, block_store=object(), state_db=object())
+    with pytest.raises(ValueError):  # a block store alone is no source
+        LiteProxy(fx.chain_id, block_store=object())
+    proxy = LiteProxy(fx.chain_id, block_store=object(), state_db=object())
+    assert isinstance(proxy.source, NodeProvider)  # the stores serve in process
+    proxy.close()
+
+
+def _port_churn_chain():
+    """The churn chain of ``churn_chain``, built and executed by the port's
+    ``testutil/chain.build_chain``."""
+    from tendermint_tpu_torch.abci.examples.kvstore import PersistentKVStoreApp as PApp
+    from tendermint_tpu_torch.crypto.keys import PrivKeyEd25519 as PPriv
+    from tendermint_tpu_torch.testutil.chain import build_chain as pbuild_chain
+    from tendermint_tpu_torch.types.priv_validator import MockPV as PMockPV
+
+    joiners = [PMockPV(PPriv.generate(bytes([50 + i]) * 32)) for i in range(3)]
+
+    def on_height(h, st):
+        if h == 4:
+            return [_val_tx(pv.get_pub_key().bytes(), 100) for pv in joiners]
+        if h == 8:
+            leavers = [v for v in st.validators.validators if v.voting_power == 10][:3]
+            return [_val_tx(v.pub_key.bytes(), 0) for v in leavers]
+        return []
+
+    return pbuild_chain(n_vals=4, n_heights=14, chain_id="lite-churn", app_factory=PApp,
+                        on_height=on_height, extra_pvs=joiners)
+
+
+def test_proxy_over_the_ports_stores_certifies_what_the_chains_source_does(churn_chain):
+    fx, src = churn_chain
+    port_fx = _port_churn_chain()
+    pin = dict(trusted_height=1, trusted_hash=_pin(fx))
+    over_stores = LiteProxy(fx.chain_id, block_store=port_fx.block_store,
+                            state_db=port_fx.state_db, batch_window_s=0.001, **pin)
+    over_source = LiteProxy(fx.chain_id, source=src, batch_window_s=0.001, **pin)
+    try:
+        assert isinstance(over_stores.source, NodeProvider)
+        assert over_stores.status() == over_source.status()
+        for h in (2, 5, 8, 11, fx.height):
+            assert over_stores.verify_commit(h) == over_source.verify_commit(h)
+            assert over_stores.light_block(h) == over_source.light_block(h)
+        assert (_trusted_heights(over_stores.trusted, fx.chain_id, fx.height)
+                == _trusted_heights(over_source.trusted, fx.chain_id, fx.height))
+    finally:
+        over_stores.close()
+        over_source.close()
 
 
 def _get(port, path):
