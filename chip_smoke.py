@@ -46,8 +46,8 @@ Phases, in order; any failure exits non-zero:
              the configuration root installs (node/verify_root.py, default
              [verify]: GuardedBatchVerifier(TorchBatchVerifier) with its
              5 % audit on the host oracle). K1 and K2 launched once, no
-             device fallback; p50 wall over 3 calls beside the seconds of
-             its device dispatch and of its audit;
+             device fallback; the wall of a traced call beside the
+             seconds of its device dispatch and of its audit;
   9. mixed   a 1,000-validator commit of mixed ed25519 and secp256k1 keys:
              it passes with K1, K2 and K3 each launched, and a flipped
              secp256k1 row and a flipped ed25519 row are each rejected;
@@ -63,9 +63,9 @@ Phases, in order; any failure exits non-zero:
              committed and sigs_ok, equal to what the construction implies
              and, on 256 sampled lanes, to the oracle; K1 and K2 launched
              once per message-length group per dispatch; no device
-             fallback, the breaker closed, no audit mismatch. p50 walls
-             over 3 calls with their breakdowns (plan, pack, dispatch,
-             audit), K1 and K2 at the window's b against their plain
+             fallback, the breaker closed, no audit mismatch. Walls of
+             one traced call each with their breakdowns (plan, pack,
+             dispatch, audit), K1 and K2 at the window's b against their plain
              versions, and the tally's device time beside its byte bound
              on a ``torch_ops`` JSON line of its own (the tally is torch
              int64 ops, not a kernel);
@@ -78,8 +78,8 @@ Phases, in order; any failure exits non-zero:
              a sub-window and message-length group, the tally once a
              sub-window, and on the first sub-window's launch inputs exact
              against their plain versions; no device fallback, the breaker
-             closed, no audit mismatch. p50 wall over 3 calls against the
-             flat window's, beside the sums of its plan, pack, dispatch and
+             closed, no audit mismatch. The wall of one traced call against
+             the flat window's, beside the sums of its plan, pack, dispatch and
              audit spans (each including its waits for the interpreter
              lock);
   12. rpc    the RPC ?verify=1 burst (rpc/core/env.py): 64 threads each
@@ -90,7 +90,7 @@ Phases, in order; any failure exits non-zero:
              K1 and K2 once a feed dispatch, and on the first dispatch's
              launch inputs exact against their plain versions; no fallback,
              the breaker closed.
-             p50 burst wall over 3 bursts with its audit span. Then 8
+             The wall of a traced burst with its audit span. Then 8
              concurrent verify_commit calls on 8 heights' commits through
              frontend.aggregator.BatchingVerifier(feed), each ending as a
              direct verify_commit on the same commit does;
@@ -169,7 +169,8 @@ Phases, in order; any failure exits non-zero:
              commit's (n 10,000, m 20,000, c 8, nwin 32: verdict 1), RLC
              seed 1234; verdict and canonical final point exact. K4's ms
              with each sub-launch's (every tree level, the fold, the
-             finish), the plain version's, and the bound at the probe's
+             finish), the plain version's (its one run that the
+             exactness check makes), and the bound at the probe's
              IMAD.WIDE rate over the products the schedule that ran needs;
   18. msm    ed25519_path = "msm": the adversarial 16 rows through
              ed25519_cuda.rlc_verify_batch on the card equal the expected
@@ -177,8 +178,9 @@ Phases, in order; any failure exits non-zero:
              equals the CPU run at the same seed and _verify_pure; the
              10,000-validator commit through verify_commit with
              TorchBatchVerifier(ed25519_path="msm") passes with K1 = 1, K4 =
-             1 and K2 = 0 and verdicts equal to the ladder's (p50 wall over
-             3 with its parse, prologue_h, schedule, pool, K4 spans), a
+             1 and K2 = 0 and verdicts equal to the ladder's (the wall of a
+             traced call with its parse, prologue_h, schedule, pool, K4
+             spans), a
              flipped signature is rejected through the localization (K2
              once), and the commit through the guarded verifier of
              configure_verify(VerifyConfig(ed25519_path="msm")) passes with
@@ -239,7 +241,7 @@ Phases, in order; any failure exits non-zero:
              block 1, then block 2 whose 10,000-row LastCommit goes through
              validate_block and the root's guarded verifier, K1 = K2 = 1 at
              b = 10,240, exact on that launch's inputs; apply_block p50 over
-             3 applications to the height-1 state (a fresh state DB and app
+             2 applications to the height-1 state (a fresh state DB and app
              each) with its parts and whether the key caches were warm; a
              flipped LastCommit bit raises InvalidBlockError and leaves the
              state DB at height 1. (3) A BlockExecutor on part 1's mempool
@@ -247,9 +249,43 @@ Phases, in order; any failure exits non-zero:
              raises DeviceDispatchError, not InvalidBlockError, with no
              launch, the state DB at height 1 and the mempool's lock free.
              No fallback, the default breaker closed, no audit mismatch.
+  22. fastsync fast sync, on a default [verify] root of its own: BASELINE.json
+             config 3 at scripts/bench_fastsync.py's width, 64 validators
+             of power 10 over KVStoreApp, a chain of 1,025 blocks built by
+             tools/bench_fastsync.build (set-up, each LastCommit through an
+             explicit TorchBatchVerifier). (a) tools/bench_fastsync.replay at
+             the reference's VERIFY_WINDOW of 512 (two full windows) through
+             the root's guarded verifier, an explicit TorchBatchVerifier()
+             and the free NullVerifier (the host's ceiling), and its serial
+             baseline (verify_commit + apply_block a height) over 64 blocks
+             on the guarded verifier: blocks a second with the
+             fastsync.window, planner.pack, verify.dispatch, verify.audit,
+             fastsync.apply and state.* spans; every run ends at height
+             1,024 with the chain's app hash and state bytes; K1 = K2 = 1 a
+             window (b = 32,768), exact on the explicit run's first launch.
+             (b) the node's reactor (node/verify_root.blockchain_reactor
+             over the node-wired executor and mempool, verifier None) syncs
+             the chain's first 257 blocks from testutil/fastsync's loopback
+             peer through the messages: the wall from start() to the
+             consensus hand-off, the windows it dispatched (first height,
+             heights), verify_speculative_total and verify_window_heights;
+             the store and the handed-over state equal the chain's at 256,
+             K1 = K2 = one a window, no peer stopped. Then the same sync with
+             the installed guarded verifier's device failing from its second
+             dispatch: it halts with device_fault set, no peer stopped, no
+             hand-off, the store and the state at the first window's height.
+             No fallback, the default breaker closed, no audit mismatch.
 
-The window phase's routes and the backfill phase take the p50 of 2 traced
-calls after the first (3 before phase 21 came; about 22 s).
+The window phase's routes and the backfill phase each make one traced call
+(the p50 of 3 before phase 21, of 2 before phase 22: the fastsync replay
+times the same 512 x 64 verifier route). To pay for phase 22 the default,
+rpc, multisig and msm phases also take one traced call after the first
+(3 before), the commit window's ladder its traced first call alone (4
+calls before), phase 21 2 applications of the 10k LastCommit (3), the
+host-clock walls 3 repeats (5), and each kernel's plain time on its main
+path (K1, K2, K3 and K4) is the plain version's run for the exactness check
+(two or three more runs before). Each phase's line carries the seconds since the
+script began.
 
 Each path's launch counts are set to 0 just before it and read just after;
 the kernels line carries the main path's as ``launches``, the lite
@@ -257,9 +293,10 @@ phase's shapes' as ``lite_launches``, the votes phase's routes' as
 ``votes_launches`` (verifier, executor, secp: the mixed-key storm) and the
 txs phase's as ``txs_launches``, phases 18 and 19's as ``msm_launches`` and
 ``commit_window_launches``, phase 20's parts' as ``mempool_launches``
-(rate, parity, secp, fill, recheck) and phase 21's as
+(rate, parity, secp, fill, recheck), phase 21's as
 ``block_exec_launches`` (chain: CheckTx and apply_block; 10k: the first
-application of block 2); K4's own ``launches`` are
+application of block 2) and phase 22's as ``fastsync_launches`` (guarded,
+explicit, baseline, reactor); K4's own ``launches`` are
 the msm route's 10,000-validator commit's. The line before the last two is the
 ``kernels`` JSON, then the card's name
 and power limit, then ``{"ok": true, "device": {...}}``. Exits 2 when no
@@ -279,6 +316,7 @@ import subprocess
 import sys
 import threading
 import time
+from types import SimpleNamespace
 
 import numpy as np
 import torch
@@ -289,6 +327,8 @@ from tendermint_tpu_torch.abci.examples.kvstore import (
     SignedKVStoreApp,
     extract_signed_tx_sig,
 )
+from tendermint_tpu_torch.blockchain import pool as bc_pool
+from tendermint_tpu_torch.blockchain import reactor as bc_reactor
 from tendermint_tpu_torch.blockchain.store import BlockStore
 from tendermint_tpu_torch.config.mempool import MempoolConfig
 from tendermint_tpu_torch.config.verify import VerifyConfig
@@ -300,6 +340,7 @@ from tendermint_tpu_torch.crypto.batch import (
     SigItem,
     TorchBatchVerifier,
     get_batch_verifier,
+    set_batch_verifier,
     verify_generic,
 )
 from tendermint_tpu_torch.crypto.hashing import sha256
@@ -336,6 +377,8 @@ from tendermint_tpu_torch.testutil import multisig as tm
 from tendermint_tpu_torch.testutil import secp_signer
 from tendermint_tpu_torch.testutil import votes as tv
 from tendermint_tpu_torch.testutil import window as tw
+from tendermint_tpu_torch.testutil.fastsync import LoopbackSwitch, ServingPeer
+from tendermint_tpu_torch.tools import bench_fastsync as bf
 from tendermint_tpu_torch.types.block import Commit
 from tendermint_tpu_torch.types.core import BlockID, SignedMsgType
 from tendermint_tpu_torch.types.genesis import GenesisDoc, GenesisValidator
@@ -352,17 +395,23 @@ K2_RAGGED_ROWS = 200  # not a multiple of the rows a K2 block serves
 K3_ROWS = 256
 K3_RN_PAIRS = 4  # row pairs that take the r + n branch (rnok 1, then 0)
 K3_RAGGED_ROWS = 200  # not a multiple of the rows a K3 block serves
-WALL_REPS = 5
+# host-clock repeats after a first call (5 before the fastsync phase came)
+WALL_REPS = 3
 TIME_ITERS = 20
 # the reference's fast-sync defaults: VERIFY_WINDOW = 512 heights
 # (blockchain/reactor.py:54) of bench_fastsync.py's 64 validators
 # (BASELINE.json config 3); 32,768 lanes, lane bucket 32,768, segments 512
 WINDOW_H, WINDOW_V = 512, 64
-WINDOW_REPS = 3
-# the window's routes (phase 10) and the backfill stream (phase 11) take the
-# p50 of 2 traced calls after the first (3 before the block_exec phase came:
-# about 22 s of the script's wall paid for it)
-WINDOW_ROUTE_REPS = 2
+# traced repeats after a first call in the default, rpc, multisig and msm
+# phases; the commit window's ladder counts its traced first call among them
+# (3 before the fastsync phase came: each guarded repeat is mostly the
+# audit's host oracle, 2-9 s)
+WINDOW_REPS = 1
+# the window's routes (phase 10) and the backfill stream (phase 11): the
+# first call is traced and WINDOW_ROUTE_REPS more follow it (3 before the
+# block_exec phase came, 2 before the fastsync phase: the fastsync phase's
+# replay times the same 512 x 64 verifier route, and these calls paid for it)
+WINDOW_ROUTE_REPS = 0
 ORACLE_LANES = 256
 # state sync's backfill sub-window (statesync/syncer.py BACKFILL_SUBWINDOW)
 BACKFILL_SUBWINDOW = 32
@@ -402,10 +451,21 @@ MP_FILL = MempoolConfig().size
 # BASELINE.json config 2's 10,000-validator LastCommit through validate_block
 BX_VALS, BX_POWER, BX_SEED = 100, 10, 11
 BX_HEIGHTS, BX_TXS = 16, 64
-BX_REPS = 3
+BX_REPS = 2  # 3 before the fastsync phase came
 BX_TIME0 = 1_700_000_000_000_000_000
 BX_SPANS = ("state.validate", "verify.dispatch", "verify.audit", "state.exec",
             "state.begin_block_info", "state.update", "state.commit", "state.save")
+# the fastsync phase: BASELINE.json config 3 at scripts/bench_fastsync.py's
+# width (64 validators of power 10, KVStoreApp); 1,025 blocks, so that the
+# reference's VERIFY_WINDOW = 512 gives two full windows; the node's reactor
+# syncs the first 257 from a loopback peer (two and more of the pool's
+# 128-height request windows)
+FS_VALS, FS_BLOCKS, FS_WINDOW, FS_REACTOR_BLOCKS = 64, 1025, 512, 257
+FS_SYNC_TIMEOUT = 300.0
+FS_TRACE_CAPACITY = 1 << 17
+FS_SPANS = ("fastsync.window", "planner.pack", "verify.dispatch", "verify.audit",
+            "fastsync.apply", "state.validate", "state.exec", "state.update", "state.commit",
+            "state.save")
 
 # Rates for the least time the card could take: HBM bandwidth (H100 SXM
 # data sheet); 32-bit integer add, logic, shift and multiply-add each retire
@@ -447,8 +507,11 @@ def check(cond, msg: str) -> None:
         raise SmokeFailure(msg)
 
 
+T_START = time.perf_counter()
+
+
 def phase(name: str) -> None:
-    print(f"== {name}", flush=True)
+    print(f"== [{time.perf_counter() - T_START:.1f} s] {name}", flush=True)
 
 
 def smi(query: str) -> str:
@@ -478,6 +541,17 @@ def cuda_ms(fn, iters: int = TIME_ITERS, warmup: int = 3) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def cuda_once(fn):
+    """fn() once, timed by CUDA events: (its result, device ms)."""
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(end)
 
 
 def cuda_p50_ms(fn, iters: int = TIME_ITERS, warmup: int = 3) -> float:
@@ -828,11 +902,11 @@ def phase_ed25519_main(dev, op_rate: float, mul_rate: float, err: dict) -> dict:
 
     k1_in = (tmpl, vidx, vwords, pubw, sigw)
     k1_out = ec.prologue(*k1_in)
-    k1_ref = ec.prologue_ref(*k1_in)
+    k1_ref, k1_plain_ms = cuda_once(lambda: ec.prologue_ref(*k1_in))
     err["ed25519_prologue"] = max(err["ed25519_prologue"], max_abs_diff(k1_out, k1_ref))
     k2_in = (consts, negax, ay) + tuple(k1_out)
     k2_out = ec.ladder(*k2_in)
-    k2_ref = ec.ladder_ref(*k2_in)
+    k2_ref, k2_plain_ms = cuda_once(lambda: ec.ladder_ref(*k2_in))
     err["ed25519_ladder"] = max(err["ed25519_ladder"], max_abs_diff(k2_out, k2_ref))
     check(max(err.values()) == 0, f"kernel differs from its plain version: {err}")
     check(bool((k2_out[0][:N_VALIDATORS].cpu().numpy() != 0).all()),
@@ -860,8 +934,8 @@ def phase_ed25519_main(dev, op_rate: float, mul_rate: float, err: dict) -> dict:
         "launches": run["launches"],
         "ms": {"ed25519_prologue": k1_ms,
                "ed25519_ladder": k2_ms},
-        "plain_ms": {"ed25519_prologue": cuda_ms(lambda: ec.prologue_ref(*k1_in), 2, 1),
-                     "ed25519_ladder": cuda_ms(lambda: ec.ladder_ref(*k2_in), 1, 1)},
+        # the plain versions' times are their runs for the exactness check
+        "plain_ms": {"ed25519_prologue": k1_plain_ms, "ed25519_ladder": k2_plain_ms},
         "bounds": {"ed25519_prologue": least_ms(k1_in, k1_out, k1_ops, op_rate),
                    "ed25519_ladder": least_ms(k2_in, k2_out, k2_ops, mul_rate)},
         "table_bound": {"ed25519_ladder": least_ms(k2_in, k2_out, k2_ops, op_rate)},
@@ -982,8 +1056,8 @@ def phase_secp_main(dev, op_rate: float, mul_rate: float, err: dict) -> dict:
           flush=True)
 
     out = sc.ladder(*ins)
-    err["secp256k1_ladder"] = max(err["secp256k1_ladder"],
-                                  max_abs_diff(out, sc.ladder_ref(*ins)))
+    ref, plain_ms = cuda_once(lambda: sc.ladder_ref(*ins))
+    err["secp256k1_ladder"] = max(err["secp256k1_ladder"], max_abs_diff(out, ref))
     check(err["secp256k1_ladder"] == 0, f"K3 differs from its plain version: {err}")
     check(bool((out[0][:N_VALIDATORS].cpu().numpy() != 0).all()),
           "secp256k1 verdicts not all accepted")
@@ -1000,7 +1074,7 @@ def phase_secp_main(dev, op_rate: float, mul_rate: float, err: dict) -> dict:
     return {
         "launches": run["launches"],
         "ms": k3_ms,
-        "plain_ms": cuda_ms(lambda: sc.ladder_ref(*ins), 1, 1),
+        "plain_ms": plain_ms,  # its run for the exactness check
         "bound": least_ms(ins, out, ops, mul_rate),
         "table_bound": least_ms(ins, out, ops, op_rate),
         "b": b,
@@ -1110,40 +1184,40 @@ def span_seconds(names) -> dict:
 
 
 def drive_window(votes, powers, totals, use_device: bool, n_groups: int):
-    """verify_window on one route: a first call with the launch counts set
-    to 0 just before and read just after (K1 and K2 once per message-length
-    group), then WINDOW_ROUTE_REPS timed calls, each traced; returns the first
-    verdict, the launches, the p50 wall and the p50 of each span."""
+    """verify_window on one route: a first call, traced, with the launch
+    counts set to 0 just before and read just after (K1 and K2 once per
+    message-length group), then WINDOW_ROUTE_REPS more traced calls; returns
+    the first verdict, the launches, the first call's wall, the p50 wall and
+    the p50 of each span over every call."""
     spans = ("planner.pack", "planner.pack_device", "planner.dispatch", "planner.audit",
              "verify.dispatch", "verify.audit")
     reset_launches()
     planner.tally_launches["planner_tally"] = 0
-    t0 = time.perf_counter()
-    verdict = planner.verify_window(votes, powers, totals, use_device=use_device)
-    first_s = time.perf_counter() - t0
-    launches = {**read_launches(), **planner.tally_launches}
-    for name in ("ed25519_prologue", "ed25519_ladder"):
-        check(launches[name] == n_groups, f"window route use_device={use_device}: {name} "
-              f"launched {launches[name]} times, want {n_groups}")
-    check(launches["secp256k1_ladder"] == 0, "K3 launched on an ed25519 window")
-    check(launches["planner_tally"] == (1 if use_device else 0),
-          f"tally launches {launches['planner_tally']}")
     walls, parts = [], {n: [] for n in spans}
     trace.enable()
     try:
-        for _ in range(WINDOW_ROUTE_REPS):
+        for rep in range(1 + WINDOW_ROUTE_REPS):
             trace.reset()
             t0 = time.perf_counter()
             again = planner.verify_window(votes, powers, totals, use_device=use_device)
             walls.append(time.perf_counter() - t0)
             for n, v in span_seconds(spans).items():
                 parts[n].append(v)
+            if rep == 0:
+                verdict = again
+                launches = {**read_launches(), **planner.tally_launches}
             for k in ("ok", "tally", "committed", "sigs_ok"):
                 check(np.array_equal(getattr(again, k), getattr(verdict, k)),
                       f"window {k} changed between calls")
     finally:
         trace.disable()
-    return verdict, launches, first_s, statistics.median(walls), {
+    for name in ("ed25519_prologue", "ed25519_ladder"):
+        check(launches[name] == n_groups, f"window route use_device={use_device}: {name} "
+              f"launched {launches[name]} times, want {n_groups}")
+    check(launches["secp256k1_ladder"] == 0, "K3 launched on an ed25519 window")
+    check(launches["planner_tally"] == (1 if use_device else 0),
+          f"tally launches {launches['planner_tally']}")
+    return verdict, launches, walls[0], statistics.median(walls), {
         n: statistics.median(v) for n, v in parts.items() if any(v)}
 
 
@@ -1187,7 +1261,7 @@ def phase_window(root, dev, err: dict) -> dict:
         results[route] = {"verdict": verdict, "launches": launches, "first_s": first_s,
                           "p50_s": p50, "parts": parts}
         print(f"  {route} route: first {first_s * 1e3:.1f} ms; p50 {p50 * 1e3:.1f} ms over "
-              f"{WINDOW_ROUTE_REPS}; launches {launches}; breakdown (p50 s) "
+              f"{1 + WINDOW_ROUTE_REPS} traced; launches {launches}; breakdown (p50 s) "
               + ", ".join(f"{k} {v:.4f}" for k, v in parts.items()), flush=True)
     a, b = results["device"]["verdict"], results["verifier"]["verdict"]
     for k in ("ok", "tally", "committed", "sigs_ok"):
@@ -1288,12 +1362,28 @@ def phase_backfill(window, err: dict) -> dict:
     audit_ok0 = audits("ok")
     reset_launches()
     planner.tally_launches["planner_tally"] = 0
-    t0 = time.perf_counter()
-    with captured_packs() as packs:
-        verdicts = run_pipeline(backfill_specs(votes, powers, totals))
-    first_s = time.perf_counter() - t0
-    launches = {**read_launches(), **planner.tally_launches}
-    b, _, _ = hold_k1_k2(packs[0], err, "backfill")
+    spans = ("planner.pack", "planner.pack_device", "planner.dispatch", "planner.audit")
+    walls, parts = [], {n: [] for n in spans}
+    trace.enable()
+    try:
+        for rep in range(1 + WINDOW_ROUTE_REPS):
+            trace.reset()
+            t0 = time.perf_counter()
+            with captured_packs() as packs:
+                again = run_pipeline(backfill_specs(votes, powers, totals))
+            walls.append(time.perf_counter() - t0)
+            for n, v in span_seconds(spans).items():
+                parts[n].append(v)
+            if rep == 0:
+                verdicts, first_packs = again, packs
+                launches = {**read_launches(), **planner.tally_launches}
+            for k in VERDICT_KEYS:
+                check(all(np.array_equal(getattr(a, k), getattr(b, k))
+                          for a, b in zip(again, verdicts)), f"backfill {k} changed")
+    finally:
+        trace.disable()
+    first_s = walls[0]
+    b, _, _ = hold_k1_k2(first_packs[0], err, "backfill")
     check(len(verdicts) == n_sub, f"{len(verdicts)} sub-window verdicts, want {n_sub}")
     for name in ("ed25519_prologue", "ed25519_ladder"):
         check(launches[name] == groups, f"backfill launched {name} {launches[name]} times, "
@@ -1305,31 +1395,15 @@ def phase_backfill(window, err: dict) -> dict:
         got = np.concatenate([getattr(v, k) for v in verdicts])
         check(np.array_equal(got, getattr(want, k)),
               f"backfill {k} differs from the window's verify_window verdict")
-    spans = ("planner.pack", "planner.pack_device", "planner.dispatch", "planner.audit")
-    walls, parts = [], {n: [] for n in spans}
-    trace.enable()
-    try:
-        for _ in range(WINDOW_ROUTE_REPS):
-            trace.reset()
-            t0 = time.perf_counter()
-            again = run_pipeline(backfill_specs(votes, powers, totals))
-            walls.append(time.perf_counter() - t0)
-            for n, v in span_seconds(spans).items():
-                parts[n].append(v)
-            for k in VERDICT_KEYS:
-                check(all(np.array_equal(getattr(a, k), getattr(b, k))
-                          for a, b in zip(again, verdicts)), f"backfill {k} changed")
-    finally:
-        trace.disable()
     check_guard_clean(before, "backfill")
     check(audits("ok") > audit_ok0, "no audited lane on the backfill")
     p50 = statistics.median(walls)
     part_s = {n: statistics.median(v) for n, v in parts.items()}
     flat = window["routes"]["device"]["p50_s"]
     print(f"  {n_sub} verdicts equal the window's; first {first_s * 1e3:.1f} ms; p50 "
-          f"{p50 * 1e3:.1f} ms over {WINDOW_ROUTE_REPS}, {p50 / flat - 1:+.1%} against the "
-          f"flat window's device route ({flat * 1e3:.1f} ms); launches {launches}; no fallback; "
-          f"breaker closed", flush=True)
+          f"{p50 * 1e3:.1f} ms over {1 + WINDOW_ROUTE_REPS} traced, {p50 / flat - 1:+.1%} "
+          f"against the flat window's device route ({flat * 1e3:.1f} ms); launches {launches}; "
+          f"no fallback; breaker closed", flush=True)
     print(f"  K1/K2 exact against their plain versions on the first sub-window's launch "
           f"inputs, b = {b}", flush=True)
     print(f"  spans (p50 of the sums over a call, each including its waits for the "
@@ -2556,14 +2630,13 @@ def phase_k4(dev, sc_: tc.SignedCommit, window: dict, mul_rate: float, err: dict
         ins = em.device_inputs(sched, pool, sb, dev)
         got = em.msm(*ins)
         torch.cuda.synchronize()
-        ref = em.msm_ref(*ins)
+        ref, plain_ms = cuda_once(lambda: em.msm_ref(*ins))
         e = max_abs_diff(got, ref)
         err["ed25519_msm"] = max(err["ed25519_msm"], e)
         check(e == 0, f"k4 {label}: K4 differs from msm_ref by {e}")
         check(int(got[0].item()) == verdicts[label], f"k4 {label}: verdict {int(got[0].item())}")
         ms = cuda_ms(lambda: em.msm(*ins), K4_ITERS, 1)
         parts = time_k4_parts(ins, sched)
-        plain_ms = cuda_ms(lambda: em.msm_ref(*ins), 1, 0)
         products = k4_products(sched)
         bound = least_ms(flat_tensors(ins), list(got), products, mul_rate)
         tree, fold = em.schedule_adds(sched)
@@ -2703,14 +2776,14 @@ def phase_commit_window(dev, window: dict, err: dict) -> dict:
 
     reset_launches()
     cv.tally_launches["window_tally"] = 0
-    got, first_s, _ = traced(lambda: cv.verify_commit_window(win, total, device=dev))
+    got, first_s, first_sp = traced(lambda: cv.verify_commit_window(win, total, device=dev))
     same(got, "commit window (ladder)")
     launches = {**read_launches(), **cv.tally_launches}
     check(launches["ed25519_prologue"] == n_groups and launches["ed25519_ladder"] == n_groups
           and launches["window_tally"] == 1 and launches["ed25519_msm"] == 0,
           f"commit window launches {launches}")
-    walls, parts = [], []
-    for _ in range(WINDOW_REPS):
+    walls, parts = [first_s], [first_sp]
+    for _ in range(WINDOW_REPS - 1):
         again, wall, sp = traced(lambda: cv.verify_commit_window(win, total, device=dev))
         same(again, "commit window (ladder) again")
         walls.append(wall)
@@ -2718,7 +2791,7 @@ def phase_commit_window(dev, window: dict, err: dict) -> dict:
     ladder_p50 = statistics.median(walls)
     ladder_parts = {k: statistics.median(p.get(k, 0.0) for p in parts) for k in parts[0]}
     print(f"  ladder (K8): pack_commit_window {pack_s:.2f} s; first {first_s:.2f} s; p50 "
-          f"{ladder_p50:.3f} s over {WINDOW_REPS}; parts (p50 s) "
+          f"{ladder_p50:.3f} s over {WINDOW_REPS} traced (the first included); parts (p50 s) "
           + ", ".join(f"{k} {t:.4f}" for k, t in ladder_parts.items())
           + f"; launches {launches}", flush=True)
 
@@ -2779,11 +2852,290 @@ def phase_commit_window(dev, window: dict, err: dict) -> dict:
     }
 
 
+# -- phase 22: fast sync ------------------------------------------------------------
+
+
+class FsConsensus:
+    """The consensus reactor's hand-off, recorded."""
+
+    def __init__(self):
+        self.switched = threading.Event()
+        self.state, self.blocks_synced, self.at = None, None, None
+
+    def switch_to_consensus(self, state, blocks_synced: int) -> None:
+        self.state, self.blocks_synced = state, blocks_synced
+        self.at = time.perf_counter()
+        self.switched.set()
+
+
+class FsMetrics:
+    """The two members of the node's metrics the reactor uses."""
+
+    def __init__(self):
+        self.fast_syncing = SimpleNamespace(set=lambda v: setattr(self, "syncing", v))
+        self.syncing, self.timer_resets = None, 0
+
+    def reset_block_timer(self) -> None:
+        self.timer_resets += 1
+
+
+class FailingDevice:
+    """A device verifier on the card whose dispatches fail from the
+    ``fail_from``-th on (earlier ones go to ``inner``)."""
+
+    def __init__(self, inner, fail_from: int):
+        self.inner, self.device, self.fail_from, self.calls = inner, inner.device, fail_from, 0
+
+    def verify_ed25519_raw(self, pubs, msgs, sigs):
+        self.calls += 1
+        if self.calls >= self.fail_from:
+            raise RuntimeError("injected device failure")
+        return self.inner.verify_ed25519_raw(pubs, msgs, sigs)
+
+    def verify_ed25519(self, items):
+        return self.verify_ed25519_raw([i.pubkey for i in items], [i.msg for i in items],
+                                       [i.sig for i in items])
+
+
+@contextlib.contextmanager
+def fs_windows():
+    """Record (first height, heights verified) of every verify_block_window
+    call the reactor makes while active, synchronous and speculative."""
+    got, mtx, real = [], threading.Lock(), bc_reactor.verify_block_window
+
+    def record(st, blocks, *args, **kwargs):
+        out = real(st, blocks, *args, **kwargs)
+        with mtx:
+            got.append((blocks[0].height, out[0]))
+        return out
+
+    bc_reactor.verify_block_window = record
+    try:
+        yield got
+    finally:
+        bc_reactor.verify_block_window = real
+
+
+def fs_state_line(st) -> tuple:
+    return st.last_block_height, st.app_hash, st.marshal()
+
+
+def fs_replay(chain, verifier, what: str, want, capture: bool = False) -> dict:
+    """tools/bench_fastsync.replay at window FS_WINDOW, traced, with the
+    launch counts set to 0 just before and read just after; it must end at
+    ``want``'s height, app hash and state bytes."""
+    reset_launches()
+    trace.reset()
+    trace.enable()
+    try:
+        with captured_packs() as packs:
+            run = bf.replay(chain, verifier, FS_WINDOW)
+        parts = span_seconds(FS_SPANS)
+        check(trace.dropped() == 0, f"fastsync {what}: the trace ring dropped spans")
+    finally:
+        trace.disable()
+    launches = read_launches()
+    check(fs_state_line(run.state) == fs_state_line(want),
+          f"fastsync {what}: the replay ended at height {run.state.last_block_height} with a "
+          f"state that differs from the chain's at {want.last_block_height}")
+    check(run.windows == [FS_WINDOW] * ((FS_BLOCKS - 1) // FS_WINDOW),
+          f"fastsync {what}: windows {run.windows}")
+    print(f"  {what}: {run.blocks_s:.2f} blocks/s ({run.seconds:.2f} s for "
+          f"{FS_BLOCKS - 1}, windows {run.windows}); launches {launches}; spans (s) "
+          + ", ".join(f"{n} {v:.3f}" for n, v in parts.items()), flush=True)
+    return {"blocks_s": run.blocks_s, "seconds": run.seconds, "parts": parts,
+            "launches": launches, "packs": packs if capture else None}
+
+
+def fs_node(chain, verifier_cls=None):
+    """A fresh node at genesis: a state DB, an app, the mempool, the
+    executor and block store as node/verify_root wires them, and its
+    fast-sync reactor with a recorded consensus hand-off, syncing from a
+    loopback peer that serves the chain's first FS_REACTOR_BLOCKS blocks."""
+    st0 = state_from_genesis(chain.fx.genesis)
+    state_db = MemDB()
+    sm_store.save_state(state_db, st0)
+    app = KVStoreApp()
+    conn = bx_consensus_conn(app)
+    mp = verify_root.mempool(MempoolConfig(), conn, app).mempool
+    _, ex = verify_root.block_executor(state_db, MemDB(), conn, mp, st0)
+    store = BlockStore(MemDB())
+    cons, metrics = FsConsensus(), FsMetrics()
+    reactor = verify_root.blockchain_reactor(st0, ex, store, consensus_reactor=cons,
+                                             metrics=metrics)
+    check(reactor.verifier is None and reactor._fixed_window is None,
+          "the node's reactor does not use the installed verifier and the auto window")
+    sw = LoopbackSwitch(reactor)
+    peer = ServingPeer("serving-peer", chain.fx.block_store, height=FS_REACTOR_BLOCKS)
+    return SimpleNamespace(reactor=reactor, store=store, cons=cons, metrics=metrics, sw=sw,
+                           peer=peer, conn=conn)
+
+
+def fs_wait(cond, timeout: float) -> bool:
+    deadline = time.monotonic() + timeout
+    while time.monotonic() < deadline:
+        if cond():
+            return True
+        time.sleep(0.005)
+    return False
+
+
+def fs_reactor(chain, want) -> dict:
+    """(b): the node-wired reactor syncs FS_REACTOR_BLOCKS blocks from the
+    loopback peer and hands its state to consensus."""
+    m = get_verify_metrics()
+    spec0 = dict(m.speculative._values)
+    hist0 = [list(m.window_heights._series[()][0]), m.window_heights._series[()][1],
+             m.window_heights._series[()][2]]
+    node = fs_node(chain)
+    node.sw.connect(node.peer)
+    reset_launches()
+    with fs_windows() as windows:
+        t0 = time.perf_counter()
+        node.reactor.start()
+        try:
+            check(node.cons.switched.wait(FS_SYNC_TIMEOUT),
+                  f"fastsync reactor: no switch to consensus in {FS_SYNC_TIMEOUT} s (store at "
+                  f"{node.store.height()}, fault {node.reactor.device_fault})")
+        finally:
+            node.reactor.stop()
+            node.conn.stop()
+    wall = node.cons.at - t0
+    launches = read_launches()
+    top = FS_REACTOR_BLOCKS - 1
+    check(node.store.height() == top and node.cons.blocks_synced == top,
+          f"fastsync reactor: store at {node.store.height()}, synced {node.cons.blocks_synced}")
+    check(fs_state_line(node.cons.state) == fs_state_line(want),
+          f"fastsync reactor: the handed-over state differs from the chain's at {top}")
+    for h in (1, top // 2, top):
+        check(node.store.load_block(h).hash() == chain.blocks[h - 1].hash(),
+              f"fastsync reactor: stored block {h} differs from the chain's")
+    check(node.sw.stopped == [], f"fastsync reactor: peers stopped {node.sw.stopped}")
+    check(node.reactor.device_fault is None and node.metrics.syncing == 0
+          and node.metrics.timer_resets == 1, "fastsync reactor: fault or metrics")
+    dispatched = [w for w in windows if w[1] > 0]
+    for name in ("ed25519_prologue", "ed25519_ladder"):
+        check(launches[name] == len(dispatched), f"fastsync reactor: {name} launched "
+              f"{launches[name]} times for {len(dispatched)} window dispatches")
+    check(all(n <= bc_pool.REQUEST_WINDOW - 1 for _, n in windows),
+          f"fastsync reactor: a window above the pool's {bc_pool.REQUEST_WINDOW}: {windows}")
+    spec = {k[0]: v - spec0.get(k, 0.0) for k, v in m.speculative._values.items()}
+    series = m.window_heights._series[()]
+    hist = {"buckets": dict(zip([str(int(b)) for b in m.window_heights.buckets] + ["+Inf"],
+                                [a - b for a, b in zip(series[0], hist0[0])])),
+            "sum": series[1] - hist0[1], "count": series[2] - hist0[2]}
+    out = {"wall_s": wall, "blocks_s": top / wall, "windows": windows, "speculative": spec,
+           "window_heights": hist, "launches": launches}
+    print(f"  (b) reactor: {top} blocks from the loopback peer in {wall:.2f} s ({top / wall:.2f} "
+          f"blocks/s, start() to switch_to_consensus); windows (first height, heights) "
+          f"{windows}; verify_speculative_total {spec}; verify_window_heights {hist}; "
+          f"launches {launches}; store at {top}, the handed-over state equals the chain's, "
+          f"no peer stopped", flush=True)
+    return out
+
+
+def fs_fault(chain, root, dev) -> dict:
+    """(b), with the installed guarded verifier's device failing from its
+    second dispatch on: fast sync halts with device_fault set, no peer
+    stopped, no hand-off, the store at the state's height."""
+    br = breaker.CircuitBreaker(threshold=1, backoff_base=600.0, backoff_max=600.0)
+    failing = FailingDevice(TorchBatchVerifier(dev), fail_from=2)
+    guarded = GuardedBatchVerifier(failing, breaker=br)
+    check(guarded.on_card, "the failing verifier is not on the card")
+    node = fs_node(chain)
+    node.sw.connect(node.peer)
+    set_batch_verifier(guarded)
+    try:
+        with fs_windows() as windows:
+            node.reactor.start()
+            try:
+                check(fs_wait(lambda: node.cons.switched.is_set()
+                              or (node.reactor.device_fault is not None
+                                  and not node.reactor.pool.is_running), FS_SYNC_TIMEOUT),
+                      "fastsync fault: the reactor neither halted nor switched")
+            finally:
+                node.reactor.stop()
+                node.conn.stop()
+    finally:
+        set_batch_verifier(root.verifier)
+    fault = node.reactor.device_fault
+    check(isinstance(fault, breaker.DeviceDispatchError), f"fastsync fault: {fault!r}")
+    check(node.sw.stopped == [] and not node.cons.switched.is_set(),
+          f"fastsync fault: peers stopped {node.sw.stopped}, switched "
+          f"{node.cons.switched.is_set()}")
+    first = windows[0][1] if windows else -1
+    check(node.store.height() == node.reactor.state.last_block_height == first,
+          f"fastsync fault: store at {node.store.height()}, state at "
+          f"{node.reactor.state.last_block_height}, the first window verified {first}")
+    print(f"  fault: the guarded verifier's device fails from its 2nd dispatch: halted with "
+          f"device_fault {fault}; windows {windows}; the store and the state at {first} (the "
+          f"first window); no peer stopped, no switch to consensus", flush=True)
+    return {"store_height": first, "windows": windows, "fault": str(fault)}
+
+
+def phase_fastsync(root, dev, err: dict) -> dict:
+    """Phase 22: fast sync on the card, on a default [verify] root of its own."""
+    phase(f"fastsync: a {FS_BLOCKS}-block chain of {FS_VALS} validators replayed at window "
+          f"{FS_WINDOW} (guarded, explicit, null, serial), then the node's reactor over "
+          f"{FS_REACTOR_BLOCKS} blocks from a loopback peer, and a device fault mid-sync")
+    t_phase = time.perf_counter()
+    check(get_batch_verifier() is root.verifier,
+          "the default verifier is not the configuration root's guarded one")
+    top = FS_REACTOR_BLOCKS - 1
+    # set-up: the build applies every block with the free verifier; the
+    # replays and the reactor verify every commit it signed
+    chain = bf.build(FS_BLOCKS, FS_VALS, verifier=bf.NullVerifier(), keep=(top, FS_BLOCKS - 1))
+    want = chain.states[FS_BLOCKS - 1]
+    print(f"  built a {FS_BLOCKS}-block chain of {FS_VALS} validators in {chain.build_s:.1f} s "
+          f"(set-up: {FS_BLOCKS * FS_VALS} signatures, every block applied)", flush=True)
+    before = fallbacks()
+    audit_ok0 = audits("ok")
+    trace.reset(FS_TRACE_CAPACITY)
+    runs = {"guarded": fs_replay(chain, None, "(a) guarded (the root's)", want),
+            "explicit": fs_replay(chain, TorchBatchVerifier(dev), "(a) explicit "
+                                  "TorchBatchVerifier()", want, capture=True),
+            "null": fs_replay(chain, bf.NullVerifier(), "(a) null (the host's ceiling)", want)}
+    n_win = (FS_BLOCKS - 1) // FS_WINDOW
+    for what in ("guarded", "explicit"):
+        got = runs[what]["launches"]
+        check(got["ed25519_prologue"] == n_win and got["ed25519_ladder"] == n_win
+              and got["secp256k1_ladder"] == 0,
+              f"fastsync {what}: launches {got}, want K1 = K2 = {n_win}")
+    check(all(v == 0 for v in runs["null"]["launches"].values()), "the null replay launched")
+    b, _, _ = hold_k1_k2(runs["explicit"]["packs"][0], err, "fastsync window")
+    check(b == FS_WINDOW * FS_VALS, f"the window's K1/K2 ran at b = {b}")
+    sample = min(bf.BASELINE_SAMPLE_BLOCKS, FS_BLOCKS - 1)
+    reset_launches()
+    base = bf.baseline(chain, None, sample)
+    base_launches = read_launches()
+    check(base_launches["ed25519_prologue"] == sample,
+          f"the serial baseline launched {base_launches}")
+    print(f"  (a) serial baseline (verify_commit + apply_block a height, the root's guarded "
+          f"verifier): {base:.2f} blocks/s over {sample}; launches "
+          f"{base_launches}; K1/K2 exact on the explicit run's first window (b = {b})",
+          flush=True)
+    check_guard_clean(before, "fastsync replay")
+    check(audits("ok") > audit_ok0, "no audited lane in the fastsync replay")
+    reactor = fs_reactor(chain, chain.states[top])
+    check_guard_clean(before, "fastsync reactor")
+    fault = fs_fault(chain, root, dev)
+    check(breaker.get_device_breaker().state == breaker.CLOSED,
+          "the default breaker is not closed after the fault run")
+    seconds = time.perf_counter() - t_phase
+    print(f"  no fallback; breaker closed; no audit mismatch; phase {seconds:.1f} s", flush=True)
+    return {"runs": {k: {n: v for n, v in r.items() if n != "packs"} for k, r in runs.items()},
+            "baseline_blocks_s": base, "reactor": reactor, "fault": fault, "seconds": seconds,
+            "launches": {"guarded": runs["guarded"]["launches"],
+                         "explicit": runs["explicit"]["launches"],
+                         "baseline": base_launches, "reactor": reactor["launches"]}}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
         return 2
-    t_start = time.perf_counter()
+    global T_START
+    t_start = T_START = time.perf_counter()
     dev = torch.device("cuda", 0)
     rng = np.random.default_rng(20261016)
 
@@ -2835,6 +3187,8 @@ def main() -> int:
     # so does the block_exec phase
     bx = phase_block_exec(configure_verify(VerifyConfig(), device=dev), dev, ed_main["commit"],
                           err)
+    # and the fastsync phase
+    fs = phase_fastsync(configure_verify(VerifyConfig(), device=dev), dev, err)
     print(f"  {smi_line}", flush=True)
 
     ms = {**ed_main["ms"], "secp256k1_ladder": secp_main["ms"]}
@@ -2871,6 +3225,7 @@ def main() -> int:
             "txs_launches": txs["launches"][name],
             "mempool_launches": {what: n[name] for what, n in mempool["launches"].items()},
             "block_exec_launches": {what: n[name] for what, n in bx["launches"].items()},
+            "fastsync_launches": {what: n[name] for what, n in fs["launches"].items()},
             "msm_launches": msm["launches"][name],
             "commit_window_launches": {"ladder": cwin["launches"][name],
                                        "msm": cwin["msm_launches"][name],
@@ -2905,6 +3260,7 @@ def main() -> int:
         "txs_launches": txs["launches"][K4],
         "mempool_launches": {what: n[K4] for what, n in mempool["launches"].items()},
         "block_exec_launches": {what: n[K4] for what, n in bx["launches"].items()},
+        "fastsync_launches": {what: n[K4] for what, n in fs["launches"].items()},
         "msm_launches": {"commit": msm["launches"][K4],
                          "adversarial": msm["adversarial_launches"][K4],
                          "dirty_commit": msm["dirty_launches"][K4],
@@ -2924,6 +3280,13 @@ def main() -> int:
           f"blocks/s (apply_block p50 {bx['chain']['apply_p50_ms']:.1f} ms); the "
           f"{N_VALIDATORS}-validator LastCommit's apply_block p50 {bx['10k']['p50_ms']:.1f} ms "
           f"(validate {bx['10k']['parts_ms']['state.validate']:.1f} ms of it)", flush=True)
+    runs = fs["runs"]
+    print(f"  fastsync: the {FS_BLOCKS}-block replay at window {FS_WINDOW} "
+          f"{runs['guarded']['blocks_s']:.2f} blocks/s guarded, "
+          f"{runs['explicit']['blocks_s']:.2f} explicit, {runs['null']['blocks_s']:.2f} null, "
+          f"the serial baseline {fs['baseline_blocks_s']:.2f}; the reactor "
+          f"{fs['reactor']['blocks_s']:.2f} blocks/s over {FS_REACTOR_BLOCKS - 1}; phase "
+          f"{fs['seconds']:.1f} s", flush=True)
     print(f"  total {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"torch_ops": [window["tally"], cwin["tally"]]}))
     print(json.dumps({"kernels": kernels}))

@@ -30,7 +30,9 @@ wires when ``[verify] vote_batch_window_ms > 0`` (``node/node.py:254-262``),
 section with its batched CheckTx signature hook (``node/node.py:200-219``
 and ``:263-283``), and ``block_executor(...)`` the evidence pool and the
 block executor that owns that mempool (``node/node.py:220-230``), whose
-``apply_block`` verifies each LastCommit through the installed verifier.
+``apply_block`` verifies each LastCommit through the installed verifier,
+and ``blockchain_reactor(...)`` the fast-sync reactor over them
+(``node/node.py:400-406``), whose windows go to the installed verifier.
 """
 
 from __future__ import annotations
@@ -40,6 +42,7 @@ from typing import Callable, Dict, NamedTuple, Optional
 
 import torch
 
+from tendermint_tpu_torch.blockchain.reactor import BlockchainReactor
 from tendermint_tpu_torch.config.mempool import MempoolConfig
 from tendermint_tpu_torch.config.verify import VerifyConfig
 from tendermint_tpu_torch.crypto import batch as _batch
@@ -180,3 +183,19 @@ def block_executor(state_db, evidence_db, proxy_app, mempool, state, event_bus=N
     evpool = EvidencePool(state_db, evidence_db, state)
     return ExecutorRoot(evpool, BlockExecutor(state_db, proxy_app.consensus, mempool, evpool,
                                               event_bus, verifier=None, metrics=metrics))
+
+
+def blockchain_reactor(state, block_exec, block_store, fast_sync: bool = True,
+                       consensus_reactor=None, metrics=None) -> BlockchainReactor:
+    """The node's fast-sync reactor (``node/node.py:400-406``) over
+    ``block_exec`` (``block_executor(...).block_executor``) and
+    ``block_store``, starting from ``state``. Its verifier is None and its
+    window is sized by the set being verified: every window's commits go to
+    the installed verifier, on the card the configuration root's guarded
+    one (K1 + K2, K3). ``consensus_reactor.switch_to_consensus(state, n)``
+    is called once the pool is caught up; ``metrics`` needs only
+    ``fast_syncing`` and ``reset_block_timer()`` (the node's metrics are
+    ROADMAP item 17)."""
+    return BlockchainReactor(state, block_exec, block_store, fast_sync=fast_sync,
+                             consensus_reactor=consensus_reactor, verifier=None,
+                             verify_window=None, metrics=metrics)

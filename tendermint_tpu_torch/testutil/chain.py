@@ -3,9 +3,9 @@ commits and real state execution (the reference grows such fixtures in
 types/test_util.go MakeCommit and consensus/wal_generator.go:31); the
 port's copy of the reference package's ``testutil/chain.py``.
 
-Every block is applied through a ``BlockExecutor`` with the installed
-verifier, so its LastCommit goes through ``verify_commit`` as a node's
-would.
+Every block is applied through a ``BlockExecutor`` with the verifier
+given, else the installed one, so its LastCommit goes through
+``verify_commit`` as a node's would.
 """
 
 from __future__ import annotations
@@ -52,13 +52,19 @@ def build_chain(
     pvs: Optional[List[MockPV]] = None,
     on_height: Optional[Callable[[int, State], List[bytes]]] = None,
     extra_pvs: Optional[List[MockPV]] = None,
+    verifier=None,
+    check_votes: bool = True,
 ) -> ChainFixture:
     """Build and execute a chain: every block's commit is signed by all
     validators and the block applied through a ``BlockExecutor`` and the
     app, so the headers (app hash, results, validator hashes) are what a
     node produces. ``on_height(h, state) -> txs`` gives a height's txs
     (e.g. ``PersistentKVStoreApp`` validator txs); ``extra_pvs`` sign for
-    validators that join on the way."""
+    validators that join on the way. ``verifier`` verifies each LastCommit
+    in ``apply_block`` (None: the installed one); ``check_votes=False`` adds
+    the freshly signed precommits to their ``VoteSet`` as verified instead
+    of checking each signature on the host (the same blocks and commits, for
+    a chain too long for a serial host check of every vote)."""
     if genesis is None:
         # a 4-byte counter repeated: unique for any n_vals
         seeds = [(i + 1).to_bytes(4, "big") * 8 for i in range(n_vals)]
@@ -87,7 +93,7 @@ def build_chain(
         LocalClientCreator(app_factory() if app_factory else KVStoreApp())
     )
     conn.start()
-    block_exec = BlockExecutor(state_db, conn.consensus)
+    block_exec = BlockExecutor(state_db, conn.consensus, verifier=verifier)
     block_store = BlockStore(block_store_db if block_store_db is not None else MemDB())
 
     last_commit = Commit()
@@ -118,7 +124,7 @@ def build_chain(
                 validator_address=val.address,
                 validator_index=idx,
             )
-            vote_set.add_vote(pv.sign_vote(chain_id, vote))
+            vote_set.add_vote(pv.sign_vote(chain_id, vote), verified=not check_votes)
         seen_commit = vote_set.make_commit()
 
         block_store.save_block(block, parts, seen_commit)
