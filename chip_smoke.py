@@ -113,7 +113,7 @@ Phases, in order; any failure exits non-zero:
              behind serve_proxy on 127.0.0.1, its frontend's LaneFeed on
              the root's guarded verifier (K1 -> K2): (a) the tip burst of
              scripts/bench_lite.py, 64 clients each GETting /verify_commit
-             and /light_block for the last 4 heights, rotated; (b) 64
+             and /light_block for the last 4 heights, rotated; (b) 32
              clients each certifying one seeded height in [2, 128]. Each
              answer is certified; every light_block equals, byte for byte,
              a serial DynamicVerifier's on HostBatchVerifier, and both reach
@@ -162,16 +162,22 @@ Phases, in order; any failure exits non-zero:
              accepted txs answers every one from the cache with no launch;
              no fallback, the breaker closed. Serial and batched txs a
              second, dispatches and rows a dispatch.
-  17. k4     the ed25519 MSM kernel (K4, ops/csrc/ed25519_msm.cu) against
-             its plain version ed25519_msm.msm_ref on the card, on one
-             schedule each at the adversarial window's size (the Go-edge
-             window's first 16 rows: verdict 0) and at the 10,000-validator
-             commit's (n 10,000, m 20,000, c 8, nwin 32: verdict 1), RLC
-             seed 1234; verdict and canonical final point exact. K4's ms
-             with each sub-launch's (every tree level, the fold, the
-             finish), the plain version's (its one run that the
-             exactness check makes), and the bound at the probe's
-             IMAD.WIDE rate over the products the schedule that ran needs;
+  17. k4     the ed25519 MSM kernel (K4, ops/csrc/ed25519_msm.cu) on the
+             card, on one schedule each at the adversarial window's size
+             (the Go-edge window's first 16 rows: verdict 0), at the
+             10,000-validator commit's (n 10,000, m 20,000, c 8, nwin 32:
+             verdict 1) and at the window phase's 512 x 64 window's
+             (verdict 0), RLC seed 1234: verdict and canonical final point
+             exact against ed25519_msm.msm_plain, the plain version of
+             K4's own schedule, and the verdict and group element of
+             msm_ref, the reference's schedule (not at the window). K4's
+             ms with each sub-launch's (every tree level alone and all back
+             to back, the fold with [s_b]B, the finish), msm_plain's and msm_ref's
+             (their exactness runs), the bound at the probe's IMAD.WIDE
+             rate over the products the reference's schedule needs on
+             these inputs (this design's beside it), each K4 function's
+             registers, stack and spills (none allowed), and the longest
+             chain of dependent point operations;
   18. msm    ed25519_path = "msm": the adversarial 16 rows through
              ed25519_cuda.rlc_verify_batch on the card equal the expected
              verdicts and the K1 + K2 ladder's; the whole Go-edge window
@@ -311,6 +317,7 @@ import hashlib
 import http.client
 import json
 import random
+import re
 import statistics
 import subprocess
 import sys
@@ -424,10 +431,12 @@ RESULT_TIMEOUT = 300.0
 # DefaultMaxValidators = 100 (x/staking/types/params.go), power 10 each, 128
 # heights; 34 of the 100 replaced at 33, 65 and 97, so an old set holds at
 # most 66 % of a later commit's power and every long hop bisects.
-# scripts/bench_lite.py's 64 clients on the last 4 heights.
+# scripts/bench_lite.py's 64 clients on the last 4 heights; 32 scattered
+# clients, since the serial reference certifies each distinct height of
+# theirs on the host (~1.1 s a height) within the smoke's time limit.
 LITE_VALS, LITE_HEIGHTS, LITE_SEED = 100, 128, 11
 LITE_CHANGES, LITE_CHANGE_N = (33, 65, 97), 34
-LITE_CLIENTS, LITE_TIPS, LITE_REJECT_CLIENTS = 64, 4, 4
+LITE_CLIENTS, LITE_SCATTERED, LITE_TIPS, LITE_REJECT_CLIENTS = 64, 32, 4, 4
 # the rejections: a stranger set served from height 60, the commit at 90
 # stripped below 2/3, a flipped bit at the first bisection midpoint
 LITE_STRANGER_FROM, LITE_STRIPPED = 60, 90
@@ -844,10 +853,28 @@ def drive_commit(sc_: tc.SignedCommit, verifier, tampered_rows) -> dict:
     return {"first_ms": first_ms, "p50_ms": p50, "launches": launches}
 
 
+def kernel_resources(name: str) -> dict:
+    """Each entry function of library ``name`` in the compiler's report of
+    its build, by mangled name: its register line, registers, and the stack
+    and spill bytes of its own frame."""
+    out, fn = {}, None
+    for line in _build.build_log(name).splitlines():
+        if "Compiling entry function" in line:
+            fn = re.search(r"function '(\w+)'", line).group(1)
+            out[fn] = {}
+        elif fn and "stack frame" in line and "registers" not in out[fn]:
+            stack, spill_st, spill_ld = (int(v) for v in re.findall(r"(\d+) bytes", line)[:3])
+            out[fn].update(stack=stack, spill=spill_st + spill_ld)
+        elif fn and "registers" in line:
+            out[fn].update(registers=int(re.search(r"Used (\d+) registers", line).group(1)),
+                           line=line.strip())
+    return out
+
+
 def registers(name: str) -> str:
-    """The compiler's register line for kernel ``name`` in this build."""
-    return next((ln.strip() for ln in _build.build_log(name).splitlines()
-                 if "registers" in ln), "registers not reported")
+    """The compiler's register line for library ``name``'s first kernel."""
+    return next((r["line"] for r in kernel_resources(name).values() if "line" in r),
+                "registers not reported")
 
 
 def nbytes(ts) -> int:
@@ -1817,7 +1844,7 @@ def phase_lite(root, err: dict) -> dict:
     # (a) as scripts/bench_lite.py: each client the last heights, rotated
     plan_a = [tips[i % LITE_TIPS:] + tips[:i % LITE_TIPS] for i in range(LITE_CLIENTS)]
     rng = np.random.default_rng(LITE_SEED)
-    plan_b = [[int(h)] for h in rng.integers(2, LITE_HEIGHTS + 1, LITE_CLIENTS)]
+    plan_b = [[int(h)] for h in rng.integers(2, LITE_HEIGHTS + 1, LITE_SCATTERED)]
     t0 = time.perf_counter()
     serial = serial_lite(chain, [hs[0] for hs in plan_b], tips)
     print(f"  serial reference (one DynamicVerifier on HostBatchVerifier): "
@@ -2568,13 +2595,29 @@ PT_ADD_PRODUCTS, PT_DOUBLE_PRODUCTS, PT_MADD_PRODUCTS = 900, 4 * 55 + 4 * 100, 7
 
 
 def k4_products(sched) -> int:
-    """The products the schedule that ran needs: the tree's additions, the
-    fold's, Horner's (nwin - 1 additions, (nwin - 1) c doublings), [s_b]B's
-    (64 mixed additions, 256 doublings) and the final addition."""
+    """The products the reference's schedule needs on these inputs, the
+    bound's yardstick whatever K4's design: the tree's additions, the
+    run/acc fold's, Horner's (nwin - 1 additions, (nwin - 1) c doublings),
+    [s_b]B's off the 16-entry table (64 mixed additions, 256 doublings) and
+    the final addition."""
     tree, fold = em.schedule_adds(sched)
     adds = tree + fold + (sched.nwin - 1) + 1
     doubles = (sched.nwin - 1) * sched.c + 4 * 64
     return adds * PT_ADD_PRODUCTS + doubles * PT_DOUBLE_PRODUCTS + 64 * PT_MADD_PRODUCTS
+
+
+def k4_design_products(sched) -> int:
+    """The products K4's own schedule does: the tree's additions, the
+    suffix scan's and its tree's a window (em.fold_adds), the comb's 64
+    mixed additions and 63 additions, Horner's and the final addition."""
+    tree, _ = em.schedule_adds(sched)
+    scan, fold_tree = em.fold_adds(sched.bkt.shape[1])
+    adds = tree + sched.nwin * (scan + fold_tree) + 63 + (sched.nwin - 1) + 1
+    doubles = (sched.nwin - 1) * sched.c
+    return adds * PT_ADD_PRODUCTS + doubles * PT_DOUBLE_PRODUCTS + 64 * PT_MADD_PRODUCTS
+
+
+K4_FUNCS = ("msm_level", "msm_fold", "msm_finish")
 
 
 def flat_tensors(ins):
@@ -2584,17 +2627,19 @@ def flat_tensors(ins):
 
 def time_k4_parts(ins, sched) -> dict:
     """Device ms of each of K4's sub-launches (CUDA events, K4_ITERS calls
-    each): every tree level, the fold and the finish."""
+    each): every tree level alone, all of them back to back as K4 runs them,
+    the fold (with [s_b]B) and the finish."""
     pool, ias, ibs, bkt, sb = ins
     rows = em.msm_rows(pool, ias)
     em.msm_levels(rows, ias, ibs, pool.shape[0])
     levels = [cuda_ms(lambda ia=ia, ib=ib, s=s, d=d: em.msm_level(rows, ia, ib, s, d),
                       K4_ITERS, 1)
               for ia, ib, (s, d) in zip(ias, ibs, em.level_spans(ias, pool.shape[0]))]
-    fold = cuda_ms(lambda: em.msm_fold(rows, bkt), K4_ITERS, 1)
-    acc = em.msm_fold(rows, bkt)
-    finish = cuda_ms(lambda: em.msm_finish(acc, sb, sched.c), K4_ITERS, 1)
-    return {"levels_ms": levels, "fold_ms": fold, "finish_ms": finish,
+    tree = cuda_ms(lambda: em.msm_levels(rows, ias, ibs, pool.shape[0]), K4_ITERS, 1)
+    fold = cuda_ms(lambda: em.msm_fold(rows, bkt, sb), K4_ITERS, 1)
+    acc, sbp = em.msm_fold(rows, bkt, sb)
+    finish = cuda_ms(lambda: em.msm_finish(acc, sbp, sched.c), K4_ITERS, 1)
+    return {"levels_ms": levels, "tree_ms": tree, "fold_ms": fold, "finish_ms": finish,
             "level_rows": [int(a.shape[0]) for a in ias]}
 
 
@@ -2606,16 +2651,17 @@ def window_items(window: dict) -> list:
 
 
 def phase_k4(dev, sc_: tc.SignedCommit, window: dict, mul_rate: float, err: dict) -> dict:
-    phase(f"k4: the ed25519 MSM kernel vs plain at the adversarial window's size ({ADV_ROWS} "
-          f"rows), the {N_VALIDATORS}-validator commit's and the {WINDOW_H} x {WINDOW_V} "
-          f"window's, seed {MSM_SEED}")
+    phase(f"k4: the ed25519 MSM kernel vs its plain version (msm_plain: limb for limb) and "
+          f"the reference's schedule (msm_ref: verdict and group element) at the adversarial "
+          f"window's size ({ADV_ROWS} rows), the {N_VALIDATORS}-validator commit's and the "
+          f"{WINDOW_H} x {WINDOW_V} window's, seed {MSM_SEED}")
     pubs, msgs, sigs, _ = tc.go_edge_window(seed=0)
     shapes = {
         "adversarial": list(zip(pubs[:ADV_ROWS], msgs[:ADV_ROWS], sigs[:ADV_ROWS])),
         "commit": [(v.pub_key.bytes(), pc.sign_bytes(sc_.chain_id), pc.signature)
                    for v, pc in zip(sc_.valset.validators, sc_.commit.precommits)],
         # the window as it is, forged lanes and all: K4 rejects it, and the
-        # non-identity final point it reaches must equal msm_ref's limb for limb
+        # non-identity final point it reaches must equal msm_plain's limb for limb
         "window": window_items(window),
     }
     verdicts = {"adversarial": 0, "commit": 1, "window": 0}
@@ -2630,29 +2676,57 @@ def phase_k4(dev, sc_: tc.SignedCommit, window: dict, mul_rate: float, err: dict
         ins = em.device_inputs(sched, pool, sb, dev)
         got = em.msm(*ins)
         torch.cuda.synchronize()
-        ref, plain_ms = cuda_once(lambda: em.msm_ref(*ins))
-        e = max_abs_diff(got, ref)
-        err["ed25519_msm"] = max(err["ed25519_msm"], e)
-        check(e == 0, f"k4 {label}: K4 differs from msm_ref by {e}")
+        plain, plain_ms = cuda_once(lambda: em.msm_plain(*ins))
+        e = max_abs_diff(got, plain)
+        err[K4] = max(err[K4], e)
+        check(e == 0, f"k4 {label}: K4 differs from msm_plain by {e}")
         check(int(got[0].item()) == verdicts[label], f"k4 {label}: verdict {int(got[0].item())}")
+        # the reference's serial schedule, on the card; not at the window,
+        # where it takes some 5 s (the smoke's time limit)
+        ref_ms = None
+        if label != "window":
+            ref, ref_ms = cuda_once(lambda: em.msm_ref(*ins))
+            check(torch.equal(got[0].cpu(), ref[0].cpu()),
+                  f"k4 {label}: verdict differs from msm_ref's")
+            check(em.same_point(got[1].cpu(), ref[1].cpu()),
+                  f"k4 {label}: the final point is not msm_ref's group element")
         ms = cuda_ms(lambda: em.msm(*ins), K4_ITERS, 1)
         parts = time_k4_parts(ins, sched)
-        products = k4_products(sched)
+        products, design = k4_products(sched), k4_design_products(sched)
         bound = least_ms(flat_tensors(ins), list(got), products, mul_rate)
         tree, fold = em.schedule_adds(sched)
-        nz = int(sum(np.count_nonzero(a) for a in sched.ias))
+        scan, fold_tree = em.fold_adds(sched.bkt.shape[1])
+        chain = em.chain_ops(sched)
+        vs_ref = ("" if ref_ms is None else f"msm_ref {ref_ms:.1f} ms, the same verdict and "
+                  f"group element; ")
         print(f"  {label}: n {len(rows)}, m {2 * len(rows)}, c {sched.c}, nwin {sched.nwin}, "
-              f"pool {pool.shape[0]} rows, {len(sched.ias)} levels {parts['level_rows']}, "
-              f"tree adds {tree} ({nz} entries), fold adds {fold}; parse {parse_s:.3f} s, "
-              f"z draws + schedule + pool {inputs_s:.3f} s; K4 {ms:.4f} ms (levels "
-              + ", ".join(f"{t:.4f}" for t in parts["levels_ms"])
-              + f"; fold {parts['fold_ms']:.4f}; finish {parts['finish_ms']:.4f}); plain "
-              f"{plain_ms:.1f} ms; bound {bound[0]:.4f} ms by {bound[1]} ({products:.3g} "
-              f"products); verdict {int(got[0].item())}, exact", flush=True)
-        out[label] = {"ms": ms, "plain_ms": plain_ms, "bound": bound, "parts": parts,
-                      "products": products, "c": sched.c, "nwin": sched.nwin,
-                      "tree_adds": tree, "fold_adds": fold}
-    print(f"  K4: {registers('ed25519_msm')}", flush=True)
+              f"pool {pool.shape[0]} rows, {len(sched.ias)} levels {parts['level_rows']}, tree "
+              f"adds {tree}; fold adds {sched.nwin * (scan + fold_tree)} "
+              f"({scan} scan + {fold_tree} tree a window; the reference's {fold}); parse "
+              f"{parse_s:.3f} s, z draws + schedule + pool {inputs_s:.3f} s; K4 {ms:.4f} ms "
+              f"(levels " + ", ".join(f"{t:.4f}" for t in parts["levels_ms"])
+              + f"; all {len(sched.ias)} back to back {parts['tree_ms']:.4f}; fold + [s_b]B "
+              f"{parts['fold_ms']:.4f}; finish {parts['finish_ms']:.4f}); msm_plain "
+              f"{plain_ms:.1f} ms, exact; {vs_ref}bound "
+              f"{bound[0]:.4f} ms by {bound[1]} ({products:.3g} products of the reference's "
+              f"schedule; this design's {design:.3g}), {bound[0] / ms:.1%} of it; longest "
+              f"chain {chain['total']} dependent point operations (levels {chain['levels']}, "
+              f"fold {chain['fold']} beside [s_b]B {chain['comb']}, Horner {chain['horner']}, "
+              f"final 1; the reference's schedule {chain['reference_total']}); verdict "
+              f"{int(got[0].item())}", flush=True)
+        out[label] = {"ms": ms, "plain_ms": plain_ms, "ref_ms": ref_ms, "bound": bound,
+                      "parts": parts, "products": products, "design_products": design,
+                      "chain": chain, "c": sched.c, "nwin": sched.nwin, "tree_adds": tree,
+                      "fold_adds": sched.nwin * (scan + fold_tree)}
+    res = {f: r for fn, r in kernel_resources(K4).items() for f in K4_FUNCS
+           if f"{f}_kernel" in fn}
+    print("  K4 (ptxas): " + "; ".join(f"{f} {r['registers']} registers, {r['stack']} bytes "
+                                       f"stack, {r['spill']} bytes spilled"
+                                       for f, r in res.items()), flush=True)
+    check(set(res) == set(K4_FUNCS), f"K4's compiler report names {sorted(res)}")
+    check(all(r["stack"] == 0 and r["spill"] == 0 for r in res.values()),
+          "a K4 kernel has a local-memory stack or spills")
+    out["resources"] = res
     return out
 
 
@@ -3245,14 +3319,17 @@ def main() -> int:
         "bound_ms": k4c["bound"][0],
         "bound_by": k4c["bound"][1],
         "library_ms": None,  # no single PyTorch call computes this function
-        "sub_ms": {"levels": k4c["parts"]["levels_ms"], "fold": k4c["parts"]["fold_ms"],
-                   "finish": k4c["parts"]["finish_ms"]},
+        "sub_ms": {"levels": k4c["parts"]["levels_ms"], "tree": k4c["parts"]["tree_ms"],
+                   "fold": k4c["parts"]["fold_ms"], "finish": k4c["parts"]["finish_ms"]},
+        # the reference's schedule (msm_ref) on the same inputs
+        "ref_ms": k4c["ref_ms"],
         "adversarial_ms": k4["adversarial"]["ms"],
         # the 512 x 64 window's schedule (the commit window's msm route)
         "window_ms": k4["window"]["ms"],
         "window_plain_ms": k4["window"]["plain_ms"],
         "window_bound_ms": k4["window"]["bound"][0],
         "window_sub_ms": {"levels": k4["window"]["parts"]["levels_ms"],
+                          "tree": k4["window"]["parts"]["tree_ms"],
                           "fold": k4["window"]["parts"]["fold_ms"],
                           "finish": k4["window"]["parts"]["finish_ms"]},
         "lite_launches": {shape: lite[shape]["launches"][K4] for shape in ("a", "b")},

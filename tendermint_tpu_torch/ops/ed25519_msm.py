@@ -1,5 +1,5 @@
 """One MSM per window: the random-linear-combination (RLC) verify path on the
-H100 — the host schedule, K4's plain version and its wrapper, and the
+H100 — the host schedule, K4's plain versions and its wrapper, and the
 window's host side with its localization.
 
 Counterpart of the JAX package's ``ops/ed25519_msm.py``. A batch of parsed
@@ -13,13 +13,17 @@ resolves Pippenger's data-dependent bucket sums into index schedules
 (``_build_schedule``, numpy, equal to the reference's): a pool of extended
 points (row 0 the identity, rows 1..2n the -A_i / -R_i columns), one list
 of pair indices a tree level, and a bucket grid of global rows. K4
-(``csrc/ed25519_msm.cu``) runs the levels, the bucket fold, Horner over the
-windows and [s_b]B off the niels table, and answers one verdict;
-``msm_ref`` is its plain version, step by step the reference's
-``_msm_kernel`` over this port's ten-limb field (``ops/fe.py``) and point
-formulas (``ed25519_cuda._pt_add`` / ``_pt_double`` / ``_pt_madd``), and it
-also returns the final point's canonical limbs, so that the kernel is held
-to it exactly.
+(``csrc/ed25519_msm.cu``) runs the levels, the bucket fold, [s_b]B off a
+fixed-base comb, Horner over the windows, and answers one verdict. It has
+two plain versions. ``msm_ref`` is the reference's ``_msm_kernel`` step by
+step over this port's ten-limb field (``ops/fe.py``) and point formulas
+(``ed25519_cuda._pt_add`` / ``_pt_double`` / ``_pt_madd``): its serial
+bucket fold and [s_b]B off the 16-entry niels table. ``msm_plain`` is the
+kernel's own schedule (the fold as a suffix scan and a tree, [s_b]B as the
+comb's tree), so every intermediate is the kernel's integer and the
+kernel is held to it limb for limb; it reaches the same group element as
+``msm_ref`` through other projective representatives, and the same verdict.
+Both return the final point's canonical limbs.
 
 A rejected window resolves (``rlc_resolve``) to the reference's verdicts
 with the reference's draws: one call of the exact per-row path
@@ -31,6 +35,7 @@ call rejects.
 from __future__ import annotations
 
 import ctypes
+import functools
 import random
 from typing import Callable, Dict, List, Sequence, Tuple
 
@@ -181,7 +186,7 @@ def schedule_adds(sched: _Schedule) -> Tuple[int, int]:
 
 
 # ---------------------------------------------------------------------------
-# Plain version of K4
+# Plain versions of K4
 # ---------------------------------------------------------------------------
 
 
@@ -193,8 +198,47 @@ def _pack(p) -> torch.Tensor:
     return torch.stack(p, dim=-2)
 
 
+def _ident(device: torch.device, *lead: int) -> torch.Tensor:
+    """The identity (0 : 1 : 1 : 0), int64 limbs, shaped (*lead, 4, 10)."""
+    ident = torch.from_numpy(_IDENT_LIMBS.astype(np.int64)).to(device)
+    return ident.expand(*lead, 4, NLIMB)
+
+
+def _tree_levels(pool, ias, ibs, d2) -> torch.Tensor:
+    """The segmented pairwise-reduction tree, one batched add a level: the
+    pool and every level's rows, in the order the bucket grid addresses."""
+    prev = _ec._u32(pool)
+    levels = [prev]
+    for ia, ib in zip(ias, ibs):
+        ia, ib = ia.to(torch.int64), ib.to(torch.int64)
+        prev = _pack(_ec._pt_add(_unpack(prev[ia]), _unpack(prev[ib]), d2))
+        levels.append(prev)
+    return torch.cat(levels, dim=0)
+
+
+def _finish(tot, sb, d2, device):
+    """tot + sb, canonical; (int32 ok (1,), int32 limbs (4, 10))."""
+    final = _pack(tuple(fe.canonical(v) for v in _ec._pt_add(tot, sb, d2)))[0]
+    X, Y, Z, _ = final
+    ok = bool((X == 0).all()) and bool((Y == Z).all())
+    return (torch.tensor([int(ok)], dtype=torch.int32, device=device),
+            final.to(torch.int32))
+
+
+def _horner(acc, c: int, d2):
+    """Horner over the window sums (nwin, 4, 10), top first: c doublings
+    and one add a step."""
+    nwin = acc.shape[0]
+    tot = _unpack(acc[nwin - 1: nwin])
+    for t in range(nwin - 1):
+        for _ in range(c):
+            tot = _ec._pt_double(tot)
+        tot = _ec._pt_add(tot, _unpack(acc[nwin - 2 - t: nwin - 1 - t]), d2)
+    return tot
+
+
 def msm_ref(pool, ias, ibs, bkt, sb_digs):
-    """Plain version of K4, the reference's ``_msm_kernel`` step by step:
+    """Plain version of the reference's ``_msm_kernel``, step by step:
     pool (R0, 4, 10), ias / ibs lists of (M_l,), bkt (nwin, 2^c - 1),
     sb_digs (64,), all int32 (u32 bit patterns). Returns int32 ok (1,) and
     the final point's canonical limbs (4, 10)."""
@@ -203,46 +247,140 @@ def msm_ref(pool, ias, ibs, bkt, sb_digs):
     d2 = consts[16 * 3 * NLIMB:]
     nwin, nb = bkt.shape
     c = (nb + 1).bit_length() - 1
-
-    # segmented pairwise-reduction tree: one batched add per level
-    prev = _ec._u32(pool)
-    levels = [prev]
-    for ia, ib in zip(ias, ibs):
-        ia, ib = ia.to(torch.int64), ib.to(torch.int64)
-        prev = _pack(_ec._pt_add(_unpack(prev[ia]), _unpack(prev[ib]), d2))
-        levels.append(prev)
-    allrows = torch.cat(levels, dim=0)
-    grid = allrows[bkt.to(torch.int64)]  # (nwin, nb, 4, 10)
+    grid = _tree_levels(pool, ias, ibs, d2)[bkt.to(torch.int64)]  # (nwin, nb, 4, 10)
 
     # bucket-weighted fold at width nwin: descending run/acc accumulation
-    ident = torch.from_numpy(_IDENT_LIMBS.astype(np.int64)).to(pool.device)
-    run = acc = _unpack(ident.expand(nwin, 4, NLIMB))
+    run = acc = _unpack(_ident(pool.device, nwin))
     for t in range(nb):
         run = _ec._pt_add(run, _unpack(grid[:, nb - 1 - t]), d2)
         acc = _ec._pt_add(acc, run, d2)
-    acc = _pack(acc)
-
-    # Horner over the windows, top first: c doublings + 1 add a step
-    tot = _unpack(acc[nwin - 1: nwin])
-    for t in range(nwin - 1):
-        for _ in range(c):
-            tot = _ec._pt_double(tot)
-        tot = _ec._pt_add(tot, _unpack(acc[nwin - 2 - t: nwin - 1 - t]), d2)
+    tot = _horner(_pack(acc), c, d2)
 
     # [s_b]B off the niels table: 4 doublings + 1 mixed add a digit
-    sb = _unpack(ident[None])
+    sb = _unpack(_ident(pool.device, 1))
     digs = _ec._u32(sb_digs).tolist()
     for t in range(_SB_WIN):
         for _ in range(4):
             sb = _ec._pt_double(sb)
         ent = niels[digs[t] & 15][None]
         sb = _ec._pt_madd(sb, ent[:, 0], ent[:, 1], ent[:, 2])
+    return _finish(tot, sb, d2, pool.device)
 
-    final = _pack(tuple(fe.canonical(v) for v in _ec._pt_add(tot, sb, d2)))[0]
-    X, Y, Z, _ = final
-    ok = bool((X == 0).all()) and bool((Y == Z).all())
-    return (torch.tensor([int(ok)], dtype=torch.int32, device=pool.device),
-            final.to(torch.int32))
+
+_dev_comb: Dict[torch.device, torch.Tensor] = {}
+
+
+@functools.lru_cache(maxsize=None)
+def comb_table() -> np.ndarray:
+    """K4's comb for [s_b]B, (64, 16, 3, 10) uint32 limbs: position i holds
+    the niels entries (y+x, y-x, 2dxy) of [d 16^i]B, d = 0..15 (the
+    identity at d = 0; position 0 is the ladder's niels table). Built at
+    first use from the bigints of ``crypto.ed25519``: [16^i]B and its
+    multiples by additions, each made affine."""
+    out = np.zeros((_SB_WIN, 16, 3, NLIMB), np.uint32)
+    base = _ed.B_EXT
+    for i in range(_SB_WIN):
+        acc = _ed.IDENT
+        for d in range(16):
+            x, y = _ed.pt_affine(acc)
+            out[i, d] = (fe.int_to_limbs((y + x) % P), fe.int_to_limbs((y - x) % P),
+                         fe.int_to_limbs(2 * _ed.D * x * y % P))
+            acc = _ed.pt_add(acc, base)
+        base = acc  # [16 * 16^i]B
+    return out
+
+
+def _comb_on(device: torch.device) -> torch.Tensor:
+    t = _dev_comb.get(device)
+    if t is None:
+        t = _dev_comb[device] = _ec._put(comb_table().reshape(-1), device)
+    return t
+
+
+def tree_sum(x, d2):
+    """Sum of the points along dim -3 of ``x`` (..., n, 4, 10) as K4 takes
+    it: pairs (2j, 2j + 1) a level, an odd last point carried as it is."""
+    while x.shape[-3] > 1:
+        h = x.shape[-3] // 2
+        pairs = _pack(_ec._pt_add(_unpack(x[..., 0: 2 * h: 2, :, :]),
+                                  _unpack(x[..., 1: 2 * h: 2, :, :]), d2))
+        x = torch.cat([pairs, x[..., 2 * h:, :, :]], dim=-3)
+    return x[..., 0, :, :]
+
+
+def fold_plain(grid, d2):
+    """K4's bucket fold of the grid (nwin, nb, 4, 10), bucket d at column
+    d - 1: the suffix sums S_t = sum_{d >= t} B_d by doubling steps
+    (x[t] += x[t + o] for o = 1, 2, 4, ...), then their tree sum, which is
+    sum_d d B_d. Returns (nwin, 4, 10)."""
+    nb = grid.shape[1]
+    x, o = grid, 1
+    while o < nb:
+        head = _pack(_ec._pt_add(_unpack(x[:, : nb - o]), _unpack(x[:, o:]), d2))
+        x = torch.cat([head, x[:, nb - o:]], dim=1)
+        o *= 2
+    return tree_sum(x, d2)
+
+
+def comb_plain(sb_digs, d2):
+    """K4's [s_b]B: the identity plus [d_i 16^i]B at each of the 64
+    positions (one mixed add each), then their tree sum. Returns (4, 10)."""
+    comb = _ec._u32(_comb_on(sb_digs.device)).reshape(_SB_WIN, 16, 3, NLIMB)
+    digs = _ec._u32(sb_digs).flip(0) & 15  # position i weighs 16^i
+    ent = comb[torch.arange(_SB_WIN, device=sb_digs.device), digs]  # (64, 3, 10)
+    pts = _ec._pt_madd(_unpack(_ident(sb_digs.device, _SB_WIN)), ent[:, 0], ent[:, 1], ent[:, 2])
+    return tree_sum(_pack(pts), d2)
+
+
+def msm_plain(pool, ias, ibs, bkt, sb_digs):
+    """Plain version of K4 on the kernel's own schedule: the reference's
+    tree, ``fold_plain``, ``comb_plain``, Horner and the final add. Inputs
+    and outputs as ``msm_ref``'s; the verdict is its verdict and the point
+    its point as a group element."""
+    d2 = _ec._u32(_ec._consts_on(pool.device))[16 * 3 * NLIMB:]
+    nwin, nb = bkt.shape
+    c = (nb + 1).bit_length() - 1
+    grid = _tree_levels(pool, ias, ibs, d2)[bkt.to(torch.int64)]
+    tot = _horner(fold_plain(grid, d2), c, d2)
+    return _finish(tot, _unpack(comb_plain(sb_digs, d2)[None]), d2, pool.device)
+
+
+def fold_adds(nb: int) -> Tuple[int, int]:
+    """(additions of K4's suffix scan, of its tree sum) for one window of
+    nb buckets; the reference's run/acc fold takes 2 nb."""
+    scan, o = 0, 1
+    while o < nb:
+        scan += nb - o
+        o *= 2
+    return scan, nb - 1
+
+
+def chain_ops(sched: _Schedule) -> Dict[str, int]:
+    """The longest chain of dependent point operations in K4, by part, and
+    the reference schedule's: a tree level is one addition deep; the fold
+    log2(nb + 1) scan steps and as many tree levels (the reference's 2 nb);
+    [s_b]B one mixed add and 6 tree levels beside the fold (the reference's
+    64 x (4 doublings + 1 mixed add) beside Horner); Horner (nwin - 1)
+    (c + 1); then the final addition."""
+    nwin, nb = sched.bkt.shape
+    steps = (nb + 1).bit_length() - 1
+    levels, horner = len(sched.ias), (nwin - 1) * (sched.c + 1)
+    fold, comb = 2 * steps, 1 + (_SB_WIN - 1).bit_length()
+    return {"levels": levels, "fold": fold, "comb": comb, "horner": horner,
+            "total": levels + max(fold, comb) + horner + 1,
+            "reference_total": levels + 2 * nb + max(horner, 5 * _SB_WIN) + 1}
+
+
+def same_point(pt, want) -> bool:
+    """Canonical (4, 10) limbs ``pt`` and ``want`` (canonical limbs too, or
+    an extended point of ints) are one group element: their affine
+    coordinates cross-multiplied. K4's schedule reaches the reference's
+    element through other projective representatives."""
+    if isinstance(want, torch.Tensor):
+        want = tuple(fe.limbs_to_int(want[k].tolist()) for k in range(3))
+    X, Y, Z = (fe.limbs_to_int(pt[k].tolist()) for k in range(3))
+    x, y, z = want[:3]
+    return (X * z - x * Z) % P == 0 and (Y * z - y * Z) % P == 0
 
 
 # ---------------------------------------------------------------------------
@@ -259,9 +397,9 @@ _LL = ctypes.c_longlong
 _SIGNATURES = {
     # rows, ia, ib, consts, src, dst, m, stream
     "msm_level": [_P, _P, _P, _P, _LL, _LL, _I, _P],
-    # rows, bkt, consts, acc, nwin, nb, stream
-    "msm_fold": [_P, _P, _P, _P, _I, _I, _P],
-    # acc, sb_digs, consts, ok, pt, nwin, c, stream
+    # rows, bkt, sb_digs, consts, comb, acc, sb, nwin, nb, stream
+    "msm_fold": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _P],
+    # acc, sb, consts, ok, pt, nwin, c, stream
     "msm_finish": [_P, _P, _P, _P, _P, _I, _I, _P],
 }
 
@@ -288,6 +426,8 @@ def _check_inputs(pool, ias, ibs, bkt, sb_digs) -> None:
     nwin, nb = bkt.shape
     if nwin < 1 or nb < 1 or (nb + 1) & nb:
         raise ValueError(f"bad bucket grid {tuple(bkt.shape)}")
+    if nb > 255:
+        raise ValueError(f"K4 takes windows of at most 8 bits, not {nb + 1}")
     _ec._check("bkt", bkt, (nwin, nb))
     _ec._check("sb_digs", sb_digs, (_SB_WIN,))
 
@@ -309,26 +449,30 @@ def msm_level(rows, ia, ib, src: int, dst: int) -> None:
 
 
 def msm_levels(rows, ias, ibs, r0: int) -> None:
-    """K4's tree: one ``msm_level`` launch a level into ``rows`` (the pool
-    in its first r0 rows)."""
+    """K4's tree into ``rows`` (the pool in its first r0 rows): one
+    ``msm_level`` launch a level."""
     for ia, ib, (src, dst) in zip(ias, ibs, level_spans(ias, r0)):
         msm_level(rows, ia, ib, src, dst)
 
 
-def msm_fold(rows, bkt) -> torch.Tensor:
-    """K4's bucket fold: (nwin, 40) int32 window sums."""
+def msm_fold(rows, bkt, sb_digs):
+    """K4's bucket folds and [s_b]B: (nwin, 40) int32 window sums, (40,)
+    int32 [s_b]B."""
     nwin, nb = bkt.shape
-    acc = torch.empty((nwin, 4 * NLIMB), dtype=torch.int32, device=rows.device)
-    _sub_launch("msm_fold", rows.device, rows.data_ptr(), bkt.data_ptr(),
-                _ec._consts_on(rows.device).data_ptr(), acc.data_ptr(), nwin, nb)
-    return acc
+    dev = rows.device
+    acc = torch.empty((nwin, 4 * NLIMB), dtype=torch.int32, device=dev)
+    sb = torch.empty((4 * NLIMB,), dtype=torch.int32, device=dev)
+    _sub_launch("msm_fold", dev, rows.data_ptr(), bkt.data_ptr(), sb_digs.data_ptr(),
+                _ec._consts_on(dev).data_ptr(), _comb_on(dev).data_ptr(), acc.data_ptr(),
+                sb.data_ptr(), nwin, nb)
+    return acc, sb
 
 
-def msm_finish(acc, sb_digs, c: int):
-    """K4's Horner, [s_b]B and final check: int32 ok (1,), point (4, 10)."""
+def msm_finish(acc, sb, c: int):
+    """K4's Horner, the final addition and check: int32 ok (1,), point (4, 10)."""
     ok = torch.empty((1,), dtype=torch.int32, device=acc.device)
     pt = torch.empty((4, NLIMB), dtype=torch.int32, device=acc.device)
-    _sub_launch("msm_finish", acc.device, acc.data_ptr(), sb_digs.data_ptr(),
+    _sub_launch("msm_finish", acc.device, acc.data_ptr(), sb.data_ptr(),
                 _ec._consts_on(acc.device).data_ptr(), ok.data_ptr(), pt.data_ptr(),
                 acc.shape[0], c)
     return ok, pt
@@ -344,17 +488,17 @@ def msm_rows(pool, ias) -> torch.Tensor:
 
 
 def msm(pool, ias, ibs, bkt, sb_digs):
-    """K4. CPU tensors take ``msm_ref``; CUDA tensors launch the kernel's
-    three parts on the current stream (no synchronisation) and count one
-    launch. Returns int32 ok (1,) and the final point's canonical limbs."""
+    """K4. CPU tensors take ``msm_plain``; CUDA tensors launch the kernel's
+    parts on the current stream (no synchronisation) and count one launch.
+    Returns int32 ok (1,) and the final point's canonical limbs."""
     ins = (pool, *ias, *ibs, bkt, sb_digs)
     if _ec._on_cpu(ins):
-        return msm_ref(pool, ias, ibs, bkt, sb_digs)
+        return msm_plain(pool, ias, ibs, bkt, sb_digs)
     _check_inputs(pool, ias, ibs, bkt, sb_digs)
     rows = msm_rows(pool, ias)
     msm_levels(rows, ias, ibs, pool.shape[0])
-    acc = msm_fold(rows, bkt)
-    out = msm_finish(acc, sb_digs, (bkt.shape[1] + 1).bit_length() - 1)
+    acc, sb = msm_fold(rows, bkt, sb_digs)
+    out = msm_finish(acc, sb, (bkt.shape[1] + 1).bit_length() - 1)
     launches["ed25519_msm"] += 1
     return out
 

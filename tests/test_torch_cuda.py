@@ -456,16 +456,19 @@ def _k4_inputs(dev, n, seed, bad=()):
 
 @pytest.mark.parametrize("n, bad", [(16, ()), (16, (3,)), (300, ()), (1100, (7, 900))])
 def test_msm_kernel_vs_plain(cuda, n, bad):
-    """K4 against msm_ref on one schedule, at every bucket width from c = 5
-    to c = 8: the verdict and the canonical final point exact, one launch a
-    call."""
+    """K4 against msm_plain, the plain version of its own schedule, on one
+    schedule, at every bucket width from c = 5 to c = 8: the verdict and the
+    canonical final point exact, one launch a call; and against msm_ref,
+    the reference's schedule: the same verdict and group element."""
     ins = _k4_inputs(cuda, n, n, bad)
     before = em.launches["ed25519_msm"]
     ok, pt = em.msm(*ins)
     torch.cuda.synchronize()
     assert em.launches["ed25519_msm"] == before + 1
+    ok_plain, pt_plain = em.msm_plain(*ins)
+    assert torch.equal(ok.cpu(), ok_plain.cpu()) and torch.equal(pt.cpu(), pt_plain.cpu())
     ok_ref, pt_ref = em.msm_ref(*ins)
-    assert torch.equal(ok.cpu(), ok_ref.cpu()) and torch.equal(pt.cpu(), pt_ref.cpu())
+    assert torch.equal(ok.cpu(), ok_ref.cpu()) and em.same_point(pt.cpu(), pt_ref.cpu())
     assert ok.item() == (0 if bad else 1)
 
 

@@ -12,6 +12,8 @@ a CPU, so the rest compares with the reference's numpy and host code).
 The process-wide path default is reset around every test."""
 
 import random
+import re
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -273,38 +275,165 @@ def _bigint_sum(rows, seed):
     return ted.pt_add(ted._msm(pairs), ted._mul_b(s_b))
 
 
-@pytest.mark.parametrize("forged", [False, True])
-def test_msm_ref_final_point_equals_the_bigint_sum(forged):
+def _final_point_is_the_bigint_sum(plain, forged):
     items = _signed_items(9, 2, bad={4} if forged else ())
     rows = [r[1:] for r in ted._parse_batch(items)[0]]
     sched, pool, sb = tm.rlc_inputs(rows, random.Random(SEED))
-    ok, pt = tm.msm(*tm.device_inputs(sched, pool, sb, CPU))
+    ok, pt = plain(*tm.device_inputs(sched, pool, sb, CPU))
     X, Y, Z, T = (fe.limbs_to_int(pt[k].tolist()) for k in range(4))
     assert all(0 <= v < ted.P for v in (X, Y, Z, T))  # canonical limbs
-    wx, wy, wz, wt = _bigint_sum(rows, SEED)
-    P = ted.P
-    assert (X * wz - wx * Z) % P == 0 and (Y * wz - wy * Z) % P == 0
-    assert (T * Z - X * Y) % P == 0
+    assert tm.same_point(pt, _bigint_sum(rows, SEED))
+    assert (T * Z - X * Y) % ted.P == 0
     assert bool(ok.item()) is (not forged) is ted._is_identity(_bigint_sum(rows, SEED))
 
 
-def test_msm_ref_verdict_equals_the_reference_kernel():
-    """One XLA call: the reference's _msm_kernel and msm_ref on the pool
-    and schedule of the same clean rows and seed."""
+@pytest.mark.parametrize("forged", [False, True])
+def test_msm_ref_final_point_equals_the_bigint_sum(forged):
+    _final_point_is_the_bigint_sum(tm.msm_ref, forged)
+
+
+@pytest.mark.parametrize("forged", [False, True])
+def test_msm_plain_final_point_equals_the_bigint_sum(forged):
+    """K4's own schedule (the scan fold, the comb) reaches the bigint sum."""
+    _final_point_is_the_bigint_sum(tm.msm_plain, forged)
+
+
+def _verdict_is_the_reference_kernels(plain):
+    """One XLA call: the reference's _msm_kernel and ``plain`` on the pool
+    and schedule of the same clean rows and seed (the same shapes in both
+    tests, so that one process compiles the XLA kernel once)."""
     pubs, msgs, sigs = _corpus(6, tag=22)
     got_rows, want_rows = _parsed_both(list(zip(pubs, msgs, sigs)))
     want = rm._device_rlc([r[1:] for r in want_rows], random.Random(SEED), "vpu", "lazy")
     sched, pool, sb = tm.rlc_inputs([r[1:] for r in got_rows], random.Random(SEED))
-    ok, _ = tm.msm_ref(*tm.device_inputs(sched, pool, sb, CPU))
+    ok, _ = plain(*tm.device_inputs(sched, pool, sb, CPU))
     assert want is True and bool(ok.item()) is want
 
 
+def test_msm_ref_verdict_equals_the_reference_kernel():
+    _verdict_is_the_reference_kernels(tm.msm_ref)
+
+
+def test_msm_plain_verdict_equals_the_reference_kernel():
+    _verdict_is_the_reference_kernels(tm.msm_plain)
+
+
+def _window_rows(window):
+    if window == "adversarial":
+        pubs, msgs, sigs, _ = _adversarial_window(tag=24)
+        items = list(zip(pubs, msgs, sigs))
+    elif window == "go_edge":
+        pubs, msgs, sigs, _ = tc.go_edge_window(seed=0)
+        items = list(zip(pubs, msgs, sigs))
+    else:
+        items = _signed_items(20, 5, bad={3, 11})
+    return [r[1:] for r in ted._parse_batch(items)[0]]
+
+
+@pytest.mark.parametrize("window", ["adversarial", "go_edge", "forged"])
+def test_msm_plain_equals_msm_ref_as_a_group_element(window):
+    """On windows K4 rejects, the two schedules reach one non-identity
+    point through other projective representatives, and one verdict."""
+    rows = _window_rows(window)
+    ins = tm.device_inputs(*tm.rlc_inputs(rows, random.Random(SEED)), CPU)
+    ok_p, pt_p = tm.msm_plain(*ins)
+    ok_r, pt_r = tm.msm_ref(*ins)
+    assert ok_p.tolist() == ok_r.tolist() == [0]
+    assert tm.same_point(pt_p, pt_r) and tm.same_point(pt_p, _bigint_sum(rows, SEED))
+
+
+def _bigint_points(n, seed):
+    """n extended points [k]B (k < 2^32, k = 0 the identity) as bigints,
+    not made affine."""
+    rng = random.Random(seed)
+    return [ted.pt_scalar_mult(ted.B_EXT, rng.getrandbits(32)) for _ in range(n)]
+
+
+def _limbs_of(pts):
+    return torch.tensor([[fe.int_to_limbs(v % ted.P) for v in p] for p in pts],
+                        dtype=torch.int64)
+
+
+@pytest.mark.parametrize("c", [2, 4, 8])
+@pytest.mark.parametrize("buckets", ["random", "identity"])
+def test_parallel_fold_equals_the_serial_run_acc(c, buckets):
+    """fold_plain (the suffix scan and its tree) against the reference's
+    descending run/acc and against sum_d d B_d in bigints, a window of
+    random buckets, and one of every other bucket empty (the identity)
+    beside one with every bucket empty."""
+    nb = (1 << c) - 1
+    pts = _bigint_points(2 * nb, 100 * c)
+    if buckets == "identity":
+        pts = [ted.IDENT if d % 2 else p for d, p in enumerate(pts[:nb])] + [ted.IDENT] * nb
+    grid = _limbs_of(pts).reshape(2, nb, 4, fe.NLIMB)
+    d2 = ec._u32(ec._consts_on(CPU))[16 * 3 * fe.NLIMB:]
+    got = tm.fold_plain(grid, d2)
+    run = acc = tm._unpack(tm._ident(CPU, 2))
+    for t in range(nb):
+        run = ec._pt_add(run, tm._unpack(grid[:, nb - 1 - t]), d2)
+        acc = ec._pt_add(acc, run, d2)
+    serial = tm._pack(acc)
+    for w in range(2):
+        want = ted.IDENT
+        for d in range(1, nb + 1):
+            want = ted.pt_add(want, ted.pt_scalar_mult(pts[w * nb + d - 1], d))
+        assert tm.same_point(got[w], want) and tm.same_point(serial[w], want)
+    assert tm.fold_adds(nb) == (sum(nb - (1 << k) for k in range(c)), nb - 1)
+
+
+def test_comb_table_entries_equal_the_bigint_multiples():
+    """Every entry of K4's comb is the niels form of [d 2^(4i)]B, each
+    computed here by its own scalar multiplication; position 0 is the
+    ladder's niels table."""
+    comb = tm.comb_table()
+    assert comb.shape == (64, 16, 3, fe.NLIMB) and comb.dtype == np.uint32
+    assert np.array_equal(comb[0], ec._B_NIELS)
+    P = ted.P
+    for i in range(64):
+        for d in range(16):
+            x, y = ted.pt_affine(ted.pt_scalar_mult(ted.B_EXT, d << (4 * i)))
+            want = ((y + x) % P, (y - x) % P, 2 * ted.D * x * y % P)
+            assert tuple(fe.limbs_to_int(comb[i, d, k]) for k in range(3)) == want, (i, d)
+
+
+@pytest.mark.parametrize("s", [0, 1, 15, 16, ted.L - 1, 0x0123456789ABCDEF << 180])
+def test_comb_sum_equals_the_bigint_product(s):
+    """comb_plain (64 mixed adds and their tree) is [s]B."""
+    d2 = ec._u32(ec._consts_on(CPU))[16 * 3 * fe.NLIMB:]
+    got = tm.comb_plain(ec._put(tm._sb_digits(s), CPU), d2)
+    assert tm.same_point(got, ted._mul_b(s))
+
+
+def test_chain_of_the_10k_commit_schedule():
+    """K4's longest chain at c = 8, nwin = 32 against the reference
+    schedule's."""
+    sched = tm._Schedule(8, 32, [np.zeros(m, np.int32) for m in
+                                  (241664, 122880, 63488, 33792, 20480, 12288, 4096, 64, 32, 16)],
+                         [], np.zeros((32, 255), np.int32))
+    chain = tm.chain_ops(sched)
+    assert chain == {"levels": 10, "fold": 16, "comb": 7, "horner": 279, "total": 306,
+                     "reference_total": 10 + 510 + 320 + 1}
+
+
+def test_kernel_source_constants():
+    """The wrapper's comb layout and bucket limit are the kernel source's."""
+    src = (Path(tm.__file__).parent / "csrc" / "ed25519_msm.cu").read_text()
+    const = dict(re.findall(r"constexpr int (\w+) = (\d+);", src))
+    assert int(const["SB_DIGITS"]) == tm._SB_WIN == tm.comb_table().shape[0]
+    assert int(const["MAX_NB"]) == 255
+
+
 def test_msm_wrapper_takes_the_plain_version_only_on_the_cpu():
+    """On the CPU the wrapper answers msm_plain's output limb for limb (the
+    kernel's own schedule, the one K4 is held to on the card) and
+    launches nothing; inputs on two devices raise."""
     ins = tm.device_inputs(*tm.rlc_inputs([r[1:] for r in ted._parse_batch(
         _signed_items(3, 3))[0]], random.Random(1)), CPU)
     before = dict(tm.launches)
     ok, pt = tm.msm(*ins)
     assert ok.tolist() == [1] and pt.shape == (4, fe.NLIMB)
+    want_ok, want_pt = tm.msm_plain(*ins)
+    assert torch.equal(ok, want_ok) and torch.equal(pt, want_pt)
     assert tm.launches == before  # the plain version launches nothing
     with pytest.raises(ValueError, match="several devices"):
         tm.msm(ins[0].to("meta"), *ins[1:])
