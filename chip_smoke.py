@@ -195,13 +195,14 @@ Phases, in order; any failure exits non-zero:
   19. commit_window the window of phase 10 packed by
              parallel/commit_verify.pack_commit_window and verified by
              verify_commit_window on the ladder path (the K8 step: K1 -> K2
-             once a message-length group, the int64 tally on the card) and
-             on the msm path (one K4 launch, the dirty window localized by
-             chunk RLCs to K1 -> K2), then planner.verify_window(
-             use_device=True) under the msm default (its two msm calls with
-             a dispatch deadline of 120 s: the dirty window outlasts the
-             default 30): ok, tally and committed
-             equal phase 10's planner verdict on all three, no fallback,
+             once a message-length group, the int64 tally on the card), then
+             on the msm path the window's first 128 heights (8,192 rows, the
+             flipped bit at 85 included; the whole window before phase 23
+             came): verify_commit_window (one K4 launch, the rejected batch
+             localized through one K1 -> K2 pass) and planner.verify_window(
+             use_device=True) under the msm default, both at the default 30 s
+             deadline: ok, tally and committed equal phase 10's planner
+             verdict (on those heights for the msm calls), no fallback,
              the breaker closed, no audit mismatch; walls with their parts
              (msm.localize is the chunk localization), and the K8 tally's
              device time beside its byte bound on the ``torch_ops`` line.
@@ -281,6 +282,41 @@ Phases, in order; any failure exits non-zero:
              dispatch: it halts with device_fault set, no peer stopped, no
              hand-off, the store and the state at the first window's height.
              No fallback, the default breaker closed, no audit mismatch.
+  23. consensus the consensus state machine, on a [verify] root of its own
+             with the vote feed on at the reference's vote_storm settings
+             (vote_batch_window_ms = 2, vote_batch_rows = 64): 100 ed25519
+             validators of power 10 (the Cosmos SDK's DefaultMaxValidators)
+             at the TestConsensusConfig timeouts (skip_timeout_commit on),
+             KVStoreApp, a real WAL in a temporary directory; one node built
+             by node/verify_root (handshake, then consensus_state: the WAL,
+             the event bus, the [verify] vote feed) and 99 ValidatorStubs
+             feeding it through send_peer_msg. (a) 8 heights, each with a
+             proposal (the node's own when it proposes, else the stub
+             proposer's through testutil/consensus.decide_proposal, one
+             fresh tx in the mempool first) and then 99 signed prevotes and
+             99 signed precommits (signed once the proposal is known,
+             outside each height's timed wall): every height commits, every
+             block and seen commit come back from the BlockStore, the WAL
+             holds #ENDHEIGHT 1-8; K1 and K2 exact on one flush's inputs and
+             on one LastCommit's; blocks a second and a height's p50 wall,
+             votes through the feed against votes verified serially by
+             reason, flushes by reason with rows and lanes a flush, K1 + K2
+             launches a height split into flushes and LastCommit checks
+             (four a height from height 2: enter_prevote, enter_precommit,
+             _finalize_commit and apply_block each validate the block), and
+             the consensus.finalize_commit, wal.*, verify.* and state.*
+             span sums. (b) The same genesis with the feed off, 4 heights,
+             every peer vote verified on the host inside add_vote: blocks a
+             second, the app hash at each height equal to (a)'s. (c) A fresh
+             KVStoreApp over (a)'s stores with (a)'s state kept at height 7:
+             the handshake replays blocks 1-7 against the app and applies
+             block 8 (K1 + K2 once for its 100-row LastCommit, exact); the
+             state equals (a)'s at 8, the app at 8. (d) A node of (a)'s
+             shape whose installed guarded verifier has its breaker tripped:
+             the first flush raises, the state machine halts with
+             device_fault set, no vote of that flush is added or verified
+             on the host, the store stays at 0. No fallback, the default
+             breaker closed, no audit mismatch.
 
 The window phase's routes and the backfill phase each make one traced call
 (the p50 of 3 before phase 21, of 2 before phase 22: the fastsync replay
@@ -290,8 +326,9 @@ rpc, multisig and msm phases also take one traced call after the first
 calls before), phase 21 2 applications of the 10k LastCommit (3), the
 host-clock walls 3 repeats (5), and each kernel's plain time on its main
 path (K1, K2, K3 and K4) is the plain version's run for the exactness check
-(two or three more runs before). Each phase's line carries the seconds since the
-script began.
+(two or three more runs before). Phase 23 is paid for by phase 19's msm
+calls, which take the window's first 128 heights, not all 512. Each
+phase's line carries the seconds since the script began.
 
 Each path's launch counts are set to 0 just before it and read just after;
 the kernels line carries the main path's as ``launches``, the lite
@@ -301,8 +338,10 @@ txs phase's as ``txs_launches``, phases 18 and 19's as ``msm_launches`` and
 ``commit_window_launches``, phase 20's parts' as ``mempool_launches``
 (rate, parity, secp, fill, recheck), phase 21's as
 ``block_exec_launches`` (chain: CheckTx and apply_block; 10k: the first
-application of block 2) and phase 22's as ``fastsync_launches`` (guarded,
-explicit, baseline, reactor); K4's own ``launches`` are
+application of block 2), phase 22's as ``fastsync_launches`` (guarded,
+explicit, baseline, reactor) and phase 23's as ``consensus_launches`` ((a),
+(b) and (c), each split into flushes and LastCommit checks); K4's own
+``launches`` are
 the msm route's 10,000-validator commit's. The line before the last two is the
 ``kernels`` JSON, then the card's name
 and power limit, then ``{"ok": true, "device": {...}}``. Exits 2 when no
@@ -316,11 +355,13 @@ import contextlib
 import hashlib
 import http.client
 import json
+import os
 import random
 import re
 import statistics
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 from types import SimpleNamespace
@@ -337,7 +378,10 @@ from tendermint_tpu_torch.abci.examples.kvstore import (
 from tendermint_tpu_torch.blockchain import pool as bc_pool
 from tendermint_tpu_torch.blockchain import reactor as bc_reactor
 from tendermint_tpu_torch.blockchain.store import BlockStore
+from tendermint_tpu_torch.config.consensus import consensus_test_config
 from tendermint_tpu_torch.config.mempool import MempoolConfig
+from tendermint_tpu_torch.consensus.messages import EndHeightMessage, VoteMessage
+from tendermint_tpu_torch.consensus.wal import WAL
 from tendermint_tpu_torch.config.verify import VerifyConfig
 from tendermint_tpu_torch.crypto import ed25519 as ed
 from tendermint_tpu_torch.crypto import secp256k1 as secp
@@ -356,6 +400,7 @@ from tendermint_tpu_torch.frontend.aggregator import BatchingVerifier
 from tendermint_tpu_torch.libs import breaker, trace
 from tendermint_tpu_torch.libs.db.kv import MemDB
 from tendermint_tpu_torch.libs.metrics import (
+    ConsensusMetrics,
     StateMetrics,
     get_frontend_metrics,
     get_verify_metrics,
@@ -379,6 +424,7 @@ from tendermint_tpu_torch.state import store as sm_store
 from tendermint_tpu_torch.state.execution import BlockExecutor, InvalidBlockError
 from tendermint_tpu_torch.state.state_types import state_from_genesis
 from tendermint_tpu_torch.testutil import commit as tc
+from tendermint_tpu_torch.testutil import consensus as tcs
 from tendermint_tpu_torch.testutil import lite_chain as lc
 from tendermint_tpu_torch.testutil import multisig as tm
 from tendermint_tpu_torch.testutil import secp_signer
@@ -388,6 +434,7 @@ from tendermint_tpu_torch.testutil.fastsync import LoopbackSwitch, ServingPeer
 from tendermint_tpu_torch.tools import bench_fastsync as bf
 from tendermint_tpu_torch.types.block import Commit
 from tendermint_tpu_torch.types.core import BlockID, SignedMsgType
+from tendermint_tpu_torch.types.events import EventBus
 from tendermint_tpu_torch.types.genesis import GenesisDoc, GenesisValidator
 from tendermint_tpu_torch.types.validator_set import CommitError
 from tendermint_tpu_torch.types.vote import Vote
@@ -409,6 +456,10 @@ TIME_ITERS = 20
 # (blockchain/reactor.py:54) of bench_fastsync.py's 64 validators
 # (BASELINE.json config 3); 32,768 lanes, lane bucket 32,768, segments 512
 WINDOW_H, WINDOW_V = 512, 64
+# phase 19's two msm-path calls take the window's first 128 heights (8,192
+# rows, its first fault, a flipped bit at height 85, included); the whole
+# window before the consensus phase came (16-18 s a call, the host's parse)
+MSM_WINDOW_H = 128
 # traced repeats after a first call in the default, rpc, multisig and msm
 # phases; the commit window's ladder counts its traced first call among them
 # (3 before the fastsync phase came: each guarded repeat is mostly the
@@ -474,6 +525,17 @@ FS_SYNC_TIMEOUT = 300.0
 FS_TRACE_CAPACITY = 1 << 17
 FS_SPANS = ("fastsync.window", "planner.pack", "verify.dispatch", "verify.audit",
             "fastsync.apply", "state.validate", "state.exec", "state.update", "state.commit",
+            "state.save")
+# the consensus phase: 100 ed25519 validators of power 10 (the Cosmos SDK's
+# DefaultMaxValidators, the block_exec and lite width) at the TestConsensusConfig
+# timeouts, the vote feed at the reference's vote_storm settings
+# (sim/scenarios.py:352-358: [verify] vote_batch_window_ms = 2, vote_batch_rows
+# = 64); 8 heights batched, 4 serially
+CS_VALS, CS_HEIGHTS, CS_SERIAL_HEIGHTS = 100, 8, 4
+CS_WINDOW_MS, CS_ROWS = 2.0, 64
+CS_TIMEOUT = 120.0
+CS_SPANS = ("consensus.finalize_commit", "wal.append", "wal.fsync", "verify.dispatch",
+            "verify.audit", "state.validate", "state.exec", "state.update", "state.commit",
             "state.save")
 
 # Rates for the least time the card could take: HBM bandwidth (H100 SXM
@@ -2881,23 +2943,30 @@ def phase_commit_window(dev, window: dict, err: dict) -> dict:
     tally_bound = (nbytes((ok_d, power_d)) + nbytes(t_out)) / HBM_BYTES_PER_S * 1e3
 
     # the msm route as a node configures it: [verify] ed25519_path = "msm"
-    # and every other knob at its default (the 30 s dispatch deadline)
+    # and every other knob at its default (the 30 s dispatch deadline), on
+    # the window's first MSM_WINDOW_H heights
+    hm = MSM_WINDOW_H
+    win_m = cv.pack_commit_window(raw_votes[:hm], powers[:hm])
     msm_root = configure_verify(VerifyConfig(ed25519_path="msm"), device=dev)
     check(msm_root.verifier.deadline == 30.0, "the msm root's dispatch deadline is not 30 s")
     retries_before = retries()
     try:
         reset_launches()
-        got_m, msm_s, msm_parts = traced(lambda: cv.verify_commit_window(win, total, device=dev))
-        same(got_m, "commit window (msm)")
+        got_m, msm_s, msm_parts = traced(lambda: cv.verify_commit_window(win_m, total,
+                                                                         device=dev))
+        for k, g in zip(("ok", "tally", "committed"), got_m):
+            check(np.array_equal(g, getattr(want, k)[:hm]),
+                  f"commit window (msm): {k} differs from the planner's")
         msm_launches = read_launches()
         check(msm_launches["ed25519_msm"] == 1 and msm_launches["ed25519_ladder"] >= 1,
               f"msm commit window launches {msm_launches}")
         reset_launches()
         plan_v, plan_s, plan_parts = traced(
-            lambda: planner.verify_window(votes, powers, totals, use_device=True))
+            lambda: planner.verify_window(votes[:hm], powers[:hm], totals[:hm],
+                                          use_device=True))
         plan_launches = read_launches()
         for k in VERDICT_KEYS:
-            check(np.array_equal(getattr(plan_v, k), getattr(want, k)),
+            check(np.array_equal(getattr(plan_v, k), getattr(want, k)[:hm]),
                   f"verify_window under msm: {k} differs")
         check(plan_launches["ed25519_msm"] == 1, f"planner msm launches {plan_launches}")
         check_guard_clean(before, "commit window")
@@ -2905,10 +2974,11 @@ def phase_commit_window(dev, window: dict, err: dict) -> dict:
               "a device error under the default deadline)")
     finally:
         configure_verify(VerifyConfig(), device=dev)
-    print(f"  msm: verify_commit_window {msm_s:.2f} s, parts (s) "
+    print(f"  msm, the first {hm} heights: verify_commit_window {msm_s:.2f} s, parts (s) "
           + ", ".join(f"{k} {t:.3f}" for k, t in msm_parts.items())
           + f"; launches {msm_launches}", flush=True)
-    print(f"  msm: verify_window(use_device=True) {plan_s:.2f} s, parts (s) "
+    print(f"  msm, the first {hm} heights: verify_window(use_device=True) {plan_s:.2f} s, "
+          f"parts (s) "
           + ", ".join(f"{k} {t:.3f}" for k, t in plan_parts.items())
           + f"; launches {plan_launches}; all equal the planner's ladder verdict; no "
           f"fallback or retry under the default 30 s deadline; breaker closed", flush=True)
@@ -3204,6 +3274,384 @@ def phase_fastsync(root, dev, err: dict) -> dict:
                          "baseline": base_launches, "reactor": reactor["launches"]}}
 
 
+# -- phase 23: the consensus state machine -----------------------------------------------
+
+
+def cs_vote_height(msg: bytes) -> int:
+    """The height in a vote's sign-bytes (a type byte, then fixed64)."""
+    return int.from_bytes(msg[1:9], "little", signed=True)
+
+
+@contextlib.contextmanager
+def captured_packs_by_height():
+    """As ``captured_packs``, each pack with the height of its first
+    message: a flush packs the votes of the height being decided, a
+    LastCommit check the precommits of the height before."""
+    packs, real = [], ec.packed_inputs
+
+    def record(*args, **kwargs):
+        out = real(*args, **kwargs)
+        packs.append((cs_vote_height(args[1][0]), out[0]))
+        return out
+
+    ec.packed_inputs = record
+    try:
+        yield packs
+    finally:
+        ec.packed_inputs = real
+
+
+@contextlib.contextmanager
+def counted_host_verifies():
+    """Every single-vote verify on the host, as (height, validator index)."""
+    got, real = [], Vote.verify
+
+    def verify(self, chain_id, pub_key):
+        got.append((self.height, self.validator_index))
+        return real(self, chain_id, pub_key)
+
+    Vote.verify = verify
+    try:
+        yield got
+    finally:
+        Vote.verify = real
+
+
+def cs_node(doc, pvs, ours: int, verify_cfg: VerifyConfig, dev, wal_dir: str):
+    """A node as node/verify_root wires one: a state DB and a KVStoreApp at
+    genesis, the mempool and the executor (verifier None: the installed
+    one), a block store, the ABCI handshake, then ``consensus_state`` with a
+    real WAL in ``wal_dir``, the event bus, validator ``ours``'s key and
+    ``verify_cfg``'s vote feed. The executor's ``validate_block`` records the
+    heights whose LastCommit it checks (one K1 + K2 launch each)."""
+    st0 = state_from_genesis(doc)
+    state_db = MemDB()
+    sm_store.save_state(state_db, st0)
+    app = KVStoreApp()
+    conn = bx_consensus_conn(app)
+    mp = verify_root.mempool(MempoolConfig(), conn, app).mempool
+    bus = EventBus()
+    bus.start()
+    evpool, ex = verify_root.block_executor(state_db, MemDB(), conn, mp, st0, event_bus=bus)
+    bs = BlockStore(MemDB())
+    st = verify_root.handshake(state_db, st0, bs, doc, conn)
+    wal_file = os.path.join(wal_dir, "cs.wal", "wal")
+    root = verify_root.consensus_state(
+        consensus_test_config(), verify_cfg, st, ex, bs, mp, evpool, wal_file=wal_file,
+        event_bus=bus, priv_validator=pvs[ours], metrics=ConsensusMetrics(), device=dev)
+    check(root.consensus_state.block_exec is ex and root.event_bus is bus
+          and ex.verifier is None, "the consensus state is not wired to the node's executor")
+    checks, real = [], ex.validate_block
+
+    def validate_block(state, block, trusted_last_commit=False):
+        if block.height > 1 and not trusted_last_commit:
+            checks.append(block.height)
+        return real(state, block, trusted_last_commit=trusted_last_commit)
+
+    ex.validate_block = validate_block
+    stubs = [tcs.ValidatorStub(pv, i) for i, pv in enumerate(pvs) if i != ours]
+    return SimpleNamespace(cs=root.consensus_state, feed=root.vote_feed, wal_file=wal_file,
+                           state_db=state_db, bs=bs, conn=conn, app=app, mp=mp, bus=bus,
+                           stubs=stubs, by_addr={s.address: s for s in stubs}, checks=checks)
+
+
+def cs_stop(node) -> None:
+    if node.cs.is_running:
+        node.cs.stop()
+    check(node.cs._done.wait(CS_TIMEOUT), "consensus: the receive routine did not stop")
+    if node.feed is not None:
+        node.feed.close()
+        node.feed.join(CS_TIMEOUT)
+    node.conn.stop()
+    node.bus.stop()
+
+
+def cs_propose(node, h: int) -> tuple:
+    """Height ``h``'s proposal: the node's own when it is the proposer, else
+    the stub proposer's (``decide_proposal``, one fresh tx in the mempool
+    first), sent at once. Returns (block id, the node proposed)."""
+    cs = node.cs
+    check(tcs.wait_for(lambda: cs.get_round_state().height == h, CS_TIMEOUT),
+          f"consensus: height {h} never started (fault {cs.device_fault})")
+    proposer = cs.get_round_state().validators.get_proposer().address
+    if proposer != cs.priv_validator.address:
+        stub = node.by_addr[proposer]
+        node.mp.check_tx(b"cs-h%d=v%d" % (h, h))
+        prop, block, parts = tcs.decide_proposal(cs, stub, h, 0)
+        cs.set_proposal_and_block(prop, block, parts, f"peer{stub.index}")
+        return prop.block_id, False
+    check(tcs.wait_for(lambda: cs.get_round_state().proposal_block is not None
+                       and cs.get_round_state().height == h, CS_TIMEOUT),
+          f"consensus: the node's own proposal at {h} never completed")
+    rs = cs.get_round_state()
+    return BlockID(rs.proposal_block.hash(), rs.proposal_block_parts.header()), True
+
+
+def cs_sign(node, bid: BlockID, h: int,
+            types=(SignedMsgType.PREVOTE, SignedMsgType.PRECOMMIT)) -> list:
+    """The stubs' prevotes, then their precommits, for ``bid``."""
+    return [(VoteMessage(s.sign_vote(t, bid, h, 0)), f"peer{s.index}")
+            for t in types for s in node.stubs]
+
+
+def cs_run(node, heights: int, what: str, packs_at: int = 0) -> dict:
+    """Drive ``heights`` heights: a proposal, then the stubs' signed votes
+    (signed once the proposal is known, outside the timed part), sent
+    through ``send_peer_msg``; a height's wall runs from its first vote sent
+    to the state at that height. Launch counts are set to 0 before the run
+    and read after it; the state at each height is kept."""
+    cs = node.cs
+    walls, sign_s, states, own = [], 0.0, {}, []
+    packs = []
+    reset_launches()
+    node.mp.check_tx(b"cs-h1=v1")
+    cs.start()
+    t_run = time.perf_counter()
+    for h in range(1, heights + 1):
+        ctx = captured_packs_by_height() if h == packs_at else contextlib.nullcontext([])
+        with ctx as got:
+            bid, mine = cs_propose(node, h)
+            own.append(mine)
+            t0 = time.perf_counter()
+            msgs = cs_sign(node, bid, h)
+            sign_s += time.perf_counter() - t0
+            t0 = time.perf_counter()
+            for m, peer in msgs:
+                cs.send_peer_msg(m, peer)
+            check(tcs.wait_for(lambda: cs.get_state().last_block_height >= h, CS_TIMEOUT,
+                               interval=0.001),
+                  f"consensus {what}: height {h} never committed (fault {cs.device_fault})")
+            walls.append(time.perf_counter() - t0)
+        packs.extend(got)
+        states[h] = cs.get_state()
+        check(states[h].last_block_height == h, f"consensus {what}: the state passed {h}")
+    run_s = time.perf_counter() - t_run
+    return {"walls": walls, "sign_s": sign_s, "states": states, "own": own, "run_s": run_s,
+            "blocks_s": heights / sum(walls), "p50_ms": statistics.median(walls) * 1e3,
+            "packs": packs}
+
+
+def cs_check_store(node, heights: int, what: str) -> None:
+    for h in range(1, heights + 1):
+        block, meta, seen = (node.bs.load_block(h), node.bs.load_block_meta(h),
+                             node.bs.load_seen_commit(h))
+        check(block is not None and meta is not None and seen is not None,
+              f"consensus {what}: block {h} or its seen commit is not in the store")
+        check(block.hash() == meta.block_id.hash == seen.block_id.hash and seen.round() == 0,
+              f"consensus {what}: the stored block {h} is not the one its commit names")
+
+
+def cs_split(node, launches: dict, dispatches: int, what: str) -> dict:
+    """K1 and K2 launches split into flushes (one a feed dispatch: a flush
+    is one message-length group) and LastCommit checks (one each)."""
+    k1, k2 = launches["ed25519_prologue"], launches["ed25519_ladder"]
+    lc = len(node.checks)
+    check(k1 == k2 == dispatches + lc and launches["secp256k1_ladder"] == 0
+          and launches[K4] == 0,
+          f"consensus {what}: launches {launches}, {dispatches} feed dispatches, {lc} "
+          f"LastCommit checks")
+    return {"flushes": dispatches, "last_commit": lc}
+
+
+def cs_batched(doc, pvs, ours, cfg, dev, wal_dir, err) -> dict:
+    """(a): CS_HEIGHTS heights through the vote feed."""
+    node = cs_node(doc, pvs, ours, cfg, dev, wal_dir)
+    feed, cs = node.feed, node.cs
+    check(feed is not None and cs._vote_feed is feed and feed.window_s == CS_WINDOW_MS / 1e3
+          and feed.max_rows == CS_ROWS, "the vote feed is not the [verify] section's")
+    if dev.type == "cuda":
+        check(feed.device.type == "cuda" and feed.verifier is None,
+              "the vote feed does not run the installed verifier on the card")
+    trace.reset(FS_TRACE_CAPACITY)
+    trace.enable()
+    try:
+        run = cs_run(node, CS_HEIGHTS, "(a)", packs_at=2)
+        spans = span_seconds(CS_SPANS)
+        check(trace.dropped() == 0, "consensus (a): the trace ring dropped spans")
+    finally:
+        trace.disable()
+        cs_stop(node)
+    launches = read_launches()
+    check(cs.device_fault is None, f"consensus (a): device fault {cs.device_fault}")
+    cs_check_store(node, CS_HEIGHTS, "(a)")
+    ends = sorted({tm.msg.height for tm in WAL(node.wal_file).iter_all()
+                   if isinstance(tm.msg, EndHeightMessage)})
+    check(set(range(1, CS_HEIGHTS + 1)) <= set(ends), f"consensus (a): the WAL's #ENDHEIGHT {ends}")
+    split = cs_split(node, launches, feed.dispatches, "(a)")
+    recs = feed.flush_records()["records"]
+    per_height = []
+    for h in range(1, CS_HEIGHTS + 1):
+        fl = sum(1 for r in recs if r["groups"] and r["groups"][0][0] == h)
+        per_height.append({"flushes": fl, "last_commit": node.checks.count(h)})
+    check(sum(p["flushes"] for p in per_height) == feed.dispatches == len(recs),
+          f"consensus (a): {len(recs)} flush records for {feed.dispatches} dispatches")
+    check(all(p["last_commit"] == 4 for p in per_height[1:]) and per_height[0]["last_commit"] == 0,
+          f"consensus (a): LastCommit checks a height {per_height}")
+    flush_pack = next(p for hh, p in run["packs"] if hh == 2)
+    lc_pack = next(p for hh, p in run["packs"] if hh == 1)
+    b_f, _, _ = hold_k1_k2(flush_pack, err, "consensus flush")
+    b_c, _, _ = hold_k1_k2(lc_pack, err, "consensus LastCommit")
+    serial = {k: v for k, v in sorted(cs.serial_votes.items())}
+    rows = [r["rows"] for r in recs]
+    lanes = [r["votes"] for r in recs]
+    out = {**{k: v for k, v in run.items() if k not in ("packs", "states")},
+           "votes_in": feed.votes_in, "serial_votes": serial,
+           "flushes": dict(feed.flushes), "rows_per_flush": statistics.mean(rows),
+           "lanes_per_flush": statistics.mean(lanes), "max_lanes": max(lanes),
+           "launches": launches, "split": split, "per_height": per_height, "spans": spans,
+           "wal_end_heights": ends, "b_flush": b_f, "b_last_commit": b_c,
+           "app_hashes": [run["states"][h].app_hash.hex() for h in range(1, CS_HEIGHTS + 1)]}
+    check(feed.votes_in + cs.serial_votes["last_commit"] == len(node.stubs) * 2 * CS_HEIGHTS
+          and cs.serial_votes["unknown_verdict"] == 0,
+          f"consensus (a): {feed.votes_in} votes in the feed, serial {serial}")
+    print(f"  (a) batched: {CS_HEIGHTS} heights, {out['blocks_s']:.2f} blocks/s (a height's "
+          f"wall from its first vote sent to its state, p50 {out['p50_ms']:.1f} ms; walls "
+          + ", ".join(f"{w * 1e3:.1f}" for w in run["walls"])
+          + f" ms); the stubs' signing {run['sign_s']:.2f} s outside them; own proposals at "
+          f"{[h for h, m in enumerate(run['own'], 1) if m]}; votes through the feed "
+          f"{feed.votes_in}, serial by reason {serial}; flushes {dict(feed.flushes)}, "
+          f"{len(recs)} dispatches, rows a flush {out['rows_per_flush']:.2f}, lanes a flush "
+          f"{out['lanes_per_flush']:.1f} (max {out['max_lanes']}); launches {launches} = "
+          f"{split['flushes']} flushes + {split['last_commit']} LastCommit checks; per height "
+          f"{[(p['flushes'], p['last_commit']) for p in per_height]}; spans (s) "
+          + ", ".join(f"{n} {v:.3f}" for n, v in spans.items())
+          + f"; the WAL's #ENDHEIGHT {ends}; every block and seen commit back from the store; "
+          f"K1/K2 exact on a flush's inputs (b = {b_f}) and a LastCommit's (b = {b_c})",
+          flush=True)
+    return {"out": out, "states": run["states"], "node": node}
+
+
+def cs_serial(doc, pvs, ours, dev, wal_dir, want_states) -> dict:
+    """(b): the same genesis with the feed off, CS_SERIAL_HEIGHTS heights."""
+    node = cs_node(doc, pvs, ours, VerifyConfig(), dev, wal_dir)
+    check(node.feed is None and node.cs._vote_feed is None, "consensus (b): a vote feed is set")
+    try:
+        run = cs_run(node, CS_SERIAL_HEIGHTS, "(b)")
+    finally:
+        cs_stop(node)
+    launches = read_launches()
+    split = cs_split(node, launches, 0, "(b)")
+    for h in range(1, CS_SERIAL_HEIGHTS + 1):
+        check(run["states"][h].app_hash == want_states[h].app_hash,
+              f"consensus (b): the app hash at {h} differs from (a)'s")
+    serial = {k: v for k, v in sorted(node.cs.serial_votes.items())}
+    check(serial.get("no_feed", 0) >= len(node.stubs) * 2 * (CS_SERIAL_HEIGHTS - 1),
+          f"consensus (b): serial votes {serial}")
+    print(f"  (b) serial: {CS_SERIAL_HEIGHTS} heights, {run['blocks_s']:.2f} blocks/s (p50 "
+          f"{run['p50_ms']:.1f} ms); every peer vote verified on the host inside add_vote "
+          f"(serial by reason {serial}); launches {launches} = {split['last_commit']} "
+          f"LastCommit checks; the app hash at each height equals (a)'s", flush=True)
+    return {"blocks_s": run["blocks_s"], "p50_ms": run["p50_ms"], "walls": run["walls"],
+            "serial_votes": serial, "launches": launches, "split": split}
+
+
+def cs_handshake(doc, a, err) -> dict:
+    """(c): a fresh KVStoreApp over (a)'s stores with (a)'s state kept at
+    CS_HEIGHTS - 1: the handshake replays the blocks before against the app
+    and applies the last (K1 + K2 once for its LastCommit)."""
+    top = CS_HEIGHTS
+    db = MemDB()
+    for k, v in a["node"].state_db.iterator():
+        db.set(k, v)
+    sm_store.save_state(db, a["states"][top - 1])
+    app = KVStoreApp()
+    conn = bx_consensus_conn(app)
+    try:
+        reset_launches()
+        with captured_packs() as packs:
+            t0 = time.perf_counter()
+            st = verify_root.handshake(db, a["states"][top - 1].copy(), a["node"].bs, doc, conn)
+            wall = time.perf_counter() - t0
+        launches = read_launches()
+    finally:
+        conn.stop()
+    check(launches["ed25519_prologue"] == launches["ed25519_ladder"] == 1
+          and launches["secp256k1_ladder"] == launches[K4] == 0,
+          f"consensus (c): launches {launches}")
+    b, _, _ = hold_k1_k2(packs[0], err, "consensus handshake")
+    check(b >= CS_VALS and st.marshal() == a["states"][top].marshal() and app.height == top,
+          f"consensus (c): the handshake ended at {st.last_block_height} (app {app.height}) "
+          f"with a state that differs from (a)'s at {top}")
+    check(sm_store.load_state(db).marshal() == st.marshal(), "consensus (c): the state not saved")
+    print(f"  (c) handshake: blocks 1-{top - 1} replayed against a fresh app, block {top} "
+          f"applied in {wall * 1e3:.1f} ms in all; launches {launches} (its {b}-row bucket of "
+          f"the {CS_VALS}-row LastCommit), exact; the state equals (a)'s at {top}, the app at "
+          f"{app.height}", flush=True)
+    return {"wall_ms": wall * 1e3, "launches": launches,
+            "split": {"flushes": 0, "last_commit": launches["ed25519_prologue"]}}
+
+
+def cs_fault(doc, pvs, ours, cfg, dev, wal_dir, root) -> dict:
+    """(d): a node of (a)'s shape whose installed guarded verifier has its
+    breaker tripped: the first flush raises and the state machine halts."""
+    br = breaker.CircuitBreaker(threshold=1, backoff_base=600.0, backoff_max=600.0)
+    br.record_failure("error")
+    tripped = GuardedBatchVerifier(TorchBatchVerifier(dev), breaker=br)
+    check(tripped.on_card and not br.allow(), "the tripped verifier is not on the card")
+    node = cs_node(doc, pvs, ours, cfg, dev, wal_dir)
+    cs = node.cs
+    set_batch_verifier(tripped)
+    try:
+        reset_launches()
+        with counted_host_verifies() as host:
+            cs.start()
+            bid, mine = cs_propose(node, 1)
+            for m, peer in cs_sign(node, bid, 1, (SignedMsgType.PREVOTE,)):
+                cs.send_peer_msg(m, peer)
+            check(cs._done.wait(CS_TIMEOUT), "consensus (d): the state machine did not halt")
+        launches = read_launches()
+    finally:
+        set_batch_verifier(root.verifier)
+        cs_stop(node)
+    fault = cs.device_fault
+    stub_idx = {s.index for s in node.stubs}
+    added = sum(1 for i in stub_idx if cs.rs.votes.prevotes(0).get_by_index(i) is not None)
+    check(isinstance(fault, breaker.DeviceDispatchError), f"consensus (d): {fault!r}")
+    check(added == 0 and not [v for v in host if v[1] in stub_idx]
+          and cs.serial_votes["unknown_verdict"] == 0,
+          f"consensus (d): {added} stub votes added, host verifies {len(host)}")
+    check(node.bs.height() == 0 and cs.get_state().last_block_height == 0 and mine,
+          f"consensus (d): the store at {node.bs.height()}")
+    check(all(v == 0 for v in launches.values()), f"consensus (d): launches {launches}")
+    print(f"  (d) fault: the installed guarded verifier's breaker tripped: the first flush "
+          f"raised and the state machine halted with device_fault {fault}; no stub vote "
+          f"added ({node.feed.votes_in} in the feed), none verified on the host; the store at "
+          f"0; no launch", flush=True)
+    return {"fault": str(fault), "votes_in": node.feed.votes_in}
+
+
+def phase_consensus(dev, err: dict) -> dict:
+    """Phase 23: the consensus state machine, on a [verify] root of its own
+    with the vote feed on (the reference's vote_storm settings)."""
+    phase(f"consensus: {CS_VALS} validators of power 10, one node wired by "
+          f"node/verify_root.consensus_state and {CS_VALS - 1} stubs; {CS_HEIGHTS} heights "
+          f"through the vote feed ({CS_WINDOW_MS:g} ms, {CS_ROWS} rows), {CS_SERIAL_HEIGHTS} "
+          f"serially, the handshake, a device fault")
+    t_phase = time.perf_counter()
+    cfg = VerifyConfig(vote_batch_window_ms=CS_WINDOW_MS, vote_batch_rows=CS_ROWS)
+    root = configure_verify(cfg, device=dev)
+    check(get_batch_verifier() is root.verifier, "the root's guarded verifier is not installed")
+    doc, pvs = tcs.make_genesis(CS_VALS)
+    vals = state_from_genesis(doc).validators
+    by_addr = {pv.address: pv for pv in pvs}
+    sorted_pvs = [by_addr[v.address] for v in vals.validators]
+    ours = [v.address for v in vals.validators].index(vals.get_proposer().address)
+    before = fallbacks()
+    with tempfile.TemporaryDirectory(prefix="chip-smoke-cs-") as tmp:
+        a = cs_batched(doc, sorted_pvs, ours, cfg, dev, os.path.join(tmp, "a"), err)
+        check_guard_clean(before, "consensus (a)")
+        b = cs_serial(doc, sorted_pvs, ours, dev, os.path.join(tmp, "b"), a["states"])
+        c = cs_handshake(doc, a, err)
+        check_guard_clean(before, "consensus (b), (c)")
+        d = cs_fault(doc, sorted_pvs, ours, cfg, dev, os.path.join(tmp, "d"), root)
+    check(breaker.get_device_breaker().state == breaker.CLOSED,
+          "the default breaker is not closed after the consensus phase")
+    seconds = time.perf_counter() - t_phase
+    print(f"  no fallback; breaker closed; no audit mismatch; phase {seconds:.1f} s", flush=True)
+    return {"a": a["out"], "b": b, "c": c, "d": d, "seconds": seconds,
+            "launches": {"a": a["out"]["split"], "b": b["split"], "c": c["split"]}}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
@@ -3263,6 +3711,8 @@ def main() -> int:
                           err)
     # and the fastsync phase
     fs = phase_fastsync(configure_verify(VerifyConfig(), device=dev), dev, err)
+    # the consensus phase installs a root of its own with the vote feed on
+    cons = phase_consensus(dev, err)
     print(f"  {smi_line}", flush=True)
 
     ms = {**ed_main["ms"], "secp256k1_ladder": secp_main["ms"]}
@@ -3300,6 +3750,10 @@ def main() -> int:
             "mempool_launches": {what: n[name] for what, n in mempool["launches"].items()},
             "block_exec_launches": {what: n[name] for what, n in bx["launches"].items()},
             "fastsync_launches": {what: n[name] for what, n in fs["launches"].items()},
+            "consensus_launches": {
+                run: (split if name in ("ed25519_prologue", "ed25519_ladder")
+                      else {"flushes": 0, "last_commit": 0})
+                for run, split in cons["launches"].items()},
             "msm_launches": msm["launches"][name],
             "commit_window_launches": {"ladder": cwin["launches"][name],
                                        "msm": cwin["msm_launches"][name],
@@ -3338,6 +3792,8 @@ def main() -> int:
         "mempool_launches": {what: n[K4] for what, n in mempool["launches"].items()},
         "block_exec_launches": {what: n[K4] for what, n in bx["launches"].items()},
         "fastsync_launches": {what: n[K4] for what, n in fs["launches"].items()},
+        "consensus_launches": {run: {"flushes": 0, "last_commit": 0}
+                               for run in cons["launches"]},
         "msm_launches": {"commit": msm["launches"][K4],
                          "adversarial": msm["adversarial_launches"][K4],
                          "dirty_commit": msm["dirty_launches"][K4],
@@ -3351,8 +3807,8 @@ def main() -> int:
           f"guarded verifier (audit {default['verify.audit']:.1f} ms of it)", flush=True)
     print(f"  {N_VALIDATORS}-validator ed25519 verify_commit p50 on the msm path: "
           f"{msm['p50_ms']:.1f} ms (K4 {k4c['ms']:.4f} ms of it); the {WINDOW_H} x {WINDOW_V} "
-          f"commit window {cwin['ladder_p50_s']:.3f} s on the ladder (K8), {cwin['msm_s']:.2f} s "
-          f"on the msm path", flush=True)
+          f"commit window {cwin['ladder_p50_s']:.3f} s on the ladder (K8), its first "
+          f"{MSM_WINDOW_H} heights {cwin['msm_s']:.2f} s on the msm path", flush=True)
     print(f"  block_exec: the {BX_VALS}-validator chain at {bx['chain']['blocks_s']:.2f} "
           f"blocks/s (apply_block p50 {bx['chain']['apply_p50_ms']:.1f} ms); the "
           f"{N_VALIDATORS}-validator LastCommit's apply_block p50 {bx['10k']['p50_ms']:.1f} ms "
@@ -3364,6 +3820,10 @@ def main() -> int:
           f"the serial baseline {fs['baseline_blocks_s']:.2f}; the reactor "
           f"{fs['reactor']['blocks_s']:.2f} blocks/s over {FS_REACTOR_BLOCKS - 1}; phase "
           f"{fs['seconds']:.1f} s", flush=True)
+    print(f"  consensus: {CS_VALS} validators, {cons['a']['blocks_s']:.2f} blocks/s through "
+          f"the vote feed (a height's p50 {cons['a']['p50_ms']:.1f} ms), "
+          f"{cons['b']['blocks_s']:.2f} serially; the handshake's block {CS_HEIGHTS} in "
+          f"{cons['c']['wall_ms']:.1f} ms; phase {cons['seconds']:.1f} s", flush=True)
     print(f"  total {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"torch_ops": [window["tally"], cwin["tally"]]}))
     print(json.dumps({"kernels": kernels}))

@@ -12,7 +12,10 @@ the reference reads the port unchanged. ``MempoolMetrics`` is the mempool
 family of the reference's ``NodeMetrics`` that ``mempool/mempool.py``
 writes, under the same attribute names; ``StateMetrics`` is its state
 family (``state_block_processing_time``, which ``BlockExecutor.apply_block``
-observes). The other metric sets of the reference (consensus, p2p, the
+observes); ``ConsensusMetrics`` is the part of its consensus family that
+``consensus/state.py`` and ``consensus/wal.py`` write (the round, the step
+durations, the vote arrival latency, the WAL's appends and fsyncs). The
+other metric sets of the reference (the rest of consensus, p2p, the
 mempool's QoS, state sync) belong to subsystems the port has not taken
 over.
 """
@@ -696,5 +699,36 @@ class StateMetrics:
         self.registry = r
         self.block_processing_time = r.histogram(
             "state_block_processing_time", "ApplyBlock seconds",
+            buckets=[b / 10 for b in _DEFAULT_BUCKETS],
+        )
+
+
+class ConsensusMetrics:
+    """The consensus family of the reference's ``NodeMetrics``
+    (libs/metrics.py:763-804) that ``consensus/state.py`` and
+    ``consensus/wal.py`` write, under the same attribute names."""
+
+    def __init__(self, registry: Optional[Registry] = None):
+        r = registry or Registry()
+        self.registry = r
+        self.rounds = r.gauge("consensus_rounds", "Round of the current height")
+        self.step_duration = r.histogram(
+            "consensus_step_duration_seconds",
+            "Wall seconds spent in each consensus step (labeled by the step "
+            "being left)",
+            label_names=("step",),
+        )
+        self.vote_arrival_latency = r.histogram(
+            "consensus_vote_arrival_latency_seconds",
+            "Wall-clock delay between a vote's signed timestamp and its "
+            "arrival at the state machine",
+            label_names=("type",),
+        )
+        self.wal_append_seconds = r.histogram(
+            "consensus_wal_append_seconds", "WAL buffered-append wall seconds",
+            buckets=[b / 10 for b in _DEFAULT_BUCKETS],
+        )
+        self.wal_fsync_seconds = r.histogram(
+            "consensus_wal_fsync_seconds", "WAL fsync wall seconds",
             buckets=[b / 10 for b in _DEFAULT_BUCKETS],
         )

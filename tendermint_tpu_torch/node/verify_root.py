@@ -31,8 +31,12 @@ section with its batched CheckTx signature hook (``node/node.py:200-219``
 and ``:263-283``), and ``block_executor(...)`` the evidence pool and the
 block executor that owns that mempool (``node/node.py:220-230``), whose
 ``apply_block`` verifies each LastCommit through the installed verifier,
-and ``blockchain_reactor(...)`` the fast-sync reactor over them
-(``node/node.py:400-406``), whose windows go to the installed verifier.
+``blockchain_reactor(...)`` the fast-sync reactor over them
+(``node/node.py:400-406``), whose windows go to the installed verifier,
+``handshake(...)`` the ABCI handshake that brings the app up to the stores
+(``node/node.py:105-110``), and ``consensus_state(...)`` the consensus state
+machine over them with its WAL, event bus and the ``[verify]`` vote feed
+(``node/node.py:225-262``).
 """
 
 from __future__ import annotations
@@ -43,8 +47,12 @@ from typing import Callable, Dict, NamedTuple, Optional
 import torch
 
 from tendermint_tpu_torch.blockchain.reactor import BlockchainReactor
+from tendermint_tpu_torch.config.consensus import ConsensusConfig
 from tendermint_tpu_torch.config.mempool import MempoolConfig
 from tendermint_tpu_torch.config.verify import VerifyConfig
+from tendermint_tpu_torch.consensus.replay import Handshaker
+from tendermint_tpu_torch.consensus.state import ConsensusState
+from tendermint_tpu_torch.consensus.wal import WAL
 from tendermint_tpu_torch.crypto import batch as _batch
 from tendermint_tpu_torch.device import DeviceLike, resolve_device
 from tendermint_tpu_torch.evidence.pool import EvidencePool
@@ -53,7 +61,10 @@ from tendermint_tpu_torch.mempool.mempool import Mempool
 from tendermint_tpu_torch.mempool.tx_verify import BatchTxVerifier
 from tendermint_tpu_torch.ops import _build
 from tendermint_tpu_torch.parallel import planner
+from tendermint_tpu_torch.state import store as sm_store
 from tendermint_tpu_torch.state.execution import BlockExecutor
+from tendermint_tpu_torch.state.state_types import State
+from tendermint_tpu_torch.types.events import EventBus
 
 # the kernels of the verify path: K1 and K2 (ed25519), K3 (secp256k1), K4
 # (the ed25519 MSM path)
@@ -199,3 +210,56 @@ def blockchain_reactor(state, block_exec, block_store, fast_sync: bool = True,
     return BlockchainReactor(state, block_exec, block_store, fast_sync=fast_sync,
                              consensus_reactor=consensus_reactor, verifier=None,
                              verify_window=None, metrics=metrics)
+
+
+def handshake(state_db, state: State, block_store, genesis_doc, proxy_app) -> State:
+    """The node's ABCI handshake (``node/node.py:105-110``): the
+    ``Handshaker`` replays the blocks that ``proxy_app``'s app (a started
+    ``MultiAppConn``) misses from ``block_store`` and the saved state, and
+    the state it returns is saved. A block that both the app and the state
+    miss goes through ``apply_block`` (its LastCommit through the installed
+    verifier)."""
+    state = Handshaker(state_db, state, block_store, genesis_doc).handshake(proxy_app)
+    sm_store.save_state(state_db, state)
+    return state
+
+
+class ConsensusRoot(NamedTuple):
+    consensus_state: ConsensusState
+    event_bus: EventBus
+    vote_feed: Optional[planner.VoteFeed]  # None: peer votes verify serially
+    wal: Optional[WAL]
+
+
+def consensus_state(cfg: Optional[ConsensusConfig], verify_cfg: Optional[VerifyConfig],
+                    state: State, block_exec: BlockExecutor, block_store, mempool,
+                    evidence_pool, *, wal_file: Optional[str] = None, event_bus=None,
+                    priv_validator=None, metrics=None,
+                    device: DeviceLike = None) -> ConsensusRoot:
+    """The node's consensus state machine (``node/node.py:225-262``) from
+    the ``[consensus]`` section over ``block_exec``
+    (``block_executor(...).block_executor``), ``block_store``, ``mempool``
+    and ``evidence_pool``, starting from ``state``: its WAL at ``wal_file``
+    (None: no WAL), ``event_bus`` (default the executor's, else a new one,
+    started), ``priv_validator``, and the ``[verify]`` vote feed
+    (``vote_feed(verify_cfg, device)``) set with ``set_vote_feed`` when
+    ``vote_batch_window_ms > 0``: live peer votes then verify through it, on
+    the card through the installed guarded verifier (K1 + K2, K3). The
+    caller starts the state machine, and closes the feed after stopping it.
+    ``metrics`` is a ``libs/metrics.ConsensusMetrics``."""
+    cfg = cfg if cfg is not None else ConsensusConfig()
+    if cfg.wait_for_txs():
+        mempool.enable_txs_available()
+    wal = WAL(wal_file, metrics=metrics) if wal_file else None
+    cs = ConsensusState(cfg, state.copy(), block_exec, block_store, mempool, evidence_pool,
+                        wal=wal, metrics=metrics)
+    bus = event_bus if event_bus is not None else (block_exec.event_bus or EventBus())
+    if not bus.is_running:
+        bus.start()
+    cs.set_event_bus(bus)
+    if priv_validator is not None:
+        cs.set_priv_validator(priv_validator)
+    feed = vote_feed(verify_cfg, device=device)
+    if feed is not None:
+        cs.set_vote_feed(feed)
+    return ConsensusRoot(cs, bus, feed, wal)

@@ -1,7 +1,8 @@
-"""BlockID, PartSetHeader, signed-message types and canonical vote
-sign-bytes (field order of the reference's CanonicalVote, types/canonical.go:
-type, height and round as fixed64, timestamp, block id, chain id), with the
-codec of the reference package's ``types/core.py``."""
+"""BlockID, PartSetHeader, signed-message types and the canonical
+sign-bytes of votes, proposals and heartbeats (field order of the
+reference's CanonicalVote and CanonicalProposal, types/canonical.go:25-52:
+type, height and round as fixed64, [POLRound], timestamp, block id, chain
+id), with the codec of the reference package's ``types/core.py``."""
 
 from __future__ import annotations
 
@@ -30,6 +31,10 @@ class PartSetHeader:
     def is_zero(self) -> bool:
         return self.total == 0 and len(self.hash) == 0
 
+    def validate_basic(self) -> None:
+        if self.total < 0:
+            raise ValueError("negative Total")
+
     def encode(self, w: Writer) -> None:
         w.uvarint(self.total).bytes(self.hash)
 
@@ -56,6 +61,11 @@ class BlockID:
         self.encode(w)
         return w.build()
 
+    def validate_basic(self) -> None:
+        if len(self.hash) not in (0, 32):
+            raise ValueError("BlockID hash must be empty or 32 bytes")
+        self.parts_header.validate_basic()
+
     def encode(self, w: Writer) -> None:
         w.bytes(self.hash)
         self.parts_header.encode(w)
@@ -76,5 +86,37 @@ def canonical_vote_sign_bytes(
     w = Writer()
     w.uvarint(int(vote_type)).fixed64(height).fixed64(round).fixed64(timestamp_ns)
     block_id.encode(w)
+    w.string(chain_id)
+    return w.build()
+
+
+def canonical_proposal_sign_bytes(
+    chain_id: str,
+    height: int,
+    round: int,
+    pol_round: int,
+    timestamp_ns: int,
+    block_id: BlockID,
+) -> bytes:
+    w = Writer()
+    w.uvarint(int(SignedMsgType.PROPOSAL))
+    w.fixed64(height).fixed64(round).fixed64(pol_round).fixed64(timestamp_ns)
+    block_id.encode(w)
+    w.string(chain_id)
+    return w.build()
+
+
+def canonical_heartbeat_sign_bytes(
+    chain_id: str,
+    height: int,
+    round: int,
+    sequence: int,
+    validator_address: bytes,
+    validator_index: int,
+) -> bytes:
+    w = Writer()
+    w.uvarint(int(SignedMsgType.HEARTBEAT))
+    w.fixed64(height).fixed64(round).fixed64(sequence)
+    w.bytes(validator_address).uvarint(validator_index)
     w.string(chain_id)
     return w.build()

@@ -1,12 +1,11 @@
-"""EventBus and the block executor's events (ref types/event_bus.go,
-types/events.go), the port's copy of those of the reference package's
-``types/events.py``.
+"""EventBus and its events (ref types/event_bus.go, types/events.go), the
+port's copy of the reference package's ``types/events.py``.
 
 The EventBus carries what ``state/execution.fire_events`` publishes
-(``NewBlock``, ``NewBlockHeader``, one ``Tx`` a delivered tx) to
-subscribers through ``libs/pubsub.py`` and its tag queries; each
-subscriber reads its own ``Subscription`` queue. The consensus events
-(round steps, votes, validator-set updates) come with the consensus state.
+(``NewBlock``, ``NewBlockHeader``, one ``Tx`` a delivered tx) and what the
+consensus state publishes (its round steps and votes) to subscribers
+through ``libs/pubsub.py`` and its tag queries; each subscriber reads its
+own ``Subscription`` queue.
 """
 
 from __future__ import annotations
@@ -21,6 +20,18 @@ from tendermint_tpu_torch.libs.service import BaseService
 EVENT_NEW_BLOCK = "NewBlock"
 EVENT_NEW_BLOCK_HEADER = "NewBlockHeader"
 EVENT_TX = "Tx"
+EVENT_NEW_ROUND_STEP = "NewRoundStep"
+EVENT_NEW_ROUND = "NewRound"
+EVENT_COMPLETE_PROPOSAL = "CompleteProposal"
+EVENT_POLKA = "Polka"
+EVENT_UNLOCK = "Unlock"
+EVENT_LOCK = "Lock"
+EVENT_RELOCK = "Relock"
+EVENT_TIMEOUT_PROPOSE = "TimeoutPropose"
+EVENT_TIMEOUT_WAIT = "TimeoutWait"
+EVENT_VOTE = "Vote"
+EVENT_PROPOSAL_HEARTBEAT = "ProposalHeartbeat"
+EVENT_VALID_BLOCK = "ValidBlock"
 
 # tag keys (events.go: EventTypeKey, TxHashKey, TxHeightKey)
 EVENT_TYPE_KEY = "tm.event"
@@ -50,6 +61,19 @@ class EventDataTx:
     index: int
     tx: bytes
     result: Any
+
+
+@dataclass
+class EventDataRoundState:
+    height: int
+    round: int
+    step: str
+    round_state: Any = None
+
+
+@dataclass
+class EventDataVote:
+    vote: Any
 
 
 class EventBus(BaseService):
@@ -104,3 +128,11 @@ class EventBus(BaseService):
                 pass
         self._publish(EVENT_TX, EventDataTx(height=height, index=index, tx=tx, result=result),
                       extra)
+
+    def publish_event_vote(self, vote) -> None:
+        self._publish(EVENT_VOTE, EventDataVote(vote=vote))
+
+    def publish_event_round_state(self, event_type: str, height: int, round: int, step: str,
+                                  rs=None) -> None:
+        self._publish(event_type, EventDataRoundState(height=height, round=round, step=step,
+                                                      round_state=rs))

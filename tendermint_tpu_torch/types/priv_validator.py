@@ -1,9 +1,8 @@
 """PrivValidator and the MockPV test signer (ref types/priv_validator.go),
 the port's copy of the reference package's ``types/priv_validator.py``.
 
-MockPV signs any vote with one key and keeps no double-sign state. Signing
-proposals and heartbeats waits for the port's ``Proposal`` and
-``Heartbeat`` (ROADMAP queue 1 item 13 (iii)).
+MockPV signs any vote, proposal or heartbeat with one key and keeps no
+double-sign state.
 """
 
 from __future__ import annotations
@@ -12,11 +11,12 @@ from abc import ABC, abstractmethod
 from typing import Optional
 
 from tendermint_tpu_torch.crypto.keys import PrivKeyEd25519, PubKey
+from tendermint_tpu_torch.types.proposal import Heartbeat, Proposal
 from tendermint_tpu_torch.types.vote import Vote
 
 
 class PrivValidator(ABC):
-    """Signs votes with one consistent key."""
+    """Signs votes and proposals with one consistent key."""
 
     @abstractmethod
     def get_pub_key(self) -> PubKey: ...
@@ -27,6 +27,12 @@ class PrivValidator(ABC):
 
     @abstractmethod
     def sign_vote(self, chain_id: str, vote: Vote) -> Vote: ...
+
+    @abstractmethod
+    def sign_proposal(self, chain_id: str, proposal: Proposal) -> Proposal: ...
+
+    def sign_heartbeat(self, chain_id: str, heartbeat: Heartbeat) -> Heartbeat:
+        raise NotImplementedError
 
 
 class MockPV(PrivValidator):
@@ -41,3 +47,9 @@ class MockPV(PrivValidator):
 
     def sign_vote(self, chain_id: str, vote: Vote) -> Vote:
         return vote.with_signature(self._priv.sign(vote.sign_bytes(chain_id)))
+
+    def sign_proposal(self, chain_id: str, proposal: Proposal) -> Proposal:
+        return proposal.with_signature(self._priv.sign(proposal.sign_bytes(chain_id)))
+
+    def sign_heartbeat(self, chain_id: str, heartbeat: Heartbeat) -> Heartbeat:
+        return heartbeat.with_signature(self._priv.sign(heartbeat.sign_bytes(chain_id)))
