@@ -305,7 +305,7 @@ Phases, in order; any failure exits non-zero:
              (four a height from height 2: enter_prevote, enter_precommit,
              _finalize_commit and apply_block each validate the block), and
              the consensus.finalize_commit, wal.*, verify.* and state.*
-             span sums. (b) The same genesis with the feed off, 4 heights,
+             span sums. (b) The same genesis with the feed off, 2 heights,
              every peer vote verified on the host inside add_vote: blocks a
              second, the app hash at each height equal to (a)'s. (c) A fresh
              KVStoreApp over (a)'s stores with (a)'s state kept at height 7:
@@ -317,6 +317,39 @@ Phases, in order; any failure exits non-zero:
              device_fault set, no vote of that flush is added or verified
              on the host, the store stays at 0. No fallback, the default
              breaker closed, no audit mismatch.
+  24. statesync state sync, on a default [verify] root of its own: a chain
+             of 100 ed25519 validators of power 10 (the Cosmos SDK's
+             DefaultMaxValidators), 66 heights of 256 kvstore txs a block,
+             whose PersistentKVStoreApp snapshots every 32 heights at the
+             [statesync] defaults (65,536-byte chunks, keep 3, format 1;
+             set-up, the free verifier). A fresh node wired by
+             node/verify_root (the mempool, the executor, the fast-sync
+             reactor with fast_sync off, state_sync at the [statesync]
+             defaults with enable on, trust_height 32 and header 32's hash)
+             restores the tallest snapshot (64) from three in-process peers
+             (testutil/statesync.py's hub), one of which serves corrupt
+             chunks: the trust hops through the root's guarded
+             verifier (K1 + K2 twice a hop), the chunks, the backfill of
+             heights 49-64 through WindowPipeline on the guarded executor
+             (K1 + K2 + the K7 tally once); the reference's assertions
+             (tests/test_statesync.py:539): the corrupt sender banned, the
+             state fields equal the producer's at 64, the app at 64 with
+             header 65's app hash, the store's base 49 with every meta and
+             commit, the validator records at 49-65, the progress. Then the
+             hand-off: start_from_statesync fast-syncs height 65 from a
+             loopback peer (K1 + K2 for its window and for the first
+             block's LastCommit) and switches to a recorded consensus stub
+             with the producer's state at 65. The restore's wall from
+             start() to on_synced with its statesync.*, planner.* and
+             verify.* spans, the chunk bytes a second, the hand-off's wall,
+             K1 and K2 exact on the backfill's inputs. Then
+             the restore on a fresh node with three honest peers and the
+             default breaker tripped once the app's restore completes,
+             before the backfill: it halts with
+             device_fault (breaker_open), no state, validator record or
+             block saved, no peer banned, no hand-off, the backfill
+             launches nothing. No fallback, the breaker closed, no audit
+             mismatch.
 
 The window phase's routes and the backfill phase each make one traced call
 (the p50 of 3 before phase 21, of 2 before phase 22: the fastsync replay
@@ -327,8 +360,9 @@ calls before), phase 21 2 applications of the 10k LastCommit (3), the
 host-clock walls 3 repeats (5), and each kernel's plain time on its main
 path (K1, K2, K3 and K4) is the plain version's run for the exactness check
 (two or three more runs before). Phase 23 is paid for by phase 19's msm
-calls, which take the window's first 128 heights, not all 512. Each
-phase's line carries the seconds since the script began.
+calls, which take the window's first 128 heights, not all 512; phase 24
+by phase 23's serial run, 2 heights (4 before). Each phase's line carries
+the seconds since the script began.
 
 Each path's launch counts are set to 0 just before it and read just after;
 the kernels line carries the main path's as ``launches``, the lite
@@ -340,7 +374,8 @@ txs phase's as ``txs_launches``, phases 18 and 19's as ``msm_launches`` and
 ``block_exec_launches`` (chain: CheckTx and apply_block; 10k: the first
 application of block 2), phase 22's as ``fastsync_launches`` (guarded,
 explicit, baseline, reactor) and phase 23's as ``consensus_launches`` ((a),
-(b) and (c), each split into flushes and LastCommit checks); K4's own
+(b) and (c), each split into flushes and LastCommit checks) and phase
+24's as ``statesync_launches`` (trust, backfill, handoff); K4's own
 ``launches`` are
 the msm route's 10,000-validator commit's. The line before the last two is the
 ``kernels`` JSON, then the card's name
@@ -372,6 +407,7 @@ import torch
 from tendermint_tpu_torch.abci import types as abci
 from tendermint_tpu_torch.abci.examples.kvstore import (
     KVStoreApp,
+    PersistentKVStoreApp,
     SignedKVStoreApp,
     extract_signed_tx_sig,
 )
@@ -380,6 +416,7 @@ from tendermint_tpu_torch.blockchain import reactor as bc_reactor
 from tendermint_tpu_torch.blockchain.store import BlockStore
 from tendermint_tpu_torch.config.consensus import consensus_test_config
 from tendermint_tpu_torch.config.mempool import MempoolConfig
+from tendermint_tpu_torch.config.statesync import StateSyncConfig
 from tendermint_tpu_torch.consensus.messages import EndHeightMessage, VoteMessage
 from tendermint_tpu_torch.consensus.wal import WAL
 from tendermint_tpu_torch.config.verify import VerifyConfig
@@ -402,6 +439,7 @@ from tendermint_tpu_torch.libs.db.kv import MemDB
 from tendermint_tpu_torch.libs.metrics import (
     ConsensusMetrics,
     StateMetrics,
+    StateSyncMetrics,
     get_frontend_metrics,
     get_verify_metrics,
 )
@@ -423,6 +461,9 @@ from tendermint_tpu_torch.proxy.app_conn import LocalClientCreator, MultiAppConn
 from tendermint_tpu_torch.state import store as sm_store
 from tendermint_tpu_torch.state.execution import BlockExecutor, InvalidBlockError
 from tendermint_tpu_torch.state.state_types import state_from_genesis
+from tendermint_tpu_torch.statesync.reactor import StateSyncReactor
+from tendermint_tpu_torch.statesync.store import SnapshotStore
+from tendermint_tpu_torch.testutil import chain as tchain
 from tendermint_tpu_torch.testutil import commit as tc
 from tendermint_tpu_torch.testutil import consensus as tcs
 from tendermint_tpu_torch.testutil import lite_chain as lc
@@ -431,6 +472,7 @@ from tendermint_tpu_torch.testutil import secp_signer
 from tendermint_tpu_torch.testutil import votes as tv
 from tendermint_tpu_torch.testutil import window as tw
 from tendermint_tpu_torch.testutil.fastsync import LoopbackSwitch, ServingPeer
+from tendermint_tpu_torch.testutil.statesync import CorruptingStore, hub_net
 from tendermint_tpu_torch.tools import bench_fastsync as bf
 from tendermint_tpu_torch.types.block import Commit
 from tendermint_tpu_torch.types.core import BlockID, SignedMsgType
@@ -530,13 +572,26 @@ FS_SPANS = ("fastsync.window", "planner.pack", "verify.dispatch", "verify.audit"
 # DefaultMaxValidators, the block_exec and lite width) at the TestConsensusConfig
 # timeouts, the vote feed at the reference's vote_storm settings
 # (sim/scenarios.py:352-358: [verify] vote_batch_window_ms = 2, vote_batch_rows
-# = 64); 8 heights batched, 4 serially
-CS_VALS, CS_HEIGHTS, CS_SERIAL_HEIGHTS = 100, 8, 4
+# = 64); 8 heights batched, 2 serially (4 before the statesync phase came: a
+# serial height is about 1.1 s of host verifies)
+CS_VALS, CS_HEIGHTS, CS_SERIAL_HEIGHTS = 100, 8, 2
 CS_WINDOW_MS, CS_ROWS = 2.0, 64
 CS_TIMEOUT = 120.0
 CS_SPANS = ("consensus.finalize_commit", "wal.append", "wal.fsync", "verify.dispatch",
             "verify.audit", "state.validate", "state.exec", "state.update", "state.commit",
             "state.save")
+# the statesync phase: the Cosmos SDK's DefaultMaxValidators (100, power 10),
+# 66 heights of 256 kvstore txs a block, PersistentKVStoreApp's snapshots at
+# the [statesync] defaults (65,536-byte chunks, keep 3, format 1) every 32
+# heights (the reference's interval default is 0, off): snapshots at 32 and
+# 64; a fresh node at the [statesync] defaults trusts header 32 and restores
+# 64 from three peers, one of which serves corrupt chunks
+SS_VALS, SS_POWER, SS_HEIGHTS, SS_TXS, SS_INTERVAL, SS_TRUST = 100, 10, 66, 256, 32, 32
+SS_MIN_CHUNKS = 4
+SS_TIMEOUT = 120.0
+SS_SPANS = ("statesync.restore", "statesync.light_verify", "statesync.chunks",
+            "statesync.backfill", "planner.pack", "planner.pack_device", "planner.dispatch",
+            "planner.audit", "verify.dispatch", "verify.audit")
 
 # Rates for the least time the card could take: HBM bandwidth (H100 SXM
 # data sheet); 32-bit integer add, logic, shift and multiply-add each retire
@@ -3652,6 +3707,340 @@ def phase_consensus(dev, err: dict) -> dict:
             "launches": {"a": a["out"]["split"], "b": b["split"], "c": c["split"]}}
 
 
+# -- phase 24: state sync -----------------------------------------------------------------
+
+
+def ss_producer(cfg: StateSyncConfig):
+    """The producer chain: SS_HEIGHTS heights of SS_TXS kvstore txs a block,
+    signed by SS_VALS validators; the app snapshots every SS_INTERVAL heights
+    at the [statesync] defaults. Its blocks are applied with the free
+    verifier (set-up); returns the fixture, the snapshot store and the state
+    after each height."""
+    snap_store = SnapshotStore(MemDB())
+    apps, states = [], {}
+
+    def app_factory():
+        app = PersistentKVStoreApp()
+        app.configure_snapshots(snap_store, SS_INTERVAL, cfg.snapshot_chunk_size,
+                                cfg.snapshot_keep_recent, snapshot_format=cfg.snapshot_format)
+        apps.append(app)
+        return app
+
+    def on_height(h, st):
+        states[h - 1] = st
+        return [f"k{h}-{j}=v{h}".encode() for j in range(SS_TXS)]
+
+    fx = tchain.build_chain(n_vals=SS_VALS, n_heights=SS_HEIGHTS, chain_id="statesync-chain",
+                            app_factory=app_factory, on_height=on_height,
+                            verifier=bf.NullVerifier(), check_votes=False)
+    states[SS_HEIGHTS] = fx.state
+    for app in apps:
+        app.wait_snapshots()
+        check(app.snapshot_failures == 0, "statesync: a snapshot's production failed")
+    return fx, snap_store, states
+
+
+def ss_node(fx, cfg: StateSyncConfig):
+    """A fresh node at genesis as node/verify_root wires one: a state DB, a
+    PersistentKVStoreApp, the mempool, the executor (verifier None), an
+    empty block store, the fast-sync reactor (fast_sync off, its hand-off
+    recorded) on a loopback peer that serves the producer's blocks, and
+    ``state_sync`` from ``cfg`` (its restore on the installed verifier and
+    executor)."""
+    st0 = state_from_genesis(fx.genesis)
+    state_db = MemDB()
+    sm_store.save_state(state_db, st0)
+    app = SsRestoringApp()
+    conn = bx_consensus_conn(app)
+    mp = verify_root.mempool(MempoolConfig(), conn, app).mempool
+    _, ex = verify_root.block_executor(state_db, MemDB(), conn, mp, st0)
+    store = BlockStore(MemDB())
+    cons = FsConsensus()
+    bc = verify_root.blockchain_reactor(st0, ex, store, fast_sync=False, consensus_reactor=cons,
+                                        metrics=FsMetrics())
+    sw = LoopbackSwitch(bc)
+    sw.connect(ServingPeer("serving-peer", fx.block_store))
+    metrics = StateSyncMetrics()
+    root = verify_root.state_sync(cfg, fx.genesis, conn, st0, state_db, store, app=app,
+                                  mempool=mp, blockchain_reactor=bc, metrics=metrics)
+    check(root is not None and root.syncer is not None and root.syncer.batch_verifier is None,
+          "statesync: the node does not restore through the installed verifier")
+    node = SimpleNamespace(app=app, conn=conn, mp=mp, ex=ex, store=store, state_db=state_db,
+                           bc=bc, sw=sw, cons=cons, metrics=metrics, ss=root.reactor,
+                           syncer=root.syncer, synced=None, synced_at=None, launches_at={})
+    real = root.reactor.on_synced
+
+    def on_synced(state, height):
+        node.synced, node.synced_at = state, time.perf_counter()
+        node.launches_at["synced"] = {**read_launches(), **planner.tally_launches}
+        node.app_at_sync = (node.app.height, node.app._app_hash())
+        real(state, height)
+
+    root.reactor.on_synced = on_synced
+
+    def restored():
+        # the trust hops are done: their launches are the counts so far
+        node.restored_ns = time.perf_counter_ns()
+        node.launches_at["backfill"] = {**read_launches(), **planner.tally_launches}
+        if node.trip_before_backfill:
+            breaker.get_device_breaker().trip("statesync smoke: before the backfill")
+
+    node.trip_before_backfill, node.restored_ns = False, None
+    app.on_restored = restored
+    return node
+
+
+class SsRestoringApp(PersistentKVStoreApp):
+    """The kvstore app, calling ``on_restored`` when the chunk it applies
+    completes the restore. The protocol puts that moment between the trust
+    hops (the snapshot's offer carries the app hash they verified) and the
+    backfill (which begins once the restored app's Info matches); the phase
+    checks that order against the statesync.* spans."""
+
+    on_restored = None
+
+    def apply_snapshot_chunk(self, req):
+        h0 = self.height
+        res = super().apply_snapshot_chunk(req)
+        if self.height != h0 and self.on_restored is not None:
+            self.on_restored()
+        return res
+
+
+def ss_restore(fx, snap_store, cfg, trip: bool = False, corrupt: bool = True):
+    """The node restores from three hub peers (with ``corrupt``,
+    ``peer-evil`` serves corrupt chunks); returns once it handed off or
+    halted, with the launch counts when the app's restore completed (before
+    the backfill), at ``on_synced`` and at the end."""
+    node = ss_node(fx, cfg)
+    node.trip_before_backfill = trip
+    serve = StateSyncConfig()
+    evil = CorruptingStore(snap_store) if corrupt else snap_store
+    peers = [("peer-a", StateSyncReactor(serve, snapshot_store=snap_store,
+                                         block_store=fx.block_store, state_db=fx.state_db)),
+             ("peer-b", StateSyncReactor(serve, snapshot_store=snap_store,
+                                         block_store=fx.block_store, state_db=fx.state_db)),
+             ("peer-evil", StateSyncReactor(serve, snapshot_store=evil,
+                                            block_store=fx.block_store, state_db=fx.state_db))]
+    reset_launches()
+    planner.tally_launches["planner_tally"] = 0
+    node.bc.start()
+    t0 = time.perf_counter()
+    switches = hub_net([("peer-node", node.ss)] + peers)
+    try:
+        check(fs_wait(lambda: node.cons.switched.is_set() or node.ss.progress()["error"],
+                      SS_TIMEOUT),
+              f"statesync: neither a hand-off nor an error in {SS_TIMEOUT} s "
+              f"({node.ss.progress()})")
+    finally:
+        for _, r in peers:
+            r.stop()
+        node.ss.stop()
+        node.bc.stop()
+        node.conn.stop()
+    node.t0, node.switches, node.evil = t0, switches, evil
+    node.launches_end = {**read_launches(), **planner.tally_launches}
+    return node
+
+
+def ss_between_trust_and_backfill(t_ns: int, events) -> bool:
+    """Whether ``t_ns`` (perf_counter_ns, the tracer's clock) falls after
+    every statesync.light_verify span and before every statesync.backfill
+    span, with at least one of each."""
+    t_us = t_ns / 1000.0
+    trust = [e for e in events if e.get("ph") == "X" and e["name"] == "statesync.light_verify"]
+    fill = [e for e in events if e.get("ph") == "X" and e["name"] == "statesync.backfill"]
+    return (bool(trust) and bool(fill) and all(e["ts"] + e["dur"] <= t_us for e in trust)
+            and all(e["ts"] >= t_us for e in fill))
+
+
+def ss_diff(a: dict, b: dict) -> dict:
+    return {k: a[k] - b.get(k, 0) for k in a}
+
+
+def ss_check_restore(node, fx, states, snap) -> None:
+    """The reference's assertions (tests/test_statesync.py:539), at H."""
+    H = snap.height
+    st, m = node.synced, node.metrics
+    check("peer-evil" in node.ss._banned and node.evil.corrupted == 1,
+          f"statesync: the corrupt sender was not banned ({node.ss._banned})")
+    check(m.chunk_fetch._values.get(("bad",), 0) >= 1
+          and m.chunk_fetch._values.get(("ok",), 0) >= snap.chunks,
+          f"statesync: chunk fetches {m.chunk_fetch._values}")
+    want = states[H]
+    for f in ("last_block_height", "chain_id", "last_block_id", "app_hash",
+              "last_results_hash", "last_block_time_ns", "last_block_total_tx"):
+        check(getattr(st, f) == getattr(want, f), f"statesync: the restored state's {f}")
+    for f in ("validators", "next_validators", "last_validators"):
+        check(getattr(st, f).hash() == getattr(want, f).hash(),
+              f"statesync: the restored state's {f}")
+    check(st.app_hash == fx.block_store.load_block_meta(H + 1).header.app_hash,
+          "statesync: the app hash is not header H+1's")
+    check(node.app_at_sync == (H, want.app_hash),
+          f"statesync: the app at {node.app_at_sync[0]} when the restore ended")
+    base = max(1, H - StateSyncConfig().backfill_blocks + 1)
+    check(node.store.base() == base and node.store.load_seen_commit(H) is not None,
+          f"statesync: the store's base {node.store.base()}")
+    for h in range(base, H + 1):
+        check(node.store.load_block_meta(h) is not None
+              and node.store.load_block_commit(h) is not None
+              and node.store.load_block_meta(h).header.hash()
+              == fx.block_store.load_block_meta(h).header.hash(),
+              f"statesync: backfilled height {h}")
+    for h in range(base, H + 2):
+        check(sm_store.load_validators(node.state_db, h).hash() == fx.state.validators.hash(),
+              f"statesync: the validator record at {h}")
+    prog = node.ss.progress()
+    check(prog["synced_height"] == H and prog["chunks_applied"] == snap.chunks
+          and prog["error"] is None and node.ss.device_fault is None,
+          f"statesync: progress {prog}")
+
+
+def ss_fault(fx, snap_store, cfg) -> dict:
+    """The restore again on a fresh node with the default breaker tripped
+    once the app's restore completes, before the backfill: it halts with
+    device_fault, nothing
+    persisted, no ban, no hand-off."""
+    node = ss_restore(fx, snap_store, cfg, trip=True, corrupt=False)
+    breaker.get_device_breaker().reset()
+    fault = node.ss.device_fault
+    H = node.syncer.progress()["snapshot_height"]
+    check(isinstance(fault, breaker.DeviceDispatchError) and fault.reason == "breaker_open",
+          f"statesync fault: {fault!r}")
+    check(type(fault).__name__ in (node.ss.progress()["error"] or ""),
+          f"statesync fault: progress {node.ss.progress()}")
+    check(node.restored_ns is not None, "statesync fault: the app's restore never completed")
+    check(node.synced is None and not node.cons.switched.is_set(),
+          "statesync fault: handed off")
+    check(node.ss._banned == set() and all(sw.stopped == [] for sw in node.switches[1:])
+          and node.switches[0].stopped == [], "statesync fault: a peer was banned")
+    check(node.store.height() == 0 and node.store.base() == 0,
+          f"statesync fault: the block store at {node.store.height()}")
+    check(sm_store.load_state(node.state_db).last_block_height == 0,
+          "statesync fault: a state was saved")
+    try:
+        sm_store.load_validators(node.state_db, H)
+        check(False, f"statesync fault: a validator record at {H} was saved")
+    except sm_store.NoValSetForHeightError:
+        pass
+    tail = ss_diff(node.launches_end, node.launches_at["backfill"])
+    check(tail["ed25519_prologue"] == tail["ed25519_ladder"] == tail["planner_tally"] == 0,
+          f"statesync fault: the backfill launched {tail}")
+    print(f"  fault: the default breaker tripped before the backfill: halted with "
+          f"device_fault {fault}; the app restored at {node.app.height} (it took the chunks, "
+          f"as the reference leaves it); no state, validator record or block saved, no peer "
+          f"banned (three honest peers), no hand-off; the backfill launched nothing",
+          flush=True)
+    return {"fault": str(fault), "app_height": node.app.height}
+
+
+def phase_statesync(root, dev, err: dict) -> dict:
+    """Phase 24: state sync on the card, on a default [verify] root of its own."""
+    phase(f"statesync: a {SS_HEIGHTS}-height chain of {SS_VALS} validators, {SS_TXS} kvstore "
+          f"txs a block, snapshots every {SS_INTERVAL}; a fresh node trusting header "
+          f"{SS_TRUST} restores the tallest from three peers (one serving corrupt chunks), "
+          f"backfills, fast-syncs the next height and hands off; then a tripped breaker")
+    t_phase = time.perf_counter()
+    check(get_batch_verifier() is root.verifier,
+          "the default verifier is not the configuration root's guarded one")
+    defaults = StateSyncConfig()
+    fx, snap_store, states = ss_producer(defaults)
+    snaps = snap_store.list()
+    sizes = {s.height: sum(len(snap_store.load_chunk(s.height, s.format, i))
+                           for i in range(s.chunks)) for s in snaps}
+    check([s.height for s in snaps] == list(range(SS_INTERVAL * (SS_HEIGHTS // SS_INTERVAL),
+                                                  0, -SS_INTERVAL)),
+          f"statesync: snapshots at {[s.height for s in snaps]}")
+    snap = snaps[0]
+    check(snap.chunks >= SS_MIN_CHUNKS, f"statesync: the snapshot spans {snap.chunks} chunks")
+    print(f"  built in {time.perf_counter() - t_phase:.1f} s (set-up); snapshots "
+          + ", ".join(f"{s.height}: {sizes[s.height]:,} bytes in {s.chunks} chunks"
+                      for s in snaps), flush=True)
+    cfg = StateSyncConfig(enable=True, trust_height=SS_TRUST,
+                          trust_hash=fx.block_store.load_block_meta(SS_TRUST).header.hash().hex())
+    before = fallbacks()
+    audit_ok0 = audits("ok")
+    trace.reset(FS_TRACE_CAPACITY)
+    trace.enable()
+    try:
+        with captured_packs() as packs:
+            node = ss_restore(fx, snap_store, cfg)
+        spans = span_seconds(SS_SPANS)
+        events = trace.export()
+        check(trace.dropped() == 0, "statesync: the trace ring dropped spans")
+    finally:
+        trace.disable()
+    check(node.synced is not None and node.cons.switched.is_set(),
+          f"statesync: no hand-off ({node.ss.progress()}, fault {node.bc.device_fault})")
+    H = snap.height
+    ss_check_restore(node, fx, states, snap)
+    check(node.restored_ns is not None and ss_between_trust_and_backfill(node.restored_ns, events),
+          "statesync: the app's restore did not complete between the trust hops and the "
+          "backfill, so the launches cannot be split there")
+    restore_s = node.synced_at - node.t0
+    handoff_s = node.cons.at - node.synced_at
+    top = node.cons.state
+    check(node.cons.blocks_synced == SS_HEIGHTS - 1 - H and node.store.height() == SS_HEIGHTS - 1
+          and top.last_block_height == SS_HEIGHTS - 1,
+          f"statesync: the hand-off synced {node.cons.blocks_synced} (store "
+          f"{node.store.height()})")
+    for f in ("app_hash", "last_block_id", "last_results_hash"):
+        check(getattr(top, f) == getattr(states[SS_HEIGHTS - 1], f),
+              f"statesync: the handed-over state's {f}")
+    check(node.sw.stopped == [] and node.bc.device_fault is None,
+          f"statesync: fast sync stopped {node.sw.stopped}")
+    at_bf, at_sync = node.launches_at["backfill"], node.launches_at["synced"]
+    trust = dict(at_bf)
+    backfill = ss_diff(at_sync, at_bf)
+    handoff = ss_diff(node.launches_end, at_sync)
+    window = range(max(1, H - defaults.backfill_blocks + 1), H + 1)
+    groups = len({len(pc.sign_bytes(fx.chain_id)) for h in window
+                  for pc in fx.block_store.load_block_commit(h).precommits if pc is not None})
+    n_sub = -(-len(window) // BACKFILL_SUBWINDOW)
+    check(trust["ed25519_prologue"] == trust["ed25519_ladder"] >= 2
+          and trust["planner_tally"] == 0 and trust["secp256k1_ladder"] == trust[K4] == 0,
+          f"statesync: the trust hops launched {trust}")
+    check(backfill["ed25519_prologue"] == backfill["ed25519_ladder"] == groups
+          and backfill["planner_tally"] == n_sub and backfill["secp256k1_ladder"] == 0
+          and backfill[K4] == 0,
+          f"statesync: the backfill launched {backfill}, want K1 = K2 = {groups} (one a "
+          f"sub-window and message-length group), the tally {n_sub}")
+    check(handoff["ed25519_prologue"] == handoff["ed25519_ladder"] >= 2
+          and handoff["planner_tally"] == 0,
+          f"statesync: the hand-off launched {handoff}, want its window and the first "
+          f"synced block's LastCommit")
+    b_t = packs[0][1].shape[1]
+    b_b, _, _ = hold_k1_k2(packs[trust["ed25519_prologue"]], err, "statesync backfill")
+    check_guard_clean(before, "statesync")
+    check(audits("ok") > audit_ok0, "statesync: no audited lane")
+    chunk_bytes = sizes[H]
+    chunk_rate = chunk_bytes / spans["statesync.chunks"]
+    print(f"  restore of {H}: {restore_s:.3f} s from start() to on_synced (the discovery "
+          f"wait {defaults.discovery_time:g} s of it); spans (s) "
+          + ", ".join(f"{n} {v:.3f}" for n, v in spans.items())
+          + f"; {chunk_bytes:,} chunk bytes at {chunk_rate / 1e6:.2f} MB/s over the chunks "
+          f"span; the corrupt sender banned; the state, the app ({node.app.height}), the "
+          f"backfill [{node.store.base()}..{H}] and the validator records equal the "
+          f"producer's", flush=True)
+    print(f"  launches: trust hops {trust['ed25519_prologue']} K1 + K2 (two a hop: the hop's "
+          f"verify_commit and the certification's; b = {b_t}); backfill "
+          f"{groups} K1 + K2 (b = {b_b}) and {backfill['planner_tally']} K7 tally; hand-off "
+          f"{handoff['ed25519_prologue']} K1 + K2 (its window and the first block's "
+          f"LastCommit); K1/K2 exact on the backfill's inputs", flush=True)
+    print(f"  hand-off: start_from_statesync fast-synced {node.cons.blocks_synced} block(s) to "
+          f"{top.last_block_height} and switched in {handoff_s * 1e3:.1f} ms; the state equals "
+          f"the producer's; no peer stopped", flush=True)
+    fault = ss_fault(fx, snap_store, cfg)
+    check(breaker.get_device_breaker().state == breaker.CLOSED,
+          "the default breaker is not closed after the fault run")
+    seconds = time.perf_counter() - t_phase
+    print(f"  no fallback; breaker closed; no audit mismatch; phase {seconds:.1f} s", flush=True)
+    return {"restore_s": restore_s, "handoff_s": handoff_s, "spans": spans,
+            "chunk_bytes": chunk_bytes, "chunks": snap.chunks, "chunk_rate": chunk_rate,
+            "sizes": sizes, "fault": fault, "seconds": seconds,
+            "launches": {"trust": trust, "backfill": backfill, "handoff": handoff}}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
@@ -3713,6 +4102,8 @@ def main() -> int:
     fs = phase_fastsync(configure_verify(VerifyConfig(), device=dev), dev, err)
     # the consensus phase installs a root of its own with the vote feed on
     cons = phase_consensus(dev, err)
+    # the statesync phase sets its path up through a default [verify] root of its own
+    ssync = phase_statesync(configure_verify(VerifyConfig(), device=dev), dev, err)
     print(f"  {smi_line}", flush=True)
 
     ms = {**ed_main["ms"], "secp256k1_ladder": secp_main["ms"]}
@@ -3754,6 +4145,7 @@ def main() -> int:
                 run: (split if name in ("ed25519_prologue", "ed25519_ladder")
                       else {"flushes": 0, "last_commit": 0})
                 for run, split in cons["launches"].items()},
+            "statesync_launches": {part: n[name] for part, n in ssync["launches"].items()},
             "msm_launches": msm["launches"][name],
             "commit_window_launches": {"ladder": cwin["launches"][name],
                                        "msm": cwin["msm_launches"][name],
@@ -3794,6 +4186,7 @@ def main() -> int:
         "fastsync_launches": {what: n[K4] for what, n in fs["launches"].items()},
         "consensus_launches": {run: {"flushes": 0, "last_commit": 0}
                                for run in cons["launches"]},
+        "statesync_launches": {part: n[K4] for part, n in ssync["launches"].items()},
         "msm_launches": {"commit": msm["launches"][K4],
                          "adversarial": msm["adversarial_launches"][K4],
                          "dirty_commit": msm["dirty_launches"][K4],
@@ -3824,6 +4217,10 @@ def main() -> int:
           f"the vote feed (a height's p50 {cons['a']['p50_ms']:.1f} ms), "
           f"{cons['b']['blocks_s']:.2f} serially; the handshake's block {CS_HEIGHTS} in "
           f"{cons['c']['wall_ms']:.1f} ms; phase {cons['seconds']:.1f} s", flush=True)
+    print(f"  statesync: the restore of {ssync['chunks']} chunks ({ssync['chunk_bytes']:,} "
+          f"bytes) in {ssync['restore_s']:.3f} s, the hand-off in "
+          f"{ssync['handoff_s'] * 1e3:.1f} ms; K7 {ssync['launches']['backfill']['planner_tally']} "
+          f"on the backfill; phase {ssync['seconds']:.1f} s", flush=True)
     print(f"  total {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"torch_ops": [window["tally"], cwin["tally"]]}))
     print(json.dumps({"kernels": kernels}))

@@ -62,6 +62,10 @@ _METHODS = {
     abci.RequestDeliverTx: "deliver_tx",
     abci.RequestEndBlock: "end_block",
     abci.RequestCommit: "commit",
+    abci.RequestListSnapshots: "list_snapshots",
+    abci.RequestOfferSnapshot: "offer_snapshot",
+    abci.RequestLoadSnapshotChunk: "load_snapshot_chunk",
+    abci.RequestApplySnapshotChunk: "apply_snapshot_chunk",
 }
 
 

@@ -1,14 +1,15 @@
 """The example apps and the signed-transaction codec (ref
 abci/example/kvstore/kvstore.go, counter/counter.go): the port's copy of
-the reference package's ``abci/examples/kvstore.py`` without the
-state-sync snapshot half of ``PersistentKVStoreApp``:
+the reference package's ``abci/examples/kvstore.py``:
 
   * ``KVStoreApp``: an in-memory key=value store whose app hash is the
     merkle root over its sorted pairs;
   * ``PersistentKVStoreApp``: the store persisted in a key-value store
     with validator-set changes: InitChain seeds the validators, a
     ``val:PUBKEY!POWER`` DeliverTx stages an update, EndBlock returns
-    them;
+    them; with ``configure_snapshots`` it produces state-sync snapshots
+    of its committed blob every N heights on a worker thread, and it
+    serves and restores them through the four snapshot calls;
   * ``PriorityKVStoreApp``: a ``pri<N>:`` payload prefix is its CheckTx
     priority (the mempool's lanes);
   * ``SignedKVStoreApp``: every tx carries a sender key (ed25519 or
@@ -36,7 +37,10 @@ from __future__ import annotations
 
 import base64
 import json
+import logging
+import queue
 import struct
+import threading
 from typing import Dict, List, Optional
 
 from tendermint_tpu_torch.abci import types as abci
@@ -305,6 +309,20 @@ class PersistentKVStoreApp(KVStoreApp):
         self._db = db or MemDB()
         self._val_updates: List[abci.ValidatorUpdate] = []
         self.validators: Dict[bytes, int] = {}  # raw pubkey -> power
+        # state-sync snapshots (off until configure_snapshots)
+        self._snapshot_store = None
+        self._snapshot_interval = 0
+        self._snapshot_chunk_size = 65536
+        self._snapshot_keep_recent = 3
+        self._snapshot_format = 1
+        # production runs on a worker thread, so that commit() (the
+        # consensus thread) never pays for chunking and store writes
+        self._snap_queue: Optional[queue.Queue] = None
+        self._snap_thread: Optional[threading.Thread] = None
+        # each failed production is logged and counted here
+        self.snapshot_failures = 0
+        # a restore in progress: (Snapshot, expected chunk hashes, chunks so far)
+        self._restoring: Optional[tuple] = None
         self._load()
 
     def _load(self) -> None:
@@ -360,7 +378,137 @@ class PersistentKVStoreApp(KVStoreApp):
     def commit(self, req: abci.RequestCommit) -> abci.ResponseCommit:
         res = super().commit(req)
         self._save()
+        self._maybe_snapshot()
         return res
+
+    # -- state-sync snapshots ------------------------------------------------------
+    def configure_snapshots(self, store, interval: int, chunk_size: int = 65536,
+                            keep_recent: int = 3, snapshot_format: int = 1) -> None:
+        """Enable snapshot production: every ``interval`` heights, chunk the
+        persisted state blob into ``store`` (a ``statesync.SnapshotStore``)
+        in ``snapshot_format`` (``chunker.SUPPORTED_FORMATS``; 2 = per-chunk
+        zlib). Chunking and store writes run on a daemon worker thread;
+        commit() only enqueues the (height, blob) pair."""
+        self._snapshot_store = store
+        self._snapshot_interval = interval
+        self._snapshot_chunk_size = chunk_size
+        self._snapshot_keep_recent = keep_recent
+        self._snapshot_format = snapshot_format
+        if self._snap_thread is None:
+            self._snap_queue = queue.Queue()
+            self._snap_thread = threading.Thread(
+                target=self._snapshot_worker, name="kvstore-snapshot", daemon=True)
+            self._snap_thread.start()
+
+    def _snapshot_worker(self) -> None:
+        from tendermint_tpu_torch.libs import trace
+        from tendermint_tpu_torch.statesync import chunker
+
+        while True:
+            height, blob = self._snap_queue.get()
+            try:
+                with trace.span("statesync.snapshot_produce", height=height, size=len(blob)):
+                    snap, chunks = chunker.make_snapshot(
+                        height, blob, self._snapshot_chunk_size, format=self._snapshot_format)
+                    self._snapshot_store.save(snap, chunks)
+                    self._snapshot_store.prune(self._snapshot_keep_recent)
+            except Exception:
+                # a failed snapshot must not wedge the worker, nor pass
+                # silently
+                self.snapshot_failures += 1
+                logging.getLogger(__name__).exception(
+                    "snapshot production failed at height %d", height)
+            finally:
+                self._snap_queue.task_done()
+
+    def wait_snapshots(self) -> None:
+        """Block until every enqueued snapshot has been produced."""
+        if self._snap_queue is not None:
+            self._snap_queue.join()
+
+    def _state_blob(self) -> bytes:
+        # the bytes _save persists: a restore round-trips through _load
+        return self._db.get(b"kvstore:state") or b"{}"
+
+    def _maybe_snapshot(self) -> None:
+        if (self._snapshot_store is None or self._snapshot_interval <= 0
+                or self.height % self._snapshot_interval != 0):
+            return
+        # take the committed blob now (later commits overwrite it); the
+        # worker chunks and stores it
+        self._snap_queue.put((self.height, self._state_blob()))
+
+    def list_snapshots(self, req: abci.RequestListSnapshots) -> abci.ResponseListSnapshots:
+        if self._snapshot_store is None:
+            return abci.ResponseListSnapshots()
+        return abci.ResponseListSnapshots(snapshots=self._snapshot_store.list())
+
+    def offer_snapshot(self, req: abci.RequestOfferSnapshot) -> abci.ResponseOfferSnapshot:
+        from tendermint_tpu_torch.statesync.chunker import (
+            SUPPORTED_FORMATS,
+            chunk_hashes_from_metadata,
+        )
+
+        snap = req.snapshot
+        if snap is None or snap.height <= 0:
+            return abci.ResponseOfferSnapshot(result=abci.OFFER_SNAPSHOT_REJECT)
+        if snap.format not in SUPPORTED_FORMATS:
+            return abci.ResponseOfferSnapshot(result=abci.OFFER_SNAPSHOT_REJECT_FORMAT)
+        try:
+            hashes = chunk_hashes_from_metadata(snap)
+        except ValueError:
+            return abci.ResponseOfferSnapshot(result=abci.OFFER_SNAPSHOT_REJECT)
+        self._restoring = (snap, hashes, [])
+        return abci.ResponseOfferSnapshot(result=abci.OFFER_SNAPSHOT_ACCEPT)
+
+    def load_snapshot_chunk(
+            self, req: abci.RequestLoadSnapshotChunk) -> abci.ResponseLoadSnapshotChunk:
+        if self._snapshot_store is None:
+            return abci.ResponseLoadSnapshotChunk()
+        chunk = self._snapshot_store.load_chunk(req.height, req.format, req.chunk)
+        return abci.ResponseLoadSnapshotChunk(chunk=chunk or b"")
+
+    def apply_snapshot_chunk(
+            self, req: abci.RequestApplySnapshotChunk) -> abci.ResponseApplySnapshotChunk:
+        from tendermint_tpu_torch.statesync.chunker import decode_chunk
+
+        if self._restoring is None:
+            return abci.ResponseApplySnapshotChunk(result=abci.APPLY_CHUNK_ABORT)
+        snap, hashes, chunks = self._restoring
+        if req.index != len(chunks):
+            # chunks apply strictly in order for these formats
+            return abci.ResponseApplySnapshotChunk(result=abci.APPLY_CHUNK_RETRY)
+        if merkle.leaf_hash(req.chunk) != hashes[req.index]:
+            return abci.ResponseApplySnapshotChunk(
+                result=abci.APPLY_CHUNK_RETRY,
+                refetch_chunks=[req.index],
+                reject_senders=[req.sender] if req.sender else [],
+            )
+        chunks.append(req.chunk)
+        if len(chunks) < snap.chunks:
+            return abci.ResponseApplySnapshotChunk(result=abci.APPLY_CHUNK_ACCEPT)
+        # the last chunk: decode per the negotiated format, then swap in the
+        # restored state (the manifest covered the wire bytes, so a chunk
+        # that does not decode means the producer was corrupt)
+        self._restoring = None
+        try:
+            blob = b"".join(decode_chunk(c, snap.format) for c in chunks)
+            obj = json.loads(blob.decode())
+            _ = (obj["height"], obj["size"], obj["kv"], obj["vals"])
+        except Exception:
+            return abci.ResponseApplySnapshotChunk(result=abci.APPLY_CHUNK_REJECT_SNAPSHOT)
+        self._db.set_sync(b"kvstore:state", blob)
+        self.state = {}
+        self.validators = {}
+        self._load()
+        return abci.ResponseApplySnapshotChunk(result=abci.APPLY_CHUNK_ACCEPT)
+
+    def query(self, req: abci.RequestQuery) -> abci.ResponseQuery:
+        if req.path == "/val":
+            power = self.validators.get(req.data, 0)
+            return abci.ResponseQuery(code=abci.CODE_TYPE_OK, key=req.data,
+                                      value=str(power).encode(), height=self.height)
+        return super().query(req)
 
 
 class CounterApp(abci.Application):

@@ -11,8 +11,9 @@ Ten methods over three logical connections (consensus / mempool / query):
 Plain dataclasses: an in-proc app (the local client) takes them as they
 are. ``msg_to_json`` / ``msg_from_json`` are the reference's JSON form,
 which ``state/store.ABCIResponses`` persists; its type table holds every
-dataclass here. The state-sync snapshot messages and the socket transport
-are not ported yet.
+dataclass here, the state-sync snapshot messages included (``Snapshot``,
+the four snapshot requests and responses and their result codes). The
+socket transport is not ported yet.
 """
 
 from __future__ import annotations
@@ -23,6 +24,22 @@ from dataclasses import dataclass, field, fields, is_dataclass
 from typing import Any, Dict, List, Optional, Type
 
 CODE_TYPE_OK = 0
+
+# OfferSnapshot results (ref v0.34 abci.ResponseOfferSnapshot_Result)
+OFFER_SNAPSHOT_UNKNOWN = 0
+OFFER_SNAPSHOT_ACCEPT = 1
+OFFER_SNAPSHOT_ABORT = 2
+OFFER_SNAPSHOT_REJECT = 3
+OFFER_SNAPSHOT_REJECT_FORMAT = 4
+OFFER_SNAPSHOT_REJECT_SENDER = 5
+
+# ApplySnapshotChunk results (ref v0.34 abci.ResponseApplySnapshotChunk_Result)
+APPLY_CHUNK_UNKNOWN = 0
+APPLY_CHUNK_ACCEPT = 1
+APPLY_CHUNK_ABORT = 2
+APPLY_CHUNK_RETRY = 3
+APPLY_CHUNK_RETRY_SNAPSHOT = 4
+APPLY_CHUNK_REJECT_SNAPSHOT = 5
 
 
 # -- support types ---------------------------------------------------------------
@@ -273,6 +290,71 @@ class ResponseCommit:
     data: bytes = b""  # the app hash
 
 
+# -- the state-sync snapshot handshake (v0.34 lineage) ---------------------------------
+
+
+@dataclass
+class Snapshot:
+    """One offered application snapshot (ref v0.34 abci.Snapshot).
+
+    ``hash`` is the Merkle root over the chunk hashes; ``metadata`` is
+    app/producer-defined: the statesync chunker stores the concatenated
+    32-byte chunk leaf hashes there so every chunk verifies on arrival."""
+
+    height: int = 0
+    format: int = 0
+    chunks: int = 0
+    hash: bytes = b""
+    metadata: bytes = b""
+
+
+@dataclass
+class RequestListSnapshots:
+    pass
+
+
+@dataclass
+class RequestOfferSnapshot:
+    snapshot: Optional[Snapshot] = None
+    app_hash: bytes = b""  # light-client-verified app hash at snapshot height
+
+
+@dataclass
+class RequestLoadSnapshotChunk:
+    height: int = 0
+    format: int = 0
+    chunk: int = 0
+
+
+@dataclass
+class RequestApplySnapshotChunk:
+    index: int = 0
+    chunk: bytes = b""
+    sender: str = ""  # p2p ID of the supplying peer (for reject_senders)
+
+
+@dataclass
+class ResponseListSnapshots:
+    snapshots: List[Snapshot] = field(default_factory=list)
+
+
+@dataclass
+class ResponseOfferSnapshot:
+    result: int = OFFER_SNAPSHOT_UNKNOWN
+
+
+@dataclass
+class ResponseLoadSnapshotChunk:
+    chunk: bytes = b""
+
+
+@dataclass
+class ResponseApplySnapshotChunk:
+    result: int = APPLY_CHUNK_UNKNOWN
+    refetch_chunks: List[int] = field(default_factory=list)
+    reject_senders: List[str] = field(default_factory=list)
+
+
 # -- the JSON form --------------------------------------------------------------------
 
 _MSG_TYPES: Dict[str, Type] = {
@@ -347,3 +429,18 @@ class Application:
 
     def commit(self, req: RequestCommit) -> ResponseCommit:
         return ResponseCommit()
+
+    # state-sync snapshot handshake (v0.34 lineage); the defaults advertise
+    # "no snapshot support": empty list, and offers are rejected outright
+    def list_snapshots(self, req: RequestListSnapshots) -> ResponseListSnapshots:
+        return ResponseListSnapshots()
+
+    def offer_snapshot(self, req: RequestOfferSnapshot) -> ResponseOfferSnapshot:
+        return ResponseOfferSnapshot(result=OFFER_SNAPSHOT_REJECT)
+
+    def load_snapshot_chunk(self, req: RequestLoadSnapshotChunk) -> ResponseLoadSnapshotChunk:
+        return ResponseLoadSnapshotChunk()
+
+    def apply_snapshot_chunk(
+            self, req: RequestApplySnapshotChunk) -> ResponseApplySnapshotChunk:
+        return ResponseApplySnapshotChunk(result=APPLY_CHUNK_ABORT)

@@ -113,7 +113,7 @@ def pt_scalar_mult(pt, k: int):
 
 def pt_affine(p1) -> Tuple[int, int]:
     X, Y, Z, _ = p1
-    zi = pow(Z, P - 2, P)
+    zi = pow(Z, -1, P)  # the inverse by extended Euclid, ~6x faster than Z^(p-2)
     return (X * zi) % P, (Y * zi) % P
 
 

@@ -99,7 +99,12 @@ def _compute_from_aunts(index: int, total: int, lh: bytes,
 def proofs_from_byte_slices(items: Sequence[bytes]) -> Tuple[bytes, List[SimpleProof]]:
     """The root and one proof a leaf (ref SimpleProofsFromByteSlices); each
     proof's aunts run from the leaf up."""
-    lhs = [leaf_hash(it) for it in items]
+    return proofs_from_leaf_hashes([leaf_hash(it) for it in items])
+
+
+def proofs_from_leaf_hashes(lhs: Sequence[bytes]) -> Tuple[bytes, List[SimpleProof]]:
+    """``proofs_from_byte_slices`` over leaf hashes already computed (the
+    state-sync manifest holds them)."""
     n = len(lhs)
     proofs = [SimpleProof(total=n, index=i, leaf_hash=lhs[i]) for i in range(n)]
 

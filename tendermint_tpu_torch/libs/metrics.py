@@ -14,10 +14,11 @@ writes, under the same attribute names; ``StateMetrics`` is its state
 family (``state_block_processing_time``, which ``BlockExecutor.apply_block``
 observes); ``ConsensusMetrics`` is the part of its consensus family that
 ``consensus/state.py`` and ``consensus/wal.py`` write (the round, the step
-durations, the vote arrival latency, the WAL's appends and fsyncs). The
-other metric sets of the reference (the rest of consensus, p2p, the
-mempool's QoS, state sync) belong to subsystems the port has not taken
-over.
+durations, the vote arrival latency, the WAL's appends and fsyncs).
+``StateSyncMetrics`` is the reference's state-sync family
+(``statesync_*``), which ``statesync/syncer.py`` and ``statesync/reactor.py``
+write. The other metric sets of the reference (the rest of consensus, p2p,
+the mempool's QoS) belong to subsystems the port has not taken over.
 """
 
 from __future__ import annotations
@@ -732,3 +733,56 @@ class ConsensusMetrics:
             "consensus_wal_fsync_seconds", "WAL fsync wall seconds",
             buckets=[b / 10 for b in _DEFAULT_BUCKETS],
         )
+
+
+class StateSyncMetrics:
+    """State-sync telemetry (the reference's ``StateSyncMetrics``, same
+    names, labels and buckets): restore progress on the client side (chunk
+    fetch outcomes, restore latency, backfill window size) and serving
+    counters on the provider side. Process-wide like ``VerifyMetrics``."""
+
+    def __init__(self, registry: Optional[Registry] = None):
+        r = registry or Registry()
+        self.registry = r
+        self.syncing = r.gauge("statesync_syncing", "1 while a snapshot restore is in progress")
+        self.snapshot_height = r.gauge(
+            "statesync_snapshot_height", "Height of the snapshot being restored")
+        self.chunks_expected = r.gauge(
+            "statesync_chunks_expected", "Chunks in the snapshot being restored")
+        self.chunks_applied = r.gauge("statesync_chunks_applied", "Chunks applied so far")
+        self.chunk_fetch = r.counter(
+            "statesync_chunk_fetch_total",
+            "Chunk fetch attempts by outcome (ok|bad|timeout|missing)",
+            label_names=("outcome",),
+        )
+        self.chunk_bytes = r.counter("statesync_chunk_bytes_total", "Verified chunk bytes received")
+        self.served = r.counter(
+            "statesync_served_total",
+            "Requests served to restoring peers by message type",
+            label_names=("msg",),
+        )
+        self.chunk_fetch_seconds = r.histogram(
+            "statesync_chunk_fetch_seconds", "Per-chunk fetch wall seconds")
+        self.backfill_heights = r.histogram(
+            "statesync_backfill_heights",
+            "Heights in the trailing commit backfill window",
+            buckets=tuple(float(1 << i) for i in range(11)),
+        )
+        self.restore_seconds = r.histogram(
+            "statesync_restore_seconds",
+            "End-to-end snapshot restore wall seconds",
+            buckets=(0.1, 0.5, 1.0, 5.0, 15.0, 60.0, 300.0, 1800.0),
+        )
+
+
+_statesync_mtx = threading.Lock()
+_statesync_metrics: Optional[StateSyncMetrics] = None
+
+
+def get_statesync_metrics() -> StateSyncMetrics:
+    """The process-wide ``StateSyncMetrics`` (as ``get_verify_metrics``)."""
+    global _statesync_metrics
+    with _statesync_mtx:
+        if _statesync_metrics is None:
+            _statesync_metrics = StateSyncMetrics()
+        return _statesync_metrics

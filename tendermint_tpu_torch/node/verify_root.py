@@ -36,11 +36,16 @@ block executor that owns that mempool (``node/node.py:220-230``), whose
 ``handshake(...)`` the ABCI handshake that brings the app up to the stores
 (``node/node.py:105-110``), and ``consensus_state(...)`` the consensus state
 machine over them with its WAL, event bus and the ``[verify]`` vote feed
-(``node/node.py:225-262``).
+(``node/node.py:225-262``), and ``state_sync(...)`` the ``[statesync]``
+section's snapshot store, producer and reactor (``node/node.py:84-101``,
+``:393-429``), whose restore verifies its trust hops through the installed
+verifier and its backfill through the installed device executor, and
+hands the restored state to the fast-sync reactor (``:560-570``).
 """
 
 from __future__ import annotations
 
+import logging
 from dataclasses import dataclass, field
 from typing import Callable, Dict, NamedTuple, Optional
 
@@ -49,6 +54,7 @@ import torch
 from tendermint_tpu_torch.blockchain.reactor import BlockchainReactor
 from tendermint_tpu_torch.config.consensus import ConsensusConfig
 from tendermint_tpu_torch.config.mempool import MempoolConfig
+from tendermint_tpu_torch.config.statesync import StateSyncConfig
 from tendermint_tpu_torch.config.verify import VerifyConfig
 from tendermint_tpu_torch.consensus.replay import Handshaker
 from tendermint_tpu_torch.consensus.state import ConsensusState
@@ -56,6 +62,7 @@ from tendermint_tpu_torch.consensus.wal import WAL
 from tendermint_tpu_torch.crypto import batch as _batch
 from tendermint_tpu_torch.device import DeviceLike, resolve_device
 from tendermint_tpu_torch.evidence.pool import EvidencePool
+from tendermint_tpu_torch.libs.db.kv import MemDB
 from tendermint_tpu_torch.libs import breaker as _brk
 from tendermint_tpu_torch.mempool.mempool import Mempool
 from tendermint_tpu_torch.mempool.tx_verify import BatchTxVerifier
@@ -64,6 +71,9 @@ from tendermint_tpu_torch.parallel import planner
 from tendermint_tpu_torch.state import store as sm_store
 from tendermint_tpu_torch.state.execution import BlockExecutor
 from tendermint_tpu_torch.state.state_types import State
+from tendermint_tpu_torch.statesync.reactor import StateSyncReactor
+from tendermint_tpu_torch.statesync.store import SnapshotStore
+from tendermint_tpu_torch.statesync.syncer import StateSyncer
 from tendermint_tpu_torch.types.events import EventBus
 
 # the kernels of the verify path: K1 and K2 (ed25519), K3 (secp256k1), K4
@@ -263,3 +273,58 @@ def consensus_state(cfg: Optional[ConsensusConfig], verify_cfg: Optional[VerifyC
     if feed is not None:
         cs.set_vote_feed(feed)
     return ConsensusRoot(cs, bus, feed, wal)
+
+
+class StateSyncRoot(NamedTuple):
+    reactor: StateSyncReactor
+    syncer: Optional[StateSyncer]  # None: this node serves and does not restore
+    snapshot_store: SnapshotStore
+
+
+def state_sync(cfg: Optional[StateSyncConfig], genesis_doc, proxy_app, state: State,
+               state_db, block_store, *, app=None, mempool=None,
+               blockchain_reactor=None, metrics=None) -> Optional[StateSyncRoot]:
+    """The node's state sync from the ``[statesync]`` section; None when
+    ``enable`` is off and ``snapshot_interval`` is 0.
+
+    The serving side (``node/node.py:84-101``): a ``SnapshotStore`` over
+    a new ``MemDB`` (the port's only store) and, when
+    ``snapshot_interval > 0``, ``app.configure_snapshots`` at the section's
+    interval, chunk size, keep count and format. The restoring side
+    (``:393-429``), when ``enable`` is on and ``state`` holds no block: a
+    ``StateSyncer`` over ``proxy_app.query`` (a started ``MultiAppConn``),
+    ``state_db`` and ``block_store`` whose trust hops go to the installed
+    verifier and whose backfill goes to the installed device executor (on
+    the card the configuration root's: K1 + K2, and K1 + K2 + the K7 tally).
+    The ``StateSyncReactor``'s ``on_synced`` does what ``:560-570`` does:
+    ``mempool.update(height, [])``, then
+    ``blockchain_reactor.start_from_statesync(state)`` (the reactor of
+    ``blockchain_reactor(..., fast_sync=False)``). The caller wires the
+    reactor to its peers and starts it. ``metrics`` is a
+    ``libs/metrics.StateSyncMetrics``."""
+    cfg = cfg if cfg is not None else StateSyncConfig()
+    if not cfg.enable and cfg.snapshot_interval <= 0:
+        return None
+    store = SnapshotStore(MemDB())
+    if cfg.snapshot_interval > 0 and hasattr(app, "configure_snapshots"):
+        app.configure_snapshots(store, cfg.snapshot_interval, cfg.snapshot_chunk_size,
+                                cfg.snapshot_keep_recent, snapshot_format=cfg.snapshot_format)
+    syncer = None
+    if cfg.enable and state.last_block_height == 0:
+        syncer = StateSyncer(cfg, genesis_doc.chain_id, genesis_doc, proxy_app.query, state_db,
+                             block_store, metrics=metrics)
+
+    def on_synced(restored: State, height: int) -> None:
+        if mempool is not None:
+            try:
+                mempool.update(height, [])
+            except Exception:
+                logging.getLogger("statesync").exception(
+                    "mempool height update after restore failed")
+        if blockchain_reactor is not None:
+            blockchain_reactor.start_from_statesync(restored)
+
+    reactor = StateSyncReactor(cfg, app_query=proxy_app.query, snapshot_store=store,
+                               block_store=block_store, state_db=state_db, syncer=syncer,
+                               on_synced=on_synced, metrics=metrics)
+    return StateSyncRoot(reactor, syncer, store)

@@ -167,6 +167,14 @@ _KSUB = torch.tensor(K_SUB, dtype=torch.int64)
 _consts_by_device: dict = {}
 
 
+def gather_last(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """``x[..., idx]`` through ``index_select``. Advanced indexing of the last
+    dimension takes torch's CPU thread pool on every call at these shapes,
+    which on a loaded host turns a plain field multiply of microseconds into
+    milliseconds; ``index_select`` runs on the calling thread."""
+    return torch.index_select(x, -1, idx.reshape(-1)).unflatten(-1, idx.shape)
+
+
 def _consts(device: torch.device):
     c = _consts_by_device.get(device)
     if c is None:
@@ -211,7 +219,7 @@ def sub(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 def mul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     idx, wk, _, _, _ = _consts(a.device)
     a, b = torch.broadcast_tensors(a, b)
-    cols = (a.unsqueeze(-2) * b[..., idx] * wk).sum(-1)
+    cols = (a.unsqueeze(-2) * gather_last(b, idx) * wk).sum(-1)
     out = _seq_carry(list(cols.unbind(-1)), fold=True)
     c = out[0] >> WIDTHS[0]
     out[0] = out[0] & MASKS[0]

@@ -42,6 +42,8 @@ from typing import List, Sequence
 
 import torch
 
+from tendermint_tpu_torch.ops import fe
+
 P = 2**256 - 2**32 - 977
 NLIMB = 10
 RADIX = 26  # weight of limb i is 2^(26 i); product columns share it
@@ -254,7 +256,7 @@ def mul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     a, b = torch.broadcast_tensors(a, b)
     prod = (a.unsqueeze(-1) * b.unsqueeze(-2)).flatten(-2)
     prod = torch.cat([prod, torch.zeros_like(prod[..., :1])], dim=-1)
-    cols = prod[..., col_idx].sum(-1)  # (..., 19)
+    cols = fe.gather_last(prod, col_idx).sum(-1)  # (..., 19)
     cols = torch.cat([cols, torch.zeros_like(cols[..., :1])], dim=-1)  # (..., 20)
     d = (cols & M26) + _shift_up(cols >> RADIX)
     hi = d[..., NLIMB:]  # columns 10..19

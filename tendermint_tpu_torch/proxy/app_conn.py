@@ -5,7 +5,9 @@ client.go), the port's copy of the reference package's
 One ABCI client per logical connection, each behind a typed facade:
   AppConnConsensus: InitChain, BeginBlock, DeliverTxAsync, EndBlock, Commit
   AppConnMempool:   CheckTxAsync (with the batched verdict) + Flush
-  AppConnQuery:     Echo, Info, SetOption, Query
+  AppConnQuery:     Echo, Info, SetOption, Query, and the state-sync
+                    snapshot handshake (ListSnapshots, OfferSnapshot,
+                    LoadSnapshotChunk, ApplySnapshotChunk)
 ``MultiAppConn`` owns the three; ``LocalClientCreator`` gives each a
 ``LocalClient`` on one shared mutex. The remote (socket) creator is not
 ported yet.
@@ -86,6 +88,23 @@ class AppConnQuery:
         return self._c.request_sync(req)
 
     def set_option_sync(self, req: abci.RequestSetOption) -> abci.ResponseSetOption:
+        return self._c.request_sync(req)
+
+    # the state-sync snapshot handshake rides the query connection (v0.34
+    # adds a fourth connection; the method set is what matters here)
+    def list_snapshots_sync(
+            self, req: Optional[abci.RequestListSnapshots] = None) -> abci.ResponseListSnapshots:
+        return self._c.request_sync(req or abci.RequestListSnapshots())
+
+    def offer_snapshot_sync(self, req: abci.RequestOfferSnapshot) -> abci.ResponseOfferSnapshot:
+        return self._c.request_sync(req)
+
+    def load_snapshot_chunk_sync(
+            self, req: abci.RequestLoadSnapshotChunk) -> abci.ResponseLoadSnapshotChunk:
+        return self._c.request_sync(req)
+
+    def apply_snapshot_chunk_sync(
+            self, req: abci.RequestApplySnapshotChunk) -> abci.ResponseApplySnapshotChunk:
         return self._c.request_sync(req)
 
 

@@ -145,3 +145,31 @@ def test_point_formulas_stay_in_bounds(monkeypatch):
         for coord in out:
             assert all(v <= m for v, m in zip(coord, S))
     assert 0 < bfe.peak < 2**63
+
+
+class _AtenOps(torch.utils._python_dispatch.TorchDispatchMode):
+    """Records each aten op a block of code dispatches."""
+
+    def __init__(self):
+        super().__init__()
+        self.ops = set()
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        self.ops.add(func)
+        return func(*args, **(kwargs or {}))
+
+
+def test_the_plain_multiply_stays_off_the_cpu_thread_pool():
+    """The plain field multiply gathers its column operands with
+    ``index_select``, never with advanced indexing (``aten.index``), which
+    takes torch's CPU thread pool on every call: on a host whose cores are
+    busy, that made a 20-row plain window verify take ~30 s instead of ~1 s.
+    ``gather_last`` is ``x[..., idx]``."""
+    a = _edge_limbs()
+    idx = fe._consts(a.device)[0]
+    assert torch.equal(fe.gather_last(a, idx), a[..., idx])
+    with _AtenOps() as rec:
+        fe.mul(a, a.flip(0))
+        fe.sq(a)
+    assert torch.ops.aten.index.Tensor not in rec.ops
+    assert torch.ops.aten.index_select.default in rec.ops

@@ -172,3 +172,15 @@ def test_point_formulas_stay_in_bounds(monkeypatch):
         for coord in out:
             assert all(v <= m for v, m in zip(coord, S))
     assert 0 < bfe.peak < 2**63
+
+
+def test_the_plain_multiply_stays_off_the_cpu_thread_pool():
+    """As the ed25519 field's: the column gather is ``index_select``, not
+    advanced indexing, which takes torch's CPU thread pool on every call."""
+    from tests.test_torch_fe import _AtenOps
+
+    a = _edge_limbs()
+    with _AtenOps() as rec:
+        F.mul(a, a.flip(0))
+    assert torch.ops.aten.index.Tensor not in rec.ops
+    assert torch.ops.aten.index_select.default in rec.ops
