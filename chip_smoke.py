@@ -289,11 +289,14 @@ Phases, in order; any failure exits non-zero:
              at the TestConsensusConfig timeouts (skip_timeout_commit on),
              KVStoreApp, a real WAL in a temporary directory; one node built
              by node/verify_root (handshake, then consensus_state: the WAL,
-             the event bus, the [verify] vote feed) and 99 ValidatorStubs
-             feeding it through send_peer_msg. (a) 8 heights, each with a
-             proposal (the node's own when it proposes, else the stub
-             proposer's through testutil/consensus.decide_proposal, one
-             fresh tx in the mempool first) and then 99 signed prevotes and
+             the event bus, the [verify] vote feed, the [instrumentation]
+             section) and 99 ValidatorStubs feeding it through
+             send_peer_msg. (a) 8 heights with the flight recorder on and
+             the liveness watchdog started, each with a proposal (once the
+             node has entered the height's round: the node's own when it
+             proposes, else the stub proposer's through
+             testutil/consensus.decide_proposal, one fresh tx in the
+             mempool first) and then 99 signed prevotes and
              99 signed precommits (signed once the proposal is known,
              outside each height's timed wall): every height commits, every
              block and seen commit come back from the BlockStore, the WAL
@@ -305,9 +308,22 @@ Phases, in order; any failure exits non-zero:
              (four a height from height 2: enter_prevote, enter_precommit,
              _finalize_commit and apply_block each validate the block), and
              the consensus.finalize_commit, wal.*, verify.* and state.*
-             span sums. (b) The same genesis with the feed off, 2 heights,
-             every peer vote verified on the host inside add_vote: blocks a
-             second, the app hash at each height equal to (a)'s. (c) A fresh
+             span sums; then each height's waterfall (libs/critpath: the six
+             timeline phases, other_seconds, the wal_append, wal_fsync and
+             verify_dispatch overlays, the critical phase) and quorum curve
+             (libs/quorumtrace: time to 1/3 and 2/3 of the power for
+             prevotes and precommits, the pivotal validator, the vote-feed
+             flushes joined to the height). It fails unless both analyzers
+             count no error, every height's timeline phases plus other make
+             its wall within 1e-6 s, verify_dispatch (the K1 + K2 flushes'
+             time) is above 0 from height 2, every 2/3 crossing lies at or
+             before the height's commit stamp, the watchdog counts no
+             stall, and tools/trace_merge's merge of the flight dump passes
+             testutil/consensus_net.validate_chrome_trace. (b) The same
+             genesis with the feed and the recorder off, 2 heights, every
+             peer vote verified on the host inside add_vote: blocks a
+             second, the app hash at each height equal to (a)'s, nothing
+             recorded. (c) A fresh
              KVStoreApp over (a)'s stores with (a)'s state kept at height 7:
              the handshake replays blocks 1-7 against the app and applies
              block 8 (K1 + K2 once for its 100-row LastCommit, exact); the
@@ -415,8 +431,10 @@ from tendermint_tpu_torch.blockchain import pool as bc_pool
 from tendermint_tpu_torch.blockchain import reactor as bc_reactor
 from tendermint_tpu_torch.blockchain.store import BlockStore
 from tendermint_tpu_torch.config.consensus import consensus_test_config
+from tendermint_tpu_torch.config.instrumentation import InstrumentationConfig
 from tendermint_tpu_torch.config.mempool import MempoolConfig
 from tendermint_tpu_torch.config.statesync import StateSyncConfig
+from tendermint_tpu_torch.consensus.cstypes import RoundStepType
 from tendermint_tpu_torch.consensus.messages import EndHeightMessage, VoteMessage
 from tendermint_tpu_torch.consensus.wal import WAL
 from tendermint_tpu_torch.config.verify import VerifyConfig
@@ -435,7 +453,9 @@ from tendermint_tpu_torch.crypto.hashing import sha256
 from tendermint_tpu_torch.crypto.keys import PubKeyEd25519, PubKeySecp256k1
 from tendermint_tpu_torch.frontend.aggregator import BatchingVerifier
 from tendermint_tpu_torch.libs import breaker, trace
+from tendermint_tpu_torch.libs.critpath import TIMELINE_PHASES, verify_seconds_for_height
 from tendermint_tpu_torch.libs.db.kv import MemDB
+from tendermint_tpu_torch.libs.profile import get_profiler
 from tendermint_tpu_torch.libs.metrics import (
     ConsensusMetrics,
     StateMetrics,
@@ -471,9 +491,11 @@ from tendermint_tpu_torch.testutil import multisig as tm
 from tendermint_tpu_torch.testutil import secp_signer
 from tendermint_tpu_torch.testutil import votes as tv
 from tendermint_tpu_torch.testutil import window as tw
+from tendermint_tpu_torch.testutil.consensus_net import validate_chrome_trace
 from tendermint_tpu_torch.testutil.fastsync import LoopbackSwitch, ServingPeer
 from tendermint_tpu_torch.testutil.statesync import CorruptingStore, hub_net
 from tendermint_tpu_torch.tools import bench_fastsync as bf
+from tendermint_tpu_torch.tools import trace_merge
 from tendermint_tpu_torch.types.block import Commit
 from tendermint_tpu_torch.types.core import BlockID, SignedMsgType
 from tendermint_tpu_torch.types.events import EventBus
@@ -3372,13 +3394,16 @@ def counted_host_verifies():
         Vote.verify = real
 
 
-def cs_node(doc, pvs, ours: int, verify_cfg: VerifyConfig, dev, wal_dir: str):
+def cs_node(doc, pvs, ours: int, verify_cfg: VerifyConfig, dev, wal_dir: str,
+            inst: InstrumentationConfig = None):
     """A node as node/verify_root wires one: a state DB and a KVStoreApp at
     genesis, the mempool and the executor (verifier None: the installed
     one), a block store, the ABCI handshake, then ``consensus_state`` with a
-    real WAL in ``wal_dir``, the event bus, validator ``ours``'s key and
-    ``verify_cfg``'s vote feed. The executor's ``validate_block`` records the
-    heights whose LastCommit it checks (one K1 + K2 launch each)."""
+    real WAL in ``wal_dir``, the event bus, validator ``ours``'s key,
+    ``verify_cfg``'s vote feed and the ``[instrumentation]`` section
+    ``inst`` (default: the recorder off, no watchdog). The executor's
+    ``validate_block`` records the heights whose LastCommit it checks (one
+    K1 + K2 launch each)."""
     st0 = state_from_genesis(doc)
     state_db = MemDB()
     sm_store.save_state(state_db, st0)
@@ -3391,9 +3416,12 @@ def cs_node(doc, pvs, ours: int, verify_cfg: VerifyConfig, dev, wal_dir: str):
     bs = BlockStore(MemDB())
     st = verify_root.handshake(state_db, st0, bs, doc, conn)
     wal_file = os.path.join(wal_dir, "cs.wal", "wal")
+    metrics = ConsensusMetrics()
     root = verify_root.consensus_state(
         consensus_test_config(), verify_cfg, st, ex, bs, mp, evpool, wal_file=wal_file,
-        event_bus=bus, priv_validator=pvs[ours], metrics=ConsensusMetrics(), device=dev)
+        event_bus=bus, priv_validator=pvs[ours], metrics=metrics, device=dev,
+        instrumentation=inst if inst is not None else InstrumentationConfig(watchdog=False),
+        node_id="node0", root_dir=wal_dir)
     check(root.consensus_state.block_exec is ex and root.event_bus is bus
           and ex.verifier is None, "the consensus state is not wired to the node's executor")
     checks, real = [], ex.validate_block
@@ -3407,10 +3435,13 @@ def cs_node(doc, pvs, ours: int, verify_cfg: VerifyConfig, dev, wal_dir: str):
     stubs = [tcs.ValidatorStub(pv, i) for i, pv in enumerate(pvs) if i != ours]
     return SimpleNamespace(cs=root.consensus_state, feed=root.vote_feed, wal_file=wal_file,
                            state_db=state_db, bs=bs, conn=conn, app=app, mp=mp, bus=bus,
-                           stubs=stubs, by_addr={s.address: s for s in stubs}, checks=checks)
+                           stubs=stubs, by_addr={s.address: s for s in stubs}, checks=checks,
+                           watchdog=root.watchdog, metrics=metrics)
 
 
 def cs_stop(node) -> None:
+    if node.watchdog is not None:
+        node.watchdog.stop()
     if node.cs.is_running:
         node.cs.stop()
     check(node.cs._done.wait(CS_TIMEOUT), "consensus: the receive routine did not stop")
@@ -3424,9 +3455,13 @@ def cs_stop(node) -> None:
 def cs_propose(node, h: int) -> tuple:
     """Height ``h``'s proposal: the node's own when it is the proposer, else
     the stub proposer's (``decide_proposal``, one fresh tx in the mempool
-    first), sent at once. Returns (block id, the node proposed)."""
+    first), sent once the node has entered the height's round (a complete
+    proposal taken at NEW_HEIGHT would skip the round entry, and with it
+    the flight recorder's start of the height). Returns (block id, the node
+    proposed)."""
     cs = node.cs
-    check(tcs.wait_for(lambda: cs.get_round_state().height == h, CS_TIMEOUT),
+    check(tcs.wait_for(lambda: cs.rs.height == h and cs.rs.step != RoundStepType.NEW_HEIGHT,
+                       CS_TIMEOUT),
           f"consensus: height {h} never started (fault {cs.device_fault})")
     proposer = cs.get_round_state().validators.get_proposer().address
     if proposer != cs.priv_validator.address:
@@ -3508,10 +3543,114 @@ def cs_split(node, launches: dict, dispatches: int, what: str) -> dict:
     return {"flushes": dispatches, "last_commit": lc}
 
 
+def flushes_in_overlays(wfs: dict, feed, what: str) -> tuple:
+    """Every vote-feed flush's profiler entry is annotated with the heights
+    it verified (its first and its span), and each height's
+    verify_dispatch overlay is exactly what critpath's join gives over the
+    entries recorded before that height's analysis: a prefix of the
+    entries in record order, whose cut never moves back from one height to
+    the next. Returns the flushes recorded after the analysis of a height
+    they served, and their seconds for it."""
+    entries = [e for e in get_profiler().entries() if e["kind"] == feed.profile_kind]
+    check(len(entries) == feed.dispatches
+          and all(e["height_base"] in wfs and e["height_base"] + max(e["heights"], 1) - 1
+                  in wfs for e in entries),
+          f"{what}: {len(entries)} flush entries for {feed.dispatches} dispatches, heights "
+          f"{sorted({(e['height_base'], e['heights']) for e in entries})}")
+    late, late_s, cut = 0, 0.0, 0
+    for h in sorted(wfs):
+        want = wfs[h]["verify_dispatch_seconds"]
+        k = cut
+        while abs(verify_seconds_for_height(entries[:k], h) - want) > 1e-9 and k < len(entries):
+            k += 1
+        check(abs(verify_seconds_for_height(entries[:k], h) - want) <= 1e-9,
+              f"{what}: height {h}'s overlay {want} s is no prefix of its flushes after entry "
+              f"{cut}")
+        rest = [verify_seconds_for_height([e], h) for e in entries[k:]]
+        late += sum(1 for x in rest if x > 0)
+        late_s += sum(rest)
+        cut = k
+    return late, late_s
+
+
+def cs_instruments(node) -> dict:
+    """(a)'s per-height instruments: each committed height's waterfall
+    (libs/critpath) and quorum curve (libs/quorumtrace), printed and held
+    to the identities they promise; the flight dump merged into a Chrome
+    trace that must validate."""
+    cs = node.cs
+    cp, qt, fl = cs.critpath.snapshot(), cs.quorumtrace.snapshot(), cs.flight.snapshot()
+    check(cp["analysis_errors"] == 0 and qt["analysis_errors"] == 0,
+          f"consensus (a): analysis errors critpath {cp['analysis_errors']}, quorum "
+          f"{qt['analysis_errors']}")
+    wfs = {wf["height"]: wf for wf in cp["records"]}
+    qrs = {r["height"]: r for r in qt["records"]}
+    flights = {r["height"]: r for r in fl["records"]}
+    check(set(range(1, CS_HEIGHTS + 1)) <= set(wfs) and set(range(1, CS_HEIGHTS + 1)) <= set(qrs),
+          f"consensus (a): waterfalls for {sorted(wfs)}, quorum records for {sorted(qrs)}")
+    print(f"  (a) instruments (flight recorder on, watchdog started; ms): height: wall = "
+          + " + ".join(TIMELINE_PHASES) + " + other | wal_append, wal_fsync, verify_dispatch | "
+          "critical | prevote, precommit: 1/3, 2/3 (pivotal) | flushes joined", flush=True)
+    critical = []
+    for h in range(1, CS_HEIGHTS + 1):
+        wf, qr = wfs[h], qrs[h]
+        ph = wf["phases"]
+        resid = sum(ph[p] for p in TIMELINE_PHASES) + wf["other_seconds"] - wf["wall_seconds"]
+        check(abs(resid) <= 1e-6, f"consensus (a): height {h}'s phases miss its wall by {resid} s")
+        check(h < 2 or wf["verify_dispatch_seconds"] > 0,
+              f"consensus (a): no verify_dispatch time at height {h}")
+        commit_t = flights[h]["commit"]["t"]
+        curves = {}
+        for kind in ("prevote", "precommit"):
+            c = qr["curves"][kind]["crossings"]
+            check(c["two_thirds"] is not None and c["two_thirds"]["t_ns"] <= commit_t,
+                  f"consensus (a): height {h}'s {kind} 2/3 crossing {c['two_thirds']} is not at "
+                  f"or before its commit stamp {commit_t}")
+            curves[kind] = (c["third"]["seconds"], c["two_thirds"]["seconds"],
+                            qr["curves"][kind]["pivotal_validator"])
+        reasons = {}
+        for f in qr["flushes"]:
+            reasons[f["reason"]] = reasons.get(f["reason"], 0) + 1
+        critical.append(wf["critical_path"])
+        print(f"    {h}: {wf['wall_seconds'] * 1e3:.2f} = "
+              + " + ".join(f"{ph[p] * 1e3:.2f}" for p in TIMELINE_PHASES)
+              + f" + {wf['other_seconds'] * 1e3:.3f} | {ph['wal_append'] * 1e3:.2f}, "
+              f"{ph['wal_fsync'] * 1e3:.2f}, {wf['verify_dispatch_seconds'] * 1e3:.2f} | "
+              f"{wf['critical_path']} | "
+              + ", ".join(f"{t * 1e3:.2f}, {tt * 1e3:.2f} ({pv})" for t, tt, pv in curves.values())
+              + f" | {len(qr['flushes'])} {reasons}", flush=True)
+    late, late_s = flushes_in_overlays(wfs, node.feed, "consensus (a)")
+    stalls = node.watchdog.status()["stalls_total"]
+    text = node.metrics.registry.expose_text()
+    check(stalls == 0 and "tendermint_consensus_stalls_total 0" in text,
+          f"consensus (a): the watchdog counted {stalls} stalls")
+    merged = trace_merge.merge([fl])
+    errors = validate_chrome_trace(merged, 1, min_commits_per_node=CS_HEIGHTS)
+    check(not errors, f"consensus (a): the merged flight trace does not validate: {errors[:5]}")
+    n_wf = sum(1 for e in merged["traceEvents"] if e.get("cat") == "critpath")
+    print(f"    analysis errors 0 and 0; every height's timeline phases + other = its wall "
+          f"within 1e-6 s; verify_dispatch > 0 from height 2; every flush annotated with its "
+          f"heights, each overlay exactly its height's flushes up to its analysis ({late} "
+          f"flushes, {late_s * 1e3:.2f} ms, finished after it); every 2/3 crossing at or before "
+          f"its commit stamp; stalls 0 (the watchdog's EWMA "
+          f"{node.watchdog.status()['block_interval_ewma_seconds']} s); the merged trace "
+          f"validates ({len(merged['traceEvents'])} events, {n_wf} waterfall slices)",
+          flush=True)
+    return {"critical": critical}
+
+
 def cs_batched(doc, pvs, ours, cfg, dev, wal_dir, err) -> dict:
-    """(a): CS_HEIGHTS heights through the vote feed."""
-    node = cs_node(doc, pvs, ours, cfg, dev, wal_dir)
+    """(a): CS_HEIGHTS heights through the vote feed, with the flight
+    recorder on and the liveness watchdog started through the
+    [instrumentation] section."""
+    node = cs_node(doc, pvs, ours, cfg, dev, wal_dir,
+                   InstrumentationConfig(flight_recorder=True, watchdog=True))
     feed, cs = node.feed, node.cs
+    check(cs.flight.enabled and node.watchdog is not None and node.watchdog.cons is cs,
+          "consensus (a): the [instrumentation] section did not wire the recorder and watchdog")
+    # the critical path reads the process profiler's entries: start it empty
+    get_profiler().reset()
+    node.watchdog.start()
     check(feed is not None and cs._vote_feed is feed and feed.window_s == CS_WINDOW_MS / 1e3
           and feed.max_rows == CS_ROWS, "the vote feed is not the [verify] section's")
     if dev.type == "cuda":
@@ -3559,6 +3698,7 @@ def cs_batched(doc, pvs, ours, cfg, dev, wal_dir, err) -> dict:
     check(feed.votes_in + cs.serial_votes["last_commit"] == len(node.stubs) * 2 * CS_HEIGHTS
           and cs.serial_votes["unknown_verdict"] == 0,
           f"consensus (a): {feed.votes_in} votes in the feed, serial {serial}")
+    out["instruments"] = cs_instruments(node)
     print(f"  (a) batched: {CS_HEIGHTS} heights, {out['blocks_s']:.2f} blocks/s (a height's "
           f"wall from its first vote sent to its state, p50 {out['p50_ms']:.1f} ms; walls "
           + ", ".join(f"{w * 1e3:.1f}" for w in run["walls"])
@@ -3571,7 +3711,8 @@ def cs_batched(doc, pvs, ours, cfg, dev, wal_dir, err) -> dict:
           f"{[(p['flushes'], p['last_commit']) for p in per_height]}; spans (s) "
           + ", ".join(f"{n} {v:.3f}" for n, v in spans.items())
           + f"; the WAL's #ENDHEIGHT {ends}; every block and seen commit back from the store; "
-          f"K1/K2 exact on a flush's inputs (b = {b_f}) and a LastCommit's (b = {b_c})",
+          f"K1/K2 exact on a flush's inputs (b = {b_f}) and a LastCommit's (b = {b_c}); "
+          f"PR 20 ran 1.93-2.46 blocks/s, p50 423.7-556.7 ms (H100, recorder off)",
           flush=True)
     return {"out": out, "states": run["states"], "node": node}
 
@@ -3580,10 +3721,14 @@ def cs_serial(doc, pvs, ours, dev, wal_dir, want_states) -> dict:
     """(b): the same genesis with the feed off, CS_SERIAL_HEIGHTS heights."""
     node = cs_node(doc, pvs, ours, VerifyConfig(), dev, wal_dir)
     check(node.feed is None and node.cs._vote_feed is None, "consensus (b): a vote feed is set")
+    check(not node.cs.flight.enabled and node.watchdog is None,
+          "consensus (b): the flight recorder is on or a watchdog built")
     try:
         run = cs_run(node, CS_SERIAL_HEIGHTS, "(b)")
     finally:
         cs_stop(node)
+    check(len(node.cs.flight) == 0 and len(node.cs.critpath) == 0 and len(node.cs.quorumtrace) == 0,
+          "consensus (b): the recorder off recorded something")
     launches = read_launches()
     split = cs_split(node, launches, 0, "(b)")
     for h in range(1, CS_SERIAL_HEIGHTS + 1):
@@ -3595,7 +3740,8 @@ def cs_serial(doc, pvs, ours, dev, wal_dir, want_states) -> dict:
     print(f"  (b) serial: {CS_SERIAL_HEIGHTS} heights, {run['blocks_s']:.2f} blocks/s (p50 "
           f"{run['p50_ms']:.1f} ms); every peer vote verified on the host inside add_vote "
           f"(serial by reason {serial}); launches {launches} = {split['last_commit']} "
-          f"LastCommit checks; the app hash at each height equals (a)'s", flush=True)
+          f"LastCommit checks; the app hash at each height equals (a)'s; the recorder off "
+          f"recorded nothing", flush=True)
     return {"blocks_s": run["blocks_s"], "p50_ms": run["p50_ms"], "walls": run["walls"],
             "serial_votes": serial, "launches": launches, "split": split}
 
@@ -4213,9 +4359,12 @@ def main() -> int:
           f"the serial baseline {fs['baseline_blocks_s']:.2f}; the reactor "
           f"{fs['reactor']['blocks_s']:.2f} blocks/s over {FS_REACTOR_BLOCKS - 1}; phase "
           f"{fs['seconds']:.1f} s", flush=True)
+    crit = {}
+    for phase_name in cons["a"]["instruments"]["critical"]:
+        crit[phase_name] = crit.get(phase_name, 0) + 1
     print(f"  consensus: {CS_VALS} validators, {cons['a']['blocks_s']:.2f} blocks/s through "
-          f"the vote feed (a height's p50 {cons['a']['p50_ms']:.1f} ms), "
-          f"{cons['b']['blocks_s']:.2f} serially; the handshake's block {CS_HEIGHTS} in "
+          f"the vote feed (a height's p50 {cons['a']['p50_ms']:.1f} ms; critical phases "
+          f"{crit}), {cons['b']['blocks_s']:.2f} serially; the handshake's block {CS_HEIGHTS} in "
           f"{cons['c']['wall_ms']:.1f} ms; phase {cons['seconds']:.1f} s", flush=True)
     print(f"  statesync: the restore of {ssync['chunks']} chunks ({ssync['chunk_bytes']:,} "
           f"bytes) in {ssync['restore_s']:.3f} s, the hand-off in "

@@ -33,8 +33,14 @@ committed height (a ``DeviceDispatchError`` or ``DeviceAuditMismatch``
 out of ``_do_finalize_commit`` halts the same way). Off the card the
 reference's behaviour stays.
 
-The reference's per-height instruments (its flight recorder, commit
-critical path and quorum trace) are not ported yet.
+Each state owns the reference's per-height instruments: ``flight`` (the
+lifecycle stamps, ``consensus/flight.py``), ``critpath`` (each committed
+height's waterfall, ``libs/critpath.py``, which joins the WAL's height
+costs and the vote feed's dispatch entries) and ``quorumtrace`` (the
+quorum completion curves, ``libs/quorumtrace.py``, which joins the feed's
+flush ledger). They read what consensus did and decide nothing; with the
+recorder off every hook is one attribute check, and an analyzer's error is
+counted, never raised.
 """
 
 from __future__ import annotations
@@ -61,12 +67,15 @@ from tendermint_tpu_torch.consensus.messages import (
     TimeoutInfo,
     VoteMessage,
 )
+from tendermint_tpu_torch.consensus.flight import FlightRecorder
 from tendermint_tpu_torch.consensus.replay import catchup_replay
 from tendermint_tpu_torch.consensus.ticker import TimeoutTicker
 from tendermint_tpu_torch.consensus.wal import NilWAL
 from tendermint_tpu_torch.libs import breaker as _brk
 from tendermint_tpu_torch.libs import fail, trace
+from tendermint_tpu_torch.libs.critpath import CritPath
 from tendermint_tpu_torch.libs.events import EventSwitch
+from tendermint_tpu_torch.libs.quorumtrace import QuorumTrace
 from tendermint_tpu_torch.libs.service import BaseService
 from tendermint_tpu_torch.state.execution import _verifier_on_card
 from tendermint_tpu_torch.types.block import Block, Commit
@@ -133,6 +142,15 @@ class ConsensusState(BaseService):
         self.mempool = mempool
         self.evpool = evpool
         self.metrics = metrics
+        # per-height lifecycle ledger; disabled unless TM_FLIGHT /
+        # [instrumentation] flight_recorder turns it on
+        self.flight = FlightRecorder.from_env()
+        # commit-latency waterfall analyzer; piggybacks on the flight
+        # recorder's enable gate (no stamps -> nothing to analyze)
+        self.critpath = CritPath(metrics=metrics)
+        # quorum-formation analyzer: per-height time-to-1/3/2/3 curves and
+        # gossip-waste ledger off the same flight stamps
+        self.quorumtrace = QuorumTrace(metrics=metrics)
         # wall-clock source for proposal/vote timestamps and latency
         # accounting; the sim harness swaps in a skewed/frozen clock
         self.now_ns: Callable[[], int] = time.time_ns
@@ -572,6 +590,7 @@ class ConsensusState(BaseService):
         ):
             return
         self.logger.info("enterNewRound(%d/%d)", height, round)
+        self.flight.on_new_round(height, round)
 
         validators = rs.validators
         if rs.round < round:
@@ -775,6 +794,7 @@ class ConsensusState(BaseService):
                 return
 
             self._publish_rs_event(EVENT_POLKA)
+            self.flight.on_polka(height, round)
             pol_round, _ = rs.votes.pol_info()
             if pol_round < round:
                 raise ConsensusError(f"POLRound should be {round} but got {pol_round}")
@@ -854,6 +874,7 @@ class ConsensusState(BaseService):
             block_id = rs.votes.precommits(commit_round).two_thirds_majority()
             if block_id is None:
                 raise ConsensusError("enterCommit expects +2/3 precommits")
+            self.flight.on_commit(height, commit_round, block_id.hash)
             if rs.locked_block is not None and rs.locked_block.hashes_to(block_id.hash):
                 rs.proposal_block = rs.locked_block
                 rs.proposal_block_parts = rs.locked_block_parts
@@ -913,7 +934,9 @@ class ConsensusState(BaseService):
         if self.block_store.height() < block.height:
             precommits = rs.votes.precommits(rs.commit_round)
             seen_commit = precommits.make_commit()
+            persist_t0 = self.now_ns()
             self.block_store.save_block(block, block_parts, seen_commit)
+            self.flight.on_persist(height, persist_t0, self.now_ns())
 
         fail.fail_point()
 
@@ -924,6 +947,7 @@ class ConsensusState(BaseService):
         fail.fail_point()
 
         state_copy = self.state.copy()
+        exec_t0 = self.now_ns()
         try:
             state_copy = self.block_exec.apply_block(
                 state_copy, BlockID(hash=block.hash(), parts_header=block_parts.header()),
@@ -932,6 +956,16 @@ class ConsensusState(BaseService):
         except Exception as e:
             self.logger.error("error on ApplyBlock: %s — halting", e)
             raise
+        self.flight.on_execute(height, exec_t0, self.now_ns())
+        # the height's lifecycle is complete — fuse its flight stamps, WAL
+        # costs, and verify-dispatch ledger into one waterfall record
+        self.critpath.on_height_complete(height, self.flight, wal=self.wal)
+        # quorum curve needs the committed height's valset (rs advances only
+        # in update_to_state below) and the batch-flush ledger if batching
+        self.quorumtrace.on_height_complete(
+            height, self.flight,
+            validators=rs.validators, vote_feed=self._vote_feed,
+        )
 
         fail.fail_point()
 
@@ -960,6 +994,7 @@ class ConsensusState(BaseService):
         rs.proposal = proposal
         if rs.proposal_block_parts is None:
             rs.proposal_block_parts = PartSet(proposal.block_id.parts_header)
+        self.flight.on_proposal(rs.height, rs.round)
         self.logger.info("received proposal %s", proposal)
 
     def _add_proposal_block_part(self, msg: BlockPartMessage, peer_id: str) -> bool:
@@ -975,6 +1010,7 @@ class ConsensusState(BaseService):
             if len(data) > self.state.consensus_params.block_size.max_bytes:
                 raise ConsensusError("proposal block too big")
             rs.proposal_block = Block.unmarshal(data)
+            self.flight.on_block_parts_complete(height)
             self.logger.info(
                 "received complete proposal block h=%d %s",
                 rs.proposal_block.height, rs.proposal_block,
@@ -1175,6 +1211,16 @@ class ConsensusState(BaseService):
             )
             self.metrics.vote_arrival_latency.observe(lat, (kind,))
 
+    def _vote_power(self, vote: Vote) -> int:
+        """The voter's power in the CURRENT valset (0 when unknown — e.g. a
+        last-commit straggler after a valset change).  Feeds the flight
+        recorder's quorum-contribution stamps."""
+        try:
+            _, val = self.rs.validators.get_by_index(vote.validator_index)
+            return val.voting_power if val is not None else 0
+        except Exception:
+            return 0
+
     def _add_vote(self, vote: Vote, peer_id: str,
                   verified: bool = False) -> bool:
         rs = self.rs
@@ -1198,6 +1244,10 @@ class ConsensusState(BaseService):
             if not added:
                 return False
             self._observe_vote_latency(vote)
+            self.flight.on_vote(
+                vote.height, vote.round, "precommit", peer_id,
+                vote.validator_index,
+            )
             self._publish_vote_event(vote)
             if self.config.skip_timeout_commit and rs.last_commit.has_all():
                 self.enter_new_round(rs.height, 0)
@@ -1211,6 +1261,15 @@ class ConsensusState(BaseService):
         if not added:
             return False
         self._observe_vote_latency(vote)
+        if self.flight.enabled:  # off, the voter's power is not looked up
+            self.flight.on_vote(
+                vote.height,
+                vote.round,
+                "prevote" if vote.vote_type == SignedMsgType.PREVOTE else "precommit",
+                peer_id,
+                vote.validator_index,
+                power=self._vote_power(vote),
+            )
         self._publish_vote_event(vote)
 
         if vote.vote_type == SignedMsgType.PREVOTE:
@@ -1329,5 +1388,12 @@ class ConsensusState(BaseService):
                 self.logger.error("error signing vote h=%d r=%d: %s",
                                   self.rs.height, self.rs.round, e)
             return None
+        # journey origin: OUR vote exists the instant the signature lands,
+        # before it enters the internal queue / gossip
+        self.flight.on_vote_signed(
+            vote.height, vote.round,
+            "prevote" if t == SignedMsgType.PREVOTE else "precommit",
+            vote.validator_index,
+        )
         self.send_internal(VoteMessage(vote))
         return vote

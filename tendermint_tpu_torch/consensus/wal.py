@@ -12,17 +12,21 @@ Reading runs the reference's pure-Python framing loop (the one that
 and the same error strings. The reference's C scanner
 (``consensus/_wal_native.c``) is host code; the port has no copy of it.
 Appends are traced as ``wal.append`` and fsyncs as ``wal.fsync``, each
-tagged with the height that ``set_height`` last gave.
+tagged with the height that ``set_height`` last gave; the same spans feed
+per-height cost accumulators (``height_costs`` / ``pop_height_costs``),
+which the critical-path analyzer (``libs/critpath.py``) joins into each
+committed height's waterfall.
 """
 
 from __future__ import annotations
 
 import io
 import struct
+import threading
 import time
 import zlib
 from dataclasses import dataclass
-from typing import Iterator, Optional
+from typing import Dict, Iterator, Optional
 
 from tendermint_tpu_torch.consensus.messages import (
     EndHeightMessage,
@@ -59,15 +63,47 @@ class TimedWALMessage:
 
 
 class WAL(BaseService):
+    # per-height cost accumulators kept (oldest dropped past this); 64
+    # heights comfortably covers any consumer lag on the finalize path
+    HEIGHT_COST_KEEP = 64
+
     def __init__(self, wal_file: str, metrics=None):
         super().__init__("consensus.WAL")
         self.group = Group(wal_file)
         self.metrics = metrics  # libs/metrics.ConsensusMetrics or None
-        # the height that tags the spans; ConsensusState advances it
+        # the height that tags the spans and the per-height cost join;
+        # ConsensusState advances it
         self._height = 0
+        self._height_costs: Dict[int, dict] = {}
+        self._cost_mtx = threading.Lock()
 
+    # height attribution ---------------------------------------------------
     def set_height(self, height: int) -> None:
         self._height = int(height)
+
+    def _account(self, kind: str, seconds: float) -> None:
+        with self._cost_mtx:
+            c = self._height_costs.get(self._height)
+            if c is None:
+                c = {"append_seconds": 0.0, "fsync_seconds": 0.0,
+                     "appends": 0, "fsyncs": 0}
+                self._height_costs[self._height] = c
+                while len(self._height_costs) > self.HEIGHT_COST_KEEP:
+                    self._height_costs.pop(min(self._height_costs))
+            c[f"{kind}_seconds"] += seconds
+            c[f"{kind}s"] += 1
+
+    def height_costs(self, height: int) -> Optional[dict]:
+        """Accumulated WAL costs for one height, or None."""
+        with self._cost_mtx:
+            c = self._height_costs.get(int(height))
+            return dict(c) if c is not None else None
+
+    def pop_height_costs(self, height: int) -> Optional[dict]:
+        """Like height_costs but removes the accumulator: the critpath
+        analyzer consumes each height exactly once at finalize."""
+        with self._cost_mtx:
+            return self._height_costs.pop(int(height), None)
 
     # writes ---------------------------------------------------------------
     def write(self, msg: object) -> None:
@@ -82,8 +118,10 @@ class WAL(BaseService):
         with trace.span("wal.append", bytes=len(rec), height=self._height):
             self.group.write(rec)
             self.group.flush()
+        dt = time.monotonic() - t0
+        self._account("append", dt)
         if self.metrics is not None:
-            self.metrics.wal_append_seconds.observe(time.monotonic() - t0)
+            self.metrics.wal_append_seconds.observe(dt)
 
     def write_sync(self, msg: object) -> None:
         """Append + fsync (internal msgs and #ENDHEIGHT use this)."""
@@ -92,8 +130,10 @@ class WAL(BaseService):
             t0 = time.monotonic()
             with trace.span("wal.fsync", height=self._height):
                 self.group.sync()
+            dt = time.monotonic() - t0
+            self._account("fsync", dt)
             if self.metrics is not None:
-                self.metrics.wal_fsync_seconds.observe(time.monotonic() - t0)
+                self.metrics.wal_fsync_seconds.observe(dt)
 
     def on_start(self) -> None:
         self.group.maybe_rotate()
@@ -177,6 +217,12 @@ class NilWAL:
     def write_sync(self, msg) -> None: ...
 
     def set_height(self, height: int) -> None: ...
+
+    def height_costs(self, height: int):
+        return None
+
+    def pop_height_costs(self, height: int):
+        return None
 
     def start(self) -> None: ...
 

@@ -706,8 +706,10 @@ class StateMetrics:
 
 class ConsensusMetrics:
     """The consensus family of the reference's ``NodeMetrics``
-    (libs/metrics.py:763-804) that ``consensus/state.py`` and
-    ``consensus/wal.py`` write, under the same attribute names."""
+    (libs/metrics.py:763-840) that ``consensus/state.py``,
+    ``consensus/wal.py`` and the per-height instruments
+    (``libs/critpath.py``, ``libs/quorumtrace.py``, ``libs/watchdog.py``)
+    write, under the same attribute names."""
 
     def __init__(self, registry: Optional[Registry] = None):
         r = registry or Registry()
@@ -732,6 +734,75 @@ class ConsensusMetrics:
         self.wal_fsync_seconds = r.histogram(
             "consensus_wal_fsync_seconds", "WAL fsync wall seconds",
             buckets=[b / 10 for b in _DEFAULT_BUCKETS],
+        )
+        # commit-latency waterfall (libs/critpath.py): wall seconds each
+        # committed height spent in each phase of the commit path
+        self.height_phase_seconds = r.histogram(
+            "consensus_height_phase_seconds",
+            "Per-committed-height wall seconds attributed to each "
+            "commit-path phase by the critical-path analyzer",
+            buckets=[b / 10 for b in _DEFAULT_BUCKETS],
+            label_names=("phase",),
+        )
+        # quorum formation (libs/quorumtrace.py): wall seconds from round
+        # entry until arriving voting power crossed 1/3 and 2/3 of total
+        self.quorum_time_to_third = r.histogram(
+            "consensus_quorum_time_to_third_seconds",
+            "Per-height wall seconds from round entry until arriving votes "
+            "crossed 1/3 of total voting power",
+            buckets=[b / 10 for b in _DEFAULT_BUCKETS],
+            label_names=("type",),
+        )
+        self.quorum_time_to_two_thirds = r.histogram(
+            "consensus_quorum_time_to_two_thirds_seconds",
+            "Per-height wall seconds from round entry until arriving votes "
+            "crossed 2/3 of total voting power (quorum)",
+            buckets=[b / 10 for b in _DEFAULT_BUCKETS],
+            label_names=("type",),
+        )
+        # liveness watchdog (libs/watchdog.py)
+        self.stalls = r.counter(
+            "consensus_stalls_total",
+            "Distinct consensus stalls detected by the liveness watchdog",
+        )
+        self.stall_seconds = r.gauge(
+            "consensus_stall_seconds",
+            "Age of the current consensus stall (0 when progressing)",
+        )
+
+
+class TelemetryMetrics:
+    """Telemetry-spool health (``libs/telemetry.TelemetrySpool``) plus
+    ring-eviction visibility across the bounded observability stores (the
+    reference's ``TelemetryMetrics``, libs/metrics.py:704-740, same
+    names). One per spool, not a process singleton."""
+
+    def __init__(self, registry: Optional[Registry] = None):
+        r = registry or Registry()
+        self.registry = r
+        self.snapshots = r.counter(
+            "telemetry_snapshots_total",
+            "Telemetry snapshots appended to the on-disk spool",
+        )
+        self.spool_bytes = r.gauge(
+            "telemetry_spool_bytes",
+            "On-disk size of the telemetry spool across all segments",
+        )
+        self.write_errors = r.counter(
+            "telemetry_write_errors_total",
+            "Telemetry snapshot appends that failed (disk errors)",
+        )
+        self.dropped = r.counter(
+            "telemetry_dropped_snapshots_total",
+            "Telemetry snapshots dropped before reaching the spool "
+            "(serialization failures / flusher shutdown races)",
+        )
+        # the flight recorder, profile ledger and CritPath/QuorumTrace
+        # rings all evict silently under load; these counters say so
+        self.evicted = r.counter(
+            "observability_evicted_total",
+            "Records evicted from bounded observability stores",
+            label_names=("store",),
         )
 
 

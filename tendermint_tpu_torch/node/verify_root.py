@@ -36,7 +36,9 @@ block executor that owns that mempool (``node/node.py:220-230``), whose
 ``handshake(...)`` the ABCI handshake that brings the app up to the stores
 (``node/node.py:105-110``), and ``consensus_state(...)`` the consensus state
 machine over them with its WAL, event bus and the ``[verify]`` vote feed
-(``node/node.py:225-262``), and ``state_sync(...)`` the ``[statesync]``
+(``node/node.py:225-262``) and its ``[instrumentation]`` section's flight
+recorder, liveness watchdog and telemetry spool (``:286-326``,
+``:652-667``), and ``state_sync(...)`` the ``[statesync]``
 section's snapshot store, producer and reactor (``node/node.py:84-101``,
 ``:393-429``), whose restore verifies its trust hops through the installed
 verifier and its backfill through the installed device executor, and
@@ -46,6 +48,7 @@ hands the restored state to the fast-sync reactor (``:560-570``).
 from __future__ import annotations
 
 import logging
+import os
 from dataclasses import dataclass, field
 from typing import Callable, Dict, NamedTuple, Optional
 
@@ -53,6 +56,7 @@ import torch
 
 from tendermint_tpu_torch.blockchain.reactor import BlockchainReactor
 from tendermint_tpu_torch.config.consensus import ConsensusConfig
+from tendermint_tpu_torch.config.instrumentation import InstrumentationConfig
 from tendermint_tpu_torch.config.mempool import MempoolConfig
 from tendermint_tpu_torch.config.statesync import StateSyncConfig
 from tendermint_tpu_torch.config.verify import VerifyConfig
@@ -64,6 +68,9 @@ from tendermint_tpu_torch.device import DeviceLike, resolve_device
 from tendermint_tpu_torch.evidence.pool import EvidencePool
 from tendermint_tpu_torch.libs.db.kv import MemDB
 from tendermint_tpu_torch.libs import breaker as _brk
+from tendermint_tpu_torch.libs.metrics import TelemetryMetrics
+from tendermint_tpu_torch.libs.telemetry import TelemetrySpool
+from tendermint_tpu_torch.libs.watchdog import LivenessWatchdog
 from tendermint_tpu_torch.mempool.mempool import Mempool
 from tendermint_tpu_torch.mempool.tx_verify import BatchTxVerifier
 from tendermint_tpu_torch.ops import _build
@@ -239,13 +246,18 @@ class ConsensusRoot(NamedTuple):
     event_bus: EventBus
     vote_feed: Optional[planner.VoteFeed]  # None: peer votes verify serially
     wal: Optional[WAL]
+    # unstarted; None when [instrumentation] turns them off
+    watchdog: Optional[LivenessWatchdog] = None
+    telemetry_spool: Optional[TelemetrySpool] = None
 
 
 def consensus_state(cfg: Optional[ConsensusConfig], verify_cfg: Optional[VerifyConfig],
                     state: State, block_exec: BlockExecutor, block_store, mempool,
                     evidence_pool, *, wal_file: Optional[str] = None, event_bus=None,
                     priv_validator=None, metrics=None,
-                    device: DeviceLike = None) -> ConsensusRoot:
+                    device: DeviceLike = None,
+                    instrumentation: Optional[InstrumentationConfig] = None,
+                    node_id: str = "", root_dir: Optional[str] = None) -> ConsensusRoot:
     """The node's consensus state machine (``node/node.py:225-262``) from
     the ``[consensus]`` section over ``block_exec``
     (``block_executor(...).block_executor``), ``block_store``, ``mempool``
@@ -254,9 +266,20 @@ def consensus_state(cfg: Optional[ConsensusConfig], verify_cfg: Optional[VerifyC
     started), ``priv_validator``, and the ``[verify]`` vote feed
     (``vote_feed(verify_cfg, device)``) set with ``set_vote_feed`` when
     ``vote_batch_window_ms > 0``: live peer votes then verify through it, on
-    the card through the installed guarded verifier (K1 + K2, K3). The
-    caller starts the state machine, and closes the feed after stopping it.
-    ``metrics`` is a ``libs/metrics.ConsensusMetrics``."""
+    the card through the installed guarded verifier (K1 + K2, K3).
+
+    The ``[instrumentation]`` section (default ``InstrumentationConfig()``)
+    names the state's flight recorder ``node_id`` and enables it when
+    ``flight_recorder`` is on (``TM_FLIGHT`` may have already); builds a
+    ``LivenessWatchdog`` over the state when ``watchdog`` is on (no switch
+    yet: its stall report names the missing validators and their power,
+    not peers); and builds a ``TelemetrySpool`` at
+    ``telemetry_spool_path`` (relative to ``root_dir``) when
+    ``telemetry_spool`` is on, whose snapshots carry its own status. The
+    caller starts the state machine, the watchdog and the spool, stops
+    them, and closes the feed after stopping the state machine. ``metrics``
+    is a ``libs/metrics.ConsensusMetrics``; the spool's
+    ``libs/metrics.TelemetryMetrics`` go on its registry."""
     cfg = cfg if cfg is not None else ConsensusConfig()
     if cfg.wait_for_txs():
         mempool.enable_txs_available()
@@ -272,7 +295,36 @@ def consensus_state(cfg: Optional[ConsensusConfig], verify_cfg: Optional[VerifyC
     feed = vote_feed(verify_cfg, device=device)
     if feed is not None:
         cs.set_vote_feed(feed)
-    return ConsensusRoot(cs, bus, feed, wal)
+    inst = instrumentation if instrumentation is not None else InstrumentationConfig()
+    cs.flight.node_id = node_id
+    if inst.flight_recorder:
+        cs.flight.enable()
+    watchdog = None
+    if inst.watchdog:
+        watchdog = LivenessWatchdog(cs, switch=None, metrics=metrics,
+                                    interval=inst.watchdog_interval,
+                                    stall_factor=inst.watchdog_stall_factor,
+                                    min_stall_seconds=inst.watchdog_min_stall_seconds)
+    spool = None
+    if inst.telemetry_spool:
+        path = inst.telemetry_spool_path
+        if not os.path.isabs(path):
+            if root_dir is None:
+                raise ValueError(
+                    f"telemetry_spool_path {path!r} is relative and no root_dir is given")
+            path = os.path.join(root_dir, path)
+        spool = TelemetrySpool(
+            path, node_id=node_id,
+            interval_heights=inst.telemetry_spool_interval_heights,
+            interval_seconds=inst.telemetry_spool_interval_seconds,
+            head_size_limit=inst.telemetry_spool_head_size_limit,
+            total_size_limit=inst.telemetry_spool_total_size_limit,
+            ring_capacity=inst.telemetry_spool_ring_capacity,
+            metrics=TelemetryMetrics(metrics.registry) if metrics is not None else None,
+            height_fn=lambda: cs.rs.height,
+        )
+        spool.set_source("spool", spool.status)
+    return ConsensusRoot(cs, bus, feed, wal, watchdog, spool)
 
 
 class StateSyncRoot(NamedTuple):
