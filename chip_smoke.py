@@ -258,17 +258,18 @@ Phases, in order; any failure exits non-zero:
              No fallback, the default breaker closed, no audit mismatch.
   22. fastsync fast sync, on a default [verify] root of its own: BASELINE.json
              config 3 at scripts/bench_fastsync.py's width, 64 validators
-             of power 10 over KVStoreApp, a chain of 1,025 blocks built by
+             of power 10 over KVStoreApp, a chain of 513 blocks (1,025 before
+             phase 25 came) built by
              tools/bench_fastsync.build (set-up, each LastCommit through an
              explicit TorchBatchVerifier). (a) tools/bench_fastsync.replay at
-             the reference's VERIFY_WINDOW of 512 (two full windows) through
+             the reference's VERIFY_WINDOW of 512 (one full window) through
              the root's guarded verifier, an explicit TorchBatchVerifier()
              and the free NullVerifier (the host's ceiling), and its serial
              baseline (verify_commit + apply_block a height) over 64 blocks
              on the guarded verifier: blocks a second with the
              fastsync.window, planner.pack, verify.dispatch, verify.audit,
              fastsync.apply and state.* spans; every run ends at height
-             1,024 with the chain's app hash and state bytes; K1 = K2 = 1 a
+             512 with the chain's app hash and state bytes; K1 = K2 = 1 a
              window (b = 32,768), exact on the explicit run's first launch.
              (b) the node's reactor (node/verify_root.blockchain_reactor
              over the node-wired executor and mempool, verifier None) syncs
@@ -366,6 +367,37 @@ Phases, in order; any failure exits non-zero:
              block saved, no peer banned, no hand-off, the backfill
              launches nothing. No fallback, the breaker closed, no audit
              mismatch.
+  25. localnet BASELINE.json config 1, the 4-validator kvstore localnet of
+             docker-compose.yml, on a [verify] root of its own with the vote
+             feed on (phase 23's settings): four validators of power 10, each
+             a node in this process built through node/verify_root
+             (testutil/consensus_net.make_consensus_net with tcp=True: the
+             mempool, the executor, the handshake, consensus_state with its
+             own WAL, vote feed, NodeMetrics and the flight recorder on,
+             consensus_reactor, and switch on 127.0.0.1 port 0) at the
+             [consensus] defaults (timeout_commit 1 s) and the [p2p] defaults
+             with allow_duplicate_ip = true (as a local testnet sets it) and
+             pex off (the peer exchange is not ported), the other three
+             nodes as persistent_peers: every connection a TCP dial, a
+             secret connection (STS_BACKEND printed: cryptography where the
+             host has it, crypto/sts_fallback otherwise; the H100 hosts
+             measured in PERF.md have it), the NodeInfo exchange and an
+             MConnection. A tx into every node's mempool each height; 8
+             heights. Every node reaches 8 with the same block and app
+             hashes at every height; no peer stopped for an error, but for
+             at most one simultaneous-dial duplicate a pair before height 1
+             (its connection not the canonical one, closed by the other end
+             by switch.py's canonical rule; printed); K1 + K2
+             launched by every node from height 2 on through its vote feed
+             and its LastCommit checks, the total equal to the feeds'
+             dispatches plus the checks; the flight recorder's journeys hold
+             first sends and arrivals and the gossip ledger links every
+             ordered pair of nodes; K1 and K2 exact on a captured launch.
+             Prints the handshake's seconds a connection, blocks a second
+             and a height's p50 wall, launches a node a height (flushes,
+             LastCommit checks), flushes by reason, rows and lanes a flush,
+             bytes sent and received a peer (NodeMetrics) and the phase's
+             seconds. No fallback, the breaker closed, no audit mismatch.
 
 The window phase's routes and the backfill phase each make one traced call
 (the p50 of 3 before phase 21, of 2 before phase 22: the fastsync replay
@@ -377,8 +409,9 @@ host-clock walls 3 repeats (5), and each kernel's plain time on its main
 path (K1, K2, K3 and K4) is the plain version's run for the exactness check
 (two or three more runs before). Phase 23 is paid for by phase 19's msm
 calls, which take the window's first 128 heights, not all 512; phase 24
-by phase 23's serial run, 2 heights (4 before). Each phase's line carries
-the seconds since the script began.
+by phase 23's serial run, 2 heights (4 before); phase 25 by phase 22's
+chain, 513 blocks (1,025 before). Each phase's line carries the seconds
+since the script began.
 
 Each path's launch counts are set to 0 just before it and read just after;
 the kernels line carries the main path's as ``launches``, the lite
@@ -391,7 +424,8 @@ txs phase's as ``txs_launches``, phases 18 and 19's as ``msm_launches`` and
 application of block 2), phase 22's as ``fastsync_launches`` (guarded,
 explicit, baseline, reactor) and phase 23's as ``consensus_launches`` ((a),
 (b) and (c), each split into flushes and LastCommit checks) and phase
-24's as ``statesync_launches`` (trust, backfill, handoff); K4's own
+24's as ``statesync_launches`` (trust, backfill, handoff) and phase 25's
+as ``localnet_launches`` (flushes, LastCommit checks); K4's own
 ``launches`` are
 the msm route's 10,000-validator commit's. The line before the last two is the
 ``kernels`` JSON, then the card's name
@@ -430,7 +464,7 @@ from tendermint_tpu_torch.abci.examples.kvstore import (
 from tendermint_tpu_torch.blockchain import pool as bc_pool
 from tendermint_tpu_torch.blockchain import reactor as bc_reactor
 from tendermint_tpu_torch.blockchain.store import BlockStore
-from tendermint_tpu_torch.config.consensus import consensus_test_config
+from tendermint_tpu_torch.config.consensus import ConsensusConfig, consensus_test_config
 from tendermint_tpu_torch.config.instrumentation import InstrumentationConfig
 from tendermint_tpu_torch.config.mempool import MempoolConfig
 from tendermint_tpu_torch.config.statesync import StateSyncConfig
@@ -440,6 +474,7 @@ from tendermint_tpu_torch.consensus.wal import WAL
 from tendermint_tpu_torch.config.verify import VerifyConfig
 from tendermint_tpu_torch.crypto import ed25519 as ed
 from tendermint_tpu_torch.crypto import secp256k1 as secp
+from tendermint_tpu_torch.crypto import sts_fallback
 from tendermint_tpu_torch.crypto.batch import (
     GuardedBatchVerifier,
     HostBatchVerifier,
@@ -454,6 +489,7 @@ from tendermint_tpu_torch.crypto.keys import PubKeyEd25519, PubKeySecp256k1
 from tendermint_tpu_torch.frontend.aggregator import BatchingVerifier
 from tendermint_tpu_torch.libs import breaker, trace
 from tendermint_tpu_torch.libs.critpath import TIMELINE_PHASES, verify_seconds_for_height
+from tendermint_tpu_torch.libs.quorumtrace import build_journeys, gossip_ledger
 from tendermint_tpu_torch.libs.db.kv import MemDB
 from tendermint_tpu_torch.libs.profile import get_profiler
 from tendermint_tpu_torch.libs.metrics import (
@@ -475,6 +511,9 @@ from tendermint_tpu_torch.ops import ed25519_msm as em
 from tendermint_tpu_torch.ops import fe
 from tendermint_tpu_torch.ops import imad_probe
 from tendermint_tpu_torch.ops import secp256k1_cuda as sc
+from tendermint_tpu_torch.p2p import errors as p2p_errors
+from tendermint_tpu_torch.p2p.conn import secret_connection as p2p_sts
+from tendermint_tpu_torch.p2p.transport import MultiplexTransport
 from tendermint_tpu_torch.parallel import commit_verify as cv
 from tendermint_tpu_torch.parallel import planner
 from tendermint_tpu_torch.proxy.app_conn import LocalClientCreator, MultiAppConn
@@ -486,6 +525,7 @@ from tendermint_tpu_torch.statesync.store import SnapshotStore
 from tendermint_tpu_torch.testutil import chain as tchain
 from tendermint_tpu_torch.testutil import commit as tc
 from tendermint_tpu_torch.testutil import consensus as tcs
+from tendermint_tpu_torch.testutil import consensus_net as tnet
 from tendermint_tpu_torch.testutil import lite_chain as lc
 from tendermint_tpu_torch.testutil import multisig as tm
 from tendermint_tpu_torch.testutil import secp_signer
@@ -580,11 +620,12 @@ BX_TIME0 = 1_700_000_000_000_000_000
 BX_SPANS = ("state.validate", "verify.dispatch", "verify.audit", "state.exec",
             "state.begin_block_info", "state.update", "state.commit", "state.save")
 # the fastsync phase: BASELINE.json config 3 at scripts/bench_fastsync.py's
-# width (64 validators of power 10, KVStoreApp); 1,025 blocks, so that the
-# reference's VERIFY_WINDOW = 512 gives two full windows; the node's reactor
-# syncs the first 257 from a loopback peer (two and more of the pool's
-# 128-height request windows)
-FS_VALS, FS_BLOCKS, FS_WINDOW, FS_REACTOR_BLOCKS = 64, 1025, 512, 257
+# width (64 validators of power 10, KVStoreApp); 513 blocks, so that the
+# reference's VERIFY_WINDOW = 512 gives one full window (1,025 blocks, two
+# windows, before the localnet phase came); the node's reactor syncs the
+# first 257 from a loopback peer (two and more of the pool's 128-height
+# request windows)
+FS_VALS, FS_BLOCKS, FS_WINDOW, FS_REACTOR_BLOCKS = 64, 513, 512, 257
 FS_SYNC_TIMEOUT = 300.0
 FS_TRACE_CAPACITY = 1 << 17
 FS_SPANS = ("fastsync.window", "planner.pack", "verify.dispatch", "verify.audit",
@@ -614,6 +655,12 @@ SS_TIMEOUT = 120.0
 SS_SPANS = ("statesync.restore", "statesync.light_verify", "statesync.chunks",
             "statesync.backfill", "planner.pack", "planner.pack_device", "planner.dispatch",
             "planner.audit", "verify.dispatch", "verify.audit")
+# the localnet phase: BASELINE.json config 1 (docker-compose.yml's 4-validator
+# kvstore localnet), power 10, the [consensus] defaults, the vote feed at phase
+# 23's settings, 8 heights
+LN_VALS, LN_HEIGHTS, LN_WINDOW_MS, LN_ROWS = 4, 8, 2.0, 64
+LN_TIMEOUT = 120.0
+LN_FRAME_REPS = 50
 
 # Rates for the least time the card could take: HBM bandwidth (H100 SXM
 # data sheet); 32-bit integer add, logic, shift and multiply-add each retire
@@ -4187,6 +4234,318 @@ def phase_statesync(root, dev, err: dict) -> dict:
             "launches": {"trust": trust, "backfill": backfill, "handoff": handoff}}
 
 
+# -- phase 25: the localnet --------------------------------------------------------------
+
+
+@contextlib.contextmanager
+def timed_upgrades():
+    """The seconds of every connection upgrade the transports run while
+    active (the secret connection's handshake and the NodeInfo exchange),
+    dialed and accepted alike."""
+    got, mtx, real = [], threading.Lock(), MultiplexTransport._upgrade
+
+    def upgrade(self, sock, dialed_id):
+        t0 = time.perf_counter()
+        out = real(self, sock, dialed_id)
+        with mtx:
+            got.append(time.perf_counter() - t0)
+        return out
+
+    MultiplexTransport._upgrade = upgrade
+    try:
+        yield got
+    finally:
+        MultiplexTransport._upgrade = real
+
+
+def ln_frame_ms(aead_cls) -> tuple:
+    """ms to seal and to open one secret-connection frame with ``aead_cls``
+    (a ChaCha20-Poly1305 of either backend), before the nodes start."""
+    aead = aead_cls(bytes(range(32)))
+    frame, nonce = bytes(p2p_sts.TOTAL_FRAME_SIZE), bytes(12)
+    t0 = time.perf_counter()
+    for _ in range(LN_FRAME_REPS):
+        sealed = aead.encrypt(nonce, frame, None)
+    t1 = time.perf_counter()
+    for _ in range(LN_FRAME_REPS):
+        aead.decrypt(nonce, sealed, None)
+    t2 = time.perf_counter()
+    return (t1 - t0) * 1e3 / LN_FRAME_REPS, (t2 - t1) * 1e3 / LN_FRAME_REPS
+
+
+def ln_stopped_peers(nodes) -> tuple:
+    """Every peer a node's switch stops for an error, as (time, node, peer
+    node, reason, whether its connection is the canonical one), and every
+    duplicate connection a switch closes by its canonical rule (switch.py's
+    _add_peer: a new connection refused, or an old one evicted), as (node,
+    peer node). A call for a peer object the set no longer holds stops
+    nothing (switch.py's stale-peer rule) and is not counted."""
+    idx = {n.switch.node_id: i for i, n in enumerate(nodes)}
+    stopped, closed = [], []
+    for i, n in enumerate(nodes):
+        sw = n.switch
+        real_stop, real_add, real_remove = (sw.stop_peer_for_error, sw._add_peer,
+                                            sw._stop_and_remove_peer)
+
+        def record(peer, reason, i=i, sw=sw, real=real_stop):
+            if sw.peers.get(peer.id) is peer:
+                stopped.append((time.perf_counter(), i, idx.get(peer.id), reason,
+                                sw._conn_is_canonical(peer.outbound, peer.id)))
+            return real(peer, reason)
+
+        def add_peer(up, persistent=False, i=i, real=real_add):
+            try:
+                return real(up, persistent=persistent)
+            except p2p_errors.SwitchDuplicatePeerIDError as e:
+                closed.append((i, idx.get(e.peer_id)))
+                raise
+
+        def remove(peer, reason, i=i, real=real_remove):
+            if reason == "duplicate (non-canonical)":
+                closed.append((i, idx.get(peer.id)))
+            return real(peer, reason)
+
+        sw.stop_peer_for_error, sw._add_peer, sw._stop_and_remove_peer = record, add_peer, remove
+    return stopped, closed
+
+
+def ln_unexcused_stops(stopped: list, closed: list, before: float) -> tuple:
+    """Split the stops of ``ln_stopped_peers`` into the dial races it
+    excuses and the rest. Both ends of a pair dial each other at once; each
+    switch keeps the connection the smaller node ID dialed and closes the
+    other, so an end that took the other one first sees it close and
+    redials. A stop is excused only if it came before ``before`` (height 1),
+    its reason is that close, its connection is not the canonical one, the
+    other end closed a duplicate from this node by the canonical rule, and
+    it is the first such stop of its pair."""
+    races, rest, pairs = [], [], set()
+    for t, i, j, reason, canonical in stopped:
+        pair = frozenset((i, j))
+        closed_conn = (isinstance(reason, (BrokenPipeError, ConnectionResetError))
+                       or (type(reason) is ConnectionError and str(reason) == "connection closed"))
+        if (t <= before and closed_conn and not canonical and (j, i) in closed
+                and pair not in pairs):
+            pairs.add(pair)
+            races.append((i, j, repr(reason)))
+        else:
+            rest.append((round(t - before, 3), i, j, repr(reason), canonical))
+    return races, rest
+
+
+def ln_gossip(nodes) -> dict:
+    """The flight recorders' gossip stamps of the committed heights: each
+    height's and kind's vote journeys with a first send from their signer,
+    each node's first arrivals, and the gossip ledger's links by node."""
+    ids = [n.switch.node_id for n in nodes]
+    idx = {nid: i for i, nid in enumerate(ids)}
+    dumps = [n.cs.flight.snapshot() for n in nodes]
+    journeys = [j for j in build_journeys(dumps) if 1 <= j["height"] <= LN_HEIGHTS]
+    ledger = gossip_ledger(dumps, journeys=journeys)
+    links = {(idx.get(lk["peer"]), idx[lk["node"]]) for lk in ledger["links"]
+             if lk["first_sightings"] > 0}
+    # a link is a gossiping peer and a receiving node, two nodes of the net;
+    # every node took first sightings from two peers at least and gave them
+    # to two at least (which peer is first with a vote is a race)
+    check(all(p is not None and p != q for p, q in links)
+          and all(sum(1 for p, q in links if q == i) >= 2
+                  and sum(1 for p, q in links if p == i) >= 2 for i in range(len(nodes))),
+          f"localnet: the gossip ledger links {sorted(links, key=str)}")
+    sent, arrived = {}, {}
+    for j in journeys:
+        key = (j["height"], j["kind"])
+        if j["origin"] == ids[j["validator_index"]] and j["first_send"] is not None:
+            sent[key] = sent.get(key, 0) + 1
+        arrived[key] = arrived.get(key, 0) + len(j["arrivals"])
+    for h in range(1, LN_HEIGHTS + 1):
+        for kind in ("prevote", "precommit"):
+            # a quorum of the signers sent their own vote, and each node took
+            # two others' at least
+            check(sent.get((h, kind), 0) >= 3 and arrived.get((h, kind), 0) >= 2 * len(nodes),
+                  f"localnet: height {h}'s {kind} journeys: {sent.get((h, kind), 0)} first "
+                  f"sends, {arrived.get((h, kind), 0)} arrivals")
+    lat = [lk["window_latency_p50_s"] for lk in ledger["links"]
+           if lk["window_latency_p50_s"] is not None]
+    return {"journeys": len(journeys), "sends": sum(sent.values()),
+            "arrivals": sum(arrived.values()), "links": len(links),
+            "first_sightings": ledger["first_sightings"], "duplicates": ledger["duplicates"],
+            "link_latency_p50_ms": statistics.median(lat) * 1e3 if lat else None}
+
+
+def ln_frames(nodes) -> int:
+    """Secret-connection frames sealed so far by every node to every peer
+    (each connection's send nonce counts them)."""
+    return sum(p.mconn._conn._send_nonce._counter for n in nodes for p in n.switch.peers.list())
+
+
+def ln_peer_bytes(nodes) -> dict:
+    """Wire bytes sent and received a peer by each node (NodeMetrics'
+    tendermint_p2p_peer_*_bytes_total), summed over channels."""
+    out = {}
+    for i, n in enumerate(nodes):
+        sent, recv = {}, {}
+        for (pid, _), v in n.metrics.peer_send_bytes._values.items():
+            sent[pid] = sent.get(pid, 0.0) + v
+        for (pid, _), v in n.metrics.peer_receive_bytes._values.items():
+            recv[pid] = recv.get(pid, 0.0) + v
+        check(len(sent) == len(recv) == LN_VALS - 1 and min(sent.values()) > 0
+              and min(recv.values()) > 0, f"localnet: node {i}'s peer bytes {sent} {recv}")
+        out[i] = {"sent": statistics.mean(sent.values()), "received": statistics.mean(recv.values())}
+    return out
+
+
+def phase_localnet(dev, err: dict) -> dict:
+    """Phase 25: BASELINE.json config 1, four nodes over real switches, on a
+    [verify] root of its own with the vote feed on."""
+    phase(f"localnet: {LN_VALS} validators of power 10, each a node built by node/verify_root "
+          f"with its own WAL, vote feed ({LN_WINDOW_MS:g} ms, {LN_ROWS} rows) and consensus "
+          f"reactor, on a switch at 127.0.0.1 port 0 dialing the others as persistent peers "
+          f"(TCP, secret connection, MConnection); {LN_HEIGHTS} heights at the [consensus] "
+          f"defaults, a tx into every mempool each height")
+    t_phase = time.perf_counter()
+    cfg = VerifyConfig(vote_batch_window_ms=LN_WINDOW_MS, vote_batch_rows=LN_ROWS)
+    root = configure_verify(cfg, device=dev)
+    check(get_batch_verifier() is root.verifier, "the root's guarded verifier is not installed")
+    before = fallbacks()
+    with tempfile.TemporaryDirectory(prefix="chip-smoke-ln-") as tmp, timed_upgrades() as ups:
+        nodes = tnet.make_consensus_net(LN_VALS, config=ConsensusConfig(), verify_cfg=cfg,
+                                        device=dev, wal_dir=tmp, flight=True, tcp=True,
+                                        start=False)
+        for n in nodes:
+            check(n.feed is not None and n.cs._vote_feed is n.feed
+                  and n.feed.window_s == LN_WINDOW_MS / 1e3 and n.cs.flight.enabled
+                  and n.root.wal is not None and n.reactor.cons is n.cs
+                  and n.switch.reactors["consensus"] is n.reactor,
+                  "localnet: a node is not wired as node/verify_root wires one")
+            if dev.type == "cuda":
+                check(n.feed.device.type == "cuda" and n.feed.verifier is None,
+                      "localnet: a vote feed does not run the installed verifier on the card")
+        stopped, closed = ln_stopped_peers(nodes)
+        seal_ms, open_ms = ln_frame_ms(p2p_sts.ChaCha20Poly1305)
+        fb_seal_ms, fb_open_ms = ln_frame_ms(sts_fallback.ChaCha20Poly1305)
+        print(f"  built in {time.perf_counter() - t_phase:.1f} s (set-up); STS_BACKEND "
+              f"{p2p_sts.STS_BACKEND}: a {p2p_sts.TOTAL_FRAME_SIZE}-byte frame sealed in "
+              f"{seal_ms:.4f} ms and opened in {open_ms:.4f} ms (crypto/sts_fallback's: "
+              f"{fb_seal_ms:.3f} and {fb_open_ms:.3f} ms; means of {LN_FRAME_REPS}, this "
+              f"process alone)", flush=True)
+        reset_launches()
+        stamps, frames = {}, {}
+        try:
+            with captured_packs() as packs:
+                for n in nodes:
+                    n.cs.mempool.check_tx(b"localnet-h1=v1")
+                t0 = time.perf_counter()
+                tnet.start_consensus_net(nodes)
+                for h in range(1, LN_HEIGHTS + 1):
+                    check(tcs.wait_for(lambda: all(n.cs.block_store.height() >= h
+                                                   for n in nodes), LN_TIMEOUT, interval=0.002),
+                          f"localnet: height {h} never committed on every node: "
+                          f"{[(n.cs.get_state().last_block_height, n.cs.device_fault) for n in nodes]}")
+                    stamps[h] = time.perf_counter()
+                    frames[h] = ln_frames(nodes)
+                    for n in nodes:
+                        n.cs.mempool.check_tx(b"localnet-h%d=v%d" % (h + 1, h + 1))
+                # before the net stops: stopping closes every connection
+                peers = [n.switch.peers.size() for n in nodes]
+                stopped_run, closed_run = list(stopped), list(closed)
+                peer_bytes = ln_peer_bytes(nodes)
+        finally:
+            tnet.stop_consensus_net(nodes)
+    launches = read_launches()
+    races, rest = ln_unexcused_stops(stopped_run, closed_run, stamps[1])
+    check(not rest and peers == [LN_VALS - 1] * LN_VALS,
+          f"localnet: peers {peers}; peers stopped for an error (seconds after height 1, node, "
+          f"peer, reason, canonical): {rest}; excused dial races {races}; duplicates closed by "
+          f"the canonical rule (node, peer): {closed_run}")
+    check(all(n.cs.device_fault is None for n in nodes),
+          f"localnet: device faults {[n.cs.device_fault for n in nodes]}")
+    top = min(n.cs.block_store.height() for n in nodes)
+    for h in range(1, LN_HEIGHTS + 1):
+        blocks = [n.cs.block_store.load_block(h) for n in nodes]
+        check(len({b.hash() for b in blocks}) == 1 and len({b.header.app_hash for b in blocks}) == 1,
+              f"localnet: the nodes' blocks at {h} differ")
+    app_hashes = {n.cs.block_store.load_block(LN_HEIGHTS + 1).header.app_hash
+                  for n in nodes if n.cs.block_store.height() > LN_HEIGHTS}
+    check(len(app_hashes) <= 1, "localnet: the app hashes after the last height differ")
+    dispatches = sum(n.feed.dispatches for n in nodes)
+    checks = sum(len(n.checks) for n in nodes)
+    k1, k2 = launches["ed25519_prologue"], launches["ed25519_ladder"]
+    check(k1 == k2 == dispatches + checks and launches["secp256k1_ladder"] == 0
+          and launches[K4] == 0,
+          f"localnet: launches {launches}, {dispatches} feed dispatches, {checks} LastCommit "
+          f"checks")
+    per_node = []
+    for i, n in enumerate(nodes):
+        recs = n.feed.flush_records()["records"]
+        rows = {h: sum(1 for r in recs if r["groups"] and r["groups"][0][0] == h)
+                for h in range(1, LN_HEIGHTS + 1)}
+        lcs = {h: n.checks.count(h) for h in range(1, LN_HEIGHTS + 1)}
+        check(all(rows[h] > 0 and lcs[h] > 0 for h in range(2, LN_HEIGHTS + 1)),
+              f"localnet: node {i} launched no flush or no LastCommit check at some height "
+              f"from 2: flushes {rows}, checks {lcs}")
+        per_node.append({"flushes": rows, "last_commit": lcs,
+                         "reasons": dict(n.feed.flushes),
+                         "rows": [r["rows"] for r in recs], "lanes": [r["votes"] for r in recs],
+                         "serial": dict(n.cs.serial_votes), "votes_in": n.feed.votes_in})
+    b_first, _, _ = hold_k1_k2(packs[0], err, "localnet first launch")
+    b_last, _, _ = hold_k1_k2(packs[-1], err, "localnet last launch")
+    gossip = ln_gossip(nodes)
+    check_guard_clean(before, "localnet")
+    walls = [stamps[h] - stamps[h - 1] for h in range(2, LN_HEIGHTS + 1)]
+    blocks_s = (LN_HEIGHTS - 1) / (stamps[LN_HEIGHTS] - stamps[1])
+    seconds = time.perf_counter() - t_phase
+    reasons, rows, lanes = {}, [], []
+    for p in per_node:
+        for k, v in p["reasons"].items():
+            reasons[k] = reasons.get(k, 0) + v
+        rows += p["rows"]
+        lanes += p["lanes"]
+    heights_run = LN_HEIGHTS - 1
+    flush_per_h = sum(sum(p["flushes"][h] for h in range(2, LN_HEIGHTS + 1))
+                      for p in per_node) / (LN_VALS * heights_run)
+    lc_per_h = sum(sum(p["last_commit"][h] for h in range(2, LN_HEIGHTS + 1))
+                   for p in per_node) / (LN_VALS * heights_run)
+    print(f"  handshakes: {len(ups)} upgrades (secret connection + NodeInfo), "
+          f"{statistics.median(ups):.4f} s a connection (p50; max {max(ups):.4f} s); "
+          f"{LN_HEIGHTS} heights on all {LN_VALS} nodes, height 1 at {stamps[1] - t0:.2f} s "
+          f"after the start (the dials included); {blocks_s:.3f} blocks/s over heights 2-"
+          f"{LN_HEIGHTS}, a height's wall p50 {statistics.median(walls) * 1e3:.1f} ms ("
+          + ", ".join(f"{w * 1e3:.1f}" for w in walls) + " ms; the last node's commit to "
+          f"the last node's commit)", flush=True)
+    print(f"  launches {launches} = {dispatches} feed flushes + {checks} LastCommit checks; "
+          f"a node a height from 2: {flush_per_h:.2f} flushes + {lc_per_h:.2f} LastCommit "
+          f"checks; flushes by reason {reasons}; rows a flush {statistics.mean(rows):.2f}, "
+          f"lanes a flush {statistics.mean(lanes):.2f} (max {max(lanes)}); votes through the "
+          f"feeds {[p['votes_in'] for p in per_node]}, serial by reason "
+          f"{[p['serial'] for p in per_node]}; K1/K2 exact on the first and the last launch "
+          f"(b = {b_first}, {b_last})", flush=True)
+    frames_h = (frames[LN_HEIGHTS] - frames[1]) / (LN_HEIGHTS - 1)
+    print(f"  frames sealed a height over heights 2-{LN_HEIGHTS}, all nodes: {frames_h:.1f} (each "
+          f"also opened once: {frames_h * (fb_seal_ms + fb_open_ms):.1f} ms of interpreter time "
+          f"a height at crypto/sts_fallback's rate, {frames_h * (seal_ms + open_ms):.2f} ms at "
+          f"{p2p_sts.STS_BACKEND}'s)", flush=True)
+    print(f"  bytes a peer (NodeMetrics, sent / received, mean over a node's 3 peers): "
+          + "; ".join(f"node{i} {v['sent']:,.0f} / {v['received']:,.0f}"
+                      for i, v in peer_bytes.items())
+          + f"; the flight recorders: {gossip['journeys']} vote journeys, {gossip['sends']} "
+          f"first sends, {gossip['arrivals']} arrivals, {gossip['links']} ledger links "
+          f"({gossip['first_sightings']} first sightings, {gossip['duplicates']} duplicates, "
+          f"a link's sign-to-arrival p50 {gossip['link_latency_p50_ms']:.1f} ms)", flush=True)
+    print(f"  every node at {top} with the same block and app hashes at 1-{LN_HEIGHTS}; no peer "
+          f"stopped for an error ({len(races)} simultaneous-dial duplicates closed by the "
+          f"canonical rule before height 1 and redialed, (node, peer, reason): {races}; "
+          f"{len(closed_run)} duplicates closed in all); no fallback; breaker "
+          f"closed; no audit mismatch; phase {seconds:.1f} s", flush=True)
+    return {"sts_backend": p2p_sts.STS_BACKEND, "handshake_s": statistics.median(ups),
+            "seal_ms": seal_ms, "open_ms": open_ms, "fallback_seal_ms": fb_seal_ms,
+            "fallback_open_ms": fb_open_ms, "frames_per_height": frames_h,
+            "blocks_s": blocks_s, "p50_ms": statistics.median(walls) * 1e3, "walls": walls,
+            "flushes_per_height": flush_per_h, "last_commit_per_height": lc_per_h,
+            "reasons": reasons, "rows_per_flush": statistics.mean(rows),
+            "lanes_per_flush": statistics.mean(lanes), "peer_bytes": peer_bytes,
+            "gossip": gossip, "seconds": seconds, "dial_races": len(races),
+            "launches": {"flushes": dispatches, "last_commit": checks}}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
@@ -4250,6 +4609,8 @@ def main() -> int:
     cons = phase_consensus(dev, err)
     # the statesync phase sets its path up through a default [verify] root of its own
     ssync = phase_statesync(configure_verify(VerifyConfig(), device=dev), dev, err)
+    # the localnet phase installs a root of its own with the vote feed on
+    localnet = phase_localnet(dev, err)
     print(f"  {smi_line}", flush=True)
 
     ms = {**ed_main["ms"], "secp256k1_ladder": secp_main["ms"]}
@@ -4292,6 +4653,9 @@ def main() -> int:
                       else {"flushes": 0, "last_commit": 0})
                 for run, split in cons["launches"].items()},
             "statesync_launches": {part: n[name] for part, n in ssync["launches"].items()},
+            "localnet_launches": (localnet["launches"]
+                                  if name in ("ed25519_prologue", "ed25519_ladder")
+                                  else {"flushes": 0, "last_commit": 0}),
             "msm_launches": msm["launches"][name],
             "commit_window_launches": {"ladder": cwin["launches"][name],
                                        "msm": cwin["msm_launches"][name],
@@ -4333,6 +4697,7 @@ def main() -> int:
         "consensus_launches": {run: {"flushes": 0, "last_commit": 0}
                                for run in cons["launches"]},
         "statesync_launches": {part: n[K4] for part, n in ssync["launches"].items()},
+        "localnet_launches": {"flushes": 0, "last_commit": 0},
         "msm_launches": {"commit": msm["launches"][K4],
                          "adversarial": msm["adversarial_launches"][K4],
                          "dirty_commit": msm["dirty_launches"][K4],
@@ -4370,6 +4735,10 @@ def main() -> int:
           f"bytes) in {ssync['restore_s']:.3f} s, the hand-off in "
           f"{ssync['handoff_s'] * 1e3:.1f} ms; K7 {ssync['launches']['backfill']['planner_tally']} "
           f"on the backfill; phase {ssync['seconds']:.1f} s", flush=True)
+    print(f"  localnet: {LN_VALS} nodes over TCP on the {localnet['sts_backend']} STS backend, "
+          f"{localnet['blocks_s']:.3f} blocks/s (a height's p50 {localnet['p50_ms']:.1f} ms), "
+          f"a handshake {localnet['handshake_s']:.4f} s; phase {localnet['seconds']:.1f} s",
+          flush=True)
     print(f"  total {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"torch_ops": [window["tally"], cwin["tally"]]}))
     print(json.dumps({"kernels": kernels}))

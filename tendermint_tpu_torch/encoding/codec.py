@@ -48,6 +48,14 @@ def read_uvarint(buf: io.BytesIO) -> int:
             raise ValueError("uvarint too long")
 
 
+def length_prefix(payload: bytes) -> bytes:
+    """Self-delimiting frame (amino's MarshalBinaryLengthPrefixed shape):
+    the payload's length as a uvarint, then the payload. The secret
+    connection's auth message and the transport's ``NodeInfo`` are framed
+    with it."""
+    return encode_uvarint(len(payload)) + payload
+
+
 class Writer:
     __slots__ = ("_buf",)
 

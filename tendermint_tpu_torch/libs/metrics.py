@@ -18,12 +18,15 @@ durations, the vote arrival latency, the WAL's appends and fsyncs).
 ``StateSyncMetrics`` is the reference's state-sync family
 (``statesync_*``), which ``statesync/syncer.py`` and ``statesync/reactor.py``
 write. The other metric sets of the reference (the rest of consensus, p2p,
-the mempool's QoS) belong to subsystems the port has not taken over.
+the mempool's QoS) are all in ``NodeMetrics``, the port's copy of the
+reference's one-registry node family, which the switch, its peers and the
+consensus reactor write.
 """
 
 from __future__ import annotations
 
 import threading
+import time
 from typing import Dict, List, Optional, Sequence, Tuple
 
 
@@ -857,3 +860,300 @@ def get_statesync_metrics() -> StateSyncMetrics:
         if _statesync_metrics is None:
             _statesync_metrics = StateSyncMetrics()
         return _statesync_metrics
+
+
+class NodeMetrics:
+    """All four reference metric families on one registry
+    (consensus/metrics.go:14, p2p/metrics.go, mempool/metrics.go,
+    state/metrics.go), plus the process-wide verify family attached: the
+    port's copy of the reference's ``NodeMetrics`` (libs/metrics.py:755),
+    with the same names, labels, buckets and attribute names. The switch
+    and its peers write its p2p family (the per-peer wire bytes by channel,
+    the messages by channel); the consensus reactor its vote sightings. It
+    has every attribute of ``ConsensusMetrics``, so a node passes one
+    ``NodeMetrics`` to its consensus state and its switch."""
+
+    def __init__(self, registry: Optional[Registry] = None):
+        r = registry or Registry()
+        self.registry = r
+        # consensus
+        self.height = r.gauge("consensus_height", "Height of the chain")
+        self.rounds = r.gauge("consensus_rounds", "Round of the current height")
+        self.validators = r.gauge("consensus_validators", "Number of validators")
+        self.validators_power = r.gauge(
+            "consensus_validators_power", "Total voting power of validators"
+        )
+        self.missing_validators = r.gauge(
+            "consensus_missing_validators", "Validators missing from the last commit"
+        )
+        self.byzantine_validators = r.gauge(
+            "consensus_byzantine_validators", "Validators that double-signed"
+        )
+        self.block_interval_seconds = r.histogram(
+            "consensus_block_interval_seconds", "Time between this and the last block"
+        )
+        self.num_txs = r.gauge("consensus_num_txs", "Txs in the latest block")
+        self.block_size_bytes = r.gauge(
+            "consensus_block_size_bytes", "Size of the latest block"
+        )
+        self.total_txs = r.gauge("consensus_total_txs", "Total txs committed")
+        self.fast_syncing = r.gauge("consensus_fast_syncing", "1 while fast syncing")
+        self.step_duration = r.histogram(
+            "consensus_step_duration_seconds",
+            "Wall seconds spent in each consensus step (labeled by the step "
+            "being left)",
+            label_names=("step",),
+        )
+        self.vote_arrival_latency = r.histogram(
+            "consensus_vote_arrival_latency_seconds",
+            "Wall-clock delay between a vote's signed timestamp and its "
+            "arrival at the state machine",
+            label_names=("type",),
+        )
+        self.wal_append_seconds = r.histogram(
+            "consensus_wal_append_seconds", "WAL buffered-append wall seconds",
+            buckets=[b / 10 for b in _DEFAULT_BUCKETS],
+        )
+        self.wal_fsync_seconds = r.histogram(
+            "consensus_wal_fsync_seconds", "WAL fsync wall seconds",
+            buckets=[b / 10 for b in _DEFAULT_BUCKETS],
+        )
+        # commit-latency waterfall (libs/critpath.py): wall seconds each
+        # committed height spent in each phase of the commit path
+        self.height_phase_seconds = r.histogram(
+            "consensus_height_phase_seconds",
+            "Per-committed-height wall seconds attributed to each "
+            "commit-path phase by the critical-path analyzer",
+            buckets=[b / 10 for b in _DEFAULT_BUCKETS],
+            label_names=("phase",),
+        )
+        # quorum formation (libs/quorumtrace.py): wall seconds from round
+        # entry until arriving voting power crossed 1/3 and 2/3 of total
+        self.quorum_time_to_third = r.histogram(
+            "consensus_quorum_time_to_third_seconds",
+            "Per-height wall seconds from round entry until arriving votes "
+            "crossed 1/3 of total voting power",
+            buckets=[b / 10 for b in _DEFAULT_BUCKETS],
+            label_names=("type",),
+        )
+        self.quorum_time_to_two_thirds = r.histogram(
+            "consensus_quorum_time_to_two_thirds_seconds",
+            "Per-height wall seconds from round entry until arriving votes "
+            "crossed 2/3 of total voting power (quorum)",
+            buckets=[b / 10 for b in _DEFAULT_BUCKETS],
+            label_names=("type",),
+        )
+        # liveness watchdog (libs/watchdog.py)
+        self.stalls = r.counter(
+            "consensus_stalls_total",
+            "Distinct consensus stalls detected by the liveness watchdog",
+        )
+        self.stall_seconds = r.gauge(
+            "consensus_stall_seconds",
+            "Age of the current consensus stall (0 when progressing)",
+        )
+        # pubsub (libs/pubsub.py slow-subscriber drops)
+        self.pubsub_dropped = r.counter(
+            "pubsub_dropped_events_total",
+            "Events dropped because a subscriber's buffer was full",
+            label_names=("client_id",),
+        )
+        # p2p
+        self.peers = r.gauge("p2p_peers", "Connected peers")
+        self.peer_receive_bytes = r.counter(
+            "p2p_peer_receive_bytes_total",
+            "Wire bytes received from a peer by channel (packet framing "
+            "included; sourced from the same stream the flowrate recv "
+            "monitor measures)",
+            label_names=("peer_id", "chID"),
+        )
+        self.peer_send_bytes = r.counter(
+            "p2p_peer_send_bytes_total",
+            "Wire bytes sent to a peer by channel (packet framing included)",
+            label_names=("peer_id", "chID"),
+        )
+        self.peer_pending_send_bytes = r.gauge(
+            "p2p_peer_pending_send_bytes",
+            "Bytes queued (not yet on the wire) toward a peer",
+            label_names=("peer_id",),
+        )
+        self.messages_received = r.counter(
+            "p2p_messages_received_total",
+            "Complete messages delivered to reactors by channel",
+            label_names=("chID",),
+        )
+        self.messages_sent = r.counter(
+            "p2p_messages_sent_total",
+            "Messages queued toward peers by channel",
+            label_names=("chID",),
+        )
+        # vote-gossip efficiency at the consensus reactor receive seam
+        # (BEFORE VoteSet dedup): every VoteMessage increments exactly one
+        # of these two, so their sum is total votes received
+        self.vote_first_sighting = r.counter(
+            "p2p_vote_first_sighting_total",
+            "Votes received that were the node's first sighting of that "
+            "(height, round, type, validator) vote, by gossiping peer",
+            label_names=("peer_id", "chID"),
+        )
+        self.duplicate_votes = r.counter(
+            "p2p_duplicate_votes_total",
+            "Votes received that the node had already seen (gossip "
+            "amplification waste), by gossiping peer",
+            label_names=("peer_id", "chID"),
+        )
+        # mempool
+        self.mempool_size = r.gauge("mempool_size", "Unconfirmed txs in the mempool")
+        self.mempool_tx_size_bytes = r.histogram(
+            "mempool_tx_size_bytes", "Size of accepted mempool txs",
+            buckets=_SIZE_BUCKETS,
+        )
+        self.mempool_failed_txs = r.counter(
+            "mempool_failed_txs", "Txs rejected by CheckTx"
+        )
+        self.mempool_recheck_times = r.counter(
+            "mempool_recheck_times", "Txs re-checked after a commit"
+        )
+        # mempool QoS / admission control (mempool/qos.py)
+        self.mempool_qos_admitted_total = r.counter(
+            "mempool_qos_admitted_total",
+            "Peer txs admitted past the QoS layer",
+        )
+        self.mempool_qos_dropped_total = r.counter(
+            "mempool_qos_dropped_total",
+            "Peer txs dropped by the QoS layer",
+            label_names=("reason",),
+        )
+        self.mempool_qos_muted_peers = r.gauge(
+            "mempool_qos_muted_peers", "Peers currently muted by QoS"
+        )
+        self.mempool_qos_mutes_total = r.counter(
+            "mempool_qos_mutes_total", "Repeat-offender mutes issued"
+        )
+        self.mempool_qos_shed_total = r.counter(
+            "mempool_qos_shed_total",
+            "RPC broadcast_tx_* requests shed under overload",
+            label_names=("route",),
+        )
+        self.mempool_qos_evicted_total = r.counter(
+            "mempool_qos_evicted_total",
+            "Txs evicted from lower lanes to admit higher-priority txs",
+            label_names=("lane",),
+        )
+        self.mempool_lane_txs = r.gauge(
+            "mempool_lane_txs", "Unconfirmed txs per priority lane",
+            label_names=("lane",),
+        )
+        self.mempool_checktx_batch_size = r.histogram(
+            "mempool_checktx_batch_size",
+            "Txs coalesced per CheckTx/recheck app-conn window",
+            buckets=_SIZE_BUCKETS,
+        )
+        # state
+        self.block_processing_time = r.histogram(
+            "state_block_processing_time", "ApplyBlock seconds",
+            buckets=[b / 10 for b in _DEFAULT_BUCKETS],
+        )
+        # verify pipeline + state sync (process-global; attached, not
+        # re-registered)
+        self.verify = get_verify_metrics()
+        r.attach(self.verify.registry)
+        self.statesync = get_statesync_metrics()
+        r.attach(self.statesync.registry)
+        self.frontend = get_frontend_metrics()
+        r.attach(self.frontend.registry)
+        self.vote_batch = get_vote_batch_metrics()
+        r.attach(self.vote_batch.registry)
+        self.mempool_batch = get_mempool_batch_metrics()
+        r.attach(self.mempool_batch.registry)
+        # per-node telemetry spool family (see TelemetryMetrics docstring
+        # for why this one is NOT a process singleton)
+        self.telemetry = TelemetryMetrics()
+        r.attach(self.telemetry.registry)
+        self._last_block_time: Optional[float] = None
+        # cardinality hygiene: at most MAX_PEER_LABELS distinct peer ids ever
+        # get their own label value; the rest collapse into "overflow"
+        self._peer_label_ids: set = set()
+        self._peer_label_mtx = threading.Lock()
+
+    # called from the consensus event path -------------------------------------
+    def record_block(self, block, valset) -> None:
+        now = time.monotonic()
+        self.height.set(block.height)
+        self.num_txs.set(len(block.data.txs))
+        self.total_txs.add(len(block.data.txs))
+        self.block_size_bytes.set(len(block.marshal()))
+        if valset is not None:
+            self.validators.set(valset.size)
+            self.validators_power.set(valset.total_voting_power())
+            if block.height > 1:
+                # height 1 has no LastCommit — counting "missing" precommits
+                # there reports the whole valset absent
+                missing = sum(
+                    1 for pc in block.last_commit.precommits if pc is None
+                )
+                self.missing_validators.set(missing)
+        # double-sign evidence included in this block (metrics.go
+        # ByzantineValidators is computed from block evidence)
+        self.byzantine_validators.set(len(block.evidence.evidence))
+        if self._last_block_time is not None:
+            dt = now - self._last_block_time
+            # monotonic() is process-local: a restart (or a timer reset at
+            # fast-sync exit) leaves no usable previous timestamp, and a
+            # non-positive delta means the clock basis changed under us
+            if dt > 0:
+                self.block_interval_seconds.observe(dt)
+        self._last_block_time = now
+
+    def reset_block_timer(self) -> None:
+        """Forget the last block timestamp.  Called at fast-sync exit: the
+        synced blocks arrived at replay speed, so the next live block's
+        interval measured against them would be garbage."""
+        self._last_block_time = None
+
+    # per-peer traffic ----------------------------------------------------------
+    MAX_PEER_LABELS = 64
+
+    def _peer_label(self, peer_id: str) -> str:
+        with self._peer_label_mtx:
+            if peer_id in self._peer_label_ids:
+                return peer_id
+            if len(self._peer_label_ids) < self.MAX_PEER_LABELS:
+                self._peer_label_ids.add(peer_id)
+                return peer_id
+        return "overflow"
+
+    def record_peer_traffic(self, peer_id: str, chan_id: int,
+                            sent: int = 0, received: int = 0) -> None:
+        pid = self._peer_label(peer_id)
+        ch = f"{chan_id:#x}"
+        if sent:
+            self.peer_send_bytes.add(sent, (pid, ch))
+        if received:
+            self.peer_receive_bytes.add(received, (pid, ch))
+
+    def set_peer_pending(self, peer_id: str, pending: int) -> None:
+        self.peer_pending_send_bytes.set(float(pending),
+                                         (self._peer_label(peer_id),))
+
+    def record_vote_sighting(self, peer_id: str, chan_id: int,
+                             first: bool) -> None:
+        """One VoteMessage at the reactor receive seam: first sighting or
+        duplicate (same 64-peer label fold as the traffic counters)."""
+        pid = self._peer_label(peer_id)
+        ch = f"{chan_id:#x}"
+        if first:
+            self.vote_first_sighting.add(1.0, (pid, ch))
+        else:
+            self.duplicate_votes.add(1.0, (pid, ch))
+
+    def forget_peer(self, peer_id: str) -> None:
+        """Drop every per-peer series for a disconnected peer so label
+        cardinality tracks the live peer set, not its history."""
+        with self._peer_label_mtx:
+            self._peer_label_ids.discard(peer_id)
+        self.peer_send_bytes.remove_matching("peer_id", peer_id)
+        self.peer_receive_bytes.remove_matching("peer_id", peer_id)
+        self.peer_pending_send_bytes.remove_matching("peer_id", peer_id)
+        self.vote_first_sighting.remove_matching("peer_id", peer_id)
+        self.duplicate_votes.remove_matching("peer_id", peer_id)

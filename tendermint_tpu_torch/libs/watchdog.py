@@ -19,8 +19,10 @@ has happened for `stall_factor` × that EWMA (floored at
     switch — everything an operator needs to tell "slow proposer" from
     ">1/3 silent" from "partition".
 
-The report is read from ``report()`` / ``status()``; the port has no
-switch yet, so ``switch`` stays None and the report's ``peers`` is empty.
+The report is read from ``report()`` / ``status()``. A watchdog built by
+``node/verify_root.consensus_state`` with the node's switch names each peer
+and the age of its last receive; without a switch the report's ``peers``
+is empty.
 """
 
 from __future__ import annotations

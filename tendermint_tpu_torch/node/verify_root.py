@@ -43,10 +43,20 @@ section's snapshot store, producer and reactor (``node/node.py:84-101``,
 ``:393-429``), whose restore verifies its trust hops through the installed
 verifier and its backfill through the installed device executor, and
 hands the restored state to the fast-sync reactor (``:560-570``).
+
+``switch(...)`` builds the node's p2p switch from the ``[p2p]`` section
+(``node/node.py:461-540``: the ``MConnection`` settings, the ``NodeInfo``,
+the ``MultiplexTransport`` and the ``Switch``), ``add_reactor`` registers a
+reactor on it and advertises its channels, ``consensus_reactor(...)`` is the
+consensus reactor over a consensus state (``:397``), and ``start_switch``
+listens, starts the switch and its reactors and dials ``persistent_peers``
+as persistent peers (``:636-645``). A consensus state built with the switch
+gives it to its liveness watchdog, whose stall report then names peers.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import logging
 import os
 from dataclasses import dataclass, field
@@ -58,8 +68,10 @@ from tendermint_tpu_torch.blockchain.reactor import BlockchainReactor
 from tendermint_tpu_torch.config.consensus import ConsensusConfig
 from tendermint_tpu_torch.config.instrumentation import InstrumentationConfig
 from tendermint_tpu_torch.config.mempool import MempoolConfig
+from tendermint_tpu_torch.config.p2p import P2PConfig
 from tendermint_tpu_torch.config.statesync import StateSyncConfig
 from tendermint_tpu_torch.config.verify import VerifyConfig
+from tendermint_tpu_torch.consensus.reactor import ConsensusReactor
 from tendermint_tpu_torch.consensus.replay import Handshaker
 from tendermint_tpu_torch.consensus.state import ConsensusState
 from tendermint_tpu_torch.consensus.wal import WAL
@@ -74,6 +86,12 @@ from tendermint_tpu_torch.libs.watchdog import LivenessWatchdog
 from tendermint_tpu_torch.mempool.mempool import Mempool
 from tendermint_tpu_torch.mempool.tx_verify import BatchTxVerifier
 from tendermint_tpu_torch.ops import _build
+from tendermint_tpu_torch.p2p.conn.connection import MConnConfig
+from tendermint_tpu_torch.p2p.key import NodeKey
+from tendermint_tpu_torch.p2p.netaddress import NetAddress
+from tendermint_tpu_torch.p2p.node_info import NodeInfo, ProtocolVersion
+from tendermint_tpu_torch.p2p.switch import Switch, SwitchConfig
+from tendermint_tpu_torch.p2p.transport import MultiplexTransport
 from tendermint_tpu_torch.parallel import planner
 from tendermint_tpu_torch.state import store as sm_store
 from tendermint_tpu_torch.state.execution import BlockExecutor
@@ -257,7 +275,9 @@ def consensus_state(cfg: Optional[ConsensusConfig], verify_cfg: Optional[VerifyC
                     priv_validator=None, metrics=None,
                     device: DeviceLike = None,
                     instrumentation: Optional[InstrumentationConfig] = None,
-                    node_id: str = "", root_dir: Optional[str] = None) -> ConsensusRoot:
+                    node_id: str = "", root_dir: Optional[str] = None,
+                    switch: Optional[Switch] = None,
+                    telemetry_metrics: Optional[TelemetryMetrics] = None) -> ConsensusRoot:
     """The node's consensus state machine (``node/node.py:225-262``) from
     the ``[consensus]`` section over ``block_exec``
     (``block_executor(...).block_executor``), ``block_store``, ``mempool``
@@ -271,15 +291,18 @@ def consensus_state(cfg: Optional[ConsensusConfig], verify_cfg: Optional[VerifyC
     The ``[instrumentation]`` section (default ``InstrumentationConfig()``)
     names the state's flight recorder ``node_id`` and enables it when
     ``flight_recorder`` is on (``TM_FLIGHT`` may have already); builds a
-    ``LivenessWatchdog`` over the state when ``watchdog`` is on (no switch
-    yet: its stall report names the missing validators and their power,
-    not peers); and builds a ``TelemetrySpool`` at
+    ``LivenessWatchdog`` over the state and ``switch`` (``switch(...)``'s)
+    when ``watchdog`` is on (its stall report names the missing validators
+    and their power, and with a switch each peer and the age of its last
+    receive); and builds a ``TelemetrySpool`` at
     ``telemetry_spool_path`` (relative to ``root_dir``) when
     ``telemetry_spool`` is on, whose snapshots carry its own status. The
     caller starts the state machine, the watchdog and the spool, stops
     them, and closes the feed after stopping the state machine. ``metrics``
-    is a ``libs/metrics.ConsensusMetrics``; the spool's
-    ``libs/metrics.TelemetryMetrics`` go on its registry."""
+    is a ``libs/metrics.ConsensusMetrics`` or the node's ``NodeMetrics``
+    (whose consensus series have the same names); the spool writes
+    ``telemetry_metrics`` (the node's ``NodeMetrics.telemetry``), default a
+    ``libs/metrics.TelemetryMetrics`` on ``metrics``' registry."""
     cfg = cfg if cfg is not None else ConsensusConfig()
     if cfg.wait_for_txs():
         mempool.enable_txs_available()
@@ -301,7 +324,7 @@ def consensus_state(cfg: Optional[ConsensusConfig], verify_cfg: Optional[VerifyC
         cs.flight.enable()
     watchdog = None
     if inst.watchdog:
-        watchdog = LivenessWatchdog(cs, switch=None, metrics=metrics,
+        watchdog = LivenessWatchdog(cs, switch=switch, metrics=metrics,
                                     interval=inst.watchdog_interval,
                                     stall_factor=inst.watchdog_stall_factor,
                                     min_stall_seconds=inst.watchdog_min_stall_seconds)
@@ -320,7 +343,8 @@ def consensus_state(cfg: Optional[ConsensusConfig], verify_cfg: Optional[VerifyC
             head_size_limit=inst.telemetry_spool_head_size_limit,
             total_size_limit=inst.telemetry_spool_total_size_limit,
             ring_capacity=inst.telemetry_spool_ring_capacity,
-            metrics=TelemetryMetrics(metrics.registry) if metrics is not None else None,
+            metrics=(telemetry_metrics if telemetry_metrics is not None
+                     else TelemetryMetrics(metrics.registry) if metrics is not None else None),
             height_fn=lambda: cs.rs.height,
         )
         spool.set_source("spool", spool.status)
@@ -380,3 +404,100 @@ def state_sync(cfg: Optional[StateSyncConfig], genesis_doc, proxy_app, state: St
                                block_store=block_store, state_db=state_db, syncer=syncer,
                                on_synced=on_synced, metrics=metrics)
     return StateSyncRoot(reactor, syncer, store)
+
+
+def _listen_host_port(laddr: str) -> str:
+    return laddr[len("tcp://"):] if laddr.startswith("tcp://") else laddr
+
+
+def switch(cfg: Optional[P2PConfig], node_key: NodeKey, chain_id: str, *, metrics=None,
+           moniker: str = "node") -> Switch:
+    """The node's p2p switch from the ``[p2p]`` section (``node/node.py:461-540``):
+    the ``MConnection`` settings (``send_rate``, ``recv_rate``,
+    ``max_packet_msg_payload_size``, ``flush_throttle_timeout``), a
+    ``MultiplexTransport`` for ``node_key`` with the section's handshake and
+    dial deadlines, and a ``Switch`` with its peer caps and
+    ``allow_duplicate_ip``, and the ``NodeInfo`` (network ``chain_id``);
+    ``add_reactor`` registers reactors and advertises their channels.
+    ``metrics`` is the node's ``libs/metrics.NodeMetrics``. A section that
+    needs an unported module (the peer exchange, its address book, seeds,
+    UPnP) raises ``NotImplementedError``. Unstarted: ``start_switch``
+    listens, starts it and dials the persistent peers."""
+    cfg = cfg if cfg is not None else P2PConfig()
+    cfg.validate_ported()
+    mconfig = MConnConfig(
+        send_rate=cfg.send_rate,
+        recv_rate=cfg.recv_rate,
+        max_packet_msg_payload_size=cfg.max_packet_msg_payload_size,
+        flush_throttle=cfg.flush_throttle_timeout,
+    )
+    node_info = NodeInfo(
+        protocol_version=ProtocolVersion(),
+        id=node_key.id(),
+        listen_addr=_listen_host_port(cfg.laddr),
+        network=chain_id,
+        version="tpu-0.1.0",
+        channels=b"",
+        moniker=moniker,
+    )
+    transport = MultiplexTransport(node_info, node_key, handshake_timeout=cfg.handshake_timeout,
+                                   dial_timeout=cfg.dial_timeout)
+    sw = Switch(
+        transport,
+        SwitchConfig(
+            max_num_inbound_peers=cfg.max_num_inbound_peers,
+            max_num_outbound_peers=cfg.max_num_outbound_peers,
+            allow_duplicate_ip=cfg.allow_duplicate_ip,
+        ),
+        mconfig,
+        metrics=metrics,
+    )
+    return sw
+
+
+def add_reactor(sw: Switch, name: str, reactor) -> None:
+    """Register ``reactor`` on ``sw`` (before it starts) and advertise every
+    registered channel in its ``NodeInfo`` (``makeNodeInfo``, node.go:785: a
+    peer drops traffic on channels a node does not advertise)."""
+    sw.add_reactor(name, reactor)
+    sw.transport.node_info = dataclasses.replace(
+        sw.transport.node_info, channels=bytes(d.id for d in sw._chan_descs))
+
+
+def consensus_reactor(consensus_state: ConsensusState, fast_sync: bool = False,
+                      metrics=None) -> ConsensusReactor:
+    """The node's consensus reactor (``node/node.py:397``) over
+    ``consensus_state`` (``consensus_state(...).consensus_state``): it
+    starts the state machine when it starts, unless ``fast_sync`` defers
+    that to ``switch_to_consensus``. Peers' proposals, parts and votes go to
+    the state's receive queue: each gossiped vote through its ``[verify]``
+    vote feed when one is set. ``metrics`` is the node's
+    ``libs/metrics.NodeMetrics``, which counts the vote sightings by peer."""
+    return ConsensusReactor(consensus_state, fast_sync=fast_sync, metrics=metrics)
+
+
+def listen(sw: Switch, cfg: Optional[P2PConfig] = None) -> NetAddress:
+    """Bind the ``[p2p]`` section's ``laddr`` (port 0 takes a free port) and
+    advertise the bound address in the switch's ``NodeInfo``. Returns the
+    address peers dial (``id@host:port``)."""
+    cfg = cfg if cfg is not None else P2PConfig()
+    addr = sw.transport.listen(_listen_host_port(cfg.laddr))
+    sw.transport.node_info = dataclasses.replace(
+        sw.transport.node_info, listen_addr=f"{addr.host}:{addr.port}")
+    return addr
+
+
+def start_switch(sw: Switch, cfg: Optional[P2PConfig] = None) -> None:
+    """What the node's start does with its switch (``node/node.py:636-645``):
+    listen on ``laddr`` unless ``listen`` already has, start the switch
+    (and with it its reactors: the consensus reactor starts the state
+    machine), then dial every ``persistent_peers`` address but our own with
+    ``dial_peers_async(persistent=True)``, so a dropped peer is redialed."""
+    cfg = cfg if cfg is not None else P2PConfig()
+    if sw.transport.listen_address is None:
+        listen(sw, cfg)
+    sw.start()
+    addrs = [NetAddress.parse(a) for a in cfg.persistent_peers.split(",") if a.strip()]
+    addrs = [a for a in addrs if a.id != sw.node_id]
+    if addrs:
+        sw.dial_peers_async(addrs, persistent=True)

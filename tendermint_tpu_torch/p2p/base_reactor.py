@@ -2,11 +2,12 @@
 reference package's ``p2p/base_reactor.py``.
 
 A reactor owns a set of channels on every peer and reacts to messages on
-them. The switch calls the lifecycle hooks; reactors call
-``peer.try_send`` / ``switch.broadcast`` to talk back. Only the interface
-is ported: the switch, peers and the transport are ROADMAP item 17, so a
-reactor here is driven by its caller (``testutil/fastsync.py``'s loopback
-switch in the tests and ``chip_smoke.py``).
+them. The switch (``p2p/switch.py``) calls the lifecycle hooks; reactors
+call ``peer.send`` / ``peer.try_send`` / ``switch.broadcast`` to talk back.
+
+Where the port differs: ``init_peer`` (the Go reactor's ``InitPeer``),
+which the reference package's interface lacks; the switch calls it before
+it starts a peer.
 """
 
 from __future__ import annotations
@@ -28,6 +29,12 @@ class Reactor(BaseService):
     def get_channels(self) -> List[ChannelDescriptor]:
         """Static channel descriptors this reactor serves."""
         raise NotImplementedError
+
+    def init_peer(self, peer):
+        """Called by the switch before the peer starts (switch.go InitPeer):
+        set up what ``receive`` needs for this peer, since its first
+        message may arrive before ``add_peer``. Returns the peer."""
+        return peer
 
     def add_peer(self, peer) -> None:
         """Called by the switch after the peer is started and registered."""

@@ -1,5 +1,24 @@
-"""An in-process net of full consensus nodes with their flight recorders
-on, and a strict Chrome-trace validator for ``tools/trace_merge.merge``.
+"""In-process nets of full consensus nodes: ``make_consensus_net``, nodes
+wired by ``node/verify_root`` gossiping through real switches; ``Net``, a
+deterministic net without p2p for the per-height instruments; and a strict
+Chrome-trace validator for ``tools/trace_merge.merge``.
+
+``make_consensus_net`` is the port's copy of the reference's
+``tests/consensus_harness.py`` ``make_consensus_net`` (``:161-226``; the Go
+harness's randConsensusNet with MakeConnectedSwitches): N validators of
+power 10, each node built as a node builds one (``verify_root.mempool``,
+``block_executor``, ``handshake``, ``consensus_state`` with its WAL when
+``wal_dir`` is given, its ``[verify]`` vote feed and a ``NodeMetrics``),
+a ``ConsensusReactor`` on a ``Switch``. By default the switches are wired
+pairwise over ``socket.socketpair()`` (``p2p/test_util``'s ``make_switch`` and
+``connect_switches``, as its ``make_connected_switches``);
+with ``tcp=True`` each switch is ``verify_root.switch`` of a ``[p2p]``
+section listening on 127.0.0.1 port 0 with the other nodes as its
+``persistent_peers``, so every connection is a TCP dial, a secret
+connection, the ``NodeInfo`` exchange and an ``MConnection``, as on a
+localnet.
+
+``Net`` follows.
 
 The port's copy of the reference's ``scripts/flight_smoke.py`` ``_Net`` and
 ``validate_chrome_trace``, with two changes that make a run deterministic
@@ -24,11 +43,29 @@ with peer id ``node<i>``; a silenced node forwards nothing.
 
 from __future__ import annotations
 
+import dataclasses
 import json
+import os
 import queue
 import threading
 import time
 from typing import Callable, List, Optional
+
+from tendermint_tpu_torch.abci.examples.kvstore import KVStoreApp
+from tendermint_tpu_torch.blockchain.store import BlockStore
+from tendermint_tpu_torch.config.consensus import consensus_test_config
+from tendermint_tpu_torch.config.instrumentation import InstrumentationConfig
+from tendermint_tpu_torch.config.mempool import MempoolConfig
+from tendermint_tpu_torch.config.p2p import P2PConfig
+from tendermint_tpu_torch.crypto.keys import PrivKeyEd25519
+from tendermint_tpu_torch.libs.db.kv import MemDB
+from tendermint_tpu_torch.libs.metrics import NodeMetrics
+from tendermint_tpu_torch.node import verify_root
+from tendermint_tpu_torch.p2p.conn.connection import MConnConfig
+from tendermint_tpu_torch.p2p.key import NodeKey
+from tendermint_tpu_torch.p2p.test_util import connect_switches, make_switch
+from tendermint_tpu_torch.proxy.app_conn import LocalClientCreator, MultiAppConn
+from tendermint_tpu_torch.state import store as sm_store
 
 from tendermint_tpu_torch.consensus.cstypes import RoundStepType
 from tendermint_tpu_torch.consensus.messages import (
@@ -40,9 +77,168 @@ from tendermint_tpu_torch.state.state_types import state_from_genesis
 from tendermint_tpu_torch.testutil.consensus import make_cs_from_genesis, make_genesis
 from tendermint_tpu_torch.types.events import (
     EVENT_COMPLETE_PROPOSAL,
+    EventBus,
     EVENT_VOTE,
     query_for_event,
 )
+
+
+# the test speed of MConnConfig.test_config() with the default keepalive: a
+# 0.35 s pong deadline stops peers whenever a loaded interpreter holds a
+# connection's threads that long, which is no fault of the peer
+NET_MCONFIG = dataclasses.replace(MConnConfig.test_config(), ping_interval=60.0,
+                                  pong_timeout=45.0)
+
+
+class NetNode:
+    """One node of a ``make_consensus_net`` net: its consensus state, event
+    bus, reactor, validator key, switch, ``verify_root.ConsensusRoot``
+    (vote feed, WAL, watchdog), ``NodeMetrics``, app and app connection,
+    and ``checks``, the heights whose LastCommit its executor checked
+    (one verify a check)."""
+
+    def __init__(self, root, reactor, pv, metrics, app, conn, node_key=None):
+        self.root = root
+        self.cs = root.consensus_state
+        self.bus = root.event_bus
+        self.feed = root.vote_feed
+        self.reactor = reactor
+        self.pv = pv
+        self.metrics = metrics
+        self.app = app
+        self.conn = conn
+        self.node_key = node_key
+        self.switch = None
+        self.p2p_cfg: Optional[P2PConfig] = None
+        self.checks: List[int] = []
+
+
+def build_node(i, doc, pv, cfg, verify_cfg, device, app, wal_dir, inst, sw) -> "NetNode":
+    """Node i of a net over genesis ``doc``, holding ``pv``, wired by
+    ``node/verify_root`` onto switch ``sw`` (see ``make_consensus_net``)."""
+    st0 = state_from_genesis(doc)
+    state_db = MemDB()
+    sm_store.save_state(state_db, st0)
+    conn = MultiAppConn(LocalClientCreator(app))
+    conn.start()
+    mp = verify_root.mempool(MempoolConfig(), conn, app, device=device).mempool
+    bus = EventBus()
+    bus.start()
+    evpool, ex = verify_root.block_executor(state_db, MemDB(), conn, mp, st0, event_bus=bus)
+    bs = BlockStore(MemDB())
+    st = verify_root.handshake(state_db, st0, bs, doc, conn)
+    metrics = NodeMetrics()
+    wal_file = os.path.join(wal_dir, f"node{i}", "cs.wal", "wal") if wal_dir else None
+    root = verify_root.consensus_state(
+        cfg, verify_cfg, st, ex, bs, mp, evpool, wal_file=wal_file, event_bus=bus, priv_validator=pv,
+        metrics=metrics, device=device, instrumentation=inst, node_id=sw.node_id, switch=sw,
+        telemetry_metrics=metrics.telemetry)
+    reactor = verify_root.consensus_reactor(root.consensus_state, metrics=metrics)
+    node = NetNode(root, reactor, pv, metrics, app, conn, sw.transport.node_key)
+    real = ex.validate_block
+
+    def validate_block(state, block, trusted_last_commit=False):
+        if block.height > 1 and not trusted_last_commit:
+            node.checks.append(block.height)
+        return real(state, block, trusted_last_commit=trusted_last_commit)
+
+    ex.validate_block = validate_block
+    verify_root.add_reactor(sw, "consensus", reactor)
+    sw.metrics = metrics  # the switch's peers count their traffic in it
+    node.switch = sw
+    return node
+
+
+def make_consensus_net(n_vals: int, config=None, app_factory=None, *,
+                       verify_cfg=None, device="cpu", wal_dir: Optional[str] = None,
+                       flight: bool = False, watchdog: bool = False, tcp: bool = False,
+                       start: bool = True) -> List[NetNode]:
+    """``n_vals`` nodes over one genesis (``make_genesis``), node i holding
+    the i-th validator of the sorted set, at
+    ``config`` (default the TestConsensusConfig timeouts), ``verify_cfg``'s
+    vote feed on ``device`` (default the feed off: every peer vote verified
+    on the host inside ``add_vote``), each node's app ``app_factory(i)``
+    (default ``KVStoreApp``), WAL under ``wal_dir/node<i>`` when given, and
+    the ``[instrumentation]`` flight recorder (named by the node's p2p ID,
+    on) and watchdog (built, unstarted) when ``flight`` / ``watchdog``. Sockets: pairwise
+    socketpairs with ``NET_MCONFIG``, or with ``tcp=True`` the ``[p2p]``
+    defaults with ``pex`` off and ``allow_duplicate_ip`` (as a local testnet
+    sets them) on 127.0.0.1 port 0,
+    dialing each other as persistent peers. Started unless ``start`` is
+    False (then ``start_consensus_net``)."""
+    cfg = config or consensus_test_config()
+    doc, pvs = make_genesis(n_vals)
+    st = state_from_genesis(doc)
+    by_addr = {pv.get_pub_key().address(): pv for pv in pvs}
+    sorted_pvs = [by_addr[v.address] for v in st.validators.validators]
+    inst = InstrumentationConfig(flight_recorder=flight, watchdog=watchdog)
+    apps = [app_factory(i) if app_factory is not None else KVStoreApp() for i in range(n_vals)]
+    nodes: List[NetNode] = [None] * n_vals
+
+    def build(i, sw):
+        nodes[i] = build_node(i, doc, sorted_pvs[i], cfg, verify_cfg, device, apps[i], wal_dir,
+                               inst, sw)
+        return sw
+
+    if not tcp:
+        for i in range(n_vals):
+            make_switch(i, network=doc.chain_id, init_switch=build, mconfig=NET_MCONFIG)
+        if start:
+            start_consensus_net(nodes)
+        return nodes
+    base = P2PConfig(laddr="tcp://127.0.0.1:0", pex=False, allow_duplicate_ip=True)
+    for i in range(n_vals):
+        build(i, verify_root.switch(base, NodeKey(PrivKeyEd25519.generate()), doc.chain_id,
+                                    moniker=f"node{i}"))
+    addrs = [str(verify_root.listen(node.switch, base)) for node in nodes]
+    for i, node in enumerate(nodes):
+        node.p2p_cfg = dataclasses.replace(
+            base, persistent_peers=",".join(a for j, a in enumerate(addrs) if j != i))
+    if start:
+        start_consensus_net(nodes)
+    return nodes
+
+
+def start_consensus_net(nodes: List[NetNode]) -> None:
+    """Start an unstarted net: each switch (its reactor starts the state
+    machine), then the connections: over TCP each node dials its persistent
+    peers; otherwise every pair is wired over a socketpair, as
+    ``p2p/test_util.make_connected_switches`` wires its switches."""
+    if nodes[0].p2p_cfg is not None:
+        for node in nodes:
+            verify_root.start_switch(node.switch, node.p2p_cfg)
+        return
+    for node in nodes:
+        node.switch.start()
+    for i in range(len(nodes)):
+        for j in range(i + 1, len(nodes)):
+            connect_switches(nodes[i].switch, nodes[j].switch)
+
+
+def stop_consensus_net(nodes: List[NetNode], timeout: float = 30.0) -> None:
+    """Stop every switch (which stops its reactor and with it the state
+    machine), wait for each receive routine, close the vote feeds, the app
+    connections and the event buses."""
+    for node in nodes:
+        if node is None:
+            continue
+        if node.root.watchdog is not None:
+            node.root.watchdog.stop()
+        if node.switch is not None and node.switch.is_running:
+            node.switch.stop()
+        if node.cs.is_running:
+            node.cs.stop()
+    for node in nodes:
+        if node is None:
+            continue
+        if node.cs._started:
+            node.cs._done.wait(timeout)
+        if node.feed is not None:
+            node.feed.close()
+            node.feed.join(timeout)
+        node.conn.stop()
+        if node.bus.is_running:
+            node.bus.stop()
 
 
 def shared_clock() -> Callable[[], int]:

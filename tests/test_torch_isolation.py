@@ -48,3 +48,36 @@ def test_import_leaves_jax_unloaded():
     res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stderr
+
+
+def test_p2p_without_cryptography_takes_the_fallback():
+    """On a host without the ``cryptography`` package (the GPU host's
+    installation), the port's p2p stack takes ``crypto/sts_fallback`` and
+    still completes a secret-connection handshake, loading neither jax nor
+    the JAX package. The package is hidden from the child interpreter
+    through ``sys.modules``."""
+    code = (
+        "import sys, socket, threading\n"
+        "sys.modules['cryptography'] = None\n"
+        "import tendermint_tpu_torch.p2p\n"
+        "from tendermint_tpu_torch.p2p.conn import secret_connection as sc\n"
+        "from tendermint_tpu_torch.crypto.keys import PrivKeyEd25519\n"
+        "assert sc.STS_BACKEND == 'fallback', sc.STS_BACKEND\n"
+        "assert sc.ChaCha20Poly1305.__module__ == 'tendermint_tpu_torch.crypto.sts_fallback'\n"
+        "s1, s2 = socket.socketpair()\n"
+        "out = {}\n"
+        "def up(i, s):\n"
+        "    out[i] = sc.SecretConnection(sc.RawConn(s), PrivKeyEd25519.generate())\n"
+        "ts = [threading.Thread(target=up, args=(i, s)) for i, s in enumerate((s1, s2))]\n"
+        "[t.start() for t in ts]; [t.join(30) for t in ts]\n"
+        "out[0].write(b'x' * 3000)\n"
+        "assert out[1].read_exactly(3000) == b'x' * 3000\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'tendermint_tpu')]\n"
+        "assert not bad, bad\n"
+        "assert not [m for m in sys.modules if m.startswith('cryptography.')]\n"
+    )
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join([str(ROOT), env.get("PYTHONPATH", "")])
+    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
