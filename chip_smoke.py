@@ -373,31 +373,57 @@ Phases, in order; any failure exits non-zero:
              a node in this process built through node/verify_root
              (testutil/consensus_net.make_consensus_net with tcp=True: the
              mempool, the executor, the handshake, consensus_state with its
-             own WAL, vote feed, NodeMetrics and the flight recorder on,
-             consensus_reactor, and switch on 127.0.0.1 port 0) at the
-             [consensus] defaults (timeout_commit 1 s) and the [p2p] defaults
-             with allow_duplicate_ip = true (as a local testnet sets it) and
-             pex off (the peer exchange is not ported), the other three
-             nodes as persistent_peers: every connection a TCP dial, a
-             secret connection (STS_BACKEND printed: cryptography where the
-             host has it, crypto/sts_fallback otherwise; the H100 hosts
-             measured in PERF.md have it), the NodeInfo exchange and an
-             MConnection. A tx into every node's mempool each height; 8
-             heights. Every node reaches 8 with the same block and app
-             hashes at every height; no peer stopped for an error, but for
-             at most one simultaneous-dial duplicate a pair before height 1
-             (its connection not the canonical one, closed by the other end
-             by switch.py's canonical rule; printed); K1 + K2
-             launched by every node from height 2 on through its vote feed
-             and its LastCommit checks, the total equal to the feeds'
-             dispatches plus the checks; the flight recorder's journeys hold
-             first sends and arrivals and the gossip ledger links every
-             ordered pair of nodes; K1 and K2 exact on a captured launch.
-             Prints the handshake's seconds a connection, blocks a second
-             and a height's p50 wall, launches a node a height (flushes,
-             LastCommit checks), flushes by reason, rows and lanes a flush,
-             bytes sent and received a peer (NodeMetrics) and the phase's
-             seconds. No fallback, the breaker closed, no audit mismatch.
+             own WAL, vote feed, NodeMetrics and the flight recorder on, and
+             node_reactors' whole set in node.py's order: consensus,
+             blockchain, mempool with its QoS gate at the [mempool]
+             defaults, evidence, statesync; a PersistentKVStoreApp that
+             snapshots every 4 heights, a cut of the reference's default 0;
+             a switch on 127.0.0.1 port 0) at the [consensus] defaults
+             (timeout_commit 1 s) and the [p2p] defaults with
+             allow_duplicate_ip = true (as a local testnet sets it) and pex
+             off (the peer exchange is not ported), the other three nodes as
+             persistent_peers: every connection a TCP dial, a secret
+             connection (STS_BACKEND printed: cryptography where the host has
+             it, crypto/sts_fallback otherwise; the H100 hosts measured in
+             PERF.md have it), the NodeInfo exchange and an MConnection. A
+             kvstore tx a height into node 0's mempool only (gossip carries
+             it to the others, through their QoS gates), validator 1's
+             double sign at height 2 into node 0's evidence pool. Every
+             validator reaches every height with the same block and app
+             hashes; each tx of heights 1-6 reaches every other mempool by
+             gossip and commits on every node; the evidence commits on every
+             node; no QoS drop; no peer stopped for an error, but for at most
+             one simultaneous-dial duplicate a pair before height 1 (its
+             connection not the canonical one, closed by the other end by
+             switch.py's canonical rule; printed); K1 + K2 launched by every
+             validator from height 2 on through its vote feed and its
+             LastCommit checks; the flight recorder's journeys hold first
+             sends and arrivals and the gossip ledger links every ordered
+             pair of validators; K1 and K2 exact on a captured launch. At
+             height 6 (two past the snapshot at 4, so that both its next
+             header and a fast-sync window exist) a fifth node joins: a
+             non-validator with an empty store at the [statesync] defaults
+             with enable on, trusting header 1 of node 0's store, dialing the
+             four over TCP. It restores the newest snapshot (trust hops K1 +
+             K2 through the root's guarded verifier, the chunks, the backfill
+             through the guarded executor: K1 + K2 + the K7 tally), hands
+             off to fast sync (a window, K1 + K2, and its first block's
+             LastCommit) and to consensus, reaches the validators' tip and
+             follows 2 more heights with their block and app hashes; no peer
+             stopped or banned. Every K1/K2 launch of the phase is counted
+             by its source (each validator's flushes and LastCommit checks;
+             the joining node's trust hops, backfill, fast-sync windows, its
+             first block's LastCommit, flushes and LastCommit checks: each
+             caller tags its thread, and a supervised dispatch carries the
+             tag to its worker), and no launch is untagged. Prints the
+             handshake's seconds a connection, blocks a second and a
+             height's p50 wall, launches by source, flushes by reason, rows
+             and lanes a flush, bytes sent and received a peer (NodeMetrics),
+             txs received by gossip, QoS admitted and dropped by reason, the
+             evidence's commit height, the restore's wall with its
+             statesync.* spans, the hand-off's wall, the blocks fast-synced
+             and the phase's seconds. No fallback, the breaker closed, no
+             audit mismatch.
 
 The window phase's routes and the backfill phase each make one traced call
 (the p50 of 3 before phase 21, of 2 before phase 22: the fastsync replay
@@ -425,7 +451,8 @@ application of block 2), phase 22's as ``fastsync_launches`` (guarded,
 explicit, baseline, reactor) and phase 23's as ``consensus_launches`` ((a),
 (b) and (c), each split into flushes and LastCommit checks) and phase
 24's as ``statesync_launches`` (trust, backfill, handoff) and phase 25's
-as ``localnet_launches`` (flushes, LastCommit checks); K4's own
+as ``localnet_launches`` (the validators' flushes and LastCommit checks,
+and the joining node's by source under ``join``); K4's own
 ``launches`` are
 the msm route's 10,000-validator commit's. The line before the last two is the
 ``kernels`` JSON, then the card's name
@@ -502,6 +529,7 @@ from tendermint_tpu_torch.libs.metrics import (
 from tendermint_tpu_torch.lite import DBProvider, DynamicVerifier, LiteError
 from tendermint_tpu_torch.lite.proxy import LiteProxy, serve_proxy
 from tendermint_tpu_torch.mempool.mempool import MempoolError
+from tendermint_tpu_torch.mempool.reactor import decode_tx_msg
 from tendermint_tpu_torch.mempool.tx_verify import BatchTxVerifier
 from tendermint_tpu_torch.node import verify_root
 from tendermint_tpu_torch.node.verify_root import configure_verify
@@ -661,6 +689,21 @@ SS_SPANS = ("statesync.restore", "statesync.light_verify", "statesync.chunks",
 LN_VALS, LN_HEIGHTS, LN_WINDOW_MS, LN_ROWS = 4, 8, 2.0, 64
 LN_TIMEOUT = 120.0
 LN_FRAME_REPS = 50
+# ... with the node's whole reactor set: the validators' PersistentKVStoreApp
+# snapshots every 4 heights (the reference's interval default is 0, off); a
+# tx a height into node 0 alone (gossip carries it); validator 1's double
+# sign at height 2 into node 0's evidence pool. At 8 a fifth node, a
+# non-validator with an empty store at the [statesync] defaults (trusting
+# header 1 of node 0's store), joins by state sync over TCP and must follow 2
+# more heights. It restores the snapshot at 8 once header 9 exists, else the
+# one at 4: either is right
+LN_SNAPSHOT_INTERVAL, LN_JOIN_AT, LN_FOLLOW, LN_TRUST = 4, LN_HEIGHTS, 2, 1
+LN_EVIDENCE_HEIGHT, LN_OFFENDER = 2, 1
+LN_JOIN_TIMEOUT = 60.0
+LN_SS_SPANS = ("statesync.restore", "statesync.light_verify", "statesync.chunks",
+               "statesync.backfill")
+LN_JOIN_SOURCES = ("trust", "backfill", "fastsync", "fastsync_last_commit", "flushes",
+                   "last_commit")
 
 # Rates for the least time the card could take: HBM bandwidth (H100 SXM
 # data sheet); 32-bit integer add, logic, shift and multiply-add each retire
@@ -4273,16 +4316,20 @@ def ln_frame_ms(aead_cls) -> tuple:
     return (t1 - t0) * 1e3 / LN_FRAME_REPS, (t2 - t1) * 1e3 / LN_FRAME_REPS
 
 
-def ln_stopped_peers(nodes) -> tuple:
+def ln_stopped_peers(nodes, wrap=None, into=None) -> tuple:
     """Every peer a node's switch stops for an error, as (time, node, peer
     node, reason, whether its connection is the canonical one), and every
     duplicate connection a switch closes by its canonical rule (switch.py's
     _add_peer: a new connection refused, or an old one evicted), as (node,
     peer node). A call for a peer object the set no longer holds stops
-    nothing (switch.py's stale-peer rule) and is not counted."""
+    nothing (switch.py's stale-peer rule) and is not counted. Only the
+    switches of ``wrap`` (default all) are recorded, into ``into`` when
+    given."""
     idx = {n.switch.node_id: i for i, n in enumerate(nodes)}
-    stopped, closed = [], []
+    stopped, closed = into if into is not None else ([], [])
     for i, n in enumerate(nodes):
+        if wrap is not None and n not in wrap:
+            continue
         sw = n.switch
         real_stop, real_add, real_remove = (sw.stop_peer_for_error, sw._add_peer,
                                             sw._stop_and_remove_peer)
@@ -4332,12 +4379,13 @@ def ln_unexcused_stops(stopped: list, closed: list, before: float) -> tuple:
     return races, rest
 
 
-def ln_gossip(nodes) -> dict:
+def ln_gossip(nodes, others=()) -> dict:
     """The flight recorders' gossip stamps of the committed heights: each
     height's and kind's vote journeys with a first send from their signer,
-    each node's first arrivals, and the gossip ledger's links by node."""
+    each node's first arrivals, and the gossip ledger's links by node (a
+    node of ``others``, which records nothing, may be a link's peer)."""
     ids = [n.switch.node_id for n in nodes]
-    idx = {nid: i for i, nid in enumerate(ids)}
+    idx = {nid: i for i, nid in enumerate(ids + [n.switch.node_id for n in others])}
     dumps = [n.cs.flight.snapshot() for n in nodes]
     journeys = [j for j in build_journeys(dumps) if 1 <= j["height"] <= LN_HEIGHTS]
     ledger = gossip_ledger(dumps, journeys=journeys)
@@ -4393,32 +4441,247 @@ def ln_peer_bytes(nodes) -> dict:
     return out
 
 
+class TaggedLaunches(dict):
+    """A launch-count dict (``ed25519_cuda.launches``, ``planner.tally_launches``)
+    that also counts every increment by the source tag of the thread that
+    made it (``tls.tag``; ``untagged`` when none is set)."""
+
+    def __init__(self, inner, tls, by, mtx):
+        super().__init__(inner)
+        self._tls, self._by, self._mtx = tls, by, mtx
+
+    def __setitem__(self, k, v):
+        with self._mtx:
+            old = self.get(k, 0)
+            super().__setitem__(k, v)
+            if v > old:
+                d = self._by.setdefault(getattr(self._tls, "tag", None) or "untagged", {})
+                d[k] = d.get(k, 0) + (v - old)
+
+
+def ln_tagged(fn, tag, tls):
+    """``fn`` run with the calling thread's source tag set to ``tag`` (a
+    string, or a callable giving it at the call)."""
+    def call(*args, **kwargs):
+        prev = getattr(tls, "tag", None)
+        tls.tag = tag() if callable(tag) else tag
+        try:
+            return fn(*args, **kwargs)
+        finally:
+            tls.tag = prev
+    return call
+
+
+@contextlib.contextmanager
+def ln_launch_sources():
+    """K1, K2 and K7 launches by source while active: the launch counters
+    count each increment under the launching thread's tag, and a supervised
+    dispatch (``breaker.supervised_call``, whose worker thread launches on
+    the card) carries its caller's tag into its worker. Yields (the
+    thread-local the callers tag, the counts by tag)."""
+    tls, by, mtx = threading.local(), {}, threading.Lock()
+    real_ec, real_tally, real_sup = ec.launches, planner.tally_launches, breaker.supervised_call
+
+    def supervised(fn, deadline, name="device-dispatch"):
+        tag = getattr(tls, "tag", None)
+        return real_sup(ln_tagged(fn, tag, tls), deadline, name)
+
+    ec.launches = TaggedLaunches(real_ec, tls, by, mtx)
+    planner.tally_launches = TaggedLaunches(real_tally, tls, by, mtx)
+    breaker.supervised_call = supervised
+    try:
+        yield tls, by
+    finally:
+        breaker.supervised_call = real_sup
+        real_ec.update(ec.launches)
+        real_tally.update(planner.tally_launches)
+        ec.launches, planner.tally_launches = real_ec, real_tally
+
+
+def ln_tag_node(n, who: str, tls, switched=None) -> None:
+    """Tag the launches of node ``n``'s vote-feed flushes (``who:flushes``)
+    and LastCommit checks (``who:last_commit``; before ``switched`` is set,
+    ``who:fastsync_last_commit``: fast sync's check of its first block)."""
+    if n.feed is not None:
+        n.feed._dispatch = ln_tagged(n.feed._dispatch, f"{who}:flushes", tls)
+    ex = n.cs.block_exec
+    ex.validate_block = ln_tagged(
+        ex.validate_block, lambda: (f"{who}:last_commit" if switched is None or switched.is_set()
+                                    else f"{who}:fastsync_last_commit"), tls)
+
+
+def ln_gossip_counts(nodes) -> list:
+    """Per node, the txs its mempool reactor takes off the wire (decoded,
+    before the QoS gate), as a list each."""
+    got = []
+    for n in nodes:
+        r, seen = n.reactors.mempool, []
+        real = r.receive
+
+        def receive(chan_id, peer, msg_bytes, real=real, seen=seen):
+            seen.append(decode_tx_msg(msg_bytes))
+            return real(chan_id, peer, msg_bytes)
+
+        r.receive = receive
+        got.append(seen)
+    return got
+
+
+def ln_qos(nodes) -> dict:
+    """Every node's QoS decisions (NodeMetrics): admitted, and dropped by
+    reason."""
+    admitted, dropped = 0.0, {}
+    for n in nodes:
+        admitted += sum(n.metrics.mempool_qos_admitted_total._values.values())
+        for (reason,), v in n.metrics.mempool_qos_dropped_total._values.items():
+            dropped[reason] = dropped.get(reason, 0.0) + v
+    return {"admitted": admitted, "dropped": dropped}
+
+
+def ln_check_wiring(n, who: str, dev, restoring: bool = False) -> None:
+    """Node ``n`` is wired as node/verify_root wires a node's reactor set."""
+    r, sw = n.reactors, n.switch
+    check(list(sw.reactors) == ["consensus", "blockchain", "mempool", "evidence", "statesync"]
+          and sw.reactors["consensus"] is r.consensus is n.reactor and n.reactor.cons is n.cs
+          and sw.reactors["mempool"] is r.mempool and r.mempool.qos is not None
+          and sw.reactors["evidence"] is r.evidence and r.statesync is not None
+          and sw.reactors["statesync"] is r.statesync.reactor
+          and set(sw.node_info.channels) == {d.id for d in sw._chan_descs}
+          and r.restoring == restoring and (r.statesync.syncer is not None) == restoring,
+          f"localnet: {who} is not wired as node/verify_root.node_reactors wires a node")
+    check(n.feed is not None and n.cs._vote_feed is n.feed
+          and n.feed.window_s == LN_WINDOW_MS / 1e3 and n.root.wal is not None,
+          f"localnet: {who}'s consensus state is not wired as node/verify_root wires one")
+    if dev.type == "cuda":
+        check(n.feed.device.type == "cuda" and n.feed.verifier is None,
+              f"localnet: {who}'s vote feed does not run the installed verifier on the card")
+
+
+def ln_join(nodes, cfg, dev, tmp, tls, stops) -> dict:
+    """The fifth node: a non-validator with an empty store that restores by
+    state sync from the four over TCP, hands off to fast sync and then to
+    consensus, reaches the tip and follows LN_FOLLOW more heights. Its
+    switch's stops go into ``stops`` (``ln_stopped_peers``' lists)."""
+    meta = nodes[0].cs.block_store.load_block_meta(LN_TRUST)
+    ss_cfg = StateSyncConfig(enable=True, trust_height=LN_TRUST,
+                             trust_hash=meta.header.hash().hex())
+    t_build = time.perf_counter()
+    j = tnet.make_joining_node(nodes, PersistentKVStoreApp(), config=ConsensusConfig(),
+                               verify_cfg=cfg, device=dev, statesync_cfg=ss_cfg, wal_dir=tmp,
+                               start=False)
+    ln_check_wiring(j, "the joining node", dev, restoring=True)
+    ln_stopped_peers(nodes + [j], wrap=[j], into=stops)
+    received = ln_gossip_counts([j])[0]
+    check(j.pv is None and j.cs.block_store.height() == 0 and j.reactors.consensus.fast_sync
+          and not j.reactors.blockchain.fast_sync and j.reactors.statesync.syncer.batch_verifier
+          is None, "localnet: the joining node is not an empty non-validator that restores")
+    ss = j.reactors.statesync
+    stamps, switched = {}, threading.Event()
+    real_synced, real_switch = ss.reactor.on_synced, j.reactor.switch_to_consensus
+
+    def on_synced(state, height):
+        stamps["synced"] = time.perf_counter()
+        real_synced(state, height)
+
+    def switch_to_consensus(state, blocks_synced=0):
+        stamps["switched"], stamps["switched_at"] = time.perf_counter(), state.last_block_height
+        switched.set()
+        return real_switch(state, blocks_synced)
+
+    ss.reactor.on_synced, j.reactor.switch_to_consensus = on_synced, switch_to_consensus
+    ln_tag_node(j, "join", tls, switched)
+    ss.syncer._establish_trust = ln_tagged(ss.syncer._establish_trust, "join:trust", tls)
+    ss.syncer._verify_backfill_window = ln_tagged(ss.syncer._verify_backfill_window,
+                                                  "join:backfill", tls)
+    trace.reset(FS_TRACE_CAPACITY)
+    trace.enable()
+    try:
+        t0 = time.perf_counter()
+        tnet.start_joining_node(j)
+        check(tcs.wait_for(lambda: switched.is_set() or ss.reactor.progress()["error"]
+                           or j.reactors.blockchain.device_fault is not None,
+                           LN_JOIN_TIMEOUT, interval=0.005),
+              f"localnet: the joining node neither handed off nor failed in {LN_JOIN_TIMEOUT} s: "
+              f"{ss.reactor.progress()}")
+        spans = span_seconds(LN_SS_SPANS)
+        check(trace.dropped() == 0, "localnet: the trace ring dropped spans")
+    finally:
+        trace.disable()
+    prog = ss.reactor.progress()
+    check(switched.is_set() and prog["error"] is None and ss.reactor.device_fault is None
+          and j.reactors.blockchain.device_fault is None,
+          f"localnet: the join failed: {prog}, fast sync {j.reactors.blockchain.device_fault}")
+    H = prog["snapshot_height"]
+    check(prog["synced_height"] == H and H in (LN_JOIN_AT - LN_JOIN_AT % LN_SNAPSHOT_INTERVAL,
+                                                LN_JOIN_AT - LN_JOIN_AT % LN_SNAPSHOT_INTERVAL
+                                                - LN_SNAPSHOT_INTERVAL),
+          f"localnet: the joining node restored snapshot {H}")
+    synced = j.reactors.blockchain.blocks_synced
+    check(stamps["switched_at"] == H + synced and synced >= 1,
+          f"localnet: fast sync synced {synced} blocks after {H}, switched at "
+          f"{stamps['switched_at']}")
+    # the tip: every validator's height once the node has switched
+    tip = min(n.cs.block_store.height() for n in nodes)
+    check(tcs.wait_for(lambda: j.cs.block_store.height() >= tip, LN_JOIN_TIMEOUT,
+                       interval=0.005),
+          f"localnet: the joining node at {j.cs.block_store.height()}, not at the tip {tip}")
+    stamps["tip"] = time.perf_counter()
+    top = tip + LN_FOLLOW
+    check(tcs.wait_for(lambda: min(n.cs.block_store.height() for n in nodes + [j]) >= top,
+                       LN_JOIN_TIMEOUT, interval=0.005),
+          f"localnet: the joining node did not follow to {top}: "
+          f"{[n.cs.block_store.height() for n in nodes + [j]]}")
+    stamps["followed"] = time.perf_counter()
+    bs = j.cs.block_store
+    check(bs.base() == max(1, H - StateSyncConfig().backfill_blocks + 1),
+          f"localnet: the joining node's base {bs.base()}")
+    for h in range(bs.base(), top + 1):
+        want = nodes[0].cs.block_store.load_block_meta(h).header
+        check(bs.load_block_meta(h).header.hash() == want.hash()
+              and bs.load_block_meta(h).header.app_hash == want.app_hash,
+              f"localnet: the joining node's header at {h} differs from node 0's")
+        if h > H:
+            check(bs.load_block(h).hash() == nodes[0].cs.block_store.load_block(h).hash(),
+                  f"localnet: the joining node's block {h} differs")
+    check(j.cs.device_fault is None, f"localnet: the joining node's device fault {j.cs.device_fault}")
+    return {"node": j, "snapshot": H, "synced": synced, "tip": tip, "top": top,
+            "build_s": t0 - t_build, "restore_s": stamps["synced"] - t0,
+            "handoff_s": stamps["switched"] - stamps["synced"], "tip_s": stamps["tip"] - t0,
+            "follow_s": stamps["followed"] - stamps["tip"], "spans": spans,
+            "received": received}
+
+
 def phase_localnet(dev, err: dict) -> dict:
-    """Phase 25: BASELINE.json config 1, four nodes over real switches, on a
-    [verify] root of its own with the vote feed on."""
+    """Phase 25: BASELINE.json config 1, four nodes over real switches with
+    the node's whole reactor set, on a [verify] root of its own with the
+    vote feed on; then a fifth node joins by state sync."""
     phase(f"localnet: {LN_VALS} validators of power 10, each a node built by node/verify_root "
-          f"with its own WAL, vote feed ({LN_WINDOW_MS:g} ms, {LN_ROWS} rows) and consensus "
-          f"reactor, on a switch at 127.0.0.1 port 0 dialing the others as persistent peers "
-          f"(TCP, secret connection, MConnection); {LN_HEIGHTS} heights at the [consensus] "
-          f"defaults, a tx into every mempool each height")
+          f"with its own WAL, vote feed ({LN_WINDOW_MS:g} ms, {LN_ROWS} rows) and the reactor "
+          f"set (consensus, blockchain, mempool with its QoS gate, evidence, statesync; "
+          f"PersistentKVStoreApp snapshots every {LN_SNAPSHOT_INTERVAL}), on a switch at "
+          f"127.0.0.1 port 0 dialing the others as persistent peers (TCP, secret connection, "
+          f"MConnection); {LN_HEIGHTS} heights at the [consensus] defaults, a tx into node 0's "
+          f"mempool only each height, validator {LN_OFFENDER}'s double sign at "
+          f"{LN_EVIDENCE_HEIGHT} into node 0's evidence pool; at {LN_JOIN_AT} a fifth node joins "
+          f"by state sync and follows {LN_FOLLOW} heights")
     t_phase = time.perf_counter()
     cfg = VerifyConfig(vote_batch_window_ms=LN_WINDOW_MS, vote_batch_rows=LN_ROWS)
     root = configure_verify(cfg, device=dev)
     check(get_batch_verifier() is root.verifier, "the root's guarded verifier is not installed")
     before = fallbacks()
-    with tempfile.TemporaryDirectory(prefix="chip-smoke-ln-") as tmp, timed_upgrades() as ups:
-        nodes = tnet.make_consensus_net(LN_VALS, config=ConsensusConfig(), verify_cfg=cfg,
-                                        device=dev, wal_dir=tmp, flight=True, tcp=True,
-                                        start=False)
-        for n in nodes:
-            check(n.feed is not None and n.cs._vote_feed is n.feed
-                  and n.feed.window_s == LN_WINDOW_MS / 1e3 and n.cs.flight.enabled
-                  and n.root.wal is not None and n.reactor.cons is n.cs
-                  and n.switch.reactors["consensus"] is n.reactor,
-                  "localnet: a node is not wired as node/verify_root wires one")
-            if dev.type == "cuda":
-                check(n.feed.device.type == "cuda" and n.feed.verifier is None,
-                      "localnet: a vote feed does not run the installed verifier on the card")
+    txs = [b"localnet-h%d=v%d" % (h, h) for h in range(1, LN_JOIN_AT + LN_FOLLOW + 1)]
+    with tempfile.TemporaryDirectory(prefix="chip-smoke-ln-") as tmp, timed_upgrades() as ups, \
+            ln_launch_sources() as (tls, by_tag):
+        nodes = tnet.make_consensus_net(
+            LN_VALS, config=ConsensusConfig(), app_factory=lambda i: PersistentKVStoreApp(),
+            verify_cfg=cfg, device=dev, wal_dir=tmp, flight=True, tcp=True, start=False,
+            statesync_cfg=StateSyncConfig(snapshot_interval=LN_SNAPSHOT_INTERVAL))
+        for i, n in enumerate(nodes):
+            ln_check_wiring(n, f"node {i}", dev)
+            ln_tag_node(n, "validators", tls)
+        real_window = bc_reactor.verify_block_window
+        bc_reactor.verify_block_window = ln_tagged(real_window, "join:fastsync", tls)
+        received = ln_gossip_counts(nodes)
         stopped, closed = ln_stopped_peers(nodes)
         seal_ms, open_ms = ln_frame_ms(p2p_sts.ChaCha20Poly1305)
         fb_seal_ms, fb_open_ms = ln_frame_ms(sts_fallback.ChaCha20Poly1305)
@@ -4428,51 +4691,103 @@ def phase_localnet(dev, err: dict) -> dict:
               f"{fb_seal_ms:.3f} and {fb_open_ms:.3f} ms; means of {LN_FRAME_REPS}, this "
               f"process alone)", flush=True)
         reset_launches()
-        stamps, frames = {}, {}
+        stamps, frames, join = {}, {}, None
+        ev = None
         try:
             with captured_packs() as packs:
-                for n in nodes:
-                    n.cs.mempool.check_tx(b"localnet-h1=v1")
+                nodes[0].cs.mempool.check_tx(txs[0])
                 t0 = time.perf_counter()
                 tnet.start_consensus_net(nodes)
-                for h in range(1, LN_HEIGHTS + 1):
+                for h in range(1, LN_JOIN_AT + 1):
                     check(tcs.wait_for(lambda: all(n.cs.block_store.height() >= h
                                                    for n in nodes), LN_TIMEOUT, interval=0.002),
                           f"localnet: height {h} never committed on every node: "
                           f"{[(n.cs.get_state().last_block_height, n.cs.device_fault) for n in nodes]}")
                     stamps[h] = time.perf_counter()
                     frames[h] = ln_frames(nodes)
-                    for n in nodes:
-                        n.cs.mempool.check_tx(b"localnet-h%d=v%d" % (h + 1, h + 1))
-                # before the net stops: stopping closes every connection
-                peers = [n.switch.peers.size() for n in nodes]
-                stopped_run, closed_run = list(stopped), list(closed)
-                peer_bytes = ln_peer_bytes(nodes)
+                    nodes[0].cs.mempool.check_tx(txs[h])
+                    if h == LN_EVIDENCE_HEIGHT + 1:
+                        # every node holds the validators of the evidence's height
+                        ev = tnet.duplicate_vote_evidence(nodes, LN_OFFENDER, LN_EVIDENCE_HEIGHT)
+                        nodes[0].evidence_pool.add_evidence(ev)
+                    if h == LN_HEIGHTS:
+                        # before the join: its peer changes the peers and bytes
+                        peers = [n.switch.peers.size() for n in nodes]
+                        stopped_run, closed_run = list(stopped), list(closed)
+                        peer_bytes = ln_peer_bytes(nodes)
+                join = ln_join(nodes, cfg, dev, tmp, tls, (stopped, closed))
+                j = join["node"]
+                # the last txs commit, every node holds the evidence's block
+                check(tcs.wait_for(lambda: all(tnet.committed_in(n, lambda t: t == txs[LN_JOIN_AT])
+                                               for n in nodes), LN_TIMEOUT, interval=0.005),
+                      "localnet: the last tx into node 0 did not commit everywhere")
+                stopped_join = [s for s in stopped if s not in stopped_run]
+                peers_join = [n.switch.peers.size() for n in nodes + [j]]
         finally:
-            tnet.stop_consensus_net(nodes)
+            bc_reactor.verify_block_window = real_window
+            tnet.stop_consensus_net(nodes + ([join["node"]] if join is not None else []))
+        tags = {k: dict(v) for k, v in by_tag.items()}
     launches = read_launches()
     races, rest = ln_unexcused_stops(stopped_run, closed_run, stamps[1])
     check(not rest and peers == [LN_VALS - 1] * LN_VALS,
           f"localnet: peers {peers}; peers stopped for an error (seconds after height 1, node, "
           f"peer, reason, canonical): {rest}; excused dial races {races}; duplicates closed by "
           f"the canonical rule (node, peer): {closed_run}")
+    check(not stopped_join and peers_join == [LN_VALS] * (LN_VALS + 1),
+          f"localnet: after the join, peers {peers_join}; peers stopped for an error "
+          f"{stopped_join}")
     check(all(n.cs.device_fault is None for n in nodes),
           f"localnet: device faults {[n.cs.device_fault for n in nodes]}")
+    mp_faults = [n.reactors.mempool.device_fault for n in nodes + [join["node"]]]
+    check(mp_faults == [None] * (LN_VALS + 1),
+          f"localnet: CheckTx window faults on gossiped txs {mp_faults}")
     top = min(n.cs.block_store.height() for n in nodes)
-    for h in range(1, LN_HEIGHTS + 1):
+    for h in range(1, top + 1):
         blocks = [n.cs.block_store.load_block(h) for n in nodes]
         check(len({b.hash() for b in blocks}) == 1 and len({b.header.app_hash for b in blocks}) == 1,
               f"localnet: the nodes' blocks at {h} differ")
-    app_hashes = {n.cs.block_store.load_block(LN_HEIGHTS + 1).header.app_hash
-                  for n in nodes if n.cs.block_store.height() > LN_HEIGHTS}
-    check(len(app_hashes) <= 1, "localnet: the app hashes after the last height differ")
+    # the txs: given to node 0 alone, gossip carried each into every other
+    # node's mempool, and each committed on every node
+    tx_heights = {}
+    for h in range(1, LN_HEIGHTS + 1):
+        tx = txs[h - 1]
+        at = [tnet.committed_in(n, lambda t, tx=tx: t == tx) for n in nodes]
+        check(len(set(at)) == 1 and at[0] is not None, f"localnet: tx {tx!r} committed at {at}")
+        check(all(tx in received[i] for i in range(1, LN_VALS)),
+              f"localnet: tx {tx!r} did not reach every mempool by gossip")
+        tx_heights[h] = at[0]
+    ev_at = [tnet.committed_in(n, lambda e: isinstance(e, type(ev)) and e.hash() == ev.hash())
+             for n in nodes]
+    check(len(set(ev_at)) == 1 and ev_at[0] is not None
+          and all(n.evidence_pool.is_committed(ev) for n in nodes),
+          f"localnet: the evidence committed at {ev_at}")
+    qos = ln_qos(nodes + [join["node"]])
+    check(not any(qos["dropped"].values()) and qos["admitted"] > 0,
+          f"localnet: QoS admitted {qos['admitted']}, dropped {qos['dropped']}")
+    gossiped = [len(r) for r in received] + [len(join["received"])]
+    vals = tags.get("validators:flushes", {}), tags.get("validators:last_commit", {})
     dispatches = sum(n.feed.dispatches for n in nodes)
-    checks = sum(len(n.checks) for n in nodes)
+    checks_n = sum(len(n.checks) for n in nodes)
     k1, k2 = launches["ed25519_prologue"], launches["ed25519_ladder"]
-    check(k1 == k2 == dispatches + checks and launches["secp256k1_ladder"] == 0
-          and launches[K4] == 0,
-          f"localnet: launches {launches}, {dispatches} feed dispatches, {checks} LastCommit "
-          f"checks")
+    check("untagged" not in tags and sum(t.get("ed25519_prologue", 0) for t in tags.values()) == k1
+          and sum(t.get("ed25519_ladder", 0) for t in tags.values()) == k2
+          and launches["secp256k1_ladder"] == 0 and launches[K4] == 0,
+          f"localnet: launches {launches} by source {tags}")
+    check(vals[0].get("ed25519_prologue", 0) == vals[0].get("ed25519_ladder", 0) == dispatches
+          and vals[1].get("ed25519_prologue", 0) == vals[1].get("ed25519_ladder", 0) == checks_n,
+          f"localnet: the validators' launches {vals}, {dispatches} feed dispatches, {checks_n} "
+          f"LastCommit checks")
+    jt = {src: tags.get(f"join:{src}", {}) for src in LN_JOIN_SOURCES}
+    jl = {src: {"k1": t.get("ed25519_prologue", 0), "k2": t.get("ed25519_ladder", 0),
+                "k7": t.get("planner_tally", 0)} for src, t in jt.items()}
+    check(all(jl[s]["k1"] == jl[s]["k2"] >= 1 for s in ("trust", "backfill", "fastsync"))
+          and jl["backfill"]["k7"] >= 1 and all(jl[s]["k7"] == 0 for s in jl if s != "backfill"),
+          f"localnet: the joining node's launches by source {jl}")
+    jn = join["node"]
+    check(jl["flushes"]["k1"] == jn.feed.dispatches
+          and jl["last_commit"]["k1"] + jl["fastsync_last_commit"]["k1"] == len(jn.checks),
+          f"localnet: the joining node's launches {jl}, {jn.feed.dispatches} feed dispatches, "
+          f"{len(jn.checks)} LastCommit checks")
     per_node = []
     for i, n in enumerate(nodes):
         recs = n.feed.flush_records()["records"]
@@ -4488,7 +4803,7 @@ def phase_localnet(dev, err: dict) -> dict:
                          "serial": dict(n.cs.serial_votes), "votes_in": n.feed.votes_in})
     b_first, _, _ = hold_k1_k2(packs[0], err, "localnet first launch")
     b_last, _, _ = hold_k1_k2(packs[-1], err, "localnet last launch")
-    gossip = ln_gossip(nodes)
+    gossip = ln_gossip(nodes, [join["node"]])
     check_guard_clean(before, "localnet")
     walls = [stamps[h] - stamps[h - 1] for h in range(2, LN_HEIGHTS + 1)]
     blocks_s = (LN_HEIGHTS - 1) / (stamps[LN_HEIGHTS] - stamps[1])
@@ -4511,30 +4826,53 @@ def phase_localnet(dev, err: dict) -> dict:
           f"{LN_HEIGHTS}, a height's wall p50 {statistics.median(walls) * 1e3:.1f} ms ("
           + ", ".join(f"{w * 1e3:.1f}" for w in walls) + " ms; the last node's commit to "
           f"the last node's commit)", flush=True)
-    print(f"  launches {launches} = {dispatches} feed flushes + {checks} LastCommit checks; "
-          f"a node a height from 2: {flush_per_h:.2f} flushes + {lc_per_h:.2f} LastCommit "
-          f"checks; flushes by reason {reasons}; rows a flush {statistics.mean(rows):.2f}, "
-          f"lanes a flush {statistics.mean(lanes):.2f} (max {max(lanes)}); votes through the "
-          f"feeds {[p['votes_in'] for p in per_node]}, serial by reason "
+    print(f"  the validators' launches: {vals[0].get('ed25519_prologue', 0)} K1 + K2 in "
+          f"{dispatches} feed flushes + {vals[1].get('ed25519_prologue', 0)} in {checks_n} "
+          f"LastCommit checks (heights 1-{top}); a node a height over 2-{LN_HEIGHTS}: "
+          f"{flush_per_h:.2f} flushes + {lc_per_h:.2f} LastCommit checks; flushes by reason "
+          f"{reasons}; rows a flush {statistics.mean(rows):.2f}, lanes a flush "
+          f"{statistics.mean(lanes):.2f} (max {max(lanes)}); votes through the feeds "
+          f"{[p['votes_in'] for p in per_node]}, serial by reason "
           f"{[p['serial'] for p in per_node]}; K1/K2 exact on the first and the last launch "
-          f"(b = {b_first}, {b_last})", flush=True)
+          f"(b = {b_first}, {b_last}); all launches {launches}", flush=True)
     frames_h = (frames[LN_HEIGHTS] - frames[1]) / (LN_HEIGHTS - 1)
     print(f"  frames sealed a height over heights 2-{LN_HEIGHTS}, all nodes: {frames_h:.1f} (each "
           f"also opened once: {frames_h * (fb_seal_ms + fb_open_ms):.1f} ms of interpreter time "
           f"a height at crypto/sts_fallback's rate, {frames_h * (seal_ms + open_ms):.2f} ms at "
           f"{p2p_sts.STS_BACKEND}'s)", flush=True)
-    print(f"  bytes a peer (NodeMetrics, sent / received, mean over a node's 3 peers): "
-          + "; ".join(f"node{i} {v['sent']:,.0f} / {v['received']:,.0f}"
-                      for i, v in peer_bytes.items())
+    print(f"  bytes a peer at {LN_HEIGHTS} (NodeMetrics, sent / received, mean over a node's 3 "
+          f"peers): " + "; ".join(f"node{i} {v['sent']:,.0f} / {v['received']:,.0f}"
+                                  for i, v in peer_bytes.items())
           + f"; the flight recorders: {gossip['journeys']} vote journeys, {gossip['sends']} "
           f"first sends, {gossip['arrivals']} arrivals, {gossip['links']} ledger links "
           f"({gossip['first_sightings']} first sightings, {gossip['duplicates']} duplicates, "
           f"a link's sign-to-arrival p50 {gossip['link_latency_p50_ms']:.1f} ms)", flush=True)
-    print(f"  every node at {top} with the same block and app hashes at 1-{LN_HEIGHTS}; no peer "
-          f"stopped for an error ({len(races)} simultaneous-dial duplicates closed by the "
-          f"canonical rule before height 1 and redialed, (node, peer, reason): {races}; "
-          f"{len(closed_run)} duplicates closed in all); no fallback; breaker "
-          f"closed; no audit mismatch; phase {seconds:.1f} s", flush=True)
+    print(f"  mempool gossip: txs 1-{LN_HEIGHTS} into node 0 alone reached every other mempool "
+          f"and committed at heights {list(tx_heights.values())} on every node; txs received "
+          f"by gossip by node (the joining node last) {gossiped}; QoS admitted "
+          f"{qos['admitted']:.0f}, dropped {qos['dropped'] or 0}; the evidence (validator "
+          f"{LN_OFFENDER}'s double sign at {LN_EVIDENCE_HEIGHT}) committed at height {ev_at[0]} "
+          f"on every node", flush=True)
+    sp = join["spans"]
+    print(f"  join at {LN_JOIN_AT}: restored snapshot {join['snapshot']} (the newest at "
+          f"{LN_JOIN_AT - LN_JOIN_AT % LN_SNAPSHOT_INTERVAL}) in {join['restore_s']:.3f} s from "
+          f"the switch's start to on_synced (the node built in {join['build_s']:.3f} s; the "
+          f"discovery wait {StateSyncConfig().discovery_time:g} s of it); spans (s) "
+          + ", ".join(f"{k} {v:.3f}" for k, v in sp.items())
+          + f"; the hand-off to consensus {join['handoff_s'] * 1e3:.1f} ms after it, "
+          f"{join['synced']} block(s) fast-synced; at the tip {join['tip']} "
+          f"{join['tip_s']:.3f} s after the start, then {LN_FOLLOW} heights in "
+          f"{join['follow_s']:.3f} s with the validators' block and app hashes", flush=True)
+    print(f"  the joining node's K1 + K2 (K7) launches: trust hops {jl['trust']['k1']}, backfill "
+          f"{jl['backfill']['k1']} (K7 {jl['backfill']['k7']}), fast-sync windows "
+          f"{jl['fastsync']['k1']} + its first block's LastCommit "
+          f"{jl['fastsync_last_commit']['k1']}, flushes {jl['flushes']['k1']}, LastCommit "
+          f"checks {jl['last_commit']['k1']}", flush=True)
+    print(f"  every node at {top} with the same block and app hashes; no peer stopped for an "
+          f"error ({len(races)} simultaneous-dial duplicates closed by the canonical rule before "
+          f"height 1 and redialed, (node, peer, reason): {races}; {len(closed_run)} duplicates "
+          f"closed in all); no fallback; breaker closed; no audit mismatch; phase "
+          f"{seconds:.1f} s", flush=True)
     return {"sts_backend": p2p_sts.STS_BACKEND, "handshake_s": statistics.median(ups),
             "seal_ms": seal_ms, "open_ms": open_ms, "fallback_seal_ms": fb_seal_ms,
             "fallback_open_ms": fb_open_ms, "frames_per_height": frames_h,
@@ -4543,7 +4881,11 @@ def phase_localnet(dev, err: dict) -> dict:
             "reasons": reasons, "rows_per_flush": statistics.mean(rows),
             "lanes_per_flush": statistics.mean(lanes), "peer_bytes": peer_bytes,
             "gossip": gossip, "seconds": seconds, "dial_races": len(races),
-            "launches": {"flushes": dispatches, "last_commit": checks}}
+            "join": {k: join[k] for k in ("snapshot", "synced", "restore_s", "handoff_s",
+                                           "tip_s", "follow_s")},
+            "launches": {"flushes": vals[0].get("ed25519_prologue", 0),
+                         "last_commit": vals[1].get("ed25519_prologue", 0),
+                         "join": {s: v["k1"] for s, v in jl.items()}}}
 
 
 def main() -> int:
@@ -4655,7 +4997,8 @@ def main() -> int:
             "statesync_launches": {part: n[name] for part, n in ssync["launches"].items()},
             "localnet_launches": (localnet["launches"]
                                   if name in ("ed25519_prologue", "ed25519_ladder")
-                                  else {"flushes": 0, "last_commit": 0}),
+                                  else {"flushes": 0, "last_commit": 0,
+                                        "join": {s: 0 for s in LN_JOIN_SOURCES}}),
             "msm_launches": msm["launches"][name],
             "commit_window_launches": {"ladder": cwin["launches"][name],
                                        "msm": cwin["msm_launches"][name],
@@ -4697,7 +5040,8 @@ def main() -> int:
         "consensus_launches": {run: {"flushes": 0, "last_commit": 0}
                                for run in cons["launches"]},
         "statesync_launches": {part: n[K4] for part, n in ssync["launches"].items()},
-        "localnet_launches": {"flushes": 0, "last_commit": 0},
+        "localnet_launches": {"flushes": 0, "last_commit": 0,
+                              "join": {s: 0 for s in LN_JOIN_SOURCES}},
         "msm_launches": {"commit": msm["launches"][K4],
                          "adversarial": msm["adversarial_launches"][K4],
                          "dirty_commit": msm["dirty_launches"][K4],
@@ -4737,7 +5081,10 @@ def main() -> int:
           f"on the backfill; phase {ssync['seconds']:.1f} s", flush=True)
     print(f"  localnet: {LN_VALS} nodes over TCP on the {localnet['sts_backend']} STS backend, "
           f"{localnet['blocks_s']:.3f} blocks/s (a height's p50 {localnet['p50_ms']:.1f} ms), "
-          f"a handshake {localnet['handshake_s']:.4f} s; phase {localnet['seconds']:.1f} s",
+          f"a handshake {localnet['handshake_s']:.4f} s; the join restored "
+          f"{localnet['join']['snapshot']} in {localnet['join']['restore_s']:.3f} s, "
+          f"fast-synced {localnet['join']['synced']} block(s) and was at the tip "
+          f"{localnet['join']['tip_s']:.3f} s after its start; phase {localnet['seconds']:.1f} s",
           flush=True)
     print(f"  total {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"torch_ops": [window["tally"], cwin["tally"]]}))

@@ -63,6 +63,13 @@ class MempoolError(Exception):
     pass
 
 
+def is_window_fault(err: BaseException) -> bool:
+    """True when ``err`` is the failure of a CheckTx window's verdict hook
+    on the card, raised by ``check_tx`` (its own flush, or the wait timer's
+    kept for the next call). The error keeps its type; the window marks it."""
+    return getattr(err, "checktx_window_fault", False)
+
+
 class TxInCacheError(MempoolError):
     def __init__(self):
         super().__init__("tx already exists in cache")
@@ -437,11 +444,12 @@ class Mempool(MempoolIface):
             # boundary hostage for it
             try:
                 verdicts = self._window_verdicts(hook, batch_txs, "")
-            except Exception:
+            except Exception as e:
                 # on the card: the window is not admitted, and a
                 # resubmission must not be TxInCacheError
                 for tx in batch_txs:
                     self.cache.remove(tx)
+                e.checktx_window_fault = True
                 raise
             with self._mtx:
                 for i, tx in enumerate(batch_txs):

@@ -52,6 +52,15 @@ consensus reactor over a consensus state (``:397``), and ``start_switch``
 listens, starts the switch and its reactors and dials ``persistent_peers``
 as persistent peers (``:636-645``). A consensus state built with the switch
 gives it to its liveness watchdog, whose stall report then names peers.
+
+``mempool_reactor(...)`` is the mempool's gossip reactor with its
+``[mempool]`` QoS gate (``node/node.py:430-435``), ``evidence_reactor(...)``
+the evidence pool's (``:436-439``), and ``node_reactors(...)`` the node's
+whole reactor set on a switch as ``:380-441`` builds it and ``:551-558``
+registers it: a node with no block and ``[statesync] enable`` restores from
+a snapshot, hands off to fast sync and then to consensus; any other node
+fast-syncs (unless it is the only validator) or, with ``fast_sync`` off,
+starts consensus at once.
 """
 
 from __future__ import annotations
@@ -78,12 +87,14 @@ from tendermint_tpu_torch.consensus.wal import WAL
 from tendermint_tpu_torch.crypto import batch as _batch
 from tendermint_tpu_torch.device import DeviceLike, resolve_device
 from tendermint_tpu_torch.evidence.pool import EvidencePool
+from tendermint_tpu_torch.evidence.reactor import EvidenceReactor
 from tendermint_tpu_torch.libs.db.kv import MemDB
 from tendermint_tpu_torch.libs import breaker as _brk
 from tendermint_tpu_torch.libs.metrics import TelemetryMetrics
 from tendermint_tpu_torch.libs.telemetry import TelemetrySpool
 from tendermint_tpu_torch.libs.watchdog import LivenessWatchdog
 from tendermint_tpu_torch.mempool.mempool import Mempool
+from tendermint_tpu_torch.mempool.reactor import MempoolReactor
 from tendermint_tpu_torch.mempool.tx_verify import BatchTxVerifier
 from tendermint_tpu_torch.ops import _build
 from tendermint_tpu_torch.p2p.conn.connection import MConnConfig
@@ -501,3 +512,89 @@ def start_switch(sw: Switch, cfg: Optional[P2PConfig] = None) -> None:
     addrs = [a for a in addrs if a.id != sw.node_id]
     if addrs:
         sw.dial_peers_async(addrs, persistent=True)
+
+
+def mempool_reactor(cfg: Optional[MempoolConfig], mempool: Mempool, consensus_reactor=None,
+                    metrics=None) -> MempoolReactor:
+    """The node's mempool gossip reactor (``node/node.py:430-435``) over
+    ``mempool`` (``mempool(...).mempool``): a broadcast walker a peer that
+    holds a tx back while the peer's height (``consensus_reactor.peer_height``)
+    lags it, and with ``[mempool] qos_enabled`` (the default) the QoS gate on
+    every received tx before ``check_tx``. A received
+    tx's CheckTx runs the mempool's verdict hook, on the card the installed
+    guarded verifier (K1 + K2, K3). ``metrics`` is the node's
+    ``libs/metrics.NodeMetrics`` (the ``mempool_qos_*`` series)."""
+    cfg = cfg if cfg is not None else MempoolConfig()
+    lookup = consensus_reactor.peer_height if consensus_reactor is not None else None
+    return MempoolReactor(mempool, peer_height_lookup=lookup, config=cfg, metrics=metrics)
+
+
+def evidence_reactor(evidence_pool: EvidencePool, consensus_reactor=None) -> EvidenceReactor:
+    """The node's evidence gossip reactor (``node/node.py:436-439``) over
+    ``evidence_pool`` (``block_executor(...).evidence_pool``): a walker a peer
+    that holds evidence back while the peer is below its height (or its
+    height is unknown) by ``consensus_reactor.peer_height``. Evidence is
+    verified on the host, as in the reference."""
+    lookup = consensus_reactor.peer_height if consensus_reactor is not None else None
+    return EvidenceReactor(evidence_pool, peer_height_lookup=lookup)
+
+
+class NodeReactors(NamedTuple):
+    consensus: ConsensusReactor
+    blockchain: BlockchainReactor
+    mempool: MempoolReactor
+    evidence: EvidenceReactor
+    statesync: Optional[StateSyncRoot]  # None: [statesync] enable off and no snapshots
+    fast_sync: bool  # the node fast-syncs from its start
+    restoring: bool  # the node restores a snapshot first
+
+
+def node_reactors(sw: Switch, consensus_state: ConsensusState, state: State, block_exec,
+                  block_store, mempool: Mempool, evidence_pool: EvidencePool, *,
+                  genesis_doc, proxy_app, state_db, app=None, priv_validator=None,
+                  fast_sync: bool = True, mempool_cfg: Optional[MempoolConfig] = None,
+                  statesync_cfg: Optional[StateSyncConfig] = None, metrics=None,
+                  statesync_metrics=None) -> NodeReactors:
+    """The node's reactor set on ``sw`` (``switch(...)``, unstarted), as
+    ``node/node.py:380-441`` builds it and ``:551-558`` registers it, each
+    channel advertised (``add_reactor``):
+
+    * ``fast_sync`` is off when the only validator is ``priv_validator``
+      (``:386-390``: there is no one to sync from);
+    * ``restoring`` = ``statesync_cfg.enable`` and ``state`` holds no block;
+    * the consensus reactor over ``consensus_state``
+      (``consensus_state(...).consensus_state``) defers the state machine
+      while the node fast-syncs or restores (``fast_sync or restoring``);
+    * the fast-sync reactor (``blockchain_reactor``) starts its pool only
+      for ``fast_sync and not restoring``: a restore hands it the restored
+      state (``start_from_statesync``);
+    * the state sync reactor (``state_sync``) when ``enable`` is on or
+      ``snapshot_interval > 0``;
+    * the mempool and evidence reactors, holding back by the consensus
+      reactor's ``peer_height``.
+
+    Registered in the reference's order: consensus, blockchain, mempool,
+    evidence, statesync. A joining node's device work goes to the installed
+    verifier and device executor: the trust hops (K1 + K2), the backfill
+    (K1 + K2 + the K7 tally), the fast-sync windows and the LastCommit
+    checks (K1 + K2, K3), the vote feed's flushes. ``metrics`` is the node's
+    ``NodeMetrics``; ``statesync_metrics`` a ``StateSyncMetrics``."""
+    ss_cfg = statesync_cfg if statesync_cfg is not None else StateSyncConfig()
+    if fast_sync and state.validators.size == 1 and priv_validator is not None:
+        if priv_validator.get_pub_key().address() == state.validators.validators[0].address:
+            fast_sync = False
+    restoring = bool(ss_cfg.enable) and state.last_block_height == 0
+    cons = consensus_reactor(consensus_state, fast_sync=fast_sync or restoring, metrics=metrics)
+    bc = blockchain_reactor(state.copy(), block_exec, block_store,
+                            fast_sync=fast_sync and not restoring, consensus_reactor=cons)
+    ss = state_sync(ss_cfg, genesis_doc, proxy_app, state, state_db, block_store, app=app,
+                    mempool=mempool, blockchain_reactor=bc, metrics=statesync_metrics)
+    mr = mempool_reactor(mempool_cfg, mempool, cons, metrics=metrics)
+    er = evidence_reactor(evidence_pool, cons)
+    add_reactor(sw, "consensus", cons)
+    add_reactor(sw, "blockchain", bc)
+    add_reactor(sw, "mempool", mr)
+    add_reactor(sw, "evidence", er)
+    if ss is not None:
+        add_reactor(sw, "statesync", ss.reactor)
+    return NodeReactors(cons, bc, mr, er, ss, fast_sync and not restoring, restoring)

@@ -13,12 +13,23 @@ Client side: blocking ``fetch_chunk`` / ``fetch_light_block`` keyed waits
 that the receive thread completes; the syncer drives them from its own
 routine.
 
-Where the port differs: when the syncer halts on a device fault on the
-card (``StateSyncer.device_fault``), the reactor records it as its own
-``device_fault``, ``progress()["error"]`` names it, and ``on_synced`` is
-not called. The p2p switch is ROADMAP item 17: a caller drives the reactor
-(``testutil/statesync.py``'s in-process hub in the tests and
-``chip_smoke.py``).
+The reactor runs on the real ``p2p/switch.Switch`` and its ``Peer``s
+(``node/verify_root.node_reactors``) and on ``testutil/statesync.py``'s
+in-process hub fakes.
+
+Where the port differs:
+
+* when the syncer halts on a device fault on the card
+  (``StateSyncer.device_fault``), the reactor records it as its own
+  ``device_fault``, ``progress()["error"]`` names it, and ``on_synced`` is
+  not called;
+* a peer that does not advertise the state sync channel (``Peer.has_channel``:
+  a node that neither restores nor serves) is not a peer of the restore,
+  and a request its peer refuses to queue (``try_send`` false: the peer is
+  stopping, or its send queue is full) fails at once. The reference asks
+  every peer of the switch and waits out ``chunk_fetch_timeout`` on each
+  request the switch never sent; its hub fakes, where every peer runs every
+  reactor and ``try_send`` always queues, cannot show that.
 """
 
 from __future__ import annotations
@@ -277,7 +288,8 @@ class StateSyncReactor(Reactor):
     def _peer_ids_locked(self) -> Set[str]:
         if self.switch is None:
             return set()
-        return {p.id for p in self.switch.peers.list() if p.id not in self._banned}
+        return {p.id for p in self.switch.peers.list()
+                if p.id not in self._banned and p.has_channel(STATESYNC_CHANNEL)}
 
     def peer_ids(self) -> Set[str]:
         with self._mtx:
@@ -310,7 +322,8 @@ class StateSyncReactor(Reactor):
         with self._mtx:
             self._pending[key] = p
         try:
-            peer.try_send(STATESYNC_CHANNEL, encode_msg(msg))
+            if not peer.try_send(STATESYNC_CHANNEL, encode_msg(msg)):
+                return None  # never sent: nothing to wait for
             if not p["event"].wait(timeout) or self._quit.is_set():
                 return None
             return p

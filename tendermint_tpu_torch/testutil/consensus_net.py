@@ -1,5 +1,6 @@
 """In-process nets of full consensus nodes: ``make_consensus_net``, nodes
-wired by ``node/verify_root`` gossiping through real switches; ``Net``, a
+wired by ``node/verify_root`` gossiping through real switches, and
+``make_joining_node``, one more node that joins such a net; ``Net``, a
 deterministic net without p2p for the per-height instruments; and a strict
 Chrome-trace validator for ``tools/trace_merge.merge``.
 
@@ -9,14 +10,21 @@ harness's randConsensusNet with MakeConnectedSwitches): N validators of
 power 10, each node built as a node builds one (``verify_root.mempool``,
 ``block_executor``, ``handshake``, ``consensus_state`` with its WAL when
 ``wal_dir`` is given, its ``[verify]`` vote feed and a ``NodeMetrics``),
-a ``ConsensusReactor`` on a ``Switch``. By default the switches are wired
-pairwise over ``socket.socketpair()`` (``p2p/test_util``'s ``make_switch`` and
+with the node's whole reactor set (``verify_root.node_reactors``:
+consensus, blockchain, mempool with its QoS gate, evidence, and state sync
+when the ``[statesync]`` section asks for it) on a ``Switch``; the
+validators start consensus at once (fast sync off), as the reference
+harness's do. By default the switches are wired pairwise over
+``socket.socketpair()`` (``p2p/test_util``'s ``make_switch`` and
 ``connect_switches``, as its ``make_connected_switches``);
 with ``tcp=True`` each switch is ``verify_root.switch`` of a ``[p2p]``
 section listening on 127.0.0.1 port 0 with the other nodes as its
 ``persistent_peers``, so every connection is a TCP dial, a secret
 connection, the ``NodeInfo`` exchange and an ``MConnection``, as on a
-localnet.
+localnet. ``make_joining_node`` builds a non-validator with an empty store
+that restores by state sync (``[statesync] enable``) or fast-syncs from
+genesis, and connects it to every running node the same way (over TCP it
+dials them as persistent peers).
 
 ``Net`` follows.
 
@@ -57,9 +65,10 @@ from tendermint_tpu_torch.config.consensus import consensus_test_config
 from tendermint_tpu_torch.config.instrumentation import InstrumentationConfig
 from tendermint_tpu_torch.config.mempool import MempoolConfig
 from tendermint_tpu_torch.config.p2p import P2PConfig
+from tendermint_tpu_torch.config.statesync import StateSyncConfig
 from tendermint_tpu_torch.crypto.keys import PrivKeyEd25519
 from tendermint_tpu_torch.libs.db.kv import MemDB
-from tendermint_tpu_torch.libs.metrics import NodeMetrics
+from tendermint_tpu_torch.libs.metrics import NodeMetrics, StateSyncMetrics
 from tendermint_tpu_torch.node import verify_root
 from tendermint_tpu_torch.p2p.conn.connection import MConnConfig
 from tendermint_tpu_torch.p2p.key import NodeKey
@@ -75,6 +84,9 @@ from tendermint_tpu_torch.consensus.messages import (
 )
 from tendermint_tpu_torch.state.state_types import state_from_genesis
 from tendermint_tpu_torch.testutil.consensus import make_cs_from_genesis, make_genesis
+from tendermint_tpu_torch.types.core import BlockID, PartSetHeader, SignedMsgType
+from tendermint_tpu_torch.types.evidence import DuplicateVoteEvidence
+from tendermint_tpu_torch.types.vote import Vote
 from tendermint_tpu_torch.types.events import (
     EVENT_COMPLETE_PROPOSAL,
     EventBus,
@@ -92,10 +104,11 @@ NET_MCONFIG = dataclasses.replace(MConnConfig.test_config(), ping_interval=60.0,
 
 class NetNode:
     """One node of a ``make_consensus_net`` net: its consensus state, event
-    bus, reactor, validator key, switch, ``verify_root.ConsensusRoot``
-    (vote feed, WAL, watchdog), ``NodeMetrics``, app and app connection,
-    and ``checks``, the heights whose LastCommit its executor checked
-    (one verify a check)."""
+    bus, consensus reactor, validator key (None: a non-validator), switch,
+    ``verify_root.ConsensusRoot`` (vote feed, WAL, watchdog), ``NodeMetrics``,
+    app and app connection, its whole reactor set (``reactors``, a
+    ``verify_root.NodeReactors``), stores and genesis, and ``checks``, the
+    heights whose LastCommit its executor checked (one verify a check)."""
 
     def __init__(self, root, reactor, pv, metrics, app, conn, node_key=None):
         self.root = root
@@ -111,17 +124,28 @@ class NetNode:
         self.switch = None
         self.p2p_cfg: Optional[P2PConfig] = None
         self.checks: List[int] = []
+        self.reactors: Optional[verify_root.NodeReactors] = None
+        self.genesis_doc = None
+        self.state_db = None
+        self.evidence_pool = None
+        self.join_peers: List["NetNode"] = []  # a joining node's net
 
 
-def build_node(i, doc, pv, cfg, verify_cfg, device, app, wal_dir, inst, sw) -> "NetNode":
-    """Node i of a net over genesis ``doc``, holding ``pv``, wired by
-    ``node/verify_root`` onto switch ``sw`` (see ``make_consensus_net``)."""
+def build_node(i, doc, pv, cfg, verify_cfg, device, app, wal_dir, inst, sw, *,
+               fast_sync: bool = False,
+               statesync_cfg: Optional[StateSyncConfig] = None) -> "NetNode":
+    """Node i of a net over genesis ``doc``, holding ``pv`` (None: a
+    non-validator), wired by ``node/verify_root`` onto switch ``sw`` with
+    the node's reactor set (``node_reactors``: ``fast_sync``, the
+    ``[mempool]`` defaults, the ``[statesync]`` section ``statesync_cfg``;
+    see ``make_consensus_net``)."""
     st0 = state_from_genesis(doc)
     state_db = MemDB()
     sm_store.save_state(state_db, st0)
     conn = MultiAppConn(LocalClientCreator(app))
     conn.start()
-    mp = verify_root.mempool(MempoolConfig(), conn, app, device=device).mempool
+    mempool_cfg = MempoolConfig()
+    mp = verify_root.mempool(mempool_cfg, conn, app, device=device).mempool
     bus = EventBus()
     bus.start()
     evpool, ex = verify_root.block_executor(state_db, MemDB(), conn, mp, st0, event_bus=bus)
@@ -133,8 +157,14 @@ def build_node(i, doc, pv, cfg, verify_cfg, device, app, wal_dir, inst, sw) -> "
         cfg, verify_cfg, st, ex, bs, mp, evpool, wal_file=wal_file, event_bus=bus, priv_validator=pv,
         metrics=metrics, device=device, instrumentation=inst, node_id=sw.node_id, switch=sw,
         telemetry_metrics=metrics.telemetry)
-    reactor = verify_root.consensus_reactor(root.consensus_state, metrics=metrics)
-    node = NetNode(root, reactor, pv, metrics, app, conn, sw.transport.node_key)
+    reactors = verify_root.node_reactors(
+        sw, root.consensus_state, st, ex, bs, mp, evpool, genesis_doc=doc, proxy_app=conn,
+        state_db=state_db, app=app, priv_validator=pv, fast_sync=fast_sync,
+        mempool_cfg=mempool_cfg, statesync_cfg=statesync_cfg, metrics=metrics,
+        statesync_metrics=StateSyncMetrics())
+    node = NetNode(root, reactors.consensus, pv, metrics, app, conn, sw.transport.node_key)
+    node.reactors, node.genesis_doc, node.state_db = reactors, doc, state_db
+    node.evidence_pool = evpool
     real = ex.validate_block
 
     def validate_block(state, block, trusted_last_commit=False):
@@ -143,16 +173,21 @@ def build_node(i, doc, pv, cfg, verify_cfg, device, app, wal_dir, inst, sw) -> "
         return real(state, block, trusted_last_commit=trusted_last_commit)
 
     ex.validate_block = validate_block
-    verify_root.add_reactor(sw, "consensus", reactor)
     sw.metrics = metrics  # the switch's peers count their traffic in it
     node.switch = sw
     return node
 
 
+# the [p2p] section of a TCP net: the defaults with the peer exchange off and
+# duplicate IPs allowed, as a local testnet sets them, on 127.0.0.1 port 0
+TCP_P2P = P2PConfig(laddr="tcp://127.0.0.1:0", pex=False, allow_duplicate_ip=True)
+
+
 def make_consensus_net(n_vals: int, config=None, app_factory=None, *,
                        verify_cfg=None, device="cpu", wal_dir: Optional[str] = None,
                        flight: bool = False, watchdog: bool = False, tcp: bool = False,
-                       start: bool = True) -> List[NetNode]:
+                       start: bool = True,
+                       statesync_cfg: Optional[StateSyncConfig] = None) -> List[NetNode]:
     """``n_vals`` nodes over one genesis (``make_genesis``), node i holding
     the i-th validator of the sorted set, at
     ``config`` (default the TestConsensusConfig timeouts), ``verify_cfg``'s
@@ -160,10 +195,11 @@ def make_consensus_net(n_vals: int, config=None, app_factory=None, *,
     on the host inside ``add_vote``), each node's app ``app_factory(i)``
     (default ``KVStoreApp``), WAL under ``wal_dir/node<i>`` when given, and
     the ``[instrumentation]`` flight recorder (named by the node's p2p ID,
-    on) and watchdog (built, unstarted) when ``flight`` / ``watchdog``. Sockets: pairwise
-    socketpairs with ``NET_MCONFIG``, or with ``tcp=True`` the ``[p2p]``
-    defaults with ``pex`` off and ``allow_duplicate_ip`` (as a local testnet
-    sets them) on 127.0.0.1 port 0,
+    on) and watchdog (built, unstarted) when ``flight`` / ``watchdog``; the
+    ``[mempool]`` defaults (QoS on) and ``statesync_cfg`` (default off; with
+    ``snapshot_interval > 0`` an app that takes snapshots serves them) go to
+    every node. Sockets: pairwise
+    socketpairs with ``NET_MCONFIG``, or with ``tcp=True`` ``TCP_P2P``,
     dialing each other as persistent peers. Started unless ``start`` is
     False (then ``start_consensus_net``)."""
     cfg = config or consensus_test_config()
@@ -177,7 +213,7 @@ def make_consensus_net(n_vals: int, config=None, app_factory=None, *,
 
     def build(i, sw):
         nodes[i] = build_node(i, doc, sorted_pvs[i], cfg, verify_cfg, device, apps[i], wal_dir,
-                               inst, sw)
+                               inst, sw, statesync_cfg=statesync_cfg)
         return sw
 
     if not tcp:
@@ -186,24 +222,24 @@ def make_consensus_net(n_vals: int, config=None, app_factory=None, *,
         if start:
             start_consensus_net(nodes)
         return nodes
-    base = P2PConfig(laddr="tcp://127.0.0.1:0", pex=False, allow_duplicate_ip=True)
     for i in range(n_vals):
-        build(i, verify_root.switch(base, NodeKey(PrivKeyEd25519.generate()), doc.chain_id,
+        build(i, verify_root.switch(TCP_P2P, NodeKey(PrivKeyEd25519.generate()), doc.chain_id,
                                     moniker=f"node{i}"))
-    addrs = [str(verify_root.listen(node.switch, base)) for node in nodes]
+    addrs = [str(verify_root.listen(node.switch, TCP_P2P)) for node in nodes]
     for i, node in enumerate(nodes):
         node.p2p_cfg = dataclasses.replace(
-            base, persistent_peers=",".join(a for j, a in enumerate(addrs) if j != i))
+            TCP_P2P, persistent_peers=",".join(a for j, a in enumerate(addrs) if j != i))
     if start:
         start_consensus_net(nodes)
     return nodes
 
 
 def start_consensus_net(nodes: List[NetNode]) -> None:
-    """Start an unstarted net: each switch (its reactor starts the state
-    machine), then the connections: over TCP each node dials its persistent
-    peers; otherwise every pair is wired over a socketpair, as
-    ``p2p/test_util.make_connected_switches`` wires its switches."""
+    """Start an unstarted net: each switch (its reactors start; the
+    consensus reactor starts the state machine), then the connections: over
+    TCP each node dials its persistent peers; otherwise every pair is wired
+    over a socketpair, as ``p2p/test_util.make_connected_switches`` wires its
+    switches."""
     if nodes[0].p2p_cfg is not None:
         for node in nodes:
             verify_root.start_switch(node.switch, node.p2p_cfg)
@@ -213,6 +249,89 @@ def start_consensus_net(nodes: List[NetNode]) -> None:
     for i in range(len(nodes)):
         for j in range(i + 1, len(nodes)):
             connect_switches(nodes[i].switch, nodes[j].switch)
+
+
+def make_joining_node(nodes: List[NetNode], app, *, config=None, verify_cfg=None,
+                      device="cpu", statesync_cfg: Optional[StateSyncConfig] = None,
+                      wal_dir: Optional[str] = None, start: bool = True) -> NetNode:
+    """One more node for the running net ``nodes``: a non-validator over the
+    net's genesis with an empty store and ``app``, built as ``build_node``
+    builds one (index ``len(nodes)``), that restores a snapshot when
+    ``statesync_cfg.enable`` (then fast-syncs and switches to consensus) or
+    else fast-syncs from genesis; its flight recorder is off. Over TCP (the net's
+    ``p2p_cfg``) it listens on ``TCP_P2P`` and dials every node of ``nodes``
+    as a persistent peer (they do not dial it); otherwise it is wired to
+    each over a socketpair. Started (and connected) unless ``start`` is False
+    (then ``start_joining_node``)."""
+    cfg = config or consensus_test_config()
+    i = len(nodes)
+    doc = nodes[0].genesis_doc
+    inst = InstrumentationConfig(flight_recorder=False, watchdog=False)
+    kw = dict(fast_sync=True, statesync_cfg=statesync_cfg)
+    if nodes[0].p2p_cfg is None:
+        built = {}
+
+        def build(_, sw):
+            built["n"] = build_node(i, doc, None, cfg, verify_cfg, device, app, wal_dir, inst,
+                                    sw, **kw)
+            return sw
+
+        make_switch(i, network=doc.chain_id, init_switch=build, mconfig=NET_MCONFIG)
+        node = built["n"]
+    else:
+        sw = verify_root.switch(TCP_P2P, NodeKey(PrivKeyEd25519.generate()), doc.chain_id,
+                                moniker=f"node{i}")
+        node = build_node(i, doc, None, cfg, verify_cfg, device, app, wal_dir, inst, sw, **kw)
+        verify_root.listen(sw, TCP_P2P)
+        node.p2p_cfg = dataclasses.replace(
+            TCP_P2P, persistent_peers=",".join(str(n.switch.transport.listen_address)
+                                               for n in nodes))
+    node.join_peers = list(nodes)
+    if start:
+        start_joining_node(node)
+    return node
+
+
+def start_joining_node(node: NetNode) -> None:
+    """Start a ``make_joining_node`` node and connect it to its net."""
+    if node.p2p_cfg is not None:
+        verify_root.start_switch(node.switch, node.p2p_cfg)
+        return
+    node.switch.start()
+    for other in node.join_peers:
+        connect_switches(other.switch, node.switch)
+
+
+def duplicate_vote_evidence(nodes: List[NetNode], offender: int, height: int,
+                            timestamp_ns: Optional[int] = None) -> DuplicateVoteEvidence:
+    """Validator ``offender``'s double sign at ``height``: two round-0
+    prevotes for two made-up blocks, signed with its key (the reference's
+    ``tests/test_gossip_reactors.py:75``), stamped ``timestamp_ns``
+    (default now)."""
+    pv = nodes[offender].pv
+    addr = pv.get_pub_key().address()
+    idx, _ = nodes[0].cs.get_state().validators.get_by_address(addr)
+    ts = time.time_ns() if timestamp_ns is None else timestamp_ns
+    chain_id = nodes[0].genesis_doc.chain_id
+    votes = [pv.sign_vote(chain_id, Vote(
+        vote_type=SignedMsgType.PREVOTE, height=height, round=0, timestamp_ns=ts,
+        block_id=BlockID(hash=h, parts_header=PartSetHeader(1, b"\x33" * 32)),
+        validator_address=addr, validator_index=idx)) for h in (b"\x11" * 32, b"\x22" * 32)]
+    return DuplicateVoteEvidence(pub_key=pv.get_pub_key(), vote_a=votes[0], vote_b=votes[1])
+
+
+def committed_in(node: NetNode, pred) -> Optional[int]:
+    """The height of the first block in ``node``'s store (from its base)
+    holding a tx or an evidence for which ``pred(item)`` holds, else None."""
+    bs = node.cs.block_store
+    for h in range(max(1, bs.base()), bs.height() + 1):
+        block = bs.load_block(h)
+        if block is None:
+            continue
+        if any(pred(bytes(t)) for t in block.data.txs) or any(
+                pred(ev) for ev in block.evidence.evidence):
+            return h
+    return None
 
 
 def stop_consensus_net(nodes: List[NetNode], timeout: float = 30.0) -> None:

@@ -1,6 +1,7 @@
 """An in-process switch and a serving peer for driving a ``BlockchainReactor``
-without the p2p stack (ROADMAP item 17), as the reference's in-process tests
-connect two switches.
+without the p2p stack, as the reference's in-process tests connect two
+switches (the reactor also runs on the real ``p2p/switch.Switch``:
+``node/verify_root.node_reactors``).
 
 ``LoopbackSwitch`` holds the ``peers`` dict, ``broadcast`` and
 ``stop_peer_for_error`` (which records each reason and removes the peer from

@@ -1,5 +1,6 @@
 """In-process fakes for driving ``StateSyncReactor``s without the p2p stack
-(ROADMAP item 17), the port's copy of those of the reference's
+(the reactor also runs on the real ``p2p/switch.Switch``:
+``node/verify_root.node_reactors``), the port's copy of those of the reference's
 ``tests/test_statesync.py``.
 
 ``HubSwitch`` holds the ``peers.list()`` / ``peers.get()``, ``broadcast``
@@ -44,6 +45,9 @@ class HubPeer:
         return True
 
     send = try_send
+
+    def has_channel(self, chan_id) -> bool:
+        return True  # every hub switch runs every reactor
 
 
 class HubSwitch:

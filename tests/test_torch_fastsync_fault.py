@@ -197,10 +197,13 @@ def test_a_fault_of_a_discarded_slot_halts(monkeypatch):
     (5..8) and slot B (9..12). A harvests a bad signature at height 6 (its
     supplier punished, as the reference does) and applies 5 only, so B no
     longer starts at the pool's height and is discarded; B's dispatch
-    failed on the card, and the drain raises it."""
+    failed on the card, and the drain raises it. The slots verify at once:
+    a breaker that opens on B's failure could fail A's dispatch first, so
+    the guard's breaker here opens on the tenth failure only."""
     monkeypatch.setattr(planner, "_pipeline_depth", 3)
     fx = fault_chain(PORT)
-    bc, st_store = direct_reactor(PORT, fx, 4, guarded("raise", fails=from_height(fx, 9)),
+    bc, st_store = direct_reactor(PORT, fx, 4, guarded("raise", fails=from_height(fx, 9),
+                                                       breaker=brk.CircuitBreaker(threshold=10)),
                                   peer_id="peerA")
     blk = bc.pool._requests[7].block  # its LastCommit is height 6's commit
     blk.last_commit.precommits[0] = dataclasses.replace(blk.last_commit.precommits[0],
@@ -217,7 +220,8 @@ def test_a_fault_of_a_discarded_slot_halts(monkeypatch):
         bc._try_sync_window()  # B is discarded: its drained fault is raised
     assert bc._spec == [] and isinstance(bc.device_fault, brk.DeviceDispatchError)
     # the same through the pool routine
-    bc, st_store = direct_reactor(PORT, fx, 4, guarded("raise", fails=from_height(fx, 9)),
+    bc, st_store = direct_reactor(PORT, fx, 4, guarded("raise", fails=from_height(fx, 9),
+                                                       breaker=brk.CircuitBreaker(threshold=10)),
                                   peer_id="peerA")
     blk = bc.pool._requests[7].block
     blk.last_commit.precommits[0] = dataclasses.replace(blk.last_commit.precommits[0],
