@@ -370,15 +370,18 @@ Phases, in order; any failure exits non-zero:
   25. localnet BASELINE.json config 1, the 4-validator kvstore localnet of
              docker-compose.yml, on a [verify] root of its own with the vote
              feed on (phase 23's settings): four validators of power 10, each
-             a node in this process built through node/verify_root
-             (testutil/consensus_net.make_consensus_net with tcp=True: the
-             mempool, the executor, the handshake, consensus_state with its
-             own WAL, vote feed, NodeMetrics and the flight recorder on, and
-             node_reactors' whole set in node.py's order: consensus,
-             blockchain, mempool with its QoS gate at the [mempool]
-             defaults, evidence, statesync; a PersistentKVStoreApp that
-             snapshots every 4 heights, a cut of the reference's default 0;
-             a switch on 127.0.0.1 port 0) at the [consensus] defaults
+             a node/node.Node in this process started from its own home
+             directory (testutil/node_net.make_node_net: genesis, FilePV,
+             node key, sqlite stores under data/; the Node assembled from
+             node/verify_root's pieces on the nodes' one shared [verify]
+             root: the mempool, the executor, the handshake, consensus_state
+             with its own WAL, vote feed, NodeMetrics and the flight
+             recorder on, and node_reactors' whole set in node.py's order:
+             consensus, blockchain, mempool with its QoS gate at the
+             [mempool] defaults, evidence, statesync; a PersistentKVStoreApp
+             through the client creator that snapshots every 4 heights, a
+             cut of the reference's default 0; its RPC server and its
+             switch on 127.0.0.1 port 0) at the [consensus] defaults
              (timeout_commit 1 s) and the [p2p] defaults with
              allow_duplicate_ip = true (as a local testnet sets it) and pex
              off (the peer exchange is not ported), the other three nodes as
@@ -386,8 +389,10 @@ Phases, in order; any failure exits non-zero:
              connection (STS_BACKEND printed: cryptography where the host has
              it, crypto/sts_fallback otherwise; the H100 hosts measured in
              PERF.md have it), the NodeInfo exchange and an MConnection. A
-             kvstore tx a height into node 0's mempool only (gossip carries
-             it to the others, through their QoS gates), validator 1's
+             kvstore tx a height through broadcast_tx_commit on node 0's
+             RPC over HTTP (gossip carries it to the others, through their
+             QoS gates; the route's height and deliver_tx checked, and node
+             3's tx and tx_search find it), validator 1's
              double sign at height 2 into node 0's evidence pool. Every
              validator reaches every height with the same block and app
              hashes; each tx of heights 1-6 reaches every other mempool by
@@ -415,7 +420,22 @@ Phases, in order; any failure exits non-zero:
              the joining node's trust hops, backfill, fast-sync windows, its
              first block's LastCommit, flushes and LastCommit checks: each
              caller tags its thread, and a supervised dispatch carries the
-             tag to its worker), and no launch is untagged. Prints the
+             tag to its worker), and no launch is untagged. Then the RPC
+             over the running net: 16 concurrent clients ask node 0 for
+             /commit?verify=1 at every height with a canonical commit and
+             /validators?verify=1 once each (the RPC's LaneFeed on the
+             guarded device executor: K1 + K2 + the K7 tally; every verdict,
+             tally and sigs_ok equal to the host's verify_commit), inside
+             unsafe_start_profiler / unsafe_stop_profiler, whose Chrome
+             trace must name K1's and K2's kernels; the port's RPCProvider +
+             DynamicVerifier verify node 1's chain from 1 over
+             lite_full_commit (K1 + K2); a WSEventClient on node 2, subscribed
+             before the first height, saw NewBlock at every height; node 3's
+             /metrics holds the reference's names; dump_device_health shows
+             the breaker closed and no fallback; the joining node's status
+             said catching_up at its start and not at the end; tm_bench for
+             2 s at 50 tx/s against node 0, every tx it sent in a block or
+             in node 0's mempool. Prints the
              handshake's seconds a connection, blocks a second and a
              height's p50 wall, launches by source, flushes by reason, rows
              and lanes a flush, bytes sent and received a peer (NodeMetrics),
@@ -468,8 +488,10 @@ import hashlib
 import http.client
 import json
 import os
+import queue
 import random
 import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -491,6 +513,7 @@ from tendermint_tpu_torch.abci.examples.kvstore import (
 from tendermint_tpu_torch.blockchain import pool as bc_pool
 from tendermint_tpu_torch.blockchain import reactor as bc_reactor
 from tendermint_tpu_torch.blockchain.store import BlockStore
+from tendermint_tpu_torch.config.config import Config, default_config
 from tendermint_tpu_torch.config.consensus import ConsensusConfig, consensus_test_config
 from tendermint_tpu_torch.config.instrumentation import InstrumentationConfig
 from tendermint_tpu_torch.config.mempool import MempoolConfig
@@ -527,7 +550,7 @@ from tendermint_tpu_torch.libs.metrics import (
     get_verify_metrics,
 )
 from tendermint_tpu_torch.lite import DBProvider, DynamicVerifier, LiteError
-from tendermint_tpu_torch.lite.proxy import LiteProxy, serve_proxy
+from tendermint_tpu_torch.lite.proxy import LiteProxy, RPCProvider, serve_proxy
 from tendermint_tpu_torch.mempool.mempool import MempoolError
 from tendermint_tpu_torch.mempool.reactor import decode_tx_msg
 from tendermint_tpu_torch.mempool.tx_verify import BatchTxVerifier
@@ -545,6 +568,8 @@ from tendermint_tpu_torch.p2p.transport import MultiplexTransport
 from tendermint_tpu_torch.parallel import commit_verify as cv
 from tendermint_tpu_torch.parallel import planner
 from tendermint_tpu_torch.proxy.app_conn import LocalClientCreator, MultiAppConn
+from tendermint_tpu_torch.rpc import client as rpc_client
+from tendermint_tpu_torch.rpc.client import HTTPClient, WSEventClient
 from tendermint_tpu_torch.state import store as sm_store
 from tendermint_tpu_torch.state.execution import BlockExecutor, InvalidBlockError
 from tendermint_tpu_torch.state.state_types import state_from_genesis
@@ -553,9 +578,9 @@ from tendermint_tpu_torch.statesync.store import SnapshotStore
 from tendermint_tpu_torch.testutil import chain as tchain
 from tendermint_tpu_torch.testutil import commit as tc
 from tendermint_tpu_torch.testutil import consensus as tcs
-from tendermint_tpu_torch.testutil import consensus_net as tnet
 from tendermint_tpu_torch.testutil import lite_chain as lc
 from tendermint_tpu_torch.testutil import multisig as tm
+from tendermint_tpu_torch.testutil import node_net as nn
 from tendermint_tpu_torch.testutil import secp_signer
 from tendermint_tpu_torch.testutil import votes as tv
 from tendermint_tpu_torch.testutil import window as tw
@@ -563,6 +588,7 @@ from tendermint_tpu_torch.testutil.consensus_net import validate_chrome_trace
 from tendermint_tpu_torch.testutil.fastsync import LoopbackSwitch, ServingPeer
 from tendermint_tpu_torch.testutil.statesync import CorruptingStore, hub_net
 from tendermint_tpu_torch.tools import bench_fastsync as bf
+from tendermint_tpu_torch.tools import tm_bench
 from tendermint_tpu_torch.tools import trace_merge
 from tendermint_tpu_torch.types.block import Commit
 from tendermint_tpu_torch.types.core import BlockID, SignedMsgType
@@ -685,18 +711,18 @@ SS_SPANS = ("statesync.restore", "statesync.light_verify", "statesync.chunks",
             "planner.audit", "verify.dispatch", "verify.audit")
 # the localnet phase: BASELINE.json config 1 (docker-compose.yml's 4-validator
 # kvstore localnet), power 10, the [consensus] defaults, the vote feed at phase
-# 23's settings, 8 heights
-LN_VALS, LN_HEIGHTS, LN_WINDOW_MS, LN_ROWS = 4, 8, 2.0, 64
+# 23's settings, 6 heights (8 before the RPC checks came)
+LN_VALS, LN_HEIGHTS, LN_WINDOW_MS, LN_ROWS = 4, 6, 2.0, 64
 LN_TIMEOUT = 120.0
 LN_FRAME_REPS = 50
 # ... with the node's whole reactor set: the validators' PersistentKVStoreApp
 # snapshots every 4 heights (the reference's interval default is 0, off); a
 # tx a height into node 0 alone (gossip carries it); validator 1's double
-# sign at height 2 into node 0's evidence pool. At 8 a fifth node, a
+# sign at height 2 into node 0's evidence pool. At 6 a fifth node, a
 # non-validator with an empty store at the [statesync] defaults (trusting
 # header 1 of node 0's store), joins by state sync over TCP and must follow 2
-# more heights. It restores the snapshot at 8 once header 9 exists, else the
-# one at 4: either is right
+# more heights. It restores the snapshot at 4 (two past it, so that header 5
+# and a fast-sync window exist)
 LN_SNAPSHOT_INTERVAL, LN_JOIN_AT, LN_FOLLOW, LN_TRUST = 4, LN_HEIGHTS, 2, 1
 LN_EVIDENCE_HEIGHT, LN_OFFENDER = 2, 1
 LN_JOIN_TIMEOUT = 60.0
@@ -704,6 +730,26 @@ LN_SS_SPANS = ("statesync.restore", "statesync.light_verify", "statesync.chunks"
                "statesync.backfill")
 LN_JOIN_SOURCES = ("trust", "backfill", "fastsync", "fastsync_last_commit", "flushes",
                    "last_commit")
+# then the RPC: 16 clients x /commit?verify=1 at every height (and
+# /validators?verify=1 once each) on node 0, the lite client on node 1, a
+# NewBlock websocket on node 2, /metrics on node 3, and tm_bench on node 0
+# for 2 s at 50 tx/s
+LN_RPC_CLIENTS, LN_BENCH_S, LN_BENCH_RATE = 16, 2.0, 50
+LN_RPC_SOURCES = ("burst", "lite", "bench")
+# K1's and K2's __global__ functions, as a CUDA trace names them
+LN_KERNEL_NAMES = {"ed25519_prologue": "prologue_kernel", "ed25519_ladder": "ladder_kernel"}
+# the reference's metric names a node's /metrics must hold (tests/test_ws_metrics.py)
+LN_METRIC_NAMES = (
+    "# TYPE tendermint_consensus_height gauge", "tendermint_consensus_validators 4",
+    "tendermint_mempool_size", "tendermint_state_block_processing_time_count",
+    "tendermint_consensus_block_interval_seconds_bucket",
+    "# TYPE tendermint_verify_batch_size histogram",
+    "# TYPE tendermint_consensus_step_duration_seconds histogram",
+    "# TYPE tendermint_consensus_wal_fsync_seconds histogram",
+    "# TYPE tendermint_p2p_peer_receive_bytes_total counter",
+    "# TYPE tendermint_p2p_peer_send_bytes_total counter",
+    "# TYPE tendermint_p2p_messages_received_total counter",
+    "# TYPE tendermint_mempool_tx_size_bytes histogram", "# TYPE tendermint_p2p_peers gauge")
 
 # Rates for the least time the card could take: HBM bandwidth (H100 SXM
 # data sheet); 32-bit integer add, logic, shift and multiply-add each retire
@@ -4386,7 +4432,7 @@ def ln_gossip(nodes, others=()) -> dict:
     node of ``others``, which records nothing, may be a link's peer)."""
     ids = [n.switch.node_id for n in nodes]
     idx = {nid: i for i, nid in enumerate(ids + [n.switch.node_id for n in others])}
-    dumps = [n.cs.flight.snapshot() for n in nodes]
+    dumps = [n.consensus_state.flight.snapshot() for n in nodes]
     journeys = [j for j in build_journeys(dumps) if 1 <= j["height"] <= LN_HEIGHTS]
     ledger = gossip_ledger(dumps, journeys=journeys)
     links = {(idx.get(lk["peer"]), idx[lk["node"]]) for lk in ledger["links"]
@@ -4502,9 +4548,9 @@ def ln_tag_node(n, who: str, tls, switched=None) -> None:
     """Tag the launches of node ``n``'s vote-feed flushes (``who:flushes``)
     and LastCommit checks (``who:last_commit``; before ``switched`` is set,
     ``who:fastsync_last_commit``: fast sync's check of its first block)."""
-    if n.feed is not None:
-        n.feed._dispatch = ln_tagged(n.feed._dispatch, f"{who}:flushes", tls)
-    ex = n.cs.block_exec
+    if n.vote_feed is not None:
+        n.vote_feed._dispatch = ln_tagged(n.vote_feed._dispatch, f"{who}:flushes", tls)
+    ex = n.consensus_state.block_exec
     ex.validate_block = ln_tagged(
         ex.validate_block, lambda: (f"{who}:last_commit" if switched is None or switched.is_set()
                                     else f"{who}:fastsync_last_commit"), tls)
@@ -4542,42 +4588,93 @@ def ln_check_wiring(n, who: str, dev, restoring: bool = False) -> None:
     """Node ``n`` is wired as node/verify_root wires a node's reactor set."""
     r, sw = n.reactors, n.switch
     check(list(sw.reactors) == ["consensus", "blockchain", "mempool", "evidence", "statesync"]
-          and sw.reactors["consensus"] is r.consensus is n.reactor and n.reactor.cons is n.cs
+          and sw.reactors["consensus"] is r.consensus is n.consensus_reactor and n.consensus_reactor.cons is n.consensus_state
           and sw.reactors["mempool"] is r.mempool and r.mempool.qos is not None
           and sw.reactors["evidence"] is r.evidence and r.statesync is not None
           and sw.reactors["statesync"] is r.statesync.reactor
           and set(sw.node_info.channels) == {d.id for d in sw._chan_descs}
           and r.restoring == restoring and (r.statesync.syncer is not None) == restoring,
           f"localnet: {who} is not wired as node/verify_root.node_reactors wires a node")
-    check(n.feed is not None and n.cs._vote_feed is n.feed
-          and n.feed.window_s == LN_WINDOW_MS / 1e3 and n.root.wal is not None,
+    check(n.vote_feed is not None and n.consensus_state._vote_feed is n.vote_feed
+          and n.vote_feed.window_s == LN_WINDOW_MS / 1e3 and n.consensus_root.wal is not None,
           f"localnet: {who}'s consensus state is not wired as node/verify_root wires one")
     if dev.type == "cuda":
-        check(n.feed.device.type == "cuda" and n.feed.verifier is None,
+        check(n.vote_feed.device.type == "cuda" and n.vote_feed.verifier is None,
               f"localnet: {who}'s vote feed does not run the installed verifier on the card")
 
 
-def ln_join(nodes, cfg, dev, tmp, tls, stops) -> dict:
-    """The fifth node: a non-validator with an empty store that restores by
-    state sync from the four over TCP, hands off to fast sync and then to
-    consensus, reaches the tip and follows LN_FOLLOW more heights. Its
-    switch's stops go into ``stops`` (``ln_stopped_peers``' lists)."""
-    meta = nodes[0].cs.block_store.load_block_meta(LN_TRUST)
+def ln_config(flight: bool) -> Config:
+    """A localnet node's configuration: the defaults ([consensus] at its
+    defaults, sqlite stores) with the vote feed at phase 23's settings, the
+    flight recorder ``flight``, the watchdog off and the validators'
+    snapshots every LN_SNAPSHOT_INTERVAL heights; node_net adds the local
+    [p2p] and RPC addresses, the unsafe routes and the metrics."""
+    cfg = default_config()
+    cfg.verify = VerifyConfig(vote_batch_window_ms=LN_WINDOW_MS, vote_batch_rows=LN_ROWS)
+    cfg.instrumentation.flight_recorder = flight
+    cfg.instrumentation.watchdog = False
+    cfg.statesync = StateSyncConfig(snapshot_interval=LN_SNAPSHOT_INTERVAL)
+    return cfg
+
+
+def ln_addr(node) -> str:
+    return f"tcp://127.0.0.1:{node.rpc_server.bound_port}"
+
+
+def ln_get(node, path: str):
+    """A GET URI route of ``node``'s RPC server: (seconds, the JSON)."""
+    conn = http.client.HTTPConnection("127.0.0.1", node.rpc_server.bound_port,
+                                      timeout=RESULT_TIMEOUT)
+    t0 = time.perf_counter()
+    try:
+        conn.request("GET", path)
+        body = conn.getresponse().read()
+    finally:
+        conn.close()
+    return time.perf_counter() - t0, json.loads(body)
+
+
+def ln_broadcast(node, tx: bytes, out: dict) -> threading.Thread:
+    """``broadcast_tx_commit`` of ``tx`` on ``node``'s RPC over HTTP, on a
+    thread of its own; ``out[tx]`` gets (seconds, the result or the
+    error)."""
+    def run():
+        t0 = time.perf_counter()
+        try:
+            res = HTTPClient(ln_addr(node), timeout=LN_TIMEOUT).broadcast_tx_commit(tx)
+        except Exception as e:  # checked by the phase
+            res = e
+        out[tx] = (time.perf_counter() - t0, res)
+
+    t = threading.Thread(target=run, name="ln-broadcast", daemon=True)
+    t.start()
+    return t
+
+
+def ln_join(nodes, tmp, dev, tls, stops) -> dict:
+    """The fifth node: a non-validator home with an empty store that
+    restores by state sync from the four over TCP, hands off to fast sync
+    and then to consensus, reaches the tip and follows LN_FOLLOW more
+    heights; its RPC status reports catching_up until it runs consensus.
+    Its switch's stops go into ``stops`` (``ln_stopped_peers``' lists)."""
+    meta = nodes[0].block_store.load_block_meta(LN_TRUST)
     ss_cfg = StateSyncConfig(enable=True, trust_height=LN_TRUST,
                              trust_hash=meta.header.hash().hex())
     t_build = time.perf_counter()
-    j = tnet.make_joining_node(nodes, PersistentKVStoreApp(), config=ConsensusConfig(),
-                               verify_cfg=cfg, device=dev, statesync_cfg=ss_cfg, wal_dir=tmp,
-                               start=False)
+    j = nn.add_joining_node(nodes, tmp, ln_config(flight=False),
+                            LocalClientCreator(PersistentKVStoreApp()), statesync=ss_cfg,
+                            device=dev, start=False)
     ln_check_wiring(j, "the joining node", dev, restoring=True)
     ln_stopped_peers(nodes + [j], wrap=[j], into=stops)
     received = ln_gossip_counts([j])[0]
-    check(j.pv is None and j.cs.block_store.height() == 0 and j.reactors.consensus.fast_sync
+    vals = nodes[0].consensus_state.get_state().validators
+    check(not vals.has_address(j.priv_validator.get_pub_key().address())
+          and j.block_store.height() == 0 and j.reactors.consensus.fast_sync
           and not j.reactors.blockchain.fast_sync and j.reactors.statesync.syncer.batch_verifier
           is None, "localnet: the joining node is not an empty non-validator that restores")
     ss = j.reactors.statesync
     stamps, switched = {}, threading.Event()
-    real_synced, real_switch = ss.reactor.on_synced, j.reactor.switch_to_consensus
+    real_synced, real_switch = ss.reactor.on_synced, j.consensus_reactor.switch_to_consensus
 
     def on_synced(state, height):
         stamps["synced"] = time.perf_counter()
@@ -4588,7 +4685,7 @@ def ln_join(nodes, cfg, dev, tmp, tls, stops) -> dict:
         switched.set()
         return real_switch(state, blocks_synced)
 
-    ss.reactor.on_synced, j.reactor.switch_to_consensus = on_synced, switch_to_consensus
+    ss.reactor.on_synced, j.consensus_reactor.switch_to_consensus = on_synced, switch_to_consensus
     ln_tag_node(j, "join", tls, switched)
     ss.syncer._establish_trust = ln_tagged(ss.syncer._establish_trust, "join:trust", tls)
     ss.syncer._verify_backfill_window = ln_tagged(ss.syncer._verify_backfill_window,
@@ -4597,7 +4694,8 @@ def ln_join(nodes, cfg, dev, tmp, tls, stops) -> dict:
     trace.enable()
     try:
         t0 = time.perf_counter()
-        tnet.start_joining_node(j)
+        j.start()
+        catching = [HTTPClient(ln_addr(j)).status()["sync_info"]["catching_up"]]
         check(tcs.wait_for(lambda: switched.is_set() or ss.reactor.progress()["error"]
                            or j.reactors.blockchain.device_fault is not None,
                            LN_JOIN_TIMEOUT, interval=0.005),
@@ -4621,29 +4719,32 @@ def ln_join(nodes, cfg, dev, tmp, tls, stops) -> dict:
           f"localnet: fast sync synced {synced} blocks after {H}, switched at "
           f"{stamps['switched_at']}")
     # the tip: every validator's height once the node has switched
-    tip = min(n.cs.block_store.height() for n in nodes)
-    check(tcs.wait_for(lambda: j.cs.block_store.height() >= tip, LN_JOIN_TIMEOUT,
-                       interval=0.005),
-          f"localnet: the joining node at {j.cs.block_store.height()}, not at the tip {tip}")
+    tip = min(n.block_store.height() for n in nodes)
+    check(tcs.wait_for(lambda: j.block_store.height() >= tip, LN_JOIN_TIMEOUT, interval=0.005),
+          f"localnet: the joining node at {j.block_store.height()}, not at the tip {tip}")
     stamps["tip"] = time.perf_counter()
     top = tip + LN_FOLLOW
-    check(tcs.wait_for(lambda: min(n.cs.block_store.height() for n in nodes + [j]) >= top,
+    check(tcs.wait_for(lambda: min(n.block_store.height() for n in nodes + [j]) >= top,
                        LN_JOIN_TIMEOUT, interval=0.005),
           f"localnet: the joining node did not follow to {top}: "
-          f"{[n.cs.block_store.height() for n in nodes + [j]]}")
+          f"{[n.block_store.height() for n in nodes + [j]]}")
     stamps["followed"] = time.perf_counter()
-    bs = j.cs.block_store
+    catching.append(HTTPClient(ln_addr(j)).status()["sync_info"]["catching_up"])
+    check(catching == [True, False],
+          f"localnet: the joining node's status catching_up at its start and at {top}: {catching}")
+    bs = j.block_store
     check(bs.base() == max(1, H - StateSyncConfig().backfill_blocks + 1),
           f"localnet: the joining node's base {bs.base()}")
     for h in range(bs.base(), top + 1):
-        want = nodes[0].cs.block_store.load_block_meta(h).header
+        want = nodes[0].block_store.load_block_meta(h).header
         check(bs.load_block_meta(h).header.hash() == want.hash()
               and bs.load_block_meta(h).header.app_hash == want.app_hash,
               f"localnet: the joining node's header at {h} differs from node 0's")
         if h > H:
-            check(bs.load_block(h).hash() == nodes[0].cs.block_store.load_block(h).hash(),
+            check(bs.load_block(h).hash() == nodes[0].block_store.load_block(h).hash(),
                   f"localnet: the joining node's block {h} differs")
-    check(j.cs.device_fault is None, f"localnet: the joining node's device fault {j.cs.device_fault}")
+    check(j.consensus_state.device_fault is None,
+          f"localnet: the joining node's device fault {j.consensus_state.device_fault}")
     return {"node": j, "snapshot": H, "synced": synced, "tip": tip, "top": top,
             "build_s": t0 - t_build, "restore_s": stamps["synced"] - t0,
             "handoff_s": stamps["switched"] - stamps["synced"], "tip_s": stamps["tip"] - t0,
@@ -4651,31 +4752,191 @@ def ln_join(nodes, cfg, dev, tmp, tls, stops) -> dict:
             "received": received}
 
 
+def ln_host_verdict(node, h: int) -> dict:
+    """The host's verdict on the stored commit at ``h`` against its
+    validator set: ``verify_commit`` on ``HostBatchVerifier``, and the
+    tally of the signatures that verify."""
+    commit = node.block_store.load_block_commit(h) or node.block_store.load_seen_commit(h)
+    vals = sm_store.load_validators(node.state_db, h)
+    chain_id = node.genesis_doc.chain_id
+    pubs, msgs, sigs, powers = vals.collect_commit_sigs(chain_id, commit.block_id, h, commit)
+    ok = [bool(x) for x in verify_generic(pubs, msgs, sigs, verifier=HostBatchVerifier())]
+    try:
+        vals.verify_commit(chain_id, commit.block_id, h, commit, verifier=HostBatchVerifier())
+        verified = True
+    except CommitError:
+        verified = False
+    return {"verified": verified, "sigs_ok": all(ok),
+            "tally": sum(p for p, o in zip(powers, ok) if o)}
+
+
+def ln_rpc_burst(node, heights, tls, tmp) -> dict:
+    """LN_RPC_CLIENTS concurrent clients ask ``node`` for /commit?verify=1 at
+    every height of ``heights`` and /validators?verify=1 at one each, around
+    an unsafe_start_profiler / unsafe_stop_profiler trace; every verdict
+    must equal the host's."""
+    feed = node._rpc_env._lane_feed()
+    feed._dispatch = ln_tagged(feed._dispatch, "rpc:burst", tls)
+    d0 = feed.dispatches
+    t_w = time.perf_counter()
+    want = {h: ln_host_verdict(node, h) for h in heights}
+    host_s = time.perf_counter() - t_w
+    start_s, started = ln_get(node, "/unsafe_start_profiler?dir=%22" + os.path.join(tmp, "trace")
+                              + "%22")
+    check(started.get("result", {}).get("tracing") is True,
+          f"localnet: unsafe_start_profiler: {started}")
+    out, mtx = [], threading.Lock()
+
+    def client(c: int) -> None:
+        paths = [(h, f"/commit?height={h}&verify=1") for h in heights]
+        hv = heights[c % len(heights)]
+        paths.append((hv, f"/validators?height={hv}&verify=1"))
+        for h, path in paths:
+            secs, res = ln_get(node, path)
+            with mtx:
+                out.append((h, path, secs, res))
+
+    t0 = time.perf_counter()
+    threads = [threading.Thread(target=client, args=(c,), name=f"ln-rpc-{c}", daemon=True)
+               for c in range(LN_RPC_CLIENTS)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(LN_TIMEOUT)
+    wall = time.perf_counter() - t0
+    stop_s, stopped = ln_get(node, "/unsafe_stop_profiler")
+    check(len(out) == LN_RPC_CLIENTS * (len(heights) + 1),
+          f"localnet: {len(out)} burst answers, want {LN_RPC_CLIENTS * (len(heights) + 1)}")
+    for h, path, _, res in out:
+        v = res.get("result", {}).get("verification")
+        check(v is not None and {k: v[k] for k in ("verified", "sigs_ok", "tally")} == want[h],
+              f"localnet: {path} gave {res}, the host {want[h]}")
+    trace_file = stopped.get("result", {}).get("file")
+    check(trace_file is not None and os.path.exists(trace_file),
+          f"localnet: unsafe_stop_profiler: {stopped}")
+    t_l = time.perf_counter()
+    with open(trace_file) as f:
+        events = json.load(f)["traceEvents"]
+    load_s = time.perf_counter() - t_l
+    kernels = {e["name"] for e in events if e.get("cat") == "kernel"}
+    named = {k: any(LN_KERNEL_NAMES[k] in n for n in kernels) for k in LN_KERNEL_NAMES}
+    check(all(named.values()), f"localnet: the profiler trace's kernels {sorted(kernels)[:20]}")
+    by_h = {}
+    for h, path, secs, _ in out:
+        if path.startswith("/commit"):
+            by_h.setdefault(h, []).append(secs)
+    rows = [res["result"]["verification"]["batch_rows"] for *_, res in out]
+    return {"answers": len(out), "wall_s": wall, "dispatches": feed.dispatches - d0,
+            "p50_ms": statistics.median(statistics.median(v) for v in by_h.values()) * 1e3,
+            "rows_mean": statistics.mean(rows), "rows_max": max(rows),
+            "trace_events": len(events), "trace_kernels": sorted(kernels),
+            "profiler_s": {"host_verdicts": host_s, "start": start_s, "stop": stop_s,
+                           "load": load_s}}
+
+
+def ln_indexed(node, txs) -> dict:
+    """By tx: the height ``node``'s ``tx`` route gives for its hash, and
+    whether ``tx_search`` at that height lists it (None where the route
+    errs)."""
+    c, out = HTTPClient(ln_addr(node)), {}
+    for tx in txs:
+        hx = hashlib.sha256(tx).hexdigest().upper()
+        try:
+            h = c.tx(hx)["height"]
+            found = c.tx_search(f"tx.height = {h}")["txs"]
+            out[tx] = (h, any(r["hash"] == hx for r in found))
+        except Exception as e:  # checked by the phase
+            out[tx] = (None, repr(e))
+    return out
+
+
+def ln_lite(node, top: int, tls) -> dict:
+    """The port's RPCProvider + DynamicVerifier on the installed verifier
+    verify ``node``'s chain from height 1 to ``top`` over lite_full_commit;
+    each certified header equals the node's."""
+    src = RPCProvider(ln_addr(node))
+    chain_id = node.genesis_doc.chain_id
+    dv = DynamicVerifier(chain_id, DBProvider(MemDB()), src)
+
+    def run():
+        dv.init_from_full_commit(src.full_commit_at(chain_id, 1))
+        for h in range(2, top + 1):
+            dv.verify(src.full_commit_at(chain_id, h).signed_header)
+
+    t0 = time.perf_counter()
+    ln_tagged(run, "rpc:lite", tls)()
+    secs = time.perf_counter() - t0
+    latest = dv.trusted.latest_full_commit(chain_id, 1, 1 << 60)
+    check(latest.height == top and latest.signed_header.header.hash()
+          == node.block_store.load_block_meta(top).header.hash(),
+          f"localnet: the lite client trusts {latest.height}, want {top}")
+    return {"heights": top, "seconds": secs}
+
+
+def ln_bench(node, tls) -> dict:
+    """tm_bench at LN_BENCH_RATE tx/s for LN_BENCH_S s against ``node``:
+    every tx it sent is in a block or in the node's mempool after it."""
+    sent, mtx, real = [], threading.Lock(), rpc_client.HTTPClient.broadcast_tx_async
+
+    def record(self, tx):
+        out = real(self, tx)
+        with mtx:
+            sent.append(bytes(tx))
+        return out
+
+    rpc_client.HTTPClient.broadcast_tx_async = record
+    try:
+        stats = ln_tagged(tm_bench.run_bench, "rpc:bench", tls)(
+            ln_addr(node), duration=LN_BENCH_S, rate=LN_BENCH_RATE, connections=1)
+    finally:
+        rpc_client.HTTPClient.broadcast_tx_async = real
+    # the pool first: a tx leaves it only after its block is stored
+    pooled = {bytes(t) for t in node.mempool.reap_max_txs(-1)}
+    bs = node.block_store
+    in_blocks = {bytes(t) for h in range(1, bs.height() + 1) for t in bs.load_block(h).data.txs}
+    lost = [t for t in sent if t not in in_blocks and t not in pooled]
+    check(stats["txs_sent"] == len(sent) > 0 and not lost,
+          f"localnet: tm_bench sent {len(sent)} txs ({stats}), {len(lost)} neither committed nor "
+          f"pooled")
+    stats["committed"] = sum(1 for t in sent if t in in_blocks)
+    return stats
+
+
 def phase_localnet(dev, err: dict) -> dict:
-    """Phase 25: BASELINE.json config 1, four nodes over real switches with
-    the node's whole reactor set, on a [verify] root of its own with the
-    vote feed on; then a fifth node joins by state sync."""
-    phase(f"localnet: {LN_VALS} validators of power 10, each a node built by node/verify_root "
-          f"with its own WAL, vote feed ({LN_WINDOW_MS:g} ms, {LN_ROWS} rows) and the reactor "
+    """Phase 25: BASELINE.json config 1, four Nodes started from home
+    directories (testutil/node_net) over TCP with RPC on, their [verify]
+    root with the vote feed on; txs through broadcast_tx_commit on node 0's
+    RPC; then a fifth node joins by state sync, and the RPC routes are
+    driven: the ?verify=1 burst under the profiler, the lite client over
+    lite_full_commit, a NewBlock websocket, /metrics, dump_device_health and
+    tm_bench."""
+    phase(f"localnet: {LN_VALS} validators of power 10, each a node/node.Node from a home "
+          f"directory (testutil/node_net: sqlite stores, FilePV, node key, genesis) with its "
+          f"own WAL, vote feed ({LN_WINDOW_MS:g} ms, {LN_ROWS} rows), RPC server and reactor "
           f"set (consensus, blockchain, mempool with its QoS gate, evidence, statesync; "
-          f"PersistentKVStoreApp snapshots every {LN_SNAPSHOT_INTERVAL}), on a switch at "
-          f"127.0.0.1 port 0 dialing the others as persistent peers (TCP, secret connection, "
-          f"MConnection); {LN_HEIGHTS} heights at the [consensus] defaults, a tx into node 0's "
-          f"mempool only each height, validator {LN_OFFENDER}'s double sign at "
-          f"{LN_EVIDENCE_HEIGHT} into node 0's evidence pool; at {LN_JOIN_AT} a fifth node joins "
-          f"by state sync and follows {LN_FOLLOW} heights")
+          f"PersistentKVStoreApp snapshots every {LN_SNAPSHOT_INTERVAL}), listening at "
+          f"127.0.0.1 port 0 and dialing the others as persistent peers (TCP, secret "
+          f"connection, MConnection); {LN_HEIGHTS} heights at the [consensus] defaults, a tx "
+          f"a height through broadcast_tx_commit on node 0's RPC, validator {LN_OFFENDER}'s "
+          f"double sign at {LN_EVIDENCE_HEIGHT} into node 0's evidence pool; at {LN_JOIN_AT} a "
+          f"fifth node joins by state sync and follows {LN_FOLLOW} heights; then the RPC: "
+          f"{LN_RPC_CLIENTS} clients x /commit?verify=1 under the profiler, the lite client, "
+          f"the websocket, /metrics, dump_device_health and tm_bench")
     t_phase = time.perf_counter()
-    cfg = VerifyConfig(vote_batch_window_ms=LN_WINDOW_MS, vote_batch_rows=LN_ROWS)
-    root = configure_verify(cfg, device=dev)
-    check(get_batch_verifier() is root.verifier, "the root's guarded verifier is not installed")
     before = fallbacks()
+    # the guard's events of earlier phases (their tripped breakers) stay in
+    # the process's ring: dump_device_health is read from here on
+    seq0 = max((e["seq"] for e in get_profiler().events()), default=-1)
     txs = [b"localnet-h%d=v%d" % (h, h) for h in range(1, LN_JOIN_AT + LN_FOLLOW + 1)]
-    with tempfile.TemporaryDirectory(prefix="chip-smoke-ln-") as tmp, timed_upgrades() as ups, \
-            ln_launch_sources() as (tls, by_tag):
-        nodes = tnet.make_consensus_net(
-            LN_VALS, config=ConsensusConfig(), app_factory=lambda i: PersistentKVStoreApp(),
-            verify_cfg=cfg, device=dev, wal_dir=tmp, flight=True, tcp=True, start=False,
-            statesync_cfg=StateSyncConfig(snapshot_interval=LN_SNAPSHOT_INTERVAL))
+    # the homes outlive the nodes: the checks below read their stores
+    tmp = tempfile.mkdtemp(prefix="chip-smoke-ln-")
+    with timed_upgrades() as ups, ln_launch_sources() as (tls, by_tag):
+        nodes = nn.make_node_net(LN_VALS, tmp, ln_config(flight=True),
+                                 lambda i: LocalClientCreator(PersistentKVStoreApp()),
+                                 device=dev, start=False)
+        root = nodes[0].verify_root
+        check(all(n.verify_root is root for n in nodes) and get_batch_verifier() is root.verifier,
+              "localnet: the nodes do not share one [verify] root whose verifier is installed")
         for i, n in enumerate(nodes):
             ln_check_wiring(n, f"node {i}", dev)
             ln_tag_node(n, "validators", tls)
@@ -4691,41 +4952,77 @@ def phase_localnet(dev, err: dict) -> dict:
               f"{fb_seal_ms:.3f} and {fb_open_ms:.3f} ms; means of {LN_FRAME_REPS}, this "
               f"process alone)", flush=True)
         reset_launches()
-        stamps, frames, join = {}, {}, None
-        ev = None
+        stamps, frames, join, ev, ws = {}, {}, None, None, None
+        results, senders = {}, []
         try:
             with captured_packs() as packs:
-                nodes[0].cs.mempool.check_tx(txs[0])
                 t0 = time.perf_counter()
-                tnet.start_consensus_net(nodes)
+                # node 2 first: its websocket sees every height (no height
+                # commits before a second node is up)
+                nodes[2].start()
+                ws = WSEventClient(ln_addr(nodes[2]))
+                ws.subscribe("tm.event = 'NewBlock'")
+                for n in (nodes[0], nodes[1], nodes[3]):
+                    n.start()
+                senders.append(ln_broadcast(nodes[0], txs[0], results))
                 for h in range(1, LN_JOIN_AT + 1):
-                    check(tcs.wait_for(lambda: all(n.cs.block_store.height() >= h
+                    check(tcs.wait_for(lambda: all(n.block_store.height() >= h
                                                    for n in nodes), LN_TIMEOUT, interval=0.002),
                           f"localnet: height {h} never committed on every node: "
-                          f"{[(n.cs.get_state().last_block_height, n.cs.device_fault) for n in nodes]}")
+                          f"{[(n.consensus_state.get_state().last_block_height, n.consensus_state.device_fault) for n in nodes]}")
                     stamps[h] = time.perf_counter()
                     frames[h] = ln_frames(nodes)
-                    nodes[0].cs.mempool.check_tx(txs[h])
+                    senders.append(ln_broadcast(nodes[0], txs[h], results))
                     if h == LN_EVIDENCE_HEIGHT + 1:
                         # every node holds the validators of the evidence's height
-                        ev = tnet.duplicate_vote_evidence(nodes, LN_OFFENDER, LN_EVIDENCE_HEIGHT)
+                        ev = nn.duplicate_vote_evidence(nodes, LN_OFFENDER, LN_EVIDENCE_HEIGHT)
                         nodes[0].evidence_pool.add_evidence(ev)
                     if h == LN_HEIGHTS:
                         # before the join: its peer changes the peers and bytes
                         peers = [n.switch.peers.size() for n in nodes]
                         stopped_run, closed_run = list(stopped), list(closed)
                         peer_bytes = ln_peer_bytes(nodes)
-                join = ln_join(nodes, cfg, dev, tmp, tls, (stopped, closed))
+                join = ln_join(nodes, tmp, dev, tls, (stopped, closed))
                 j = join["node"]
+                for t in senders:
+                    t.join(LN_TIMEOUT)
                 # the last txs commit, every node holds the evidence's block
-                check(tcs.wait_for(lambda: all(tnet.committed_in(n, lambda t: t == txs[LN_JOIN_AT])
+                check(tcs.wait_for(lambda: all(nn.committed_in(n, lambda t: t == txs[LN_JOIN_AT])
                                                for n in nodes), LN_TIMEOUT, interval=0.005),
                       "localnet: the last tx into node 0 did not commit everywhere")
                 stopped_join = [s for s in stopped if s not in stopped_run]
                 peers_join = [n.switch.peers.size() for n in nodes + [j]]
+                # the RPC routes over the running net
+                t_rpc = time.perf_counter()
+                top_rpc = nodes[0].block_store.height()
+                # the heights whose canonical commit node 0 stores (the tip's
+                # is its seen commit, which the next block replaces)
+                heights = list(range(1, top_rpc))
+                print(f"  the net's heights 1-{LN_JOIN_AT} and the join in "
+                      f"{t_rpc - t0:.1f} s; the RPC checks follow", flush=True)
+                burst = ln_rpc_burst(nodes[0], heights, tls, tmp)
+                print(f"  the burst in {time.perf_counter() - t_rpc:.1f} s: "
+                      f"{burst['profiler_s']}", flush=True)
+                lite = ln_lite(nodes[1], top_rpc, tls)
+                indexed = ln_indexed(nodes[3], txs[:LN_HEIGHTS])
+                metrics_text = HTTPClient(ln_addr(nodes[3])).metrics_text()
+                health = HTTPClient(ln_addr(nodes[0])).dump_device_health()
+                print(f"  the lite client, /metrics and dump_device_health by "
+                      f"{time.perf_counter() - t_rpc:.1f} s", flush=True)
+                bench = ln_bench(nodes[0], tls)
+                seen = set()
+                while True:
+                    try:
+                        seen.add(ws.next_event(timeout=0.5)["data"]["value"]["block"]["header"]
+                                 ["height"])
+                    except queue.Empty:
+                        break
+                rpc_s = time.perf_counter() - t_rpc
         finally:
             bc_reactor.verify_block_window = real_window
-            tnet.stop_consensus_net(nodes + ([join["node"]] if join is not None else []))
+            if ws is not None:
+                ws.close()
+            nn.stop_node_net(nodes + ([join["node"]] if join is not None else []))
         tags = {k: dict(v) for k, v in by_tag.items()}
     launches = read_launches()
     races, rest = ln_unexcused_stops(stopped_run, closed_run, stamps[1])
@@ -4736,27 +5033,36 @@ def phase_localnet(dev, err: dict) -> dict:
     check(not stopped_join and peers_join == [LN_VALS] * (LN_VALS + 1),
           f"localnet: after the join, peers {peers_join}; peers stopped for an error "
           f"{stopped_join}")
-    check(all(n.cs.device_fault is None for n in nodes),
-          f"localnet: device faults {[n.cs.device_fault for n in nodes]}")
+    check(all(n.consensus_state.device_fault is None for n in nodes),
+          f"localnet: device faults {[n.consensus_state.device_fault for n in nodes]}")
     mp_faults = [n.reactors.mempool.device_fault for n in nodes + [join["node"]]]
     check(mp_faults == [None] * (LN_VALS + 1),
           f"localnet: CheckTx window faults on gossiped txs {mp_faults}")
-    top = min(n.cs.block_store.height() for n in nodes)
+    top = min(n.block_store.height() for n in nodes)
     for h in range(1, top + 1):
-        blocks = [n.cs.block_store.load_block(h) for n in nodes]
+        blocks = [n.block_store.load_block(h) for n in nodes]
         check(len({b.hash() for b in blocks}) == 1 and len({b.header.app_hash for b in blocks}) == 1,
               f"localnet: the nodes' blocks at {h} differ")
-    # the txs: given to node 0 alone, gossip carried each into every other
-    # node's mempool, and each committed on every node
-    tx_heights = {}
+    # the txs: sent to node 0 alone by broadcast_tx_commit, gossip carried
+    # each into every other node's mempool, and each committed on every
+    # node at the height the route returned; node 3's index finds each
+    tx_heights, commit_s = {}, []
     for h in range(1, LN_HEIGHTS + 1):
         tx = txs[h - 1]
-        at = [tnet.committed_in(n, lambda t, tx=tx: t == tx) for n in nodes]
+        at = [nn.committed_in(n, lambda t, tx=tx: t == tx) for n in nodes]
         check(len(set(at)) == 1 and at[0] is not None, f"localnet: tx {tx!r} committed at {at}")
         check(all(tx in received[i] for i in range(1, LN_VALS)),
               f"localnet: tx {tx!r} did not reach every mempool by gossip")
+        secs, res = results.get(tx, (None, None))
+        check(isinstance(res, dict) and res["height"] == at[0] and res["check_tx"]["code"] == 0
+              and res["deliver_tx"]["code"] == 0
+              and res["hash"] == hashlib.sha256(tx).hexdigest().upper(),
+              f"localnet: broadcast_tx_commit of {tx!r} gave {res}, committed at {at[0]}")
+        check(indexed[tx] == (at[0], True),
+              f"localnet: node 3's tx / tx_search of {tx!r}: {indexed[tx]}, committed at {at[0]}")
         tx_heights[h] = at[0]
-    ev_at = [tnet.committed_in(n, lambda e: isinstance(e, type(ev)) and e.hash() == ev.hash())
+        commit_s.append(secs)
+    ev_at = [nn.committed_in(n, lambda e: isinstance(e, type(ev)) and e.hash() == ev.hash())
              for n in nodes]
     check(len(set(ev_at)) == 1 and ev_at[0] is not None
           and all(n.evidence_pool.is_committed(ev) for n in nodes),
@@ -4764,9 +5070,19 @@ def phase_localnet(dev, err: dict) -> dict:
     qos = ln_qos(nodes + [join["node"]])
     check(not any(qos["dropped"].values()) and qos["admitted"] > 0,
           f"localnet: QoS admitted {qos['admitted']}, dropped {qos['dropped']}")
+    check(set(range(1, top_rpc + 1)) <= seen,
+          f"localnet: node 2's NewBlock websocket missed heights "
+          f"{sorted(set(range(1, top_rpc + 1)) - seen)}")
+    missing = [m for m in LN_METRIC_NAMES if m not in metrics_text]
+    check(not missing, f"localnet: node 3's /metrics lacks {missing}")
+    bad_events = [e for e in health["events"] if e["kind"] != "breaker" and e["seq"] > seq0]
+    check(health["breaker"]["state"] == "closed" and not bad_events
+          and health["verifier"]["installed"],
+          f"localnet: dump_device_health: breaker {health['breaker']['state']}, events "
+          f"{bad_events}")
     gossiped = [len(r) for r in received] + [len(join["received"])]
     vals = tags.get("validators:flushes", {}), tags.get("validators:last_commit", {})
-    dispatches = sum(n.feed.dispatches for n in nodes)
+    dispatches = sum(n.vote_feed.dispatches for n in nodes)
     checks_n = sum(len(n.checks) for n in nodes)
     k1, k2 = launches["ed25519_prologue"], launches["ed25519_ladder"]
     check("untagged" not in tags and sum(t.get("ed25519_prologue", 0) for t in tags.values()) == k1
@@ -4784,13 +5100,22 @@ def phase_localnet(dev, err: dict) -> dict:
           and jl["backfill"]["k7"] >= 1 and all(jl[s]["k7"] == 0 for s in jl if s != "backfill"),
           f"localnet: the joining node's launches by source {jl}")
     jn = join["node"]
-    check(jl["flushes"]["k1"] == jn.feed.dispatches
+    check(jl["flushes"]["k1"] == jn.vote_feed.dispatches
           and jl["last_commit"]["k1"] + jl["fastsync_last_commit"]["k1"] == len(jn.checks),
-          f"localnet: the joining node's launches {jl}, {jn.feed.dispatches} feed dispatches, "
-          f"{len(jn.checks)} LastCommit checks")
+          f"localnet: the joining node's launches {jl}, {jn.vote_feed.dispatches} feed "
+          f"dispatches, {len(jn.checks)} LastCommit checks")
+    rl = {src: {"k1": tags.get(f"rpc:{src}", {}).get("ed25519_prologue", 0),
+                "k2": tags.get(f"rpc:{src}", {}).get("ed25519_ladder", 0),
+                "k7": tags.get(f"rpc:{src}", {}).get("planner_tally", 0)}
+          for src in LN_RPC_SOURCES}
+    check(rl["burst"]["k1"] == rl["burst"]["k2"] >= burst["dispatches"] >= 1
+          and rl["burst"]["k7"] == burst["dispatches"]
+          and rl["lite"]["k1"] == rl["lite"]["k2"] >= 1 and rl["lite"]["k7"] == 0
+          and rl["bench"] == {"k1": 0, "k2": 0, "k7": 0},
+          f"localnet: the RPC's launches by source {rl}, {burst['dispatches']} burst dispatches")
     per_node = []
     for i, n in enumerate(nodes):
-        recs = n.feed.flush_records()["records"]
+        recs = n.vote_feed.flush_records()["records"]
         rows = {h: sum(1 for r in recs if r["groups"] and r["groups"][0][0] == h)
                 for h in range(1, LN_HEIGHTS + 1)}
         lcs = {h: n.checks.count(h) for h in range(1, LN_HEIGHTS + 1)}
@@ -4798,9 +5123,10 @@ def phase_localnet(dev, err: dict) -> dict:
               f"localnet: node {i} launched no flush or no LastCommit check at some height "
               f"from 2: flushes {rows}, checks {lcs}")
         per_node.append({"flushes": rows, "last_commit": lcs,
-                         "reasons": dict(n.feed.flushes),
+                         "reasons": dict(n.vote_feed.flushes),
                          "rows": [r["rows"] for r in recs], "lanes": [r["votes"] for r in recs],
-                         "serial": dict(n.cs.serial_votes), "votes_in": n.feed.votes_in})
+                         "serial": dict(n.consensus_state.serial_votes),
+                         "votes_in": n.vote_feed.votes_in})
     b_first, _, _ = hold_k1_k2(packs[0], err, "localnet first launch")
     b_last, _, _ = hold_k1_k2(packs[-1], err, "localnet last launch")
     gossip = ln_gossip(nodes, [join["node"]])
@@ -4847,27 +5173,51 @@ def phase_localnet(dev, err: dict) -> dict:
           f"first sends, {gossip['arrivals']} arrivals, {gossip['links']} ledger links "
           f"({gossip['first_sightings']} first sightings, {gossip['duplicates']} duplicates, "
           f"a link's sign-to-arrival p50 {gossip['link_latency_p50_ms']:.1f} ms)", flush=True)
-    print(f"  mempool gossip: txs 1-{LN_HEIGHTS} into node 0 alone reached every other mempool "
-          f"and committed at heights {list(tx_heights.values())} on every node; txs received "
-          f"by gossip by node (the joining node last) {gossiped}; QoS admitted "
-          f"{qos['admitted']:.0f}, dropped {qos['dropped'] or 0}; the evidence (validator "
-          f"{LN_OFFENDER}'s double sign at {LN_EVIDENCE_HEIGHT}) committed at height {ev_at[0]} "
-          f"on every node", flush=True)
+    print(f"  mempool gossip: txs 1-{LN_HEIGHTS} through broadcast_tx_commit on node 0 alone "
+          f"reached every other mempool and committed at heights {list(tx_heights.values())} on "
+          f"every node (the route's height and deliver_tx code 0; node 3's tx and tx_search find "
+          f"each); broadcast_tx_commit's wall p50 {statistics.median(commit_s) * 1e3:.1f} ms ("
+          + ", ".join(f"{s * 1e3:.0f}" for s in commit_s) + " ms); txs received by gossip by "
+          f"node (the joining node last) {gossiped}; QoS admitted {qos['admitted']:.0f}, dropped "
+          f"{qos['dropped'] or 0}; the evidence (validator {LN_OFFENDER}'s double sign at "
+          f"{LN_EVIDENCE_HEIGHT}) committed at height {ev_at[0]} on every node", flush=True)
     sp = join["spans"]
     print(f"  join at {LN_JOIN_AT}: restored snapshot {join['snapshot']} (the newest at "
           f"{LN_JOIN_AT - LN_JOIN_AT % LN_SNAPSHOT_INTERVAL}) in {join['restore_s']:.3f} s from "
-          f"the switch's start to on_synced (the node built in {join['build_s']:.3f} s; the "
+          f"the node's start to on_synced (the node built in {join['build_s']:.3f} s; the "
           f"discovery wait {StateSyncConfig().discovery_time:g} s of it); spans (s) "
           + ", ".join(f"{k} {v:.3f}" for k, v in sp.items())
           + f"; the hand-off to consensus {join['handoff_s'] * 1e3:.1f} ms after it, "
           f"{join['synced']} block(s) fast-synced; at the tip {join['tip']} "
           f"{join['tip_s']:.3f} s after the start, then {LN_FOLLOW} heights in "
-          f"{join['follow_s']:.3f} s with the validators' block and app hashes", flush=True)
+          f"{join['follow_s']:.3f} s with the validators' block and app hashes; its RPC status "
+          f"catching_up true at its start and false at the end", flush=True)
     print(f"  the joining node's K1 + K2 (K7) launches: trust hops {jl['trust']['k1']}, backfill "
           f"{jl['backfill']['k1']} (K7 {jl['backfill']['k7']}), fast-sync windows "
           f"{jl['fastsync']['k1']} + its first block's LastCommit "
           f"{jl['fastsync_last_commit']['k1']}, flushes {jl['flushes']['k1']}, LastCommit "
           f"checks {jl['last_commit']['k1']}", flush=True)
+    print(f"  RPC ({rpc_s:.1f} s): {LN_RPC_CLIENTS} clients x /commit?verify=1 at heights 1-"
+          f"{top_rpc - 1} + /validators?verify=1, {burst['answers']} answers in "
+          f"{burst['wall_s'] * 1e3:.1f} ms, every verdict the host's; a height's p50 "
+          f"{burst['p50_ms']:.1f} ms; {burst['dispatches']} LaneFeed dispatches, batch_rows "
+          f"mean {burst['rows_mean']:.1f} max {burst['rows_max']}; K1 {rl['burst']['k1']}, K2 "
+          f"{rl['burst']['k2']}, K7 {rl['burst']['k7']}; the profiler trace "
+          f"({burst['trace_events']} events) names the kernels "
+          f"{[k for k in burst['trace_kernels'] if any(v in k for v in LN_KERNEL_NAMES.values())][:4]}"
+          f"; the lite client verified heights 1-{lite['heights']} of node 1 over "
+          f"lite_full_commit in {lite['seconds'] * 1e3:.1f} ms (K1 + K2 {rl['lite']['k1']}); "
+          f"node 2's websocket saw NewBlock at every height; node 3's /metrics holds the "
+          f"{len(LN_METRIC_NAMES)} names; dump_device_health: breaker "
+          f"{health['breaker']['state']}, no fallback", flush=True)
+    print(f"  tm_bench ({LN_BENCH_S:g} s at {LN_BENCH_RATE} tx/s, 1 connection, node 0): sent "
+          f"{bench['txs_sent']}, committed {bench['committed']} (the rest in node 0's mempool), "
+          f"{bench['blocks_seen']} blocks in {bench['duration_s']} s; Txs/sec avg "
+          f"{bench['txs_per_sec']['avg']} stddev {bench['txs_per_sec']['stddev']} max "
+          f"{bench['txs_per_sec']['max']}; Blocks/sec avg {bench['blocks_per_sec']['avg']} "
+          f"stddev {bench['blocks_per_sec']['stddev']} max {bench['blocks_per_sec']['max']}",
+          flush=True)
+    shutil.rmtree(tmp, ignore_errors=True)
     print(f"  every node at {top} with the same block and app hashes; no peer stopped for an "
           f"error ({len(races)} simultaneous-dial duplicates closed by the canonical rule before "
           f"height 1 and redialed, (node, peer, reason): {races}; {len(closed_run)} duplicates "
@@ -4883,9 +5233,27 @@ def phase_localnet(dev, err: dict) -> dict:
             "gossip": gossip, "seconds": seconds, "dial_races": len(races),
             "join": {k: join[k] for k in ("snapshot", "synced", "restore_s", "handoff_s",
                                            "tip_s", "follow_s")},
+            "rpc": {"burst": burst, "lite": lite, "bench": bench,
+                    "commit_p50_ms": statistics.median(commit_s) * 1e3},
             "launches": {"flushes": vals[0].get("ed25519_prologue", 0),
                          "last_commit": vals[1].get("ed25519_prologue", 0),
-                         "join": {s: v["k1"] for s, v in jl.items()}}}
+                         "join": {s: v["k1"] for s, v in jl.items()},
+                         "rpc": {s: v["k1"] for s, v in rl.items()}}}
+
+
+def profiler_warmup(out: dict) -> None:
+    """One empty torch.profiler session (CPU and CUDA activity). The first
+    of a process initializes the profiler and CUPTI (7-20 s on the H100,
+    PERF.md §5); later ones start in milliseconds. ``main`` runs it on a
+    thread while nvcc builds the kernels, so that phase 25's
+    unsafe_start_profiler route costs its own time only; ``out["seconds"]``
+    gets its time."""
+    t0 = time.perf_counter()
+    prof = torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                              torch.profiler.ProfilerActivity.CUDA])
+    prof.start()
+    prof.stop()
+    out["seconds"] = time.perf_counter() - t0
 
 
 def main() -> int:
@@ -4907,7 +5275,15 @@ def main() -> int:
     op_rate = props.multi_processor_count * max_sm_mhz * 1e6 * INT32_OPS_PER_CLK_PER_SM
 
     phase("build")
+    warm = {}
+    warm_t = threading.Thread(target=profiler_warmup, args=(warm,), name="profiler-warmup",
+                              daemon=True)
+    warm_t.start()
     secs = _build.build_all()
+    warm_t.join(RESULT_TIMEOUT)
+    check("seconds" in warm, "the profiler's warm-up did not end")
+    print(f"  the torch profiler's first session (its initialization) in "
+          f"{warm['seconds']:.1f} s, beside the build", flush=True)
     for name, s in secs.items():
         print(f"  {name}: {s:.1f} s", flush=True)
         for line in _build.build_log(name).splitlines():
@@ -4998,7 +5374,8 @@ def main() -> int:
             "localnet_launches": (localnet["launches"]
                                   if name in ("ed25519_prologue", "ed25519_ladder")
                                   else {"flushes": 0, "last_commit": 0,
-                                        "join": {s: 0 for s in LN_JOIN_SOURCES}}),
+                                        "join": {s: 0 for s in LN_JOIN_SOURCES},
+                                        "rpc": {s: 0 for s in LN_RPC_SOURCES}}),
             "msm_launches": msm["launches"][name],
             "commit_window_launches": {"ladder": cwin["launches"][name],
                                        "msm": cwin["msm_launches"][name],
@@ -5041,7 +5418,8 @@ def main() -> int:
                                for run in cons["launches"]},
         "statesync_launches": {part: n[K4] for part, n in ssync["launches"].items()},
         "localnet_launches": {"flushes": 0, "last_commit": 0,
-                              "join": {s: 0 for s in LN_JOIN_SOURCES}},
+                              "join": {s: 0 for s in LN_JOIN_SOURCES},
+                              "rpc": {s: 0 for s in LN_RPC_SOURCES}},
         "msm_launches": {"commit": msm["launches"][K4],
                          "adversarial": msm["adversarial_launches"][K4],
                          "dirty_commit": msm["dirty_launches"][K4],
@@ -5084,8 +5462,14 @@ def main() -> int:
           f"a handshake {localnet['handshake_s']:.4f} s; the join restored "
           f"{localnet['join']['snapshot']} in {localnet['join']['restore_s']:.3f} s, "
           f"fast-synced {localnet['join']['synced']} block(s) and was at the tip "
-          f"{localnet['join']['tip_s']:.3f} s after its start; phase {localnet['seconds']:.1f} s",
-          flush=True)
+          f"{localnet['join']['tip_s']:.3f} s after its start; the ?verify=1 burst "
+          f"{localnet['rpc']['burst']['wall_s'] * 1e3:.1f} ms ({localnet['rpc']['burst']['answers']} "
+          f"answers, {localnet['rpc']['burst']['dispatches']} dispatches), broadcast_tx_commit p50 "
+          f"{localnet['rpc']['commit_p50_ms']:.1f} ms, the lite client "
+          f"{localnet['rpc']['lite']['seconds'] * 1e3:.1f} ms for {localnet['rpc']['lite']['heights']} "
+          f"heights, tm_bench {localnet['rpc']['bench']['txs_per_sec']['avg']} tx/s and "
+          f"{localnet['rpc']['bench']['blocks_per_sec']['avg']} blocks/s; phase "
+          f"{localnet['seconds']:.1f} s", flush=True)
     print(f"  total {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"torch_ops": [window["tally"], cwin["tally"]]}))
     print(json.dumps({"kernels": kernels}))

@@ -1,10 +1,12 @@
-"""The ``[instrumentation]`` configuration section's consensus instruments.
+"""The ``[instrumentation]`` configuration section.
 
-The port's copy of the instrument fields of the JAX package's
-``config/config.py`` ``InstrumentationConfig``: each under the same name
-and with the same default. The port has no Prometheus listener yet, so the
-section's ``prometheus*`` and ``namespace`` fields are not copied.
-``node/verify_root.consensus_state`` reads it: ``flight_recorder`` enables
+The port's copy of the JAX package's ``config/config.py``
+``InstrumentationConfig``: every field under the same name and with the
+same default. ``node/node.Node`` builds a ``libs/metrics.NodeMetrics`` when
+``prometheus`` is on and serves it at the RPC server's ``/metrics`` route
+(the reference's node does the same; neither opens
+``prometheus_listen_addr``). ``node/verify_root.consensus_state`` reads the
+instrument fields: ``flight_recorder`` enables
 the state machine's flight recorder (and with it the critical-path and
 quorum analyzers), ``watchdog`` builds a ``libs/watchdog.LivenessWatchdog``
 and ``telemetry_spool`` a ``libs/telemetry.TelemetrySpool``.
@@ -17,6 +19,10 @@ from dataclasses import dataclass
 
 @dataclass
 class InstrumentationConfig:
+    prometheus: bool = False
+    prometheus_listen_addr: str = ":26660"
+    max_open_connections: int = 3
+    namespace: str = "tendermint"
     # consensus flight recorder (consensus/flight.py); TM_FLIGHT=1 also works
     flight_recorder: bool = False
     # liveness watchdog (libs/watchdog.py): stall when no height/round

@@ -1,6 +1,6 @@
 """Crash-safe telemetry spool — the soak observatory's durable memory; the
-port's copy of the reference package's ``libs/telemetry.py`` up to its
-``node_sources``, over the port's ``libs/autofile.py``.
+port's copy of the reference package's ``libs/telemetry.py``, over the
+port's ``libs/autofile.py``.
 
 Every observability surface in this repo is an in-memory ring dumped
 point-in-time over RPC: a node restart erases its history and a
@@ -440,3 +440,65 @@ class TelemetrySpool:
                 "truncated": len(recs) < total,
                 "records": recs,
             }
+
+
+def node_sources(node) -> Dict[str, Callable[[], object]]:
+    """The standard snapshot sections for a running ``node/node.Node``
+    (anything with a ``consensus_state``): the instruments' sketches, the
+    eviction counts of every bounded store, the profile ledger's totals,
+    the device breaker's snapshot and the per-phase and quorum stats."""
+    cs = node.consensus_state
+
+    def _sketches() -> dict:
+        return {
+            "critpath": cs.critpath.sketches(),
+            "quorum": cs.quorumtrace.sketches(),
+        }
+
+    def _evicted() -> dict:
+        from tendermint_tpu_torch.libs.profile import get_profiler
+
+        return {
+            "flight": cs.flight.evicted(),
+            "profile": get_profiler().dropped,
+            "critpath": cs.critpath.snapshot(limit=0)["evicted"],
+            "quorum": cs.quorumtrace.snapshot(limit=0)["evicted"],
+        }
+
+    def _profile() -> dict:
+        from tendermint_tpu_torch.libs.profile import get_profiler
+
+        p = get_profiler()
+        rows = p.ledger()
+        return {
+            "rows": len(rows),
+            "dispatches": sum(r["dispatches"] for r in rows),
+            "pack_seconds": sum(r["pack_seconds"] for r in rows),
+            "run_seconds": sum(r["run_seconds"] for r in rows),
+            "compile_seconds": sum(r["compile_seconds"] for r in rows),
+            "bytes_to_device": sum(r["bytes_to_device"] for r in rows),
+            "dropped": p.dropped,
+        }
+
+    def _device() -> Optional[dict]:
+        try:
+            from tendermint_tpu_torch.libs.breaker import get_device_breaker
+
+            return get_device_breaker().snapshot()
+        except Exception:
+            return None
+
+    def _stats() -> dict:
+        return {
+            "height": cs.rs.height,
+            "phase_stats": cs.critpath.phase_stats(),
+            "quorum_stats": cs.quorumtrace.quorum_stats(),
+        }
+
+    return {
+        "sketches": _sketches,
+        "evicted": _evicted,
+        "profile_ledger": _profile,
+        "device_health": _device,
+        "stats": _stats,
+    }

@@ -36,7 +36,11 @@ recheck window's txs also out of the pool, and the error (the guard's
 for a wrong-length list) is raised to the caller whose call ran the flush:
 ``check_tx``, ``update`` or an explicit flush. A flush on the wait timer's
 thread has no caller: it keeps the error and the next ``check_tx``,
-``update``, ``flush_app_conn`` or ``_flush_checktx_batch`` raises it.
+``update``, ``flush_app_conn`` or ``_flush_checktx_batch`` raises it. Either
+way each tx of the failed window whose ``check_tx`` gave an ``on_fault``
+gets the error through it (its ``callback`` never fires): a caller that
+waits for CheckTx's response, as the RPC's ``broadcast_tx_sync`` does,
+learns of the fault at once, on whichever thread the window failed.
 The mempool WAL (``wal_path``) is not ported yet.
 """
 
@@ -184,7 +188,8 @@ class Mempool(MempoolIface):
         self.batch_check_hook: Optional[Callable[[List[bytes]], None]] = None
         self._hook_verdicts = False
         self._batch_txs: List[bytes] = []
-        self._batch_cbs: List[Optional[Callable]] = []
+        # (callback, on_fault) of each tx of the open verdict-bearing window
+        self._batch_cbs: List[tuple] = []
         self._proxy_takes_verdict: Optional[bool] = None
         # a failed window of the timer's thread, raised by the next call
         self._deferred_error: Optional[BaseException] = None
@@ -359,9 +364,11 @@ class Mempool(MempoolIface):
         return False
 
     # CheckTx ---------------------------------------------------------------
-    def check_tx(self, tx: bytes, callback: Optional[Callable] = None) -> None:
+    def check_tx(self, tx: bytes, callback: Optional[Callable] = None,
+                 on_fault: Optional[Callable[[BaseException], None]] = None) -> None:
         """Queue tx for app validation; good txs enter the list
-        (mempool.go:301).
+        (mempool.go:301). ``callback`` gets CheckTx's response; ``on_fault``
+        gets the error instead when the tx's window fails on the card.
 
         Single-lane configs keep the reference contract: a full pool raises
         ``MempoolFullError`` synchronously. With lanes configured the full
@@ -381,7 +388,7 @@ class Mempool(MempoolIface):
             if self._hook_verdicts:
                 # verdict-bearing seam: the app send waits for the flush,
                 # where the batched signature verdict rides the request
-                self._batch_cbs.append(callback)
+                self._batch_cbs.append((callback, on_fault))
             else:
                 rr = self._proxy.check_tx_async(tx)
                 if callback is not None:
@@ -450,11 +457,17 @@ class Mempool(MempoolIface):
                 for tx in batch_txs:
                     self.cache.remove(tx)
                 e.checktx_window_fault = True
+                for _, fault_cb in batch_cbs:
+                    if fault_cb is not None:
+                        try:
+                            fault_cb(e)
+                        except Exception:
+                            self.logger.exception("a CheckTx on_fault callback failed")
                 raise
             with self._mtx:
                 for i, tx in enumerate(batch_txs):
                     rr = self._send_checktx(tx, None if verdicts is None else verdicts[i])
-                    cb = batch_cbs[i] if i < len(batch_cbs) else None
+                    cb = batch_cbs[i][0] if i < len(batch_cbs) else None
                     if cb is not None:
                         rr.set_callback(lambda req, res, _cb=cb: _cb(res))
         t0 = time.perf_counter()

@@ -368,16 +368,33 @@ class StateSyncRoot(NamedTuple):
     snapshot_store: SnapshotStore
 
 
+def snapshot_store(cfg: Optional[StateSyncConfig], db=None, app=None) -> Optional[SnapshotStore]:
+    """The ``[statesync]`` section's snapshot store (``node/node.py:84-103``):
+    None when ``enable`` is off and ``snapshot_interval`` is 0; else a
+    ``SnapshotStore`` over ``db`` (default a new ``MemDB``) and, when
+    ``snapshot_interval > 0``, ``app.configure_snapshots`` at the section's
+    interval, chunk size, keep count and format."""
+    cfg = cfg if cfg is not None else StateSyncConfig()
+    if not cfg.enable and cfg.snapshot_interval <= 0:
+        return None
+    store = SnapshotStore(db if db is not None else MemDB())
+    if cfg.snapshot_interval > 0 and hasattr(app, "configure_snapshots"):
+        app.configure_snapshots(store, cfg.snapshot_interval, cfg.snapshot_chunk_size,
+                                cfg.snapshot_keep_recent, snapshot_format=cfg.snapshot_format)
+    return store
+
+
 def state_sync(cfg: Optional[StateSyncConfig], genesis_doc, proxy_app, state: State,
                state_db, block_store, *, app=None, mempool=None,
-               blockchain_reactor=None, metrics=None) -> Optional[StateSyncRoot]:
+               blockchain_reactor=None, metrics=None,
+               snapshots: Optional[SnapshotStore] = None) -> Optional[StateSyncRoot]:
     """The node's state sync from the ``[statesync]`` section; None when
     ``enable`` is off and ``snapshot_interval`` is 0.
 
-    The serving side (``node/node.py:84-101``): a ``SnapshotStore`` over
-    a new ``MemDB`` (the port's only store) and, when
-    ``snapshot_interval > 0``, ``app.configure_snapshots`` at the section's
-    interval, chunk size, keep count and format. The restoring side
+    The serving side (``node/node.py:84-101``): ``snapshots`` when given
+    (a ``snapshot_store(...)`` the caller built, as the node does before
+    its handshake), else ``snapshot_store(cfg, app=app)`` over a new
+    ``MemDB``. The restoring side
     (``:393-429``), when ``enable`` is on and ``state`` holds no block: a
     ``StateSyncer`` over ``proxy_app.query`` (a started ``MultiAppConn``),
     ``state_db`` and ``block_store`` whose trust hops go to the installed
@@ -392,10 +409,7 @@ def state_sync(cfg: Optional[StateSyncConfig], genesis_doc, proxy_app, state: St
     cfg = cfg if cfg is not None else StateSyncConfig()
     if not cfg.enable and cfg.snapshot_interval <= 0:
         return None
-    store = SnapshotStore(MemDB())
-    if cfg.snapshot_interval > 0 and hasattr(app, "configure_snapshots"):
-        app.configure_snapshots(store, cfg.snapshot_interval, cfg.snapshot_chunk_size,
-                                cfg.snapshot_keep_recent, snapshot_format=cfg.snapshot_format)
+    store = snapshots if snapshots is not None else snapshot_store(cfg, app=app)
     syncer = None
     if cfg.enable and state.last_block_height == 0:
         syncer = StateSyncer(cfg, genesis_doc.chain_id, genesis_doc, proxy_app.query, state_db,
@@ -554,7 +568,8 @@ def node_reactors(sw: Switch, consensus_state: ConsensusState, state: State, blo
                   genesis_doc, proxy_app, state_db, app=None, priv_validator=None,
                   fast_sync: bool = True, mempool_cfg: Optional[MempoolConfig] = None,
                   statesync_cfg: Optional[StateSyncConfig] = None, metrics=None,
-                  statesync_metrics=None) -> NodeReactors:
+                  statesync_metrics=None,
+                  snapshots: Optional[SnapshotStore] = None) -> NodeReactors:
     """The node's reactor set on ``sw`` (``switch(...)``, unstarted), as
     ``node/node.py:380-441`` builds it and ``:551-558`` registers it, each
     channel advertised (``add_reactor``):
@@ -578,7 +593,9 @@ def node_reactors(sw: Switch, consensus_state: ConsensusState, state: State, blo
     verifier and device executor: the trust hops (K1 + K2), the backfill
     (K1 + K2 + the K7 tally), the fast-sync windows and the LastCommit
     checks (K1 + K2, K3), the vote feed's flushes. ``metrics`` is the node's
-    ``NodeMetrics``; ``statesync_metrics`` a ``StateSyncMetrics``."""
+    ``NodeMetrics``; ``statesync_metrics`` a ``StateSyncMetrics``;
+    ``snapshots`` the node's ``snapshot_store(...)`` (default one over a
+    new ``MemDB``)."""
     ss_cfg = statesync_cfg if statesync_cfg is not None else StateSyncConfig()
     if fast_sync and state.validators.size == 1 and priv_validator is not None:
         if priv_validator.get_pub_key().address() == state.validators.validators[0].address:
@@ -588,7 +605,8 @@ def node_reactors(sw: Switch, consensus_state: ConsensusState, state: State, blo
     bc = blockchain_reactor(state.copy(), block_exec, block_store,
                             fast_sync=fast_sync and not restoring, consensus_reactor=cons)
     ss = state_sync(ss_cfg, genesis_doc, proxy_app, state, state_db, block_store, app=app,
-                    mempool=mempool, blockchain_reactor=bc, metrics=statesync_metrics)
+                    mempool=mempool, blockchain_reactor=bc, metrics=statesync_metrics,
+                    snapshots=snapshots)
     mr = mempool_reactor(mempool_cfg, mempool, cons, metrics=metrics)
     er = evidence_reactor(evidence_pool, cons)
     add_reactor(sw, "consensus", cons)

@@ -778,6 +778,12 @@ def _executor_on_card(exe) -> bool:
     return exe is _execute_default_device or _brk.on_card(exe)
 
 
+def executor_on_card() -> bool:
+    """True when the installed device executor runs on the card: a device
+    route there raises where it would complete on the host."""
+    return _executor_on_card(_installed_executor())
+
+
 def _note_device_fallback(reason: str, plan, card: bool = False) -> None:
     """Count a fallback by reason (off the card) and record the profiler
     event: ``device_fallback``, or ``device_failure`` on the card, where

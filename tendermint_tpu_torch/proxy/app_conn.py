@@ -9,8 +9,9 @@ One ABCI client per logical connection, each behind a typed facade:
                     snapshot handshake (ListSnapshots, OfferSnapshot,
                     LoadSnapshotChunk, ApplySnapshotChunk)
 ``MultiAppConn`` owns the three; ``LocalClientCreator`` gives each a
-``LocalClient`` on one shared mutex. The remote (socket) creator is not
-ported yet.
+``LocalClient`` on one shared mutex; ``default_client_creator`` is the
+creator a node's ``proxy_app`` names. The remote (socket) creator is not
+ported yet (ROADMAP queue 1 item 13 (v)).
 """
 
 from __future__ import annotations
@@ -123,6 +124,29 @@ class LocalClientCreator(ClientCreator):
 
     def new_abci_client(self):
         return LocalClient(self._app, self._mtx)
+
+
+def default_client_creator(app_name: str, addr: str = "") -> ClientCreator:
+    """'kvstore' | 'persistent_kvstore' | 'counter' | 'noop' in-proc (ref
+    DefaultClientCreator); any other name is a socket address, whose client
+    is not ported and raises ``NotImplementedError``."""
+    from tendermint_tpu_torch.abci.examples.kvstore import (
+        CounterApp,
+        KVStoreApp,
+        PersistentKVStoreApp,
+    )
+
+    builtin = {
+        "kvstore": KVStoreApp,
+        "persistent_kvstore": PersistentKVStoreApp,
+        "counter": CounterApp,
+        "noop": abci.Application,
+    }
+    if app_name in builtin:
+        return LocalClientCreator(builtin[app_name]())
+    raise NotImplementedError(
+        f"proxy_app {addr or app_name!r}: the socket ABCI client is not ported "
+        f"(ROADMAP queue 1 item 13 (v))")
 
 
 class MultiAppConn(BaseService):

@@ -18,7 +18,7 @@ class Mempool:
 
     def size(self) -> int: ...
 
-    def check_tx(self, tx: bytes, callback=None) -> None: ...
+    def check_tx(self, tx: bytes, callback=None, on_fault=None) -> None: ...
 
     def reap_max_bytes_max_gas(self, max_bytes: int, max_gas: int) -> List[bytes]: ...
 
@@ -46,7 +46,7 @@ class MockMempool(Mempool):
     def size(self) -> int:
         return 0
 
-    def check_tx(self, tx: bytes, callback=None) -> None:
+    def check_tx(self, tx: bytes, callback=None, on_fault=None) -> None:
         pass
 
     def reap_max_bytes_max_gas(self, max_bytes: int, max_gas: int) -> List[bytes]:
