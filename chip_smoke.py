@@ -113,7 +113,7 @@ Phases, in order; any failure exits non-zero:
              behind serve_proxy on 127.0.0.1, its frontend's LaneFeed on
              the root's guarded verifier (K1 -> K2): (a) the tip burst of
              scripts/bench_lite.py, 64 clients each GETting /verify_commit
-             and /light_block for the last 4 heights, rotated; (b) 32
+             and /light_block for the last 4 heights, rotated; (b) 16
              clients each certifying one seeded height in [2, 128]. Each
              answer is certified; every light_block equals, byte for byte,
              a serial DynamicVerifier's on HostBatchVerifier, and both reach
@@ -233,13 +233,13 @@ Phases, in order; any failure exits non-zero:
              seed 11) over a SignedKVStoreApp, its mempool wired as phase 20
              wires it and its executor by node/verify_root.block_executor
              (the evidence pool, verifier None: the root's guarded one). At
-             each of 16 heights 64 signed txs of 64 senders go through
+             each of 8 heights 64 signed txs of 64 senders go through
              check_tx (K1 + K2 through TxFeed), create_proposal_block reaps
              them, the 100 validators sign the block's precommits (the next
              LastCommit) and apply_block applies it, launching K1 + K2 once
              for the 100-row LastCommit from height 2 on (exact on height
-             2's inputs). Every DeliverTx OK, last_block_total_tx 1,024, the
-             pool empty, app.serial_verifies 1,024 (DeliverTx only), every
+             2's inputs). Every DeliverTx OK, last_block_total_tx 512, the
+             pool empty, app.serial_verifies 512 (DeliverTx only), every
              stored ABCIResponses' results hash equal to the state's, every
              block and seen commit back from the BlockStore. Blocks a second
              and apply_block's parts (state.validate with verify.dispatch
@@ -273,11 +273,11 @@ Phases, in order; any failure exits non-zero:
              window (b = 32,768), exact on the explicit run's first launch.
              (b) the node's reactor (node/verify_root.blockchain_reactor
              over the node-wired executor and mempool, verifier None) syncs
-             the chain's first 257 blocks from testutil/fastsync's loopback
+             the chain's first 130 blocks from testutil/fastsync's loopback
              peer through the messages: the wall from start() to the
              consensus hand-off, the windows it dispatched (first height,
              heights), verify_speculative_total and verify_window_heights;
-             the store and the handed-over state equal the chain's at 256,
+             the store and the handed-over state equal the chain's at 129,
              K1 = K2 = one a window, no peer stopped. Then the same sync with
              the installed guarded verifier's device failing from its second
              dispatch: it halts with device_fault set, no peer stopped, no
@@ -433,9 +433,7 @@ Phases, in order; any failure exits non-zero:
              before the first height, saw NewBlock at every height; node 3's
              /metrics holds the reference's names; dump_device_health shows
              the breaker closed and no fallback; the joining node's status
-             said catching_up at its start and not at the end; tm_bench for
-             2 s at 50 tx/s against node 0, every tx it sent in a block or
-             in node 0's mempool. Prints the
+             said catching_up at its start and not at the end. Prints the
              handshake's seconds a connection, blocks a second and a
              height's p50 wall, launches by source, flushes by reason, rows
              and lanes a flush, bytes sent and received a peer (NodeMetrics),
@@ -444,6 +442,40 @@ Phases, in order; any failure exits non-zero:
              statesync.* spans, the hand-off's wall, the blocks fast-synced
              and the phase's seconds. No fallback, the breaker closed, no
              audit mismatch.
+  26. cli     BASELINE.json config 1 as docker-compose.yml's containers run
+             it, through the command line (cmd/tendermint.py,
+             testutil/cli_net.py): `testnet --v 4 --chain-id cli-localnet`
+             into a temporary directory, this process serving a
+             KVStoreApp over abci/server.ABCIServer on tcp://127.0.0.1:0,
+             and four `tendermint node` processes spawned at once on the
+             card (the default --device): nodes 0-2 on --proxy_app
+             kvstore, node 3 on that socket; each with the testnet's
+             persistent peers, --p2p.allow_duplicate_ip true,
+             --consensus.timeout_commit 0.3 (tests/test_localnet.py:65),
+             the vote feed at phase 25's 2 ms, the unsafe routes and
+             /metrics on; a `lite --chain-id cli-localnet` process on node
+             0, spawned beside them. Once all four have 3 peers and height
+             3: a tx through broadcast_tx_commit on node 3 (its CheckTx and
+             DeliverTx cross the socket; abci_query on nodes 0 and 3 and
+             the served app find it); the blocks and app hashes equal at
+             every common height; /commit?verify=1 on node 1 at 1-3 equal
+             to the host's verify_commit; every height from 1 to node 0's
+             tip through the lite process, certified and equal to node 0's
+             commit; node 3 SIGKILLed, nodes 0-2 commit 2 more heights,
+             node 3 restarted with the same command reaches their tip with
+             their app hash; tm_bench for 2 s at 50 tx/s on node 0's
+             process, every tx it sent committed or in its mempool. Each
+             node's dump_device_health shows the guarded verifier on the
+             card, the breaker closed and no fallback event; its /metrics
+             device-backend verify calls above 0 and no device fallback;
+             the lite process's /frontend_stats its dispatches. Then
+             SIGTERM to every process: each exits 0 within 10 s. Prints
+             each process's seconds from spawn to its first RPC answer,
+             blocks a second and a height's p50 (node 0's block times),
+             the lite process's wall, the restart's seconds to the tip, and
+             each process's GPU memory from nvidia-smi
+             --query-compute-apps, each line with the card's name and
+             power limit.
 
 The window phase's routes and the backfill phase each make one traced call
 (the p50 of 3 before phase 21, of 2 before phase 22: the fastsync replay
@@ -456,7 +488,10 @@ path (K1, K2, K3 and K4) is the plain version's run for the exactness check
 (two or three more runs before). Phase 23 is paid for by phase 19's msm
 calls, which take the window's first 128 heights, not all 512; phase 24
 by phase 23's serial run, 2 heights (4 before); phase 25 by phase 22's
-chain, 513 blocks (1,025 before). Each phase's line carries the seconds
+chain, 513 blocks (1,025 before); phase 26 by phase 25's tm_bench (moved
+into phase 26), phase 21's chain, 8 heights (16 before), and phase 22's
+reactor, 129 heights (256 before), and the lite phase's scattered shape,
+16 clients (32 before). Each phase's line carries the seconds
 since the script began.
 
 Each path's launch counts are set to 0 just before it and read just after;
@@ -472,7 +507,10 @@ explicit, baseline, reactor) and phase 23's as ``consensus_launches`` ((a),
 (b) and (c), each split into flushes and LastCommit checks) and phase
 24's as ``statesync_launches`` (trust, backfill, handoff) and phase 25's
 as ``localnet_launches`` (the validators' flushes and LastCommit checks,
-and the joining node's by source under ``join``); K4's own
+and the joining node's by source under ``join``) and phase 26's as
+``cli_launches`` (read from each process over its RPC: each node's
+device-backend verify calls, one K1 and one K2 launch each, and the lite
+process's frontend dispatches); K4's own
 ``launches`` are
 the msm route's 10,000-validator commit's. The line before the last two is the
 ``kernels`` JSON, then the card's name
@@ -504,6 +542,7 @@ import numpy as np
 import torch
 
 from tendermint_tpu_torch.abci import types as abci
+from tendermint_tpu_torch.abci.server import ABCIServer
 from tendermint_tpu_torch.abci.examples.kvstore import (
     KVStoreApp,
     PersistentKVStoreApp,
@@ -576,6 +615,7 @@ from tendermint_tpu_torch.state.state_types import state_from_genesis
 from tendermint_tpu_torch.statesync.reactor import StateSyncReactor
 from tendermint_tpu_torch.statesync.store import SnapshotStore
 from tendermint_tpu_torch.testutil import chain as tchain
+from tendermint_tpu_torch.testutil import cli_net
 from tendermint_tpu_torch.testutil import commit as tc
 from tendermint_tpu_torch.testutil import consensus as tcs
 from tendermint_tpu_torch.testutil import lite_chain as lc
@@ -640,12 +680,13 @@ RESULT_TIMEOUT = 300.0
 # DefaultMaxValidators = 100 (x/staking/types/params.go), power 10 each, 128
 # heights; 34 of the 100 replaced at 33, 65 and 97, so an old set holds at
 # most 66 % of a later commit's power and every long hop bisects.
-# scripts/bench_lite.py's 64 clients on the last 4 heights; 32 scattered
-# clients, since the serial reference certifies each distinct height of
-# theirs on the host (~1.1 s a height) within the smoke's time limit.
+# scripts/bench_lite.py's 64 clients on the last 4 heights; 16 scattered
+# clients (32 before the cli phase came, 64 before that), since the serial
+# reference certifies each distinct height of theirs on the host (~1.1-1.5 s
+# a height) within the smoke's time limit.
 LITE_VALS, LITE_HEIGHTS, LITE_SEED = 100, 128, 11
 LITE_CHANGES, LITE_CHANGE_N = (33, 65, 97), 34
-LITE_CLIENTS, LITE_SCATTERED, LITE_TIPS, LITE_REJECT_CLIENTS = 64, 32, 4, 4
+LITE_CLIENTS, LITE_SCATTERED, LITE_TIPS, LITE_REJECT_CLIENTS = 64, 16, 4, 4
 # the rejections: a stranger set served from height 60, the commit at 90
 # stripped below 2/3, a flipped bit at the first bisection midpoint
 LITE_STRANGER_FROM, LITE_STRIPPED = 60, 90
@@ -665,10 +706,11 @@ MP_BATCH, MP_WAIT, MP_WINDOW_MS, MP_ROWS = 128, 0.05, 5.0, 64
 MP_FILL = MempoolConfig().size
 # the block_exec phase: a chain of the Cosmos SDK's DefaultMaxValidators (100,
 # power 10, seed 11) fed by the node-wired mempool at the mempool phase's
-# settings, 16 heights of 64 signed txs (64 senders, nonces in order); then
-# BASELINE.json config 2's 10,000-validator LastCommit through validate_block
+# settings, 8 heights of 64 signed txs (64 senders, nonces in order; 16
+# before the cli phase came); then BASELINE.json config 2's 10,000-validator
+# LastCommit through validate_block
 BX_VALS, BX_POWER, BX_SEED = 100, 10, 11
-BX_HEIGHTS, BX_TXS = 16, 64
+BX_HEIGHTS, BX_TXS = 8, 64
 BX_REPS = 2  # 3 before the fastsync phase came
 BX_TIME0 = 1_700_000_000_000_000_000
 BX_SPANS = ("state.validate", "verify.dispatch", "verify.audit", "state.exec",
@@ -677,9 +719,9 @@ BX_SPANS = ("state.validate", "verify.dispatch", "verify.audit", "state.exec",
 # width (64 validators of power 10, KVStoreApp); 513 blocks, so that the
 # reference's VERIFY_WINDOW = 512 gives one full window (1,025 blocks, two
 # windows, before the localnet phase came); the node's reactor syncs the
-# first 257 from a loopback peer (two and more of the pool's 128-height
-# request windows)
-FS_VALS, FS_BLOCKS, FS_WINDOW, FS_REACTOR_BLOCKS = 64, 513, 512, 257
+# first 130 from a loopback peer (129 heights, more than one of the pool's
+# 128-height request windows; 257 before the cli phase came)
+FS_VALS, FS_BLOCKS, FS_WINDOW, FS_REACTOR_BLOCKS = 64, 513, 512, 130
 FS_SYNC_TIMEOUT = 300.0
 FS_TRACE_CAPACITY = 1 << 17
 FS_SPANS = ("fastsync.window", "planner.pack", "verify.dispatch", "verify.audit",
@@ -732,10 +774,10 @@ LN_JOIN_SOURCES = ("trust", "backfill", "fastsync", "fastsync_last_commit", "flu
                    "last_commit")
 # then the RPC: 16 clients x /commit?verify=1 at every height (and
 # /validators?verify=1 once each) on node 0, the lite client on node 1, a
-# NewBlock websocket on node 2, /metrics on node 3, and tm_bench on node 0
-# for 2 s at 50 tx/s
-LN_RPC_CLIENTS, LN_BENCH_S, LN_BENCH_RATE = 16, 2.0, 50
-LN_RPC_SOURCES = ("burst", "lite", "bench")
+# NewBlock websocket on node 2 and /metrics on node 3 (tm_bench moved to the
+# cli phase)
+LN_RPC_CLIENTS = 16
+LN_RPC_SOURCES = ("burst", "lite")
 # K1's and K2's __global__ functions, as a CUDA trace names them
 LN_KERNEL_NAMES = {"ed25519_prologue": "prologue_kernel", "ed25519_ladder": "ladder_kernel"}
 # the reference's metric names a node's /metrics must hold (tests/test_ws_metrics.py)
@@ -750,6 +792,18 @@ LN_METRIC_NAMES = (
     "# TYPE tendermint_p2p_peer_send_bytes_total counter",
     "# TYPE tendermint_p2p_messages_received_total counter",
     "# TYPE tendermint_mempool_tx_size_bytes histogram", "# TYPE tendermint_p2p_peers gauge")
+
+# the cli phase: BASELINE.json config 1 as docker-compose.yml runs it, four
+# `tendermint node` processes from a `testnet` tree (power 1 each, the
+# testnet's), --consensus.timeout_commit 0.3 as the reference's multi-process
+# test (tests/test_localnet.py:65), the vote feed at phase 25's window; to
+# height 3, then node 3 killed while the others commit 2 more, restarted to
+# their tip; tm_bench for 2 s at 50 tx/s on node 0's process
+CLI_VALS, CLI_HEIGHTS, CLI_AHEAD, CLI_CHAIN = 4, 3, 2, "cli-localnet"
+CLI_TIMEOUT_COMMIT, CLI_WINDOW_MS = 0.3, LN_WINDOW_MS
+CLI_TIMEOUT, CLI_STOP_S = 120.0, 10.0
+CLI_TX = b"cli-socket=1"
+CLI_BENCH_S, CLI_BENCH_RATE = 2.0, 50
 
 # Rates for the least time the card could take: HBM bandwidth (H100 SXM
 # data sheet); 32-bit integer add, logic, shift and multiply-add each retire
@@ -4873,43 +4927,14 @@ def ln_lite(node, top: int, tls) -> dict:
     return {"heights": top, "seconds": secs}
 
 
-def ln_bench(node, tls) -> dict:
-    """tm_bench at LN_BENCH_RATE tx/s for LN_BENCH_S s against ``node``:
-    every tx it sent is in a block or in the node's mempool after it."""
-    sent, mtx, real = [], threading.Lock(), rpc_client.HTTPClient.broadcast_tx_async
-
-    def record(self, tx):
-        out = real(self, tx)
-        with mtx:
-            sent.append(bytes(tx))
-        return out
-
-    rpc_client.HTTPClient.broadcast_tx_async = record
-    try:
-        stats = ln_tagged(tm_bench.run_bench, "rpc:bench", tls)(
-            ln_addr(node), duration=LN_BENCH_S, rate=LN_BENCH_RATE, connections=1)
-    finally:
-        rpc_client.HTTPClient.broadcast_tx_async = real
-    # the pool first: a tx leaves it only after its block is stored
-    pooled = {bytes(t) for t in node.mempool.reap_max_txs(-1)}
-    bs = node.block_store
-    in_blocks = {bytes(t) for h in range(1, bs.height() + 1) for t in bs.load_block(h).data.txs}
-    lost = [t for t in sent if t not in in_blocks and t not in pooled]
-    check(stats["txs_sent"] == len(sent) > 0 and not lost,
-          f"localnet: tm_bench sent {len(sent)} txs ({stats}), {len(lost)} neither committed nor "
-          f"pooled")
-    stats["committed"] = sum(1 for t in sent if t in in_blocks)
-    return stats
-
-
 def phase_localnet(dev, err: dict) -> dict:
     """Phase 25: BASELINE.json config 1, four Nodes started from home
     directories (testutil/node_net) over TCP with RPC on, their [verify]
     root with the vote feed on; txs through broadcast_tx_commit on node 0's
     RPC; then a fifth node joins by state sync, and the RPC routes are
     driven: the ?verify=1 burst under the profiler, the lite client over
-    lite_full_commit, a NewBlock websocket, /metrics, dump_device_health and
-    tm_bench."""
+    lite_full_commit, a NewBlock websocket, /metrics and
+    dump_device_health."""
     phase(f"localnet: {LN_VALS} validators of power 10, each a node/node.Node from a home "
           f"directory (testutil/node_net: sqlite stores, FilePV, node key, genesis) with its "
           f"own WAL, vote feed ({LN_WINDOW_MS:g} ms, {LN_ROWS} rows), RPC server and reactor "
@@ -4921,7 +4946,7 @@ def phase_localnet(dev, err: dict) -> dict:
           f"double sign at {LN_EVIDENCE_HEIGHT} into node 0's evidence pool; at {LN_JOIN_AT} a "
           f"fifth node joins by state sync and follows {LN_FOLLOW} heights; then the RPC: "
           f"{LN_RPC_CLIENTS} clients x /commit?verify=1 under the profiler, the lite client, "
-          f"the websocket, /metrics, dump_device_health and tm_bench")
+          f"the websocket, /metrics and dump_device_health")
     t_phase = time.perf_counter()
     before = fallbacks()
     # the guard's events of earlier phases (their tripped breakers) stay in
@@ -5009,7 +5034,6 @@ def phase_localnet(dev, err: dict) -> dict:
                 health = HTTPClient(ln_addr(nodes[0])).dump_device_health()
                 print(f"  the lite client, /metrics and dump_device_health by "
                       f"{time.perf_counter() - t_rpc:.1f} s", flush=True)
-                bench = ln_bench(nodes[0], tls)
                 seen = set()
                 while True:
                     try:
@@ -5110,8 +5134,7 @@ def phase_localnet(dev, err: dict) -> dict:
           for src in LN_RPC_SOURCES}
     check(rl["burst"]["k1"] == rl["burst"]["k2"] >= burst["dispatches"] >= 1
           and rl["burst"]["k7"] == burst["dispatches"]
-          and rl["lite"]["k1"] == rl["lite"]["k2"] >= 1 and rl["lite"]["k7"] == 0
-          and rl["bench"] == {"k1": 0, "k2": 0, "k7": 0},
+          and rl["lite"]["k1"] == rl["lite"]["k2"] >= 1 and rl["lite"]["k7"] == 0,
           f"localnet: the RPC's launches by source {rl}, {burst['dispatches']} burst dispatches")
     per_node = []
     for i, n in enumerate(nodes):
@@ -5210,13 +5233,6 @@ def phase_localnet(dev, err: dict) -> dict:
           f"node 2's websocket saw NewBlock at every height; node 3's /metrics holds the "
           f"{len(LN_METRIC_NAMES)} names; dump_device_health: breaker "
           f"{health['breaker']['state']}, no fallback", flush=True)
-    print(f"  tm_bench ({LN_BENCH_S:g} s at {LN_BENCH_RATE} tx/s, 1 connection, node 0): sent "
-          f"{bench['txs_sent']}, committed {bench['committed']} (the rest in node 0's mempool), "
-          f"{bench['blocks_seen']} blocks in {bench['duration_s']} s; Txs/sec avg "
-          f"{bench['txs_per_sec']['avg']} stddev {bench['txs_per_sec']['stddev']} max "
-          f"{bench['txs_per_sec']['max']}; Blocks/sec avg {bench['blocks_per_sec']['avg']} "
-          f"stddev {bench['blocks_per_sec']['stddev']} max {bench['blocks_per_sec']['max']}",
-          flush=True)
     shutil.rmtree(tmp, ignore_errors=True)
     print(f"  every node at {top} with the same block and app hashes; no peer stopped for an "
           f"error ({len(races)} simultaneous-dial duplicates closed by the canonical rule before "
@@ -5233,12 +5249,322 @@ def phase_localnet(dev, err: dict) -> dict:
             "gossip": gossip, "seconds": seconds, "dial_races": len(races),
             "join": {k: join[k] for k in ("snapshot", "synced", "restore_s", "handoff_s",
                                            "tip_s", "follow_s")},
-            "rpc": {"burst": burst, "lite": lite, "bench": bench,
+            "rpc": {"burst": burst, "lite": lite,
                     "commit_p50_ms": statistics.median(commit_s) * 1e3},
             "launches": {"flushes": vals[0].get("ed25519_prologue", 0),
                          "last_commit": vals[1].get("ed25519_prologue", 0),
                          "join": {s: v["k1"] for s, v in jl.items()},
                          "rpc": {s: v["k1"] for s, v in rl.items()}}}
+
+
+def cli_metric(text: str, name: str, **labels) -> float:
+    """The sum of the series of ``name`` in Prometheus text whose labels
+    include ``labels`` (0.0 when there is none)."""
+    total = 0.0
+    for line in text.splitlines():
+        if not line.startswith(name) or line.startswith("#"):
+            continue
+        head, _, value = line.rpartition(" ")
+        series, _, lbl = head.partition("{")
+        if series != name:
+            continue
+        got = dict(re.findall(r'(\w+)="([^"]*)"', lbl))
+        if all(got.get(k) == v for k, v in labels.items()):
+            total += float(value)
+    return total
+
+
+def cli_gpu_apps() -> list:
+    """The compute processes nvidia-smi lists on the card, (pid, used
+    memory) as it gives them. In a container its pids are the host's, not
+    this process's (the H100 machine names every process pid 1), so the rows
+    are kept as they are, one a process."""
+    try:
+        out = subprocess.run(["nvidia-smi", "--query-compute-apps=pid,used_memory",
+                              "--format=csv,noheader"], capture_output=True, text=True,
+                             timeout=30).stdout
+    except (OSError, subprocess.TimeoutExpired):
+        return []
+    return [tuple(p.strip() for p in line.split(",")) for line in out.splitlines()
+            if line.strip()]
+
+
+def cli_mem_used(device: str) -> float:
+    """The card's used memory in MiB (nvidia-smi); NaN off the card."""
+    if device == "cpu":
+        return float("nan")
+    return float(smi("memory.used").split()[0])
+
+
+def cli_host_verdict(addr: str, chain_id: str, h: int) -> dict:
+    """The host's verdict on a node's commit at ``h`` (its lite_full_commit
+    over RPC) against its validator set: ``verify_commit`` on
+    ``HostBatchVerifier`` and the tally of the signatures that verify."""
+    fc = RPCProvider(addr).full_commit_at(chain_id, h)
+    commit, vals = fc.signed_header.commit, fc.validators
+    pubs, msgs, sigs, powers = vals.collect_commit_sigs(chain_id, commit.block_id, h, commit)
+    ok = [bool(x) for x in verify_generic(pubs, msgs, sigs, verifier=HostBatchVerifier())]
+    try:
+        vals.verify_commit(chain_id, commit.block_id, h, commit, verifier=HostBatchVerifier())
+        verified = True
+    except CommitError:
+        verified = False
+    return {"verified": verified, "sigs_ok": all(ok),
+            "tally": sum(p for p, o in zip(powers, ok) if o)}
+
+
+def cli_bench(net, i: int) -> dict:
+    """tm_bench at CLI_BENCH_RATE tx/s for CLI_BENCH_S s against node
+    ``i``'s process: every tx it sent is in a block or in that node's
+    mempool after it."""
+    sent, mtx, real = [], threading.Lock(), rpc_client.HTTPClient.broadcast_tx_async
+
+    def record(self, tx):
+        out = real(self, tx)
+        with mtx:
+            sent.append(bytes(tx))
+        return out
+
+    addr = f"tcp://127.0.0.1:{net.rpc_port(i)}"
+    rpc_client.HTTPClient.broadcast_tx_async = record
+    try:
+        stats = tm_bench.run_bench(addr, duration=CLI_BENCH_S, rate=CLI_BENCH_RATE,
+                                   connections=1)
+    finally:
+        rpc_client.HTTPClient.broadcast_tx_async = real
+    c = HTTPClient(addr)
+    # the pool first: a tx leaves it only after its block is stored
+    pooled = {base64.b64decode(t) for t in c.unconfirmed_txs(limit=100_000)["txs"]}
+    committed, lost = 0, []
+    for tx in sent:
+        try:
+            c.tx(hashlib.sha256(tx).hexdigest().upper())
+            committed += 1
+        except Exception:  # not indexed: it must be pooled
+            if tx not in pooled:
+                lost.append(tx)
+    check(stats["txs_sent"] == len(sent) > 0 and not lost,
+          f"cli: tm_bench sent {len(sent)} txs ({stats}), {len(lost)} neither committed nor "
+          f"pooled")
+    stats["committed"] = committed
+    return stats
+
+
+def cli_process_health(net, name: str, port: int, backend: str) -> dict:
+    """One node process's guard and counters over its RPC: dump_device_health
+    (the installed guarded verifier on ``backend``, the breaker closed, no
+    fallback or failure event) and /metrics (device-backend verify calls
+    above 0, no device fallback)."""
+    c = HTTPClient(f"tcp://127.0.0.1:{port}")
+    health = c.dump_device_health()
+    text = c.metrics_text()
+    calls = cli_metric(text, "tendermint_verify_calls_total", backend=backend)
+    fallbacks_n = cli_metric(text, "tendermint_verify_device_fallback_total")
+    bad = [e for e in health["events"] if e["kind"] != "breaker"]
+    v = health["verifier"]
+    # off the card (a rehearsal) TM_BATCH_VERIFIER=host installs the host's
+    check(health["breaker"]["state"] == "closed" and not bad and v["installed"]
+          and (backend == "host" or (v.get("guard") is not None and v["backend"] == backend)),
+          f"cli: {name}'s dump_device_health: breaker {health['breaker']['state']}, verifier "
+          f"{v}, events {bad}")
+    check(calls > 0 and fallbacks_n == 0,
+          f"cli: {name}'s /metrics: {calls} verify calls on {backend}, {fallbacks_n} device "
+          f"fallbacks")
+    return {"calls": calls, "fallbacks": fallbacks_n}
+
+
+def cli_wait_stamped(net, h: int, nodes, stamps: dict) -> bool:
+    """Wait until every node of ``nodes`` is at ``h``, polling node
+    ``nodes[0]``'s height every 20 ms; ``stamps`` gets the wall time at which
+    each of its heights was first seen."""
+    deadline = time.monotonic() + CLI_TIMEOUT
+    while time.monotonic() < deadline:
+        top, now = net.height(nodes[0]), time.perf_counter()
+        for k in range(1, top + 1):
+            stamps.setdefault(k, now)
+        if top >= h and all(net.height(i) >= h for i in nodes[1:]):
+            return True
+        time.sleep(0.02)
+    return False
+
+
+def phase_cli(dev, err: dict) -> dict:
+    """Phase 26: BASELINE.json config 1 as its containers run it: a testnet
+    written by the CLI, four `tendermint node` processes on the card (node
+    3 on a socket app this process serves), a `lite` process, a killed and
+    restarted node, tm_bench, and SIGTERM to all."""
+    device = dev.type
+    backend = "host" if device == "cpu" else device
+    phase(f"cli: `testnet --v {CLI_VALS} --chain-id {CLI_CHAIN}`, then {CLI_VALS} `tendermint "
+          f"node` processes on --device {device} (nodes 0-2 on the in-process kvstore, node 3 "
+          f"on a socket KVStoreApp this process serves over ABCIServer; --consensus."
+          f"timeout_commit {CLI_TIMEOUT_COMMIT:g} as tests/test_localnet.py, the vote feed at "
+          f"{CLI_WINDOW_MS:g} ms, the unsafe routes and /metrics on), a `lite` process on "
+          f"node 0; to height {CLI_HEIGHTS}, a tx through node 3's socket app, ?verify=1 on "
+          f"node 1, every height through the lite process, node 3 killed and restarted, "
+          f"tm_bench on node 0, SIGTERM to all")
+    t_phase = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="chip-smoke-cli-")
+    app = KVStoreApp()
+    srv = ABCIServer("tcp://127.0.0.1:0", app)
+    srv.start()
+    env = dict(os.environ)
+    if device != "cpu":
+        env.pop("TM_BATCH_VERIFIER", None)
+    net = cli_net.CLINet(tmp, CLI_VALS, chain_id=CLI_CHAIN, device=device, env=env,
+                         timeout_commit=CLI_TIMEOUT_COMMIT, node_flags=[
+                             "--rpc.unsafe", "true", "--instrumentation.prometheus", "true",
+                             "--verify.vote_batch_window_ms", str(CLI_WINDOW_MS)])
+    apps, rcs = [], {}
+    used = {"before": cli_mem_used(device)}
+    try:
+        t0 = time.perf_counter()
+        for i in range(CLI_VALS):
+            net.spawn_node(i, "kvstore" if i < CLI_VALS - 1
+                           else f"tcp://127.0.0.1:{srv.bound_port}")
+        procs = [net.node(i) for i in range(CLI_VALS)]
+        up = [p.wait_answer("/health", CLI_TIMEOUT) for p in procs]
+        # the lite process while the nodes reach height 3 (its start beside
+        # theirs would slow all five: `import torch` is most of a start)
+        lite = net.spawn_lite(0)
+        check(cli_net.wait_for(lambda: all(net.n_peers(i) >= CLI_VALS - 1
+                                           for i in range(CLI_VALS)), CLI_TIMEOUT),
+              f"cli: peers {[net.n_peers(i) for i in range(CLI_VALS)]}\n{net.tails()}")
+        stamps = {}
+        check(cli_wait_stamped(net, CLI_HEIGHTS, list(range(CLI_VALS)), stamps),
+              f"cli: heights {[net.height(i) for i in range(CLI_VALS)]}\n{net.tails()}")
+        t_up = time.perf_counter() - t0
+        up.append(lite.wait_answer("/frontend_stats", CLI_TIMEOUT))
+        check(all(up), f"cli: processes up {up}\n{net.tails()}")
+        apps = cli_gpu_apps()
+        used["running"] = cli_mem_used(device)
+        answers = {name: p.first_answer_s for name, p in net.procs.items()}
+        # a tx through node 3's socket app: its CheckTx and DeliverTx cross the socket
+        c3 = HTTPClient(f"tcp://127.0.0.1:{net.rpc_port(3)}")
+        res = c3.broadcast_tx_commit(CLI_TX)
+        check(res["check_tx"]["code"] == 0 and res["deliver_tx"]["code"] == 0,
+              f"cli: broadcast_tx_commit on node 3: {res}")
+        key, value = CLI_TX.split(b"=")
+        found = {}
+        for i in (0, CLI_VALS - 1):
+            check(cli_net.wait_for(lambda i=i: net.height(i) >= res["height"], CLI_TIMEOUT),
+                  f"cli: node {i} did not reach the tx's height {res['height']}")
+            q = HTTPClient(f"tcp://127.0.0.1:{net.rpc_port(i)}").abci_query(data=key)
+            found[i] = base64.b64decode(q["response"]["value"])
+        local = app.query(abci.RequestQuery(data=key, path="/store")).value
+        check(found == {0: value, CLI_VALS - 1: value} and local == value,
+              f"cli: abci_query of {key!r}: {found}, the socket app's store {local!r}")
+        # node 3 killed; the others commit two more; node 3 restarted with the
+        # same command, and the checks of nodes 0-2 run while it starts
+        net.kill(CLI_VALS - 1)
+        h = max(net.height(i) for i in range(CLI_VALS - 1))
+        check(cli_wait_stamped(net, h + CLI_AHEAD, list(range(CLI_VALS - 1)), stamps),
+              f"cli: without node 3, heights {[net.height(i) for i in range(CLI_VALS - 1)]}")
+        t_r = time.perf_counter()
+        node3 = net.restart_node(CLI_VALS - 1)
+        target = max(net.height(i) for i in range(CLI_VALS - 1))
+        # ?verify=1 on node 1 against the host's verify_commit
+        addr1 = f"tcp://127.0.0.1:{net.rpc_port(1)}"
+        verdicts = {}
+        for h in range(1, CLI_HEIGHTS + 1):
+            v = net.rpc(1, f"/commit?height={h}&verify=1")["verification"]
+            want = cli_host_verdict(addr1, CLI_CHAIN, h)
+            verdicts[h] = {k: v[k] for k in ("verified", "sigs_ok", "tally")}
+            check(verdicts[h] == want, f"cli: node 1's /commit?height={h}&verify=1 gave {v}, "
+                                       f"the host {want}")
+        # every height through the lite process, each equal to node 0's
+        top = net.height(0)
+        t_l = time.perf_counter()
+        lite_out = {h: cli_net.rpc_get(lite.port, f"/commit?height={h}", timeout=CLI_TIMEOUT)
+                    for h in range(1, top + 1)}
+        lite_s = time.perf_counter() - t_l
+        for h, got in lite_out.items():
+            want = net.rpc(0, f"/commit?height={h}")["signed_header"]
+            check(got.get("verified") is True and got["header"]["height"] == h
+                  and got["header"]["app_hash"] == want["header"]["app_hash"]
+                  and got["commit"]["block_id_hash"] == want["commit"]["block_id"]["hash"],
+                  f"cli: the lite process's /commit?height={h}: {got}, node 0's {want}")
+        lite_stats = cli_net.rpc_get(lite.port, "/frontend_stats")
+        check(lite_stats["dispatches"] > 0, f"cli: the lite process's stats {lite_stats}")
+        # its first answer (the checks above took less than its start)
+        check(node3.wait_answer("/health", CLI_TIMEOUT),
+              f"cli: the restarted node 3 did not answer\n{node3.tail()}")
+        answers["node3 restarted"] = node3.first_answer_s
+        check(cli_net.wait_for(lambda: net.height(CLI_VALS - 1) >= target, CLI_TIMEOUT),
+              f"cli: the restarted node 3 at {net.height(CLI_VALS - 1)}, the tip {target}\n"
+              f"{node3.tail()}")
+        restart_s = time.perf_counter() - t_r
+        # tm_bench once all four run again (with node 3 down every fourth
+        # height waits out its proposer's timeout_propose)
+        bench = cli_bench(net, 0)
+        # the four nodes' blocks and app hashes agree at every height to node
+        # 3's tip (its blocks to `target` fast-synced, the tx's block included)
+        for h in range(1, net.height(CLI_VALS - 1) + 1):
+            heads = [net.rpc(i, f"/commit?height={h}")["signed_header"] for i in range(CLI_VALS)]
+            check(len({x["header"]["app_hash"] for x in heads}) == 1
+                  and len({x["commit"]["block_id"]["hash"] for x in heads}) == 1,
+                  f"cli: the nodes' blocks or app hashes at {h} differ")
+        # each process's guard and counters, read before they stop
+        health = {f"node{i}": cli_process_health(net, f"node {i}", net.rpc_port(i), backend)
+                  for i in range(CLI_VALS)}
+        # the chain's walls: node 0's heights as this process first saw them
+        # (polled every 20 ms) while the net ran to CLI_HEIGHTS and then on
+        # three nodes; heights first seen in one poll, or that passed between
+        # two waits, have no wall
+        walls = [stamps[k] - stamps[k - 1] for k in sorted(stamps)
+                 if k - 1 in stamps and stamps[k] > stamps[k - 1]]
+        ks = sorted(k for k in stamps if k >= 2)
+        blocks_s = len(walls) / sum(walls)
+        pids = {name: p.pid for name, p in net.procs.items()}
+        t_stop = time.perf_counter()
+        rcs = net.stop_all(CLI_STOP_S)
+        stop_s = time.perf_counter() - t_stop
+        used["after"] = cli_mem_used(device)
+        check(all(rc == 0 for rc in rcs.values()),
+              f"cli: exit codes on SIGTERM {rcs} (within {CLI_STOP_S:g} s)\n{net.tails()}")
+    except BaseException:
+        print(net.tails(), flush=True)
+        raise
+    finally:
+        net.stop_all(CLI_STOP_S)
+        srv.stop()
+        shutil.rmtree(tmp, ignore_errors=True)
+    seconds = time.perf_counter() - t_phase
+    smi_line = smi("name,power.limit") if device != "cpu" else "cpu"
+    print(f"  [{smi_line}] seconds from spawn to the first RPC answer: "
+          + ", ".join(f"{k} {v:.2f}" for k, v in answers.items() if v is not None)
+          + f"; all {CLI_VALS} nodes at {CLI_HEIGHTS} with 3 peers {t_up:.2f} s after the "
+          f"spawn", flush=True)
+    print(f"  [{smi_line}] {blocks_s:.3f} blocks/s over {len(walls)} heights of node 0 "
+          f"({ks[0]}-{ks[-1]}, as this process saw them), a height's p50 "
+          f"{statistics.median(walls) * 1e3:.1f} ms; the tx through "
+          f"node 3's socket app committed at {res['height']} and abci_query finds it on nodes 0 "
+          f"and 3; ?verify=1 on node 1 at 1-{CLI_HEIGHTS} {verdicts} (the host's); the lite "
+          f"process certified heights 1-{len(lite_out)} in {lite_s * 1e3:.1f} ms "
+          f"({lite_stats['dispatches']} dispatches, {lite_stats['rows_in']} rows); node 3 "
+          f"restarted to the tip {target} in {restart_s:.2f} s", flush=True)
+    print(f"  [{smi_line}] tm_bench ({CLI_BENCH_S:g} s at {CLI_BENCH_RATE} tx/s, 1 connection, "
+          f"node 0's process, after node 3's restart): sent {bench['txs_sent']}, committed "
+          f"{bench['committed']}, "
+          f"{bench['blocks_seen']} blocks in {bench['duration_s']} s; Txs/sec avg "
+          f"{bench['txs_per_sec']['avg']}; Blocks/sec avg {bench['blocks_per_sec']['avg']}",
+          flush=True)
+    per = (used["running"] - used["before"]) / len(pids)
+    print(f"  [{smi_line}] GPU memory: the card's used memory {used['before']:.0f} MiB before "
+          f"the spawn, {used['running']:.0f} MiB with the {len(pids)} processes running "
+          f"({per:.0f} MiB a process on average), {used['after']:.0f} MiB after they exit; "
+          f"nvidia-smi --query-compute-apps lists (pid, memory) {apps} (the container's pids "
+          f"are not the card's, so no row names its process); verify calls on {backend} "
+          f"by node {[h['calls'] for h in health.values()]}, device fallbacks 0; SIGTERM: "
+          f"exit codes {rcs}, seconds to exit "
+          f"{ {k: round(p.exit_s, 2) for k, p in net.procs.items() if p.exit_s is not None} } "
+          f"({stop_s:.2f} s for all); phase {seconds:.1f} s", flush=True)
+    return {"seconds": seconds, "first_answer_s": answers, "blocks_s": blocks_s,
+            "p50_ms": statistics.median(walls) * 1e3, "lite_s": lite_s,
+            "lite_heights": len(lite_out), "restart_s": restart_s, "bench": bench,
+            "calls": {k: v["calls"] for k, v in health.items()},
+            "lite_dispatches": lite_stats["dispatches"],
+            "gpu_apps": apps, "gpu_used_mib": used, "gpu_mib_per_process": per}
 
 
 def profiler_warmup(out: dict) -> None:
@@ -5329,6 +5655,8 @@ def main() -> int:
     ssync = phase_statesync(configure_verify(VerifyConfig(), device=dev), dev, err)
     # the localnet phase installs a root of its own with the vote feed on
     localnet = phase_localnet(dev, err)
+    # the cli phase: node processes of their own, each with its own root
+    cli = phase_cli(dev, err)
     print(f"  {smi_line}", flush=True)
 
     ms = {**ed_main["ms"], "secp256k1_ladder": secp_main["ms"]}
@@ -5376,6 +5704,14 @@ def main() -> int:
                                   else {"flushes": 0, "last_commit": 0,
                                         "join": {s: 0 for s in LN_JOIN_SOURCES},
                                         "rpc": {s: 0 for s in LN_RPC_SOURCES}}),
+            # the cli phase's processes: each node's device-backend verify
+            # calls (one K1 and one K2 launch each) and the lite process's
+            # frontend dispatches, read over their RPC
+            "cli_launches": ({"verify_calls": cli["calls"],
+                              "lite_dispatches": cli["lite_dispatches"]}
+                             if name in ("ed25519_prologue", "ed25519_ladder")
+                             else {"verify_calls": {k: 0 for k in cli["calls"]},
+                                   "lite_dispatches": 0}),
             "msm_launches": msm["launches"][name],
             "commit_window_launches": {"ladder": cwin["launches"][name],
                                        "msm": cwin["msm_launches"][name],
@@ -5420,6 +5756,7 @@ def main() -> int:
         "localnet_launches": {"flushes": 0, "last_commit": 0,
                               "join": {s: 0 for s in LN_JOIN_SOURCES},
                               "rpc": {s: 0 for s in LN_RPC_SOURCES}},
+        "cli_launches": {"verify_calls": {k: 0 for k in cli["calls"]}, "lite_dispatches": 0},
         "msm_launches": {"commit": msm["launches"][K4],
                          "adversarial": msm["adversarial_launches"][K4],
                          "dirty_commit": msm["dirty_launches"][K4],
@@ -5467,9 +5804,13 @@ def main() -> int:
           f"answers, {localnet['rpc']['burst']['dispatches']} dispatches), broadcast_tx_commit p50 "
           f"{localnet['rpc']['commit_p50_ms']:.1f} ms, the lite client "
           f"{localnet['rpc']['lite']['seconds'] * 1e3:.1f} ms for {localnet['rpc']['lite']['heights']} "
-          f"heights, tm_bench {localnet['rpc']['bench']['txs_per_sec']['avg']} tx/s and "
-          f"{localnet['rpc']['bench']['blocks_per_sec']['avg']} blocks/s; phase "
-          f"{localnet['seconds']:.1f} s", flush=True)
+          f"heights; phase {localnet['seconds']:.1f} s", flush=True)
+    print(f"  cli: {CLI_VALS} node processes and a lite process on the card, "
+          f"{cli['blocks_s']:.3f} blocks/s (a height's p50 {cli['p50_ms']:.1f} ms), spawn to "
+          f"the first answer {max(cli['first_answer_s'].values()):.2f} s at most, the lite "
+          f"process {cli['lite_s'] * 1e3:.1f} ms for {cli['lite_heights']} heights, the restart "
+          f"{cli['restart_s']:.2f} s to the tip, tm_bench {cli['bench']['txs_per_sec']['avg']} "
+          f"tx/s; phase {cli['seconds']:.1f} s", flush=True)
     print(f"  total {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"torch_ops": [window["tally"], cwin["tally"]]}))
     print(json.dumps({"kernels": kernels}))

@@ -12,3 +12,5 @@ none of it. Commit verification runs
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``; with
 no device given and no CUDA present they raise (``device.resolve_device``).
 """
+
+from tendermint_tpu_torch.version import __version__  # noqa: F401

@@ -10,10 +10,11 @@ Ten methods over three logical connections (consensus / mempool / query):
 
 Plain dataclasses: an in-proc app (the local client) takes them as they
 are. ``msg_to_json`` / ``msg_from_json`` are the reference's JSON form,
-which ``state/store.ABCIResponses`` persists; its type table holds every
-dataclass here, the state-sync snapshot messages included (``Snapshot``,
-the four snapshot requests and responses and their result codes). The
-socket transport is not ported yet.
+which ``state/store.ABCIResponses`` persists and the socket and gRPC
+transports carry (``abci/client.py``, ``abci/server.py``,
+``abci/grpc.py``); its type table holds every dataclass here, the
+state-sync snapshot messages included (``Snapshot``, the four snapshot
+requests and responses and their result codes).
 """
 
 from __future__ import annotations
@@ -194,6 +195,14 @@ class RequestCommit:
 
 
 # -- responses ---------------------------------------------------------------------
+
+
+@dataclass
+class ResponseException:
+    """An app's failure, as a remote transport carries it (the socket and
+    gRPC servers answer with it; their clients raise ``ABCIClientError``)."""
+
+    error: str = ""
 
 
 @dataclass

@@ -25,11 +25,6 @@ from tendermint_tpu_torch.config.p2p import P2PConfig
 from tendermint_tpu_torch.config.statesync import StateSyncConfig
 from tendermint_tpu_torch.config.verify import VerifyConfig
 
-# the apps default_client_creator runs in the node's process
-# (proxy/app_conn.py); any other proxy_app is a socket address
-LOCAL_APPS = ("kvstore", "persistent_kvstore", "counter", "noop")
-
-
 @dataclass
 class BaseConfig:
     root_dir: str = ""
@@ -126,32 +121,17 @@ class Config:
         self.base.root_dir = root
         return self
 
-    def validate_ported(self, proxy_app: bool = True) -> None:
+    def validate_ported(self) -> None:
         """Raise ``NotImplementedError`` for a field whose module is not
         ported: the remote signer (``base.priv_validator_laddr``, ROADMAP
-        item 17 (d)), the gRPC broadcast API (``rpc.grpc_laddr``, item 13
-        (v)), a ``base.proxy_app`` that is no local app (the socket client,
-        item 13 (v); checked when ``proxy_app``, i.e. when the node is given
-        no client creator), the mempool WAL (``mempool.wal_path``, item 13
-        (v)), and, when the node runs p2p, what ``P2PConfig.validate_ported``
-        refuses (item 17 (a'))."""
+        item 17 (d)) and, when the node runs p2p, what
+        ``P2PConfig.validate_ported`` refuses (item 17 (a')). A socket or
+        ``grpc://`` ``proxy_app``, ``rpc.grpc_laddr`` and
+        ``mempool.wal_path`` are ported."""
         if self.base.priv_validator_laddr:
             raise NotImplementedError(
                 "[base] priv_validator_laddr: the remote signer is not ported "
                 "(ROADMAP queue 1 item 17 (d)); use the FilePV")
-        if self.rpc.grpc_laddr:
-            raise NotImplementedError(
-                "[rpc] grpc_laddr: the gRPC broadcast API (abci/grpc) is not ported "
-                "(ROADMAP queue 1 item 13 (v))")
-        if proxy_app and self.base.proxy_app not in LOCAL_APPS:
-            raise NotImplementedError(
-                f"[base] proxy_app {self.base.proxy_app!r}: the socket ABCI client is not "
-                f"ported (ROADMAP queue 1 item 13 (v)); use one of {LOCAL_APPS} or give "
-                f"the node a client creator")
-        if self.mempool.wal_path:
-            raise NotImplementedError(
-                "[mempool] wal_path: the mempool WAL is not ported (ROADMAP queue 1 "
-                "item 13 (v))")
         if self.p2p.laddr:
             self.p2p.validate_ported()
 

@@ -6,16 +6,17 @@ the reference package's ``libs/db/kv.py``):
   default backend (the role of goleveldb in the reference);
 * ``PrefixDB``: a view of another store with every key under a prefix (ref
   prefix_db.go);
-* ``new_db(name, backend, dir)``: the store a node's ``db_backend`` names.
+* ``new_db(name, backend, dir)``: the store a node's ``db_backend`` names,
+  these or ``fsdb`` (``libs/db/fsdb.FSDB``, a file a key under
+  ``<dir>/<name>.db``).
 
 Iteration is over [start, end) by raw bytes with None for an open end,
 forward or reverse; ``Batch`` buffers writes (ref libs/db/types.go). The
 light client's trust store (``lite/provider.DBProvider``), the state store
 (``state/store.py``), the block store (``blockchain/store.py``), the
 evidence store (``evidence/pool.py``) and the tx index
-(``state/txindex/kv.py``) stand on them. The file-per-key and remote
-backends (``fsdb``, ``remote``) are not ported (ROADMAP queue 1 item 12
-(iv)): ``new_db`` refuses them."""
+(``state/txindex/kv.py``) stand on them. The remote backend (``remote``,
+a store served over gRPC) is not ported: ``new_db`` refuses it."""
 
 from __future__ import annotations
 
@@ -251,21 +252,28 @@ class PrefixDB(DB):
         return ((k[len(p):], v) for k, v in self._db.iterator(s, e, reverse))
 
 
+def _fsdb_factory(name: str, dir: str):
+    from tendermint_tpu_torch.libs.db.fsdb import FSDB
+
+    return FSDB(os.path.join(dir, f"{name}.db"))
+
+
 _BACKENDS = {
     "memdb": lambda name, dir: MemDB(),
     "sqlite": SQLiteDB,
     "goleveldb": SQLiteDB,  # the reference's default's name, kept for configs
+    "fsdb": _fsdb_factory,  # a file a key (libs/db/fsdb.go)
 }
 
-UNPORTED_BACKENDS = ("fsdb", "remote")
+UNPORTED_BACKENDS = ("remote",)
 
 
 def new_db(name: str, backend: str = "sqlite", dir: str = ".") -> DB:
     """The store ``backend`` names, for ``name`` under ``dir``."""
     if backend in UNPORTED_BACKENDS:
         raise NotImplementedError(
-            f"db backend {backend!r} is not ported (ROADMAP queue 1 item 12 (iv)); "
-            f"use one of {sorted(_BACKENDS)}")
+            f"db backend {backend!r} is not ported (the remote store, ROADMAP queue 1 "
+            f"item 12 (iv)'s rest); use one of {sorted(_BACKENDS)}")
     try:
         factory = _BACKENDS[backend]
     except KeyError:

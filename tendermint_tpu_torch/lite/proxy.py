@@ -13,9 +13,10 @@ dedup, cross-client lane aggregation). ``serve_proxy`` serves /status,
 /commit, /verify_commit, /light_block and /frontend_stats, whose responses
 are only ever derived from headers the frontend certified: a caller needs
 no trust in the backing node. A full node's own stores serve as the source
-in process (``block_store`` + ``state_db``: ``NodeProvider``);
-``run_lite_proxy`` and the ``lite`` command wait for the command-line
-tools (ROADMAP queue 1 item 12).
+in process (``block_store`` + ``state_db``: ``NodeProvider``).
+``run_lite_proxy`` is the ``lite`` command: the trust store under the
+home's ``data/``, the proxy over a node's RPC, its HTTP server until
+SIGINT or SIGTERM.
 """
 
 from __future__ import annotations
@@ -30,6 +31,7 @@ from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Optional
 from urllib.parse import parse_qs, urlparse
 
+from tendermint_tpu_torch.device import DeviceLike
 from tendermint_tpu_torch.encoding.codec import Reader
 from tendermint_tpu_torch.frontend.frontend import LiteFrontend
 from tendermint_tpu_torch.lite.provider import NodeProvider, Provider, ProviderError
@@ -265,6 +267,51 @@ class LiteProxy:
 
     def close(self) -> None:
         self.frontend.close()
+
+
+def run_lite_proxy(chain_id: str, node_addr: str, laddr: str, home: str,
+                   trusted_height: Optional[int] = None, trusted_hash: Optional[bytes] = None,
+                   *, device: DeviceLike = None) -> int:
+    """Serve /status, /commit, /verify_commit, /light_block and
+    /frontend_stats (each ?height=N) with verified data only; concurrent
+    requests batch through the shared frontend (ref lite/proxy.py
+    run_lite_proxy). The trust store is ``<home>/data/lite_trust.db``
+    (sqlite), which a restart reopens. The process's ``[verify]`` root is
+    configured on ``device`` before the first certify (``None``: the card,
+    and without one ``NoCudaDeviceError``), so that the proxy's
+    ``DynamicVerifier`` runs K1 + K2 there; then
+    ``verify_root.host_verify_from_env``. Serves until SIGINT or SIGTERM,
+    then returns 0."""
+    import os
+    import signal
+    import threading
+
+    from tendermint_tpu_torch.libs.db.kv import new_db
+    from tendermint_tpu_torch.node import verify_root
+
+    verify_root.configure_verify(None, device)
+    verify_root.host_verify_from_env(device)
+    trust_db = new_db("lite_trust", "sqlite", os.path.join(home, "data"))
+    proxy = LiteProxy(chain_id, node_addr, trust_db, trusted_height=trusted_height,
+                      trusted_hash=trusted_hash)
+    httpd = serve_proxy(proxy, laddr)
+    stop = threading.Event()
+    for sig in (signal.SIGINT, signal.SIGTERM):
+        signal.signal(sig, lambda *a: stop.set())
+    t = threading.Thread(target=httpd.serve_forever, name="lite-proxy", daemon=True)
+    t.start()
+    host, port = httpd.server_address[:2]
+    print(f"lite proxy verifying {node_addr} (chain {chain_id}) on tcp://{host}:{port}",
+          flush=True)
+    try:
+        while not stop.wait(0.2):
+            pass
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        proxy.close()
+        trust_db.close()
+    return 0
 
 
 class _ProxyServer(ThreadingHTTPServer):

@@ -41,7 +41,9 @@ way each tx of the failed window whose ``check_tx`` gave an ``on_fault``
 gets the error through it (its ``callback`` never fires): a caller that
 waits for CheckTx's response, as the RPC's ``broadcast_tx_sync`` does,
 learns of the fault at once, on whichever thread the window failed.
-The mempool WAL (``wal_path``) is not ported yet.
+``wal_group`` (a ``libs/autofile.Group``, the node's ``[mempool]
+wal_path``) gets each tx that passes the cache, one line a tx, flushed
+before the app sees it (mempool.go:223 InitWAL).
 """
 
 from __future__ import annotations
@@ -152,8 +154,10 @@ class Mempool(MempoolIface):
         checktx_batch: int = 1,
         checktx_batch_wait: float = 0.005,
         recheck_batch: int = 0,
+        wal_group=None,
     ):
         self._proxy = proxy_app
+        self._wal = wal_group
         self._txs = CList()
         self._tx_map: Dict[bytes, CElement] = {}  # tx hash -> element
         self._height = height
@@ -385,6 +389,9 @@ class Mempool(MempoolIface):
                 raise MempoolError(f"tx too large ({len(tx)} bytes)")
             if not self.cache.push(tx):
                 raise TxInCacheError()
+            if self._wal is not None:
+                self._wal.write(tx + b"\n")
+                self._wal.flush()
             if self._hook_verdicts:
                 # verdict-bearing seam: the app send waits for the flush,
                 # where the batched signature verdict rides the request

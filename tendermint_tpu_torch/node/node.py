@@ -8,9 +8,13 @@ stores under ``data/`` on ``db_backend`` (sqlite by default), its genesis
 are assembled from the port's configuration root (``node/verify_root.py``)
 in the reference's order: stores -> the three ABCI connections -> the
 snapshot store -> the handshake -> the event bus and the tx indexer -> the
-mempool -> evidence and the block executor -> consensus (WAL, vote feed,
-instruments) -> p2p (switch and the reactor set) -> the RPC server and the
-light-client frontend (started in ``on_start``). A node without
+mempool (and its WAL) -> evidence and the block executor -> consensus
+(WAL, vote feed, instruments) -> p2p (switch and the reactor set) -> the
+RPC server, the light-client frontend and the gRPC broadcast API at
+``rpc.grpc_laddr`` (started in ``on_start``). ``proxy_app`` names an app of
+the node's process or a socket (``tcp://``, ``unix://``) or ``grpc://``
+address of an app in another; a remote app publishes no CheckTx signature
+extractor, so its CheckTx does not reach the card (the reference's rule). A node without
 ``p2p.laddr`` runs consensus alone (node.go:246-252's single-validator
 path). The hand-off after a snapshot restore (the reference node's
 ``_on_statesync_complete``) is the ``on_synced`` of
@@ -132,7 +136,7 @@ class Node(BaseService):
         logger: Optional[logging.Logger] = None,
     ):
         super().__init__("Node", logger)
-        config.validate_ported(proxy_app=client_creator is None)
+        config.validate_ported()
         self.config = config
         self._dbs = []  # the stores this node opened (closed if it fails to build)
         self.verify_root = _acquire_root(config.verify, device)
@@ -208,7 +212,8 @@ class Node(BaseService):
 
         # mempool (its [mempool] batched CheckTx hook), evidence, executor
         mp_root = verify_root.mempool(config.mempool, self.proxy_app, self.app, self.metrics,
-                                      height=state.last_block_height, device=self.device)
+                                      height=state.last_block_height, device=self.device,
+                                      root_dir=root)
         self.mempool, self.tx_feed, self.tx_verifier = mp_root
         self.evidence_pool, self.block_exec = verify_root.block_executor(
             self.state_db, _db("evidence"), self.proxy_app, self.mempool, state,
@@ -267,6 +272,7 @@ class Node(BaseService):
 
         self.rpc_server = None
         self._rpc_env = None
+        self.grpc_broadcast = None
 
         # [frontend]: multi-client light-client serving over this node's
         # own stores (lite/proxy.py LiteProxy + frontend/ package)
@@ -327,6 +333,11 @@ class Node(BaseService):
             self.lite_server = serve_proxy(self.frontend, self.config.frontend.laddr)
             threading.Thread(target=self.lite_server.serve_forever, name="lite-frontend",
                              daemon=True).start()
+        if self.config.rpc.grpc_laddr:
+            from tendermint_tpu_torch.abci.grpc import BroadcastAPIServer
+
+            self.grpc_broadcast = BroadcastAPIServer(self.config.rpc.grpc_laddr, self)
+            self.grpc_broadcast.start()
         if self.switch is not None:
             # the consensus reactor starts (or fast sync defers) the state
             # machine; persistent peers are dialed after listening
@@ -377,8 +388,8 @@ class Node(BaseService):
                 except Exception:
                     self.logger.exception("stopping %s failed", type(svc).__name__)
         services = [self.switch] if self.switch is not None else []
-        services += [self.consensus_state, self.rpc_server, self.indexer_service,
-                     self.event_bus, self.proxy_app]
+        services += [self.consensus_state, self.rpc_server, self.grpc_broadcast,
+                     self.indexer_service, self.event_bus, self.proxy_app]
         for svc in services:
             if svc is None or not svc.is_running:
                 continue

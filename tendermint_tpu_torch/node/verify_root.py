@@ -27,8 +27,8 @@ Counterpart of the ``[verify]`` wiring in the JAX package's node
 ``vote_feed(cfg)`` builds the live-vote micro-batcher the reference's node
 wires when ``[verify] vote_batch_window_ms > 0`` (``node/node.py:254-262``),
 ``mempool(cfg, proxy_app, app)`` the mempool of the ``[mempool]``
-section with its batched CheckTx signature hook (``node/node.py:200-219``
-and ``:263-283``), and ``block_executor(...)`` the evidence pool and the
+section with its WAL and its batched CheckTx signature hook
+(``node/node.py:200-219`` and ``:263-283``), and ``block_executor(...)`` the evidence pool and the
 block executor that owns that mempool (``node/node.py:220-230``), whose
 ``apply_block`` verifies each LastCommit through the installed verifier,
 ``blockchain_reactor(...)`` the fast-sync reactor over them
@@ -88,6 +88,7 @@ from tendermint_tpu_torch.crypto import batch as _batch
 from tendermint_tpu_torch.device import DeviceLike, resolve_device
 from tendermint_tpu_torch.evidence.pool import EvidencePool
 from tendermint_tpu_torch.evidence.reactor import EvidenceReactor
+from tendermint_tpu_torch.libs.autofile import Group
 from tendermint_tpu_torch.libs.db.kv import MemDB
 from tendermint_tpu_torch.libs import breaker as _brk
 from tendermint_tpu_torch.libs.metrics import TelemetryMetrics
@@ -165,6 +166,43 @@ def reset_verify() -> None:
     _batch.set_default_ed25519_path(None)
 
 
+def install_host_verify() -> None:
+    """Verify on the host from here on: ``HostBatchVerifier`` as the
+    installed verifier and a device executor that runs each window on it
+    (the CPU tests' nets: the plain versions crawl under a running node's
+    threads). ``reset_verify`` undoes it."""
+
+    def host_executor(plan, mesh=None):
+        return planner._execute_host(plan, _batch.HostBatchVerifier())
+
+    _batch.set_batch_verifier(_batch.HostBatchVerifier())
+    planner.set_device_executor(host_executor)
+
+
+def host_verify_requested(device: DeviceLike) -> bool:
+    """Whether ``TM_BATCH_VERIFIER=host`` asks for the host verifier, as the
+    reference's multi-process tests set it (``tests/test_localnet.py:25``).
+    Accepted only off the card: with ``device`` not the CPU it raises
+    ``ValueError``, so that no environment variable moves a card process
+    onto the host."""
+    if os.environ.get("TM_BATCH_VERIFIER", "").lower() != "host":
+        return False
+    if device is None or torch.device(device).type != "cpu":
+        raise ValueError(
+            f"TM_BATCH_VERIFIER=host asks for the host verifier, but the device is "
+            f"{device or 'cuda'}: it is accepted only with --device cpu")
+    return True
+
+
+def host_verify_from_env(device: DeviceLike) -> bool:
+    """``install_host_verify`` when ``host_verify_requested(device)``; called
+    after the root is configured. True if it installed it."""
+    if not host_verify_requested(device):
+        return False
+    install_host_verify()
+    return True
+
+
 def vote_feed(cfg: Optional[VerifyConfig] = None,
               device: DeviceLike = None) -> Optional[planner.VoteFeed]:
     """The live-vote feed of the ``[verify]`` section: None when
@@ -187,7 +225,7 @@ class MempoolRoot(NamedTuple):
 
 def mempool(cfg: Optional[MempoolConfig], proxy_app, app, metrics=None, *,
             height: int = 0, checktx_batch_wait: float = 0.005,
-            device: DeviceLike = None) -> MempoolRoot:
+            device: DeviceLike = None, root_dir: str = "") -> MempoolRoot:
     """The node's mempool from the ``[mempool]`` section: ``Mempool`` on
     ``proxy_app.mempool`` (a started ``proxy/app_conn.MultiAppConn``) at
     ``height``; and when ``tx_batch_window_ms > 0`` and ``app`` publishes a
@@ -197,10 +235,15 @@ def mempool(cfg: Optional[MempoolConfig], proxy_app, app, metrics=None, *,
     On the card with no verifier given, the feed's flushes run the
     installed verifier (the root's guarded one). ``checktx_batch_wait`` is
     the Mempool's own knob (the reference's node leaves it at its default).
-    The mempool WAL is not ported: a ``wal_path`` raises."""
+    With a ``root_dir`` and a ``wal_path`` the mempool writes its WAL, a
+    ``libs/autofile.Group`` at ``<root_dir>/<wal_path>`` (node.go's
+    InitWAL); without a root there is none, as in the reference. A remote
+    app (``proxy_app`` on a socket) publishes no extractor: ``app`` is None
+    and its CheckTx verifies in the app."""
     cfg = cfg if cfg is not None else MempoolConfig()
-    if cfg.wal_path:
-        raise NotImplementedError("the mempool WAL is not ported (wal_path must be empty)")
+    wal = None
+    if root_dir and cfg.wal_path:
+        wal = Group(os.path.join(root_dir, cfg.wal_path))
     mp = Mempool(
         proxy_app.mempool,
         height=height,
@@ -212,6 +255,7 @@ def mempool(cfg: Optional[MempoolConfig], proxy_app, app, metrics=None, *,
         checktx_batch=cfg.checktx_batch,
         checktx_batch_wait=checktx_batch_wait,
         recheck_batch=cfg.recheck_batch,
+        wal_group=wal,
     )
     extractor = getattr(app, "tx_sig_extractor", None)
     if float(cfg.tx_batch_window_ms or 0.0) <= 0 or extractor is None:

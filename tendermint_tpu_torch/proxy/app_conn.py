@@ -1,6 +1,6 @@
 """Proxy app connections (ref proxy/app_conn.go, multi_app_conn.go,
 client.go), the port's copy of the reference package's
-``proxy/app_conn.py`` for in-proc apps.
+``proxy/app_conn.py``.
 
 One ABCI client per logical connection, each behind a typed facade:
   AppConnConsensus: InitChain, BeginBlock, DeliverTxAsync, EndBlock, Commit
@@ -9,9 +9,9 @@ One ABCI client per logical connection, each behind a typed facade:
                     snapshot handshake (ListSnapshots, OfferSnapshot,
                     LoadSnapshotChunk, ApplySnapshotChunk)
 ``MultiAppConn`` owns the three; ``LocalClientCreator`` gives each a
-``LocalClient`` on one shared mutex; ``default_client_creator`` is the
-creator a node's ``proxy_app`` names. The remote (socket) creator is not
-ported yet (ROADMAP queue 1 item 13 (v)).
+``LocalClient`` on one shared mutex, ``RemoteClientCreator`` a
+``SocketClient`` of its own (or a ``GRPCClient`` for ``grpc://``);
+``default_client_creator`` is the creator a node's ``proxy_app`` names.
 """
 
 from __future__ import annotations
@@ -20,7 +20,7 @@ import threading
 from typing import Any, Callable, Optional
 
 from tendermint_tpu_torch.abci import types as abci
-from tendermint_tpu_torch.abci.client import LocalClient, ReqRes
+from tendermint_tpu_torch.abci.client import LocalClient, ReqRes, SocketClient
 from tendermint_tpu_torch.libs.service import BaseService
 
 
@@ -126,10 +126,27 @@ class LocalClientCreator(ClientCreator):
         return LocalClient(self._app, self._mtx)
 
 
+class RemoteClientCreator(ClientCreator):
+    """A socket client a connection; 'grpc://host:port' selects the gRPC
+    transport (ref DefaultClientCreator's transport switch,
+    proxy/client.go). A remote app publishes no ``tx_sig_extractor`` to the
+    node: its CheckTx verifies in the app."""
+
+    def __init__(self, addr: str, must_connect: bool = True):
+        self._addr = addr
+        self._must_connect = must_connect
+
+    def new_abci_client(self):
+        if self._addr.startswith("grpc://"):
+            from tendermint_tpu_torch.abci.grpc import GRPCClient
+
+            return GRPCClient(self._addr[len("grpc://"):], self._must_connect)
+        return SocketClient(self._addr, self._must_connect)
+
+
 def default_client_creator(app_name: str, addr: str = "") -> ClientCreator:
-    """'kvstore' | 'persistent_kvstore' | 'counter' | 'noop' in-proc (ref
-    DefaultClientCreator); any other name is a socket address, whose client
-    is not ported and raises ``NotImplementedError``."""
+    """'kvstore' | 'persistent_kvstore' | 'counter' | 'noop' in-proc, else a
+    socket (or ``grpc://``) address (ref DefaultClientCreator)."""
     from tendermint_tpu_torch.abci.examples.kvstore import (
         CounterApp,
         KVStoreApp,
@@ -144,9 +161,7 @@ def default_client_creator(app_name: str, addr: str = "") -> ClientCreator:
     }
     if app_name in builtin:
         return LocalClientCreator(builtin[app_name]())
-    raise NotImplementedError(
-        f"proxy_app {addr or app_name!r}: the socket ABCI client is not ported "
-        f"(ROADMAP queue 1 item 13 (v))")
+    return RemoteClientCreator(addr or app_name)
 
 
 class MultiAppConn(BaseService):

@@ -166,14 +166,21 @@ class BlockExecutor:
 def exec_block_on_proxy_app(proxy_app, block: Block, last_val_set: ValidatorSet,
                             state_db: DB, logger) -> store.ABCIResponses:
     """BeginBlock, DeliverTx for every tx (async), EndBlock
-    (execution.go:194-264). The port's app connections are local: an app
-    that raises raises out of here (the socket client's
-    ``ResponseException`` is not ported)."""
+    (execution.go:194-264). An app in the node's process that raises raises
+    out of here; a remote app's crash (``ResponseException``, the socket and
+    gRPC transports) is a ``ProxyAppConnError``, on a DeliverTx once EndBlock
+    has flushed the pipeline."""
     deliver_txs: List[Optional[abci.ResponseDeliverTx]] = [None] * len(block.data.txs)
     counted = [0]
+    app_err: List[Optional[str]] = [None]
 
     def on_response(req, res):
-        if isinstance(res, abci.ResponseDeliverTx):
+        if isinstance(res, abci.ResponseException) and isinstance(req, abci.RequestDeliverTx):
+            # the app crashed on a tx: the block fails rather than shift the
+            # results (a state divergence)
+            app_err[0] = res.error
+            counted[0] += 1
+        elif isinstance(res, abci.ResponseDeliverTx):
             deliver_txs[counted[0]] = res
             if res.code != abci.CODE_TYPE_OK:
                 logger.debug("invalid tx code=%d log=%s", res.code, res.log)
@@ -189,6 +196,8 @@ def exec_block_on_proxy_app(proxy_app, block: Block, last_val_set: ValidatorSet,
         last_commit_info=commit_info,
         byzantine_validators=byz_vals,
     ))
+    if isinstance(bb, abci.ResponseException):
+        raise ProxyAppConnError(bb.error)
 
     for tx in block.data.txs:
         proxy_app.deliver_tx_async(bytes(tx))
@@ -197,7 +206,12 @@ def exec_block_on_proxy_app(proxy_app, block: Block, last_val_set: ValidatorSet,
             raise ProxyAppConnError(str(err))
 
     eb = proxy_app.end_block_sync(abci.RequestEndBlock(height=block.height))
+    if isinstance(eb, abci.ResponseException):
+        raise ProxyAppConnError(eb.error)
 
+    # end_block_sync flushed the pipeline: every DeliverTx is accounted for
+    if app_err[0] is not None:
+        raise ProxyAppConnError(f"DeliverTx failed: {app_err[0]}")
     if counted[0] != len(block.data.txs) or any(r is None for r in deliver_txs):
         raise ProxyAppConnError(
             f"DeliverTx responses missing: got {counted[0]}/{len(block.data.txs)}")

@@ -237,15 +237,7 @@ def make_single_node(home: str, *, chain_id: str = "ws-chain", config: Optional[
 
 
 def install_host_verify() -> None:
-    """Verify on the host from here on: ``HostBatchVerifier`` as the
-    installed verifier and a device executor that runs each window on it
-    (the CPU tests' nets: the plain versions crawl under a running node's
-    threads). ``verify_root.reset_verify`` undoes it."""
-    from tendermint_tpu_torch.crypto import batch
-    from tendermint_tpu_torch.parallel import planner
-
-    def host_executor(plan, mesh=None):
-        return planner._execute_host(plan, batch.HostBatchVerifier())
-
-    batch.set_batch_verifier(batch.HostBatchVerifier())
-    planner.set_device_executor(host_executor)
+    """Verify on the host from here on (``verify_root.install_host_verify``:
+    ``HostBatchVerifier`` and a host device executor); the CPU tests' nets.
+    ``verify_root.reset_verify`` undoes it."""
+    verify_root.install_host_verify()

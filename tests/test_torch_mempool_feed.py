@@ -399,8 +399,10 @@ def test_the_wiring_follows_the_mempool_section(closing):
     assert ver.feed is feed and ver.height_fn == mp.height
     assert ver.extractor is kv.SignedKVStoreApp.tx_sig_extractor
     assert not brk.on_card(ver)
-    with pytest.raises(NotImplementedError):
-        verify_root.mempool(MempoolConfig(wal_path="data/mempool.wal"), conn, app)
+    # the mempool WAL: a Group at <root_dir>/<wal_path> (none without a root,
+    # as the reference's node)
+    assert verify_root.mempool(MempoolConfig(wal_path="data/mempool.wal"), conn, app,
+                               device="cpu").mempool._wal is None
     if not torch.cuda.is_available():
         with pytest.raises(NoCudaDeviceError):  # the card unless the caller asks for the CPU
             verify_root.mempool(cfg, conn, app)

@@ -10,7 +10,10 @@
   reference node's.
 * ``Config`` and every section equal the reference's field for field;
   ``validate_ported`` refuses each unported module, naming its ROADMAP
-  item, and a ``Node`` refuses before it builds anything.
+  item, and a ``Node`` refuses before it builds anything; the fields whose
+  modules came since (a socket ``proxy_app``, ``rpc.grpc_laddr``,
+  ``mempool.wal_path``) pass it, and a node whose socket app is not there
+  fails to connect, as the reference's does.
 * ``device=None`` without a card raises ``NoCudaDeviceError``.
 * The ``[verify]`` root is one a process: nodes with an equal section share
   it, one with another section raises, and a stopped node's root is not torn
@@ -190,11 +193,12 @@ def _local(**kw):
     return cfg
 
 
+# (fields, the refusal's match; None: ported since, validate_ported passes)
 REFUSALS = [
     (dict(base__priv_validator_laddr="tcp://127.0.0.1:26659"), r"item 17 \(d\)"),
-    (dict(rpc__grpc_laddr="tcp://127.0.0.1:26670"), r"item 13 \(v\)"),
-    (dict(base__proxy_app="tcp://127.0.0.1:26658"), r"item 13 \(v\)"),
-    (dict(mempool__wal_path="data/mempool.wal"), r"item 13 \(v\)"),
+    (dict(rpc__grpc_laddr="tcp://127.0.0.1:26670"), None),
+    (dict(base__proxy_app="tcp://127.0.0.1:1"), None),
+    (dict(mempool__wal_path="data/mempool.wal"), None),
     (dict(p2p__laddr="tcp://127.0.0.1:0", p2p__pex=True), "peer exchange"),
 ]
 
@@ -203,6 +207,16 @@ REFUSALS = [
                          ids=["remote_signer", "grpc", "socket_app", "mempool_wal", "pex"])
 def test_validate_ported_refuses_what_is_not_ported(tmp_path, fields, match):
     cfg = _local(**fields)
+    if match is None:
+        assert cfg.validate_ported() is None
+        if "base__proxy_app" in fields:
+            # nothing listens there: the socket client fails to connect while
+            # the node builds, and the node gives the root back
+            with pytest.raises(ConnectionRefusedError):
+                Node(cfg.set_root(str(tmp_path)), genesis_doc=make_genesis(1)[0],
+                     db_provider=lambda name: MemDB(), device="cpu")
+            assert node_mod._ROOT["nodes"] == 0
+        return
     with pytest.raises(NotImplementedError, match=match):
         cfg.validate_ported()
     with pytest.raises(NotImplementedError, match=match):
@@ -211,13 +225,18 @@ def test_validate_ported_refuses_what_is_not_ported(tmp_path, fields, match):
 
 
 def test_a_client_creator_stands_for_the_proxy_app():
+    from tendermint_tpu_torch.abci.client import SocketClient
     from tendermint_tpu_torch.abci.examples.kvstore import KVStoreApp
-    from tendermint_tpu_torch.proxy.app_conn import default_client_creator
+    from tendermint_tpu_torch.abci.grpc import GRPCClient
+    from tendermint_tpu_torch.proxy.app_conn import RemoteClientCreator, default_client_creator
 
     cfg = _local(base__proxy_app="tcp://127.0.0.1:26658")
-    cfg.validate_ported(proxy_app=False)
-    with pytest.raises(NotImplementedError, match=r"item 13 \(v\)"):
-        default_client_creator("tcp://127.0.0.1:26658")
+    assert cfg.validate_ported() is None
+    remote = default_client_creator("tcp://127.0.0.1:26658")
+    assert isinstance(remote, RemoteClientCreator) and not hasattr(remote, "_app")
+    assert isinstance(remote.new_abci_client(), SocketClient)
+    assert isinstance(default_client_creator("grpc://127.0.0.1:26658").new_abci_client(),
+                      GRPCClient)
     assert isinstance(default_client_creator("kvstore")._app, KVStoreApp)
     assert _local().validate_ported() is None
 

@@ -9,6 +9,7 @@ stores' cases run on both packages' ``MemDB``, ``SQLiteDB`` and
 does not have.
 """
 
+import os
 import time
 from types import SimpleNamespace
 
@@ -185,9 +186,13 @@ def test_the_stores_answer_as_the_reference_s(backend, tmp_path):
 
 
 def test_new_db_refuses_the_unported_backends(tmp_path):
-    for backend in ("fsdb", "remote"):
-        with pytest.raises(NotImplementedError, match=r"item 12 \(iv\)"):
-            kv.new_db("x", backend, str(tmp_path))
+    from tendermint_tpu_torch.libs.db.fsdb import FSDB
+
+    with pytest.raises(NotImplementedError, match=r"item 12 \(iv\)"):
+        kv.new_db("x", "remote", str(tmp_path))
+    # fsdb is ported: a file a key under <dir>/<name>.db, as the reference's
+    fs = kv.new_db("fs", "fsdb", str(tmp_path))
+    assert isinstance(fs, FSDB) and os.path.isdir(os.path.join(str(tmp_path), "fs.db"))
     with pytest.raises(ValueError, match="unknown db backend"):
         kv.new_db("x", "nope", str(tmp_path))
     assert isinstance(kv.new_db("x", "goleveldb", str(tmp_path)), kv.SQLiteDB)
