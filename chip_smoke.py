@@ -292,8 +292,9 @@ Phases, in order; any failure exits non-zero:
              by node/verify_root (handshake, then consensus_state: the WAL,
              the event bus, the [verify] vote feed, the [instrumentation]
              section) and 99 ValidatorStubs feeding it through
-             send_peer_msg. (a) 8 heights with the flight recorder on and
-             the liveness watchdog started, each with a proposal (once the
+             send_peer_msg. (a) 4 heights (8 before phase 27 came) with
+             the flight recorder on and the liveness watchdog started,
+             each with a proposal (once the
              node has entered the height's round: the node's own when it
              proposes, else the stub proposer's through
              testutil/consensus.decide_proposal, one fresh tx in the
@@ -476,14 +477,36 @@ Phases, in order; any failure exits non-zero:
              each process's GPU memory from nvidia-smi
              --query-compute-apps, each line with the card's name and
              power limit.
+  27. sim     the chaos simulator (sim/, p2p/inproc.py) on a default
+             [verify] root of its own: 4-validator SimNets whose nodes are
+             wired by node/verify_root and share the root's guarded
+             verifier. (a) baseline_determinism (seed 1, frozen clocks) on
+             the card beside the same seed with every LastCommit check on
+             HostBatchVerifier, at once in two threads: every node's
+             commit hash equal over the deterministic prefix (round 0,
+             every LastCommit canonical; testutil/sim_determinism), K1 +
+             K2 launched by the card's LastCommit checks. (b) vote_storm
+             (seed 12: a drop/duplicate/reorder storm, a double-signing
+             validator, the vote feed at 2 ms / 64 rows): the evidence
+             committed and marked in every pool, every node's vote feed
+             dispatched on the card through the installed verifier, no
+             fallback, the breaker closed, K1 and K2 held exact on the
+             first launch's inputs. (c) testutil/sim_fault's card fault:
+             FaultyDevice(TorchBatchVerifier) behind one guarded verifier
+             the nodes share answers SIM_FAULT_OK calls, then fails every
+             call: every node halts on DeviceDispatchError with no host
+             fallback, no store passes the height being decided, every
+             verdict before the fault equals the host's. Prints each part's
+             seconds and launches.
 
 The window phase's routes and the backfill phase each make one traced call
 (the p50 of 3 before phase 21, of 2 before phase 22: the fastsync replay
 times the same 512 x 64 verifier route). To pay for phase 22 the default,
 rpc, multisig and msm phases also take one traced call after the first
 (3 before), the commit window's ladder its traced first call alone (4
-calls before), phase 21 2 applications of the 10k LastCommit (3), the
-host-clock walls 3 repeats (5), and each kernel's plain time on its main
+calls before), phase 21 2 applications of the 10k LastCommit (3; 1 since
+phase 27), the host-clock walls 3 repeats (5), and each kernel's plain time
+on its main
 path (K1, K2, K3 and K4) is the plain version's run for the exactness check
 (two or three more runs before). Phase 23 is paid for by phase 19's msm
 calls, which take the window's first 128 heights, not all 512; phase 24
@@ -491,8 +514,9 @@ by phase 23's serial run, 2 heights (4 before); phase 25 by phase 22's
 chain, 513 blocks (1,025 before); phase 26 by phase 25's tm_bench (moved
 into phase 26), phase 21's chain, 8 heights (16 before), and phase 22's
 reactor, 129 heights (256 before), and the lite phase's scattered shape,
-16 clients (32 before). Each phase's line carries the seconds
-since the script began.
+16 clients (32 before); phase 27 by phase 23's batched run, 4 heights (8
+before) and phase 21's 10k LastCommit, applied once (twice before). Each
+phase's line carries the seconds since the script began.
 
 Each path's launch counts are set to 0 just before it and read just after;
 the kernels line carries the main path's as ``launches``, the lite
@@ -510,7 +534,9 @@ as ``localnet_launches`` (the validators' flushes and LastCommit checks,
 and the joining node's by source under ``join``) and phase 26's as
 ``cli_launches`` (read from each process over its RPC: each node's
 device-backend verify calls, one K1 and one K2 launch each, and the lite
-process's frontend dispatches); K4's own
+process's frontend dispatches) and phase 27's as ``sim_launches``
+(determinism: the card's LastCommit checks; vote_storm: its flushes and
+LastCommit checks; fault: the answered calls); K4's own
 ``launches`` are
 the msm route's 10,000-validator commit's. The line before the last two is the
 ``kernels`` JSON, then the card's name
@@ -614,12 +640,14 @@ from tendermint_tpu_torch.state.execution import BlockExecutor, InvalidBlockErro
 from tendermint_tpu_torch.state.state_types import state_from_genesis
 from tendermint_tpu_torch.statesync.reactor import StateSyncReactor
 from tendermint_tpu_torch.statesync.store import SnapshotStore
+from tendermint_tpu_torch import sim
 from tendermint_tpu_torch.testutil import chain as tchain
 from tendermint_tpu_torch.testutil import cli_net
 from tendermint_tpu_torch.testutil import commit as tc
 from tendermint_tpu_torch.testutil import consensus as tcs
 from tendermint_tpu_torch.testutil import lite_chain as lc
 from tendermint_tpu_torch.testutil import multisig as tm
+from tendermint_tpu_torch.testutil import sim_determinism, sim_fault
 from tendermint_tpu_torch.testutil import node_net as nn
 from tendermint_tpu_torch.testutil import secp_signer
 from tendermint_tpu_torch.testutil import votes as tv
@@ -628,6 +656,7 @@ from tendermint_tpu_torch.testutil.consensus_net import validate_chrome_trace
 from tendermint_tpu_torch.testutil.fastsync import LoopbackSwitch, ServingPeer
 from tendermint_tpu_torch.testutil.statesync import CorruptingStore, hub_net
 from tendermint_tpu_torch.tools import bench_fastsync as bf
+from tendermint_tpu_torch.tools import chaos_smoke
 from tendermint_tpu_torch.tools import tm_bench
 from tendermint_tpu_torch.tools import trace_merge
 from tendermint_tpu_torch.types.block import Commit
@@ -711,7 +740,7 @@ MP_FILL = MempoolConfig().size
 # LastCommit through validate_block
 BX_VALS, BX_POWER, BX_SEED = 100, 10, 11
 BX_HEIGHTS, BX_TXS = 8, 64
-BX_REPS = 2  # 3 before the fastsync phase came
+BX_REPS = 1  # 3 before the fastsync phase came, 2 before the sim phase
 BX_TIME0 = 1_700_000_000_000_000_000
 BX_SPANS = ("state.validate", "verify.dispatch", "verify.audit", "state.exec",
             "state.begin_block_info", "state.update", "state.commit", "state.save")
@@ -731,9 +760,9 @@ FS_SPANS = ("fastsync.window", "planner.pack", "verify.dispatch", "verify.audit"
 # DefaultMaxValidators, the block_exec and lite width) at the TestConsensusConfig
 # timeouts, the vote feed at the reference's vote_storm settings
 # (sim/scenarios.py:352-358: [verify] vote_batch_window_ms = 2, vote_batch_rows
-# = 64); 8 heights batched, 2 serially (4 before the statesync phase came: a
-# serial height is about 1.1 s of host verifies)
-CS_VALS, CS_HEIGHTS, CS_SERIAL_HEIGHTS = 100, 8, 2
+# = 64); 4 heights batched (8 before the sim phase came), 2 serially (4 before
+# the statesync phase came: a serial height is about 1.1 s of host verifies)
+CS_VALS, CS_HEIGHTS, CS_SERIAL_HEIGHTS = 100, 4, 2
 CS_WINDOW_MS, CS_ROWS = 2.0, 64
 CS_TIMEOUT = 120.0
 CS_SPANS = ("consensus.finalize_commit", "wal.append", "wal.fsync", "verify.dispatch",
@@ -804,6 +833,10 @@ CLI_TIMEOUT_COMMIT, CLI_WINDOW_MS = 0.3, LN_WINDOW_MS
 CLI_TIMEOUT, CLI_STOP_S = 120.0, 10.0
 CLI_TX = b"cli-socket=1"
 CLI_BENCH_S, CLI_BENCH_RATE = 2.0, 50
+
+# phase 27: the chaos simulator (tendermint_tpu_torch/sim)
+SIM_FAULT_OK = 8  # answered calls of (c)'s card device before it fails
+SIM_ATTEMPTS = 2  # (a) is retried once when a wall-clock race cut its deterministic prefix short
 
 # Rates for the least time the card could take: HBM bandwidth (H100 SXM
 # data sheet); 32-bit integer add, logic, shift and multiply-add each retire
@@ -5567,6 +5600,198 @@ def phase_cli(dev, err: dict) -> dict:
             "gpu_apps": apps, "gpu_used_mib": used, "gpu_mib_per_process": per}
 
 
+# -- phase 27: the chaos simulator ----------------------------------------------------------
+
+
+def sim_feeds(run) -> list:
+    """Each node's vote feed as (dispatches, votes in, device type, its own
+    verifier or None: the installed one)."""
+    return [(n.vote_feed.dispatches, n.vote_feed.votes_in, n.vote_feed.device.type,
+             None if n.vote_feed.verifier is None else type(n.vote_feed.verifier).__name__)
+            for n in run.nodes if n.vote_feed is not None]
+
+
+def sim_with_check(scenario, extra):
+    """``scenario`` whose check hook also calls ``extra(run)`` (which may
+    record what the run leaves behind) and adds its failures."""
+    check_ = scenario.check
+
+    def both(run):
+        return list(check_(run) if check_ is not None else []) + list(extra(run) or [])
+
+    scenario.check = both
+    return scenario
+
+
+def sim_host_executors(scenario):
+    """``scenario`` with every node's LastCommit checks on the host
+    (``BlockExecutor.verifier``): a net that verifies on the host while the
+    card's root stays installed for a net beside it."""
+    setup_ = scenario.setup
+
+    def setup(run):
+        if setup_ is not None:
+            setup_(run)
+        for n in run.nodes:
+            n.cs.block_exec.verifier = HostBatchVerifier()
+
+    scenario.setup = setup
+    return scenario
+
+
+def sim_baseline(dev) -> dict:
+    """(a): baseline_determinism on the card beside the same seed with every
+    LastCommit check on the host, at once in two threads; the commit hashes
+    of every node over the deterministic prefix (round 0, every LastCommit
+    canonical: testutil/sim_determinism) must be equal."""
+    target = sim.SCENARIOS["baseline_determinism"]().target_height
+    for attempt in range(1, SIM_ATTEMPTS + 1):
+        out = {}
+
+        host_sc = sim_determinism.recording_canonical_commits(
+            sim_host_executors(sim.SCENARIOS["baseline_determinism"]()))
+        card_sc = sim_determinism.recording_canonical_commits(
+            sim.SCENARIOS["baseline_determinism"]())
+
+        def host_run():
+            out["host"] = sim.run_scenario(host_sc, device=dev)
+
+        t0 = time.perf_counter()
+        reset_launches()
+        th = threading.Thread(target=host_run, name="sim-host-run", daemon=True)
+        th.start()
+        card = sim.run_scenario(card_sc, device=dev)
+        th.join(CS_TIMEOUT)
+        launches = read_launches()
+        wall = time.perf_counter() - t0
+        check("host" in out, "sim (a): the host-verifier run did not end")
+        host = out["host"]
+        hard = [f for f in card.failures + host.failures if not f.startswith("liveness")]
+        check(not hard, f"sim (a): {hard}")
+        # the deterministic prefix: round 0 and canonical LastCommits
+        top = min(sim_determinism.deterministic_top(card, card_sc, sim.round0_clean_top),
+                  sim_determinism.deterministic_top(host, host_sc, sim.round0_clean_top))
+        if card.ok and host.ok and top >= target:
+            break
+        print(f"  (a) attempt {attempt}: the deterministic prefix reached h={top} (not canonical "
+              f"{card_sc.not_canonical} / {host_sc.not_canonical}; card {card.failures}, "
+              f"host {host.failures})", flush=True)
+    check(top >= target, f"sim (a): the deterministic prefix reached only h={top}")
+    bad = chaos_smoke.commit_hash_mismatches(card, host, top)
+    check(not bad, f"sim (a): commit hashes differ between the card and the host: {bad}")
+    check(launches["ed25519_prologue"] > 0 and launches["ed25519_ladder"] > 0,
+          f"sim (a): no K1 + K2 launch on the card's LastCommit checks: {launches}")
+    hashes = [card.commit_hashes[0][h][:12] for h in range(1, top + 1)]
+    print(f"  (a) baseline_determinism, seed {card.seed}: the card's net and the host's, side by "
+          f"side in {wall:.1f} s; heights {card.heights} / {host.heights}; every node's commit "
+          f"hash equal over the deterministic prefix 1..{top} ({', '.join(hashes)}); the card's "
+          f"LastCommit checks launched {launches}", flush=True)
+    return {"seconds": wall, "top": top, "launches": launches}
+
+
+def sim_vote_storm(dev, err: dict) -> dict:
+    """(b): vote_storm on the card: evidence committed and marked in every
+    pool (the scenario's own check), every node's vote feed dispatched on
+    the card through the installed guarded verifier, no fallback; K1 and K2
+    held exact on one launch's inputs."""
+    seen = {}
+
+    def feeds(run):
+        seen["feeds"] = sim_feeds(run)
+        seen["evidence"] = [n.committed_evidence_heights() for n in run.nodes]
+        seen["serial"] = [dict(n.cs.serial_votes) for n in run.nodes]
+
+    before = fallbacks()
+    t0 = time.perf_counter()
+    reset_launches()
+    with captured_packs() as packs:
+        res = sim.run_scenario(sim_with_check(sim.SCENARIOS["vote_storm"](), feeds), device=dev)
+    launches = read_launches()
+    wall = time.perf_counter() - t0
+    check(res.ok, f"sim (b): vote_storm failed (seed {res.seed}): {res.failures}")
+    check(len(seen["feeds"]) == len(res.heights) and all(
+        d > 0 and kind == "cuda" and own is None for d, _, kind, own in seen["feeds"]),
+        f"sim (b): a node's vote feed did not dispatch on the card: {seen['feeds']}")
+    check_guard_clean(before, "sim (b)")
+    check(launches["ed25519_prologue"] > 0 and launches["ed25519_ladder"] > 0,
+          f"sim (b): no K1 + K2 launch: {launches}")
+    check(packs, "sim (b): no packed K1 + K2 inputs recorded")
+    b, _, _ = hold_k1_k2(packs[0], err, "sim vote_storm")
+    dispatches = sum(d for d, _, _, _ in seen["feeds"])
+    print(f"  (b) vote_storm, seed {res.seed}: {wall:.1f} s, heights {res.heights}; evidence "
+          f"committed at {seen['evidence']} and marked in every pool; vote feeds (dispatches, "
+          f"votes in) {[(d, v) for d, v, _, _ in seen['feeds']]} on the card through the "
+          f"installed guarded verifier; serial votes by reason {seen['serial'][0]} (node 0); "
+          f"seeded fault decisions {res.fault_summary.get('seeded_decisions')}; launches "
+          f"{launches} for {dispatches} flushes and the LastCommit checks; no fallback; K1/K2 "
+          f"exact on the first launch's inputs (b = {b})", flush=True)
+    return {"seconds": wall, "launches": launches, "dispatches": dispatches,
+            "heights": res.heights}
+
+
+def sim_card_fault(dev) -> dict:
+    """(c): FaultyDevice around the card's verifier behind the one guarded
+    verifier every node shares: SIM_FAULT_OK answered calls, then every call
+    fails. The net halts on DeviceDispatchError with no host fallback, no
+    store passes the height being decided when the fault fired, and every
+    verdict before the fault equals the host's (the scenario's own check)."""
+    seen = {}
+
+    def record(run):
+        seen["faults"] = [None if n.cs.device_fault is None else type(n.cs.device_fault).__name__
+                          for n in run.nodes]
+        seen["stores"] = [n.block_store.height() for n in run.nodes]
+        seen["calls"] = len(run.recorder.calls)
+        seen["failures"] = run.device.snapshot()["failures"]
+        seen["on_card"] = run.guarded.on_card
+
+    before = fallbacks()
+    default_breaker = breaker.get_device_breaker()
+    t0 = time.perf_counter()
+    reset_launches()
+    res = sim.run_scenario(sim_with_check(sim_fault.card_fault_scenario(
+        lambda: TorchBatchVerifier(dev), n_ok=SIM_FAULT_OK), record), device=dev)
+    launches = read_launches()
+    wall = time.perf_counter() - t0
+    check(res.ok, f"sim (c): {res.failures}")
+    check(seen["on_card"] and "DeviceDispatchError" in seen["faults"],
+          f"sim (c): no halt on DeviceDispatchError: {seen}")
+    check(fallbacks() == before, "sim (c): a dispatch fell back to the host")
+    check(breaker.get_device_breaker() is default_breaker
+          and default_breaker.state == breaker.CLOSED,
+          "sim (c): the default breaker changed")
+    check(launches["ed25519_prologue"] > 0 and launches["ed25519_ladder"] > 0,
+          f"sim (c): no K1 + K2 launch before the fault: {launches}")
+    print(f"  (c) an injected device fault on the card: FaultyDevice(TorchBatchVerifier) behind "
+          f"the nodes' shared guarded verifier (on the card) answered {seen['calls']} calls, "
+          f"every verdict the host's, then failed {seen['failures']} call(s); halts "
+          f"{seen['faults']}; consensus heights at the fault {res.marks['fault']['heights']}, "
+          f"when the net had stopped {res.marks['halted']['heights']}, stores {seen['stores']}; "
+          f"no host fallback; launches {launches}; {wall:.1f} s", flush=True)
+    return {"seconds": wall, "launches": launches, "faults": seen["faults"]}
+
+
+def phase_sim(dev, err: dict) -> dict:
+    """Phase 27: the chaos simulator (sim/, p2p/inproc.py) on the card, on a
+    default [verify] root of its own."""
+    phase(f"sim: 4-validator SimNets on the card's default [verify] root: (a) "
+          f"baseline_determinism beside a host-verifier run of its seed, (b) vote_storm, (c) a "
+          f"device fault after {SIM_FAULT_OK} answered calls of the shared guarded verifier")
+    t_phase = time.perf_counter()
+    root = configure_verify(VerifyConfig(), device=dev)
+    check(get_batch_verifier() is root.verifier, "the root's guarded verifier is not installed")
+    a = sim_baseline(dev)
+    b = sim_vote_storm(dev, err)
+    c = sim_card_fault(dev)
+    check(get_batch_verifier() is root.verifier, "sim: the root's verifier was not reinstalled")
+    seconds = time.perf_counter() - t_phase
+    print(f"  phase {seconds:.1f} s: (a) {a['seconds']:.1f}, (b) {b['seconds']:.1f}, "
+          f"(c) {c['seconds']:.1f}", flush=True)
+    return {"a": a, "b": b, "c": c, "seconds": seconds,
+            "launches": {"determinism": a["launches"], "vote_storm": b["launches"],
+                         "fault": c["launches"]}}
+
+
 def profiler_warmup(out: dict) -> None:
     """One empty torch.profiler session (CPU and CUDA activity). The first
     of a process initializes the profiler and CUPTI (7-20 s on the H100,
@@ -5657,6 +5882,8 @@ def main() -> int:
     localnet = phase_localnet(dev, err)
     # the cli phase: node processes of their own, each with its own root
     cli = phase_cli(dev, err)
+    # the sim phase: SimNets on a default [verify] root of its own
+    simr = phase_sim(dev, err)
     print(f"  {smi_line}", flush=True)
 
     ms = {**ed_main["ms"], "secp256k1_ladder": secp_main["ms"]}
@@ -5712,6 +5939,10 @@ def main() -> int:
                              if name in ("ed25519_prologue", "ed25519_ladder")
                              else {"verify_calls": {k: 0 for k in cli["calls"]},
                                    "lite_dispatches": 0}),
+            # the sim phase's nets: (a) the card's LastCommit checks, (b)
+            # vote_storm's flushes and LastCommit checks, (c) the fault run's
+            # answered calls
+            "sim_launches": {part: n[name] for part, n in simr["launches"].items()},
             "msm_launches": msm["launches"][name],
             "commit_window_launches": {"ladder": cwin["launches"][name],
                                        "msm": cwin["msm_launches"][name],
@@ -5757,6 +5988,7 @@ def main() -> int:
                               "join": {s: 0 for s in LN_JOIN_SOURCES},
                               "rpc": {s: 0 for s in LN_RPC_SOURCES}},
         "cli_launches": {"verify_calls": {k: 0 for k in cli["calls"]}, "lite_dispatches": 0},
+        "sim_launches": {part: n[K4] for part, n in simr["launches"].items()},
         "msm_launches": {"commit": msm["launches"][K4],
                          "adversarial": msm["adversarial_launches"][K4],
                          "dirty_commit": msm["dirty_launches"][K4],
@@ -5811,6 +6043,11 @@ def main() -> int:
           f"process {cli['lite_s'] * 1e3:.1f} ms for {cli['lite_heights']} heights, the restart "
           f"{cli['restart_s']:.2f} s to the tip, tm_bench {cli['bench']['txs_per_sec']['avg']} "
           f"tx/s; phase {cli['seconds']:.1f} s", flush=True)
+    print(f"  sim: (a) {simr['a']['seconds']:.1f} s for the card's and the host's "
+          f"baseline_determinism side by side (equal hashes over 1..{simr['a']['top']}), (b) "
+          f"vote_storm {simr['b']['seconds']:.1f} s ({simr['b']['dispatches']} flushes on the "
+          f"card), (c) the card fault {simr['c']['seconds']:.1f} s (halts {simr['c']['faults']}); "
+          f"phase {simr['seconds']:.1f} s", flush=True)
     print(f"  total {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"torch_ops": [window["tally"], cwin["tally"]]}))
     print(json.dumps({"kernels": kernels}))

@@ -7,7 +7,11 @@ peer (Go's InitPeer), so the NewRoundStep a peer sends on connecting is
 never dropped; the reference package makes it in ``add_peer`` and drops
 what arrives before, which can leave a node believing a peer at height 0
 until that peer changes step again, and a net stuck
-(``tests/test_torch_consensus_reactor.py``).
+(``tests/test_torch_consensus_reactor.py``). And the maj23 query's
+catch-up for a peer one height behind reads the seen commit at the
+store's top height, as Go's ``LoadCommit`` does (``_load_commit``); the
+reference package reads only the next block's LastCommit, which is not
+there yet, and a net with a double-signer can stall a height.
 
 A peer's proposal, block parts and votes enter the state machine through
 ``ConsensusState.send_peer_msg``, as any peer message does: the reactor
@@ -799,7 +803,7 @@ class ConsensusReactor(Reactor):
                 and rs.height >= prs.height + 1
                 and prs.height <= self.cons.block_store.height()
             ):
-                commit = self.cons.block_store.load_block_commit(prs.height)
+                commit = self._load_commit(prs.height)
                 if commit is not None:
                     peer.try_send(
                         STATE_CHANNEL,
@@ -811,6 +815,20 @@ class ConsensusReactor(Reactor):
                         ),
                     )
             time.sleep(sleep)
+
+
+    def _load_commit(self, height: int):
+        """The commit of ``height`` (Go's ``ConsensusState.LoadCommit``): at
+        the store's top height the seen commit, below it the next block's
+        LastCommit. The reference package reads the next block's only, which
+        does not exist yet at the top: a peer one height behind never hears
+        that the block it lacks had +2/3, keeps rejecting the honest
+        precommit of a validator whose double it holds, and a 4-node net
+        with one double-signer and one nil precommit stalls there."""
+        bs = self.cons.block_store
+        if height == bs.height():
+            return bs.load_seen_commit(height)
+        return bs.load_block_commit(height)
 
 
 class _CommitVoteSetView:

@@ -31,7 +31,11 @@ added or verified on the host, the receive routine stops, the WAL and the
 ticker are stopped, and the block store and the state stay at the last
 committed height (a ``DeviceDispatchError`` or ``DeviceAuditMismatch``
 out of ``_do_finalize_commit`` halts the same way). Off the card the
-reference's behaviour stays.
+reference's behaviour stays. And a conflicting vote that the vote set
+still adds (a peer claimed +2/3 for its block) is acted on before it
+becomes evidence, as Go's ``addVote`` does (``_add_counting_conflict``);
+the reference returns at the conflict, and a node whose +2/3 for the
+committed block needs that vote never commits it.
 
 Each state owns the reference's per-height instruments: ``flight`` (the
 lifecycle stamps, ``consensus/flight.py``), ``critpath`` (each committed
@@ -121,6 +125,23 @@ class ErrInvalidProposalSignature(Exception):
 class ConsensusError(Exception):
     pass
 
+
+
+def _add_counting_conflict(add, *args, **kwargs):
+    """``(added, conflict)`` of one ``VoteSet.add_vote``: a conflicting vote
+    raises ``ErrVoteConflictingVotes``, but when a peer claimed +2/3 for its
+    block the vote set still adds it (``e.added``), and the quorum it may
+    complete must be acted on before the conflict becomes evidence, as Go's
+    ``addVote`` goes on when ``added`` (state.go). The reference package
+    returns at the raise: a node whose only path to +2/3 for the committed
+    block is that vote never commits it, and a net with a double-signer
+    stalls at that height. A conflict that added nothing raises here."""
+    try:
+        return add(*args, **kwargs), None
+    except ErrVoteConflictingVotes as e:
+        if not getattr(e, "added", False):
+            raise
+        return True, e
 
 class ConsensusState(BaseService):
     def __init__(
@@ -1240,7 +1261,7 @@ class ConsensusState(BaseService):
                 raise ErrVoteHeightMismatch()
             if verified:
                 self.serial_votes["late_verdict"] += 1
-            added = rs.last_commit.add_vote(vote)
+            added, conflict = _add_counting_conflict(rs.last_commit.add_vote, vote)
             if not added:
                 return False
             self._observe_vote_latency(vote)
@@ -1251,13 +1272,16 @@ class ConsensusState(BaseService):
             self._publish_vote_event(vote)
             if self.config.skip_timeout_commit and rs.last_commit.has_all():
                 self.enter_new_round(rs.height, 0)
+            if conflict is not None:
+                raise conflict
             return added
 
         if vote.height != rs.height:
             raise ErrVoteHeightMismatch()
 
         height = rs.height
-        added = rs.votes.add_vote(vote, peer_id, verified=verified)
+        added, conflict = _add_counting_conflict(rs.votes.add_vote, vote, peer_id,
+                                                 verified=verified)
         if not added:
             return False
         self._observe_vote_latency(vote)
@@ -1340,6 +1364,8 @@ class ConsensusState(BaseService):
                 self.enter_precommit_wait(height, vote.round)
         else:
             raise ConsensusError(f"unexpected vote type {vote.vote_type}")
+        if conflict is not None:
+            raise conflict  # the double-sign still becomes evidence
         return True
 
     def _publish_vote_event(self, vote: Vote) -> None:

@@ -188,6 +188,12 @@ class Mempool(MempoolIface):
         self._pending_flush = 0
         self._pending_since = 0.0
         self._flush_timer: Optional[threading.Timer] = None
+        # verdict-bearing windows send to the app in the order they closed
+        # (_flush_window): the number of the next window to close, and of
+        # the window whose turn it is to send
+        self._window_next = 0
+        self._window_turn = 0
+        self._window_cv = threading.Condition(self._mtx)
         # the CheckTx/recheck window seam (set_batch_check_hook)
         self.batch_check_hook: Optional[Callable[[List[bytes]], None]] = None
         self._hook_verdicts = False
@@ -452,6 +458,9 @@ class Mempool(MempoolIface):
             verdict_mode = self._hook_verdicts and hook is not None
             if hook is not None and not verdict_mode:
                 hook(batch_txs)
+            if verdict_mode:
+                seq = self._window_next
+                self._window_next += 1
         if verdict_mode:
             # the hook runs OUTSIDE the lock: it blocks on the tx feed's
             # window, and admission must not hold the consensus Lock/Unlock
@@ -459,6 +468,7 @@ class Mempool(MempoolIface):
             try:
                 verdicts = self._window_verdicts(hook, batch_txs, "")
             except Exception as e:
+                self._window_done(seq)
                 # on the card: the window is not admitted, and a
                 # resubmission must not be TxInCacheError
                 for tx in batch_txs:
@@ -472,11 +482,23 @@ class Mempool(MempoolIface):
                             self.logger.exception("a CheckTx on_fault callback failed")
                 raise
             with self._mtx:
-                for i, tx in enumerate(batch_txs):
-                    rr = self._send_checktx(tx, None if verdicts is None else verdicts[i])
-                    cb = batch_cbs[i][0] if i < len(batch_cbs) else None
-                    if cb is not None:
-                        rr.set_callback(lambda req, res, _cb=cb: _cb(res))
+                # two windows' hooks may run at once (the wait timer's
+                # thread and a caller's full window) and finish in either
+                # order; their txs reach the app in the order they were
+                # submitted, as serial CheckTx does (a sender's nonce 2 must
+                # not overtake its nonce 1). The reference's sends as its
+                # hook returns.
+                while self._window_turn != seq:
+                    self._window_cv.wait()
+                try:
+                    for i, tx in enumerate(batch_txs):
+                        rr = self._send_checktx(tx, None if verdicts is None else verdicts[i])
+                        cb = batch_cbs[i][0] if i < len(batch_cbs) else None
+                        if cb is not None:
+                            rr.set_callback(lambda req, res, _cb=cb: _cb(res))
+                finally:
+                    self._window_turn += 1
+                    self._window_cv.notify_all()
         t0 = time.perf_counter()
         self._proxy.flush_async()
         run_s = time.perf_counter() - t0
@@ -485,6 +507,15 @@ class Mempool(MempoolIface):
                                   pack_seconds=pack_s, run_seconds=run_s)
         if self.metrics is not None:
             self.metrics.mempool_checktx_batch_size.observe(n)
+
+    def _window_done(self, seq: int) -> None:
+        """Window ``seq`` sends nothing (its hook failed on the card): wait
+        for its turn and pass it on."""
+        with self._mtx:
+            while self._window_turn != seq:
+                self._window_cv.wait()
+            self._window_turn += 1
+            self._window_cv.notify_all()
 
     def _res_cb(self, req, res) -> None:
         if isinstance(res, abci.ResponseCheckTx):

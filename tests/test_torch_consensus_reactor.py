@@ -28,6 +28,7 @@ import base64
 import dataclasses
 import threading
 import time
+from types import SimpleNamespace
 
 import pytest
 import torch
@@ -43,7 +44,12 @@ from tendermint_tpu_torch.config.instrumentation import InstrumentationConfig
 from tendermint_tpu_torch.config.p2p import P2PConfig
 from tendermint_tpu_torch.config.verify import VerifyConfig
 from tendermint_tpu_torch.consensus import reactor as p_reactor
-from tendermint_tpu_torch.consensus.messages import VoteMessage, encode_msg
+from tendermint_tpu_torch.consensus.messages import (
+    VoteMessage,
+    VoteSetMaj23Message,
+    encode_msg,
+    unmarshal_msg,
+)
 from tendermint_tpu_torch.consensus.reactor import VOTE_CHANNEL, ConsensusReactor
 from tendermint_tpu_torch.crypto import batch as tbatch
 from tendermint_tpu_torch.crypto.keys import PrivKeyEd25519
@@ -54,6 +60,7 @@ from tendermint_tpu_torch.node import verify_root
 from tendermint_tpu_torch.p2p.key import NodeKey
 from tendermint_tpu_torch.p2p.test_util import connect_switches, make_switch
 from tendermint_tpu_torch.state.state_types import state_from_genesis as p_state
+from tendermint_tpu_torch.testutil import chain as tchain
 from tendermint_tpu_torch.testutil import consensus as harness
 from tendermint_tpu_torch.testutil import consensus_net as cn
 from tendermint_tpu_torch.types.core import BlockID, PartSetHeader, SignedMsgType
@@ -195,6 +202,49 @@ def test_double_signed_votes_become_evidence_and_net_lives():
         cn.stop_consensus_net(nodes)
 
 
+class _OnePeer:
+    """A peer that records what the maj23 routine sends it, and stops after
+    the first send or the third pass."""
+
+    id = "peer-behind"
+
+    def __init__(self):
+        self.sent, self.passes = [], 0
+
+    @property
+    def is_running(self):
+        self.passes += 1
+        return not self.sent and self.passes <= 3
+
+    def try_send(self, chan_id, msg_bytes):
+        self.sent.append((chan_id, unmarshal_msg(msg_bytes)))
+        return True
+
+
+def test_the_catchup_maj23_reads_the_seen_commit_at_the_top_height():
+    """A peer one height behind hears that the block it lacks had +2/3: at
+    the store's top height from the seen commit (Go's LoadCommit), below it
+    from the next block's LastCommit. The reference reads the next block's
+    only, which the top height does not have yet."""
+    fx = tchain.build_chain(n_vals=4, n_heights=3, verifier=tbatch.HostBatchVerifier())
+    bs = fx.block_store
+    assert bs.height() == 3 and bs.load_block_commit(3) is None
+    cs = SimpleNamespace(block_store=bs, config=SimpleNamespace(peer_query_maj23_sleep_duration=0.0),
+                         get_round_state=lambda: SimpleNamespace(height=4, votes=None))
+    reactor = SimpleNamespace(cons=cs, is_running=True)
+    reactor._load_commit = lambda h: ConsensusReactor._load_commit(reactor, h)
+    assert reactor._load_commit(3) == bs.load_seen_commit(3)
+    assert reactor._load_commit(2) == bs.load_block_commit(2)
+    for h in (3, 2):
+        peer = _OnePeer()
+        ps = p_reactor.PeerState(peer)
+        ps.prs.height = h
+        ConsensusReactor._query_maj23_routine(reactor, peer, ps)
+        want = reactor._load_commit(h)
+        assert peer.sent == [(p_reactor.STATE_CHANNEL, VoteSetMaj23Message(
+            h, want.round(), int(SignedMsgType.PRECOMMIT), want.block_id))]
+
+
 # ---------------------------------------------------------------------------
 # The vote feed on the kernels' plain versions
 # ---------------------------------------------------------------------------
@@ -231,8 +281,13 @@ def test_vote_feed_on_the_plain_versions_commits_two_heights():
     cfg = dataclasses.replace(consensus_test_config(), timeout_propose=30.0, timeout_prevote=30.0,
                               timeout_precommit=30.0, peer_gossip_sleep_duration=0.1,
                               peer_query_maj23_sleep_duration=2.0)
+    # a 1 s vote window: a plain flush costs about 1.4 s whatever its size,
+    # and with a 2 ms window the duplicates gossiped while a vote waits its
+    # verdict doubled the votes submitted and slowed each serialized flush
+    # to 4-13 s (158 s alone for the two heights); the quorum-completing
+    # vote still flushes at once (urgent)
     nodes = cn.make_consensus_net(4, config=cfg, start=False,
-                                  verify_cfg=VerifyConfig(vote_batch_window_ms=2.0))
+                                  verify_cfg=VerifyConfig(vote_batch_window_ms=1000.0))
     plain = _Serialized(root.verifier)
     for n in nodes:
         assert n.feed is not None and n.cs._vote_feed is n.feed
@@ -301,6 +356,19 @@ def test_mixed_net_commits_the_same_blocks():
         for p in port:
             for r in ref:
                 _connect_across(p.switch, r.switch)
+        # every connection up and every reactor holding its peers' states, then
+        # each node announces its round step once more: the reference's reactor
+        # makes a peer's state in add_peer, after its switch started the peer,
+        # and drops a NewRoundStep that arrives in between; a node that reached
+        # a step with no timeout (prevote, +2/3 of any votes awaited) before the
+        # connections came up announces nothing else, and the net stalls at
+        # height 0 (every run does when that window is widened by 0.3 s)
+        assert harness.wait_for(lambda: all(
+            n.switch.peers.size() == 3
+            and all(n.reactor.peer_state(p.id) is not None for p in n.switch.peers.list())
+            for n in nodes), timeout=DEADLINE, interval=0.05)
+        for n in nodes:
+            n.reactor._broadcast_new_round_step(n.cs.get_round_state())
         assert harness.wait_for(lambda: all(n.cs.block_store.height() >= 4 for n in nodes),
                                 timeout=DEADLINE, interval=0.05), [
             n.cs.block_store.height() for n in nodes]

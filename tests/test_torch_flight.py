@@ -547,10 +547,30 @@ class TestFlightHarness:
                 assert by_peer.get(f"peer{stub.index}") == 1, (
                     f"{kind} not attributed to peer{stub.index}: {by_peer}")
             assert rec[kind]["count"] == 4
-            # our own vote's journey origin, and each stub's power
+            # our own vote's journey origin, and each stub's power: 10 for a
+            # vote counted before the commit, the LastCommit entry's 0 for a
+            # precommit that lost the race to our own (the height was
+            # already committed on the other three)
             assert rec[kind]["signed"]["validator_index"] == proposer_index(pkg, 4)
-            for stub in stubs:
-                assert rec[kind]["contrib"][stub.index]["power"] == 10
+            assert stub_powers(rec, kind, stubs) == expected_stub_powers(rec, kind, stubs)
+        # the precommits counted before the commit carry its +2/3
+        t_commit = rec["commit"]["t"]
+        assert 3 * sum(c["power"] for c in rec["precommit"]["contrib"].values()
+                       if c["t"] <= t_commit) > 2 * 40
+
+
+def stub_powers(rec, kind, stubs):
+    return [rec[kind]["contrib"][s.index]["power"] for s in stubs]
+
+
+def expected_stub_powers(rec, kind, stubs):
+    """Each stub's power as the flight record must show it whatever the
+    arrival order: every prevote and every precommit stamped before the
+    commit counts 10; a precommit stamped after it joined the LastCommit,
+    whose hook carries no power."""
+    t_commit = rec["commit"]["t"]
+    return [10 if kind == "prevote" or rec[kind]["contrib"][s.index]["t"] <= t_commit else 0
+            for s in stubs]
 
 
 def _shape(rec, stubs):
@@ -567,7 +587,8 @@ def _shape(rec, stubs):
         out[kind] = {"count": slot["count"], "by_peer": slot["by_peer"],
                      "signed": slot["signed"]["validator_index"],
                      "contrib": sorted(slot["contrib"]),
-                     "stub_power": [slot["contrib"][s.index]["power"] for s in stubs],
+                     "stub_power_as_ordered": (stub_powers(rec, kind, stubs)
+                                               == expected_stub_powers(rec, kind, stubs)),
                      "journeys": [slot["first_send"], slot["arrivals"], slot["dup_by_peer"]]}
     return out
 

@@ -713,7 +713,13 @@ class TestRpcVerifiedCommit:
 
 
 class TestProfilerRoutes:
-    def test_the_profiler_writes_a_cpu_trace(self, live_node, client, tmp_path):
+    def test_the_profiler_writes_a_cpu_trace(self, live_node, tmp_path):
+        # the process's first torch.profiler session starts slowly (about
+        # 2.5 s alone on a CPU, past 10 s under a loaded run) and the route
+        # waits up to _TorchTrace.START_WAIT_S for it: the client waits as
+        # long, not the default 10 s
+        client = HTTPClient(f"tcp://127.0.0.1:{live_node.rpc_server.bound_port}",
+                            timeout=penv._TorchTrace.START_WAIT_S + 30.0)
         d = str(tmp_path / "trace")
         assert client.call("unsafe_start_profiler", dir=d) == {"tracing": True, "dir": d}
         with pytest.raises(RPCClientError, match="already running"):

@@ -249,7 +249,10 @@ def test_batch_verifier_equals_the_reference_on_the_mixed_stream(feeds, route):
         rfeed.close()
         rfeed.join(10.0)
     feed = route_feed(feeds, route, window_s=LONG, max_rows=16)
-    ver = BatchTxVerifier(feed, kv.extract_signed_tx_sig, height_fn=lambda: 7)
+    # the ticket wait of the file's other waits: the verifier's 5 s default
+    # runs out on the plain versions under a loaded run, leaving None
+    ver = BatchTxVerifier(feed, kv.extract_signed_tx_sig, height_fn=lambda: 7,
+                          timeout_s=TIMEOUT)
     got = ver(txs)
     assert got == want == [serial_verdict(tx) for tx in txs]
     assert got[-1] is None and got[-2] is True  # undecodable; secp256k1
@@ -262,7 +265,7 @@ def test_batch_verifier_equals_the_reference_on_the_mixed_stream(feeds, route):
 def test_bench_mixed_stream_equals_the_serial_verdicts(feeds, route):
     _, txs, mixed = tv.signed_stream(n=32, n_keys=8)
     feed = route_feed(feeds, route, window_s=LONG, max_rows=64)
-    ver = BatchTxVerifier(feed, kv.extract_signed_tx_sig)
+    ver = BatchTxVerifier(feed, kv.extract_signed_tx_sig, timeout_s=TIMEOUT)
     stream = txs + mixed
     got = []
     for lo in range(0, len(stream), 16):  # CheckTx windows of 16
