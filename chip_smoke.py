@@ -6,6 +6,11 @@
 Phases, in order; any failure exits non-zero:
 
   1. device  the card's name and power limit (nvidia-smi) and torch's name;
+             then the host, read only: the CPU model, os.cpu_count and
+             sched_getaffinity, the cgroup's cpu.max, the load average,
+             torch's threads, and 100 calls of crypto/ed25519._verify_pure
+             on one signature, timed (what makes one machine's host-bound
+             phases slower than another's);
   2. build   the four CUDA kernels and the multiply probe from the
              checkout's sources, in parallel, with each one's registers,
              spills and stack frame; then the probe's IMAD.WIDE and IMAD
@@ -379,14 +384,18 @@ Phases, in order; any failure exits non-zero:
              with its own WAL, vote feed, NodeMetrics and the flight
              recorder on, and node_reactors' whole set in node.py's order:
              consensus, blockchain, mempool with its QoS gate at the
-             [mempool] defaults, evidence, statesync; a PersistentKVStoreApp
+             [mempool] defaults, evidence, statesync, and the peer exchange
+             (pex on, its book not strict, sweeping every second);
+             validator 3's key behind a remote signer, a
+             SignerServiceEndpoint this process runs on a thread that dials
+             the node's priv_validator_laddr over TCP and a secret
+             connection; a PersistentKVStoreApp
              through the client creator that snapshots every 4 heights, a
              cut of the reference's default 0; its RPC server and its
              switch on 127.0.0.1 port 0) at the [consensus] defaults
              (timeout_commit 1 s) and the [p2p] defaults with
-             allow_duplicate_ip = true (as a local testnet sets it) and pex
-             off (the peer exchange is not ported), the other three nodes as
-             persistent_peers: every connection a TCP dial, a secret
+             allow_duplicate_ip = true (as a local testnet sets it), the
+             other three nodes as persistent_peers: every connection a TCP dial, a secret
              connection (STS_BACKEND printed: cryptography where the host has
              it, crypto/sts_fallback otherwise; the H100 hosts measured in
              PERF.md have it), the NodeInfo exchange and an MConnection. A
@@ -398,7 +407,10 @@ Phases, in order; any failure exits non-zero:
              validator reaches every height with the same block and app
              hashes; each tx of heights 1-6 reaches every other mempool by
              gossip and commits on every node; the evidence commits on every
-             node; no QoS drop; no peer stopped for an error, but for at most
+             node; tm_monitor's NetworkMonitor over the four RPCs agrees with
+             each node's /status height, its VERIFY column reads the ladder
+             and its DEVICE column a closed breaker with no fallback; no QoS
+             drop; no peer stopped for an error, but for at most
              one simultaneous-dial duplicate a pair before height 1 (its
              connection not the canonical one, closed by the other end by
              switch.py's canonical rule; printed); K1 + K2 launched by every
@@ -409,14 +421,20 @@ Phases, in order; any failure exits non-zero:
              height 6 (two past the snapshot at 4, so that both its next
              header and a fast-sync window exist) a fifth node joins: a
              non-validator with an empty store at the [statesync] defaults
-             with enable on, trusting header 1 of node 0's store, dialing the
-             four over TCP. It restores the newest snapshot (trust hops K1 +
+             with enable on, trusting header 1 of node 0's store, knowing
+             node 0 as its seed and no persistent peer: it learns the other
+             validators by the peer exchange and dials them (or they, having
+             learned it, dial in), and has all four as peers before it has
+             followed. It restores the newest snapshot (trust hops K1 +
              K2 through the root's guarded verifier, the chunks, the backfill
              through the guarded executor: K1 + K2 + the K7 tally), hands
              off to fast sync (a window, K1 + K2, and its first block's
              LastCommit) and to consensus, reaches the validators' tip and
              follows 2 more heights with their block and app hashes; no peer
-             stopped or banned. Every K1/K2 launch of the phase is counted
+             stopped or banned but for a simultaneous dial closed by the
+             canonical rule. Validator 3's precommit is in every committed
+             LastCommit, each accepted by every node's K1 + K2 check and by
+             the host. Every K1/K2 launch of the phase is counted
              by its source (each validator's flushes and LastCommit checks;
              the joining node's trust hops, backfill, fast-sync windows, its
              first block's LastCommit, flushes and LastCommit checks: each
@@ -435,7 +453,10 @@ Phases, in order; any failure exits non-zero:
              /metrics holds the reference's names; dump_device_health shows
              the breaker closed and no fallback; the joining node's status
              said catching_up at its start and not at the end. Prints the
-             handshake's seconds a connection, blocks a second and a
+             handshake's seconds a connection, the remote signer's round
+             trips (count, p50, max), the join's seconds to all four
+             validators as peers and how each was learned, tm_monitor's
+             columns, blocks a second and a
              height's p50 wall, launches by source, flushes by reason, rows
              and lanes a flush, bytes sent and received a peer (NodeMetrics),
              txs received by gossip, QoS admitted and dropped by reason, the
@@ -467,7 +488,9 @@ Phases, in order; any failure exits non-zero:
              their app hash; tm_bench for 2 s at 50 tx/s on node 0's
              process, every tx it sent committed or in its mempool. Each
              node's dump_device_health shows the guarded verifier on the
-             card, the breaker closed and no fallback event; its /metrics
+             card, the breaker closed and no fallback event; every node runs
+             the [p2p] default, the peer exchange on, and saves its address
+             book at exit; its /metrics
              device-backend verify calls above 0 and no device fallback;
              the lite process's /frontend_stats its dispatches. Then
              SIGTERM to every process: each exits 0 within 10 s. Prints
@@ -552,6 +575,7 @@ import hashlib
 import http.client
 import json
 import os
+import platform
 import queue
 import random
 import re
@@ -600,7 +624,7 @@ from tendermint_tpu_torch.crypto.batch import (
     verify_generic,
 )
 from tendermint_tpu_torch.crypto.hashing import sha256
-from tendermint_tpu_torch.crypto.keys import PubKeyEd25519, PubKeySecp256k1
+from tendermint_tpu_torch.crypto.keys import PrivKeyEd25519, PubKeyEd25519, PubKeySecp256k1
 from tendermint_tpu_torch.frontend.aggregator import BatchingVerifier
 from tendermint_tpu_torch.libs import breaker, trace
 from tendermint_tpu_torch.libs.critpath import TIMELINE_PHASES, verify_seconds_for_height
@@ -658,6 +682,7 @@ from tendermint_tpu_torch.testutil.statesync import CorruptingStore, hub_net
 from tendermint_tpu_torch.tools import bench_fastsync as bf
 from tendermint_tpu_torch.tools import chaos_smoke
 from tendermint_tpu_torch.tools import tm_bench
+from tendermint_tpu_torch.tools.tm_monitor import NetworkMonitor, _fmt_device, _fmt_verify
 from tendermint_tpu_torch.tools import trace_merge
 from tendermint_tpu_torch.types.block import Commit
 from tendermint_tpu_torch.types.core import BlockID, SignedMsgType
@@ -799,6 +824,17 @@ LN_EVIDENCE_HEIGHT, LN_OFFENDER = 2, 1
 LN_JOIN_TIMEOUT = 60.0
 LN_SS_SPANS = ("statesync.restore", "statesync.light_verify", "statesync.chunks",
                "statesync.backfill")
+# the peer exchange on every node, each PEX reactor sweeping every second (the
+# reference's 30 s would cost the join a sweep; every node needs one period,
+# as a receiver drops a peer that asks more often than a third of its own,
+# and at 0.5 s a receive thread stalled a third of a second under the RPC
+# burst read two requests a period apart as a flood in one CPU rehearsal of
+# three);
+# the fifth node knows node 0 as its seed and no persistent peer. Validator
+# 3's key sits behind a remote signer (a SignerServiceEndpoint on a thread,
+# over TCP and a secret connection); tm_monitor watches the four RPCs
+LN_PEX_PERIOD, LN_SIGNER = 1.0, 3
+LN_MONITOR_TIMEOUT = 20.0
 LN_JOIN_SOURCES = ("trust", "backfill", "fastsync", "fastsync_last_commit", "flushes",
                    "last_commit")
 # then the RPC: 16 clients x /commit?verify=1 at every height (and
@@ -4449,7 +4485,7 @@ def ln_frame_ms(aead_cls) -> tuple:
     return (t1 - t0) * 1e3 / LN_FRAME_REPS, (t2 - t1) * 1e3 / LN_FRAME_REPS
 
 
-def ln_stopped_peers(nodes, wrap=None, into=None) -> tuple:
+def ln_stopped_peers(nodes, wrap=None, into=None, ids=None) -> tuple:
     """Every peer a node's switch stops for an error, as (time, node, peer
     node, reason, whether its connection is the canonical one), and every
     duplicate connection a switch closes by its canonical rule (switch.py's
@@ -4457,8 +4493,10 @@ def ln_stopped_peers(nodes, wrap=None, into=None) -> tuple:
     peer node). A call for a peer object the set no longer holds stops
     nothing (switch.py's stale-peer rule) and is not counted. Only the
     switches of ``wrap`` (default all) are recorded, into ``into`` when
-    given."""
-    idx = {n.switch.node_id: i for i, n in enumerate(nodes)}
+    given. ``ids`` (node ID -> index) is shared by later calls, so that a
+    switch wrapped earlier names a node added since."""
+    idx = ids if ids is not None else {}
+    idx.update({n.switch.node_id: i for i, n in enumerate(nodes)})
     stopped, closed = into if into is not None else ([], [])
     for i, n in enumerate(nodes):
         if wrap is not None and n not in wrap:
@@ -4674,7 +4712,10 @@ def ln_qos(nodes) -> dict:
 def ln_check_wiring(n, who: str, dev, restoring: bool = False) -> None:
     """Node ``n`` is wired as node/verify_root wires a node's reactor set."""
     r, sw = n.reactors, n.switch
-    check(list(sw.reactors) == ["consensus", "blockchain", "mempool", "evidence", "statesync"]
+    check(list(sw.reactors) == ["consensus", "blockchain", "mempool", "evidence", "statesync",
+                                "pex"]
+          and sw.reactors["pex"] is n.pex_reactor and n.pex_reactor.ensure_period == LN_PEX_PERIOD
+          and n.pex_reactor.book is n.addr_book and not n.pex_reactor.seed_mode
           and sw.reactors["consensus"] is r.consensus is n.consensus_reactor and n.consensus_reactor.cons is n.consensus_state
           and sw.reactors["mempool"] is r.mempool and r.mempool.qos is not None
           and sw.reactors["evidence"] is r.evidence and r.statesync is not None
@@ -4738,9 +4779,10 @@ def ln_broadcast(node, tx: bytes, out: dict) -> threading.Thread:
     return t
 
 
-def ln_join(nodes, tmp, dev, tls, stops) -> dict:
-    """The fifth node: a non-validator home with an empty store that
-    restores by state sync from the four over TCP, hands off to fast sync
+def ln_join(nodes, tmp, dev, tls, stops, ids) -> dict:
+    """The fifth node: a non-validator home with an empty store that knows
+    node 0 as its seed and no persistent peer, finds the other validators by
+    the peer exchange, restores by state sync over TCP, hands off to fast sync
     and then to consensus, reaches the tip and follows LN_FOLLOW more
     heights; its RPC status reports catching_up until it runs consensus.
     Its switch's stops go into ``stops`` (``ln_stopped_peers``' lists)."""
@@ -4750,9 +4792,22 @@ def ln_join(nodes, tmp, dev, tls, stops) -> dict:
     t_build = time.perf_counter()
     j = nn.add_joining_node(nodes, tmp, ln_config(flight=False),
                             LocalClientCreator(PersistentKVStoreApp()), statesync=ss_cfg,
-                            device=dev, start=False)
+                            device=dev, start=False, pex_period=LN_PEX_PERIOD, seed_only=True)
     ln_check_wiring(j, "the joining node", dev, restoring=True)
-    ln_stopped_peers(nodes + [j], wrap=[j], into=stops)
+    seed = nodes[0].switch.transport.listen_address
+    check(j.config.p2p.persistent_peers == "" and [str(a) for a in j.pex_reactor.seeds]
+          == [str(seed)], "localnet: the joining node knows more than node 0 as its seed")
+    val_ids = {n.switch.node_id: i for i, n in enumerate(nodes)}
+    peers_seen, watching = {}, threading.Event()
+
+    def watch_peers():
+        # the moment the joining node has all the validators as peers
+        while not watching.is_set():
+            if set(val_ids) <= {p.id for p in j.switch.peers.list()}:
+                peers_seen["t"] = time.perf_counter()
+                return
+            time.sleep(0.005)
+    ln_stopped_peers(nodes + [j], wrap=[j], into=stops, ids=ids)
     received = ln_gossip_counts([j])[0]
     vals = nodes[0].consensus_state.get_state().validators
     check(not vals.has_address(j.priv_validator.get_pub_key().address())
@@ -4779,9 +4834,11 @@ def ln_join(nodes, tmp, dev, tls, stops) -> dict:
                                                   "join:backfill", tls)
     trace.reset(FS_TRACE_CAPACITY)
     trace.enable()
+    watcher = threading.Thread(target=watch_peers, name="ln-join-peers", daemon=True)
     try:
         t0 = time.perf_counter()
         j.start()
+        watcher.start()
         catching = [HTTPClient(ln_addr(j)).status()["sync_info"]["catching_up"]]
         check(tcs.wait_for(lambda: switched.is_set() or ss.reactor.progress()["error"]
                            or j.reactors.blockchain.device_fault is not None,
@@ -4810,12 +4867,46 @@ def ln_join(nodes, tmp, dev, tls, stops) -> dict:
     check(tcs.wait_for(lambda: j.block_store.height() >= tip, LN_JOIN_TIMEOUT, interval=0.005),
           f"localnet: the joining node at {j.block_store.height()}, not at the tip {tip}")
     stamps["tip"] = time.perf_counter()
-    top = tip + LN_FOLLOW
+    # it follows once the peer exchange has given it every validator as a
+    # peer (each answer names one address of a small book, so that takes a
+    # few sweeps)
+    watcher.join(LN_JOIN_TIMEOUT)
+    watching.set()
+    check("t" in peers_seen,
+          f"localnet: the joining node did not have the {len(nodes)} validators as peers "
+          f"{LN_JOIN_TIMEOUT} s after its start: {[p.id for p in j.switch.peers.list()]}")
+    top = max(tip, min(n.block_store.height() for n in nodes)) + LN_FOLLOW
+    stamps["follow_from"] = time.perf_counter()
     check(tcs.wait_for(lambda: min(n.block_store.height() for n in nodes + [j]) >= top,
                        LN_JOIN_TIMEOUT, interval=0.005),
           f"localnet: the joining node did not follow to {top}: "
           f"{[n.block_store.height() for n in nodes + [j]]}")
     stamps["followed"] = time.perf_counter()
+    # how each validator became its peer: the seed of its config; dialed
+    # after a peer's PEX answer named it; or it dialed in after learning
+    # the joining node by PEX
+    learned = {}
+
+    def how_learned() -> bool:
+        # one snapshot of the book and the peers (a peer is in the set
+        # before its reactors' add_peer has run)
+        book = {k.addr.id: k for k in j.addr_book.list_known()}
+        for nid, i in val_ids.items():
+            k, p = book.get(nid), j.switch.peers.get(nid)
+            if k is None or p is None:
+                how = "unknown"
+            elif nid == seed.id and str(k.src) == str(seed):
+                how = "seed"
+            elif k.src.id != nid:
+                how = f"pex from node{val_ids.get(k.src.id, '?')}"
+            else:
+                how = "dialed in (pex)"
+            learned[i] = f"{how}, {'outbound' if p is not None and p.outbound else 'inbound'}"
+        return not any(v.startswith("unknown") for v in learned.values())
+
+    check(tcs.wait_for(how_learned, LN_JOIN_TIMEOUT, interval=0.05)
+          and learned[0].startswith("seed"),
+          f"localnet: how the joining node's peers were learned: {learned}")
     catching.append(HTTPClient(ln_addr(j)).status()["sync_info"]["catching_up"])
     check(catching == [True, False],
           f"localnet: the joining node's status catching_up at its start and at {top}: {catching}")
@@ -4835,8 +4926,50 @@ def ln_join(nodes, tmp, dev, tls, stops) -> dict:
     return {"node": j, "snapshot": H, "synced": synced, "tip": tip, "top": top,
             "build_s": t0 - t_build, "restore_s": stamps["synced"] - t0,
             "handoff_s": stamps["switched"] - stamps["synced"], "tip_s": stamps["tip"] - t0,
-            "follow_s": stamps["followed"] - stamps["tip"], "spans": spans,
-            "received": received}
+            "follow_s": stamps["followed"] - stamps["follow_from"], "spans": spans,
+            "received": received, "peers_s": peers_seen["t"] - t0, "learned": learned}
+
+
+def ln_time_signer(node) -> list:
+    """The round trips of ``node``'s remote signer as the node sees them:
+    each request its ``SignerValidatorEndpoint`` sends (a sign, a ping, the
+    key), its seconds appended to the list returned."""
+    ep, times = node.signer_endpoint, []
+    real = ep._request
+
+    def request(payload):
+        t0 = time.perf_counter()
+        try:
+            return real(payload)
+        finally:
+            times.append(time.perf_counter() - t0)
+
+    ep._request = request
+    return times
+
+
+def ln_monitor(monitor, nodes, dev, fallbacks_before: float) -> list:
+    """tm_monitor's view of ``nodes`` once it agrees with them: each
+    node's monitored height equal to its /status at one poll, online, its
+    DEVICE column the breaker closed with no new fallback and, on the card,
+    its VERIFY column ``ladder``. Returns the nodes' snapshots."""
+    clients = [HTTPClient(ln_addr(n), timeout=5.0) for n in nodes]
+
+    def agrees():
+        for m, c in zip(monitor.nodes, clients):
+            if not (m.online and m.device_state == 0
+                    and m.device_fallbacks == int(fallbacks_before)
+                    and (dev.type != "cuda" or m.verify_path == "ladder")):
+                return False
+            if m.height != int(c.status()["sync_info"]["latest_block_height"]):
+                return False
+        return True
+
+    ok = tcs.wait_for(agrees, LN_MONITOR_TIMEOUT, interval=0.05)
+    snaps = [m.snapshot() for m in monitor.nodes]
+    check(ok, "localnet: tm_monitor never agreed with the nodes' /status, a closed breaker, "
+              f"no fallback and the ladder: {snaps}")
+    return snaps
 
 
 def ln_host_verdict(node, h: int) -> dict:
@@ -4971,17 +5104,25 @@ def phase_localnet(dev, err: dict) -> dict:
     phase(f"localnet: {LN_VALS} validators of power 10, each a node/node.Node from a home "
           f"directory (testutil/node_net: sqlite stores, FilePV, node key, genesis) with its "
           f"own WAL, vote feed ({LN_WINDOW_MS:g} ms, {LN_ROWS} rows), RPC server and reactor "
-          f"set (consensus, blockchain, mempool with its QoS gate, evidence, statesync; "
-          f"PersistentKVStoreApp snapshots every {LN_SNAPSHOT_INTERVAL}), listening at "
+          f"set (consensus, blockchain, mempool with its QoS gate, evidence, statesync, the "
+          f"peer exchange sweeping every {LN_PEX_PERIOD:g} s; PersistentKVStoreApp snapshots "
+          f"every {LN_SNAPSHOT_INTERVAL}), validator {LN_SIGNER} signing through a remote "
+          f"signer over TCP, tm_monitor over the four RPCs, listening at "
           f"127.0.0.1 port 0 and dialing the others as persistent peers (TCP, secret "
           f"connection, MConnection); {LN_HEIGHTS} heights at the [consensus] defaults, a tx "
           f"a height through broadcast_tx_commit on node 0's RPC, validator {LN_OFFENDER}'s "
           f"double sign at {LN_EVIDENCE_HEIGHT} into node 0's evidence pool; at {LN_JOIN_AT} a "
-          f"fifth node joins by state sync and follows {LN_FOLLOW} heights; then the RPC: "
+          f"fifth node that knows node 0 as its seed finds the others by PEX, joins by state "
+          f"sync and follows {LN_FOLLOW} heights; then the RPC: "
           f"{LN_RPC_CLIENTS} clients x /commit?verify=1 under the profiler, the lite client, "
           f"the websocket, /metrics and dump_device_health")
     t_phase = time.perf_counter()
     before = fallbacks()
+    # the verify families are the process's: the msm phases' dispatches
+    # would make tm_monitor's VERIFY column read "mixed" for these nodes,
+    # where a node in a process of its own starts with none
+    with get_verify_metrics().fe_dispatch._mtx:
+        get_verify_metrics().fe_dispatch._values.clear()
     # the guard's events of earlier phases (their tripped breakers) stay in
     # the process's ring: dump_device_health is read from here on
     seq0 = max((e["seq"] for e in get_profiler().events()), default=-1)
@@ -4991,7 +5132,14 @@ def phase_localnet(dev, err: dict) -> dict:
     with timed_upgrades() as ups, ln_launch_sources() as (tls, by_tag):
         nodes = nn.make_node_net(LN_VALS, tmp, ln_config(flight=True),
                                  lambda i: LocalClientCreator(PersistentKVStoreApp()),
-                                 device=dev, start=False)
+                                 device=dev, start=False, pex_period=LN_PEX_PERIOD,
+                                 remote_signers=(LN_SIGNER,))
+        signer = nodes[LN_SIGNER].remote_signer
+        check(nodes[LN_SIGNER].consensus_state.priv_validator is nodes[LN_SIGNER].signer_endpoint
+              and signer.endpoint.is_running
+              and all(n.signer_endpoint is None for i, n in enumerate(nodes) if i != LN_SIGNER),
+              f"localnet: validator {LN_SIGNER} does not sign through its remote signer")
+        signer_rt = ln_time_signer(nodes[LN_SIGNER])
         root = nodes[0].verify_root
         check(all(n.verify_root is root for n in nodes) and get_batch_verifier() is root.verifier,
               "localnet: the nodes do not share one [verify] root whose verifier is installed")
@@ -5001,7 +5149,8 @@ def phase_localnet(dev, err: dict) -> dict:
         real_window = bc_reactor.verify_block_window
         bc_reactor.verify_block_window = ln_tagged(real_window, "join:fastsync", tls)
         received = ln_gossip_counts(nodes)
-        stopped, closed = ln_stopped_peers(nodes)
+        ln_ids = {}
+        stopped, closed = ln_stopped_peers(nodes, ids=ln_ids)
         seal_ms, open_ms = ln_frame_ms(p2p_sts.ChaCha20Poly1305)
         fb_seal_ms, fb_open_ms = ln_frame_ms(sts_fallback.ChaCha20Poly1305)
         print(f"  built in {time.perf_counter() - t_phase:.1f} s (set-up); STS_BACKEND "
@@ -5010,7 +5159,7 @@ def phase_localnet(dev, err: dict) -> dict:
               f"{fb_seal_ms:.3f} and {fb_open_ms:.3f} ms; means of {LN_FRAME_REPS}, this "
               f"process alone)", flush=True)
         reset_launches()
-        stamps, frames, join, ev, ws = {}, {}, None, None, None
+        stamps, frames, join, ev, ws, monitor = {}, {}, None, None, None, None
         results, senders = {}, []
         try:
             with captured_packs() as packs:
@@ -5022,6 +5171,7 @@ def phase_localnet(dev, err: dict) -> dict:
                 ws.subscribe("tm.event = 'NewBlock'")
                 for n in (nodes[0], nodes[1], nodes[3]):
                     n.start()
+                monitor = NetworkMonitor([ln_addr(n) for n in nodes])
                 senders.append(ln_broadcast(nodes[0], txs[0], results))
                 for h in range(1, LN_JOIN_AT + 1):
                     check(tcs.wait_for(lambda: all(n.block_store.height() >= h
@@ -5040,7 +5190,10 @@ def phase_localnet(dev, err: dict) -> dict:
                         peers = [n.switch.peers.size() for n in nodes]
                         stopped_run, closed_run = list(stopped), list(closed)
                         peer_bytes = ln_peer_bytes(nodes)
-                join = ln_join(nodes, tmp, dev, tls, (stopped, closed))
+                t_mon = time.perf_counter()
+                mon_snaps = ln_monitor(monitor, nodes, dev, before)
+                mon_s = time.perf_counter() - t_mon
+                join = ln_join(nodes, tmp, dev, tls, (stopped, closed), ln_ids)
                 j = join["node"]
                 for t in senders:
                     t.join(LN_TIMEOUT)
@@ -5079,6 +5232,8 @@ def phase_localnet(dev, err: dict) -> dict:
             bc_reactor.verify_block_window = real_window
             if ws is not None:
                 ws.close()
+            if monitor is not None:
+                monitor.stop()
             nn.stop_node_net(nodes + ([join["node"]] if join is not None else []))
         tags = {k: dict(v) for k, v in by_tag.items()}
     launches = read_launches()
@@ -5087,9 +5242,35 @@ def phase_localnet(dev, err: dict) -> dict:
           f"localnet: peers {peers}; peers stopped for an error (seconds after height 1, node, "
           f"peer, reason, canonical): {rest}; excused dial races {races}; duplicates closed by "
           f"the canonical rule (node, peer): {closed_run}")
-    check(not stopped_join and peers_join == [LN_VALS] * (LN_VALS + 1),
+    # the joining node dials the validators its PEX answers name while a
+    # validator that learned it by PEX may dial it: the same simultaneous
+    # dial as before height 1, excused by the same rule
+    races_join, rest_join = ln_unexcused_stops(stopped_join, closed, float("inf"))
+    check(not rest_join and peers_join == [LN_VALS] * (LN_VALS + 1),
           f"localnet: after the join, peers {peers_join}; peers stopped for an error "
-          f"{stopped_join}")
+          f"{rest_join}; excused dial races {races_join}")
+    # validator LN_SIGNER signed through its remote signer: its precommit is
+    # in every committed LastCommit, the host verifies each of them, and
+    # every node's LastCommit check (K1 + K2) accepted those heights
+    addr_s = nodes[LN_SIGNER].remote_signer.pv.get_pub_key().address()
+    idx_s, _ = nodes[0].consensus_state.get_state().validators.get_by_address(addr_s)
+    top_s = min(n.block_store.height() for n in nodes)
+    for h in range(2, top_s + 1):
+        pc = nodes[0].block_store.load_block(h).last_commit.precommits[idx_s]
+        check(pc is not None and pc.validator_address == addr_s and pc.signature,
+              f"localnet: validator {LN_SIGNER}'s precommit missing from LastCommit {h}")
+        check(ln_host_verdict(nodes[0], h - 1)["sigs_ok"],
+              f"localnet: a signature of LastCommit {h} does not verify on the host")
+    accepted = {i: sorted({h for h in n.checks if 2 <= h <= top_s})
+                for i, n in enumerate(nodes + [join["node"]])}
+    check(all(accepted[i] == list(range(2, top_s + 1)) for i in range(LN_VALS))
+          and accepted[LN_VALS] and accepted[LN_VALS][-1] == top_s,
+          f"localnet: the LastCommit checks holding validator {LN_SIGNER}'s precommit, by "
+          f"node: {accepted}")
+    check(signer.requests == len(signer_rt) and len(signer_rt) >= 2 * (top_s - 1)
+          and signer.error is None,
+          f"localnet: the remote signer served {signer.requests} requests, the node timed "
+          f"{len(signer_rt)}; dial error {signer.error}")
     check(all(n.consensus_state.device_fault is None for n in nodes),
           f"localnet: device faults {[n.consensus_state.device_fault for n in nodes]}")
     mp_faults = [n.reactors.mempool.device_fault for n in nodes + [join["node"]]]
@@ -5238,6 +5419,22 @@ def phase_localnet(dev, err: dict) -> dict:
           f"{qos['dropped'] or 0}; the evidence (validator {LN_OFFENDER}'s double sign at "
           f"{LN_EVIDENCE_HEIGHT}) committed at height {ev_at[0]} on every node", flush=True)
     sp = join["spans"]
+    rt = sorted(signer_rt)
+    print(f"  validator {LN_SIGNER} on a remote signer (SignerServiceEndpoint over TCP and a "
+          f"{p2p_sts.STS_BACKEND} secret connection): {len(rt)} round trips (signs of votes "
+          f"and proposals, its key), p50 {statistics.median(rt) * 1e3:.2f} ms, max "
+          f"{rt[-1] * 1e3:.2f} ms; its precommit in every LastCommit of 2-{top_s}, each "
+          f"accepted by every node's K1 + K2 check ({sum(len(v) for v in accepted.values())} "
+          f"checks)", flush=True)
+    print(f"  tm_monitor over the four RPCs agreed with /status in {mon_s:.2f} s: "
+          + "; ".join(f"{m['moniker']} height {m['height']} VERIFY "
+                      f"{_fmt_verify(m['verify_ms'], m['verify_path'])} DEVICE "
+                      f"{_fmt_device(m['device_state'], m['device_fallbacks'])} CRIT {m['crit']} "
+                      f"QUORUM {m['quorum']}" for m in mon_snaps), flush=True)
+    print(f"  join by a seed: node 0 its only address; all {LN_VALS} validators its peers "
+          f"{join['peers_s']:.3f} s after its start (PEX sweeping every {LN_PEX_PERIOD:g} s), "
+          f"learned: " + ", ".join(f"node{i} {v}" for i, v in sorted(join["learned"].items()))
+          + f"; {len(races_join)} simultaneous dials closed by the canonical rule", flush=True)
     print(f"  join at {LN_JOIN_AT}: restored snapshot {join['snapshot']} (the newest at "
           f"{LN_JOIN_AT - LN_JOIN_AT % LN_SNAPSHOT_INTERVAL}) in {join['restore_s']:.3f} s from "
           f"the node's start to on_synced (the node built in {join['build_s']:.3f} s; the "
@@ -5245,7 +5442,8 @@ def phase_localnet(dev, err: dict) -> dict:
           + ", ".join(f"{k} {v:.3f}" for k, v in sp.items())
           + f"; the hand-off to consensus {join['handoff_s'] * 1e3:.1f} ms after it, "
           f"{join['synced']} block(s) fast-synced; at the tip {join['tip']} "
-          f"{join['tip_s']:.3f} s after the start, then {LN_FOLLOW} heights in "
+          f"{join['tip_s']:.3f} s after the start, then, every validator a peer, "
+          f"{LN_FOLLOW} heights in "
           f"{join['follow_s']:.3f} s with the validators' block and app hashes; its RPC status "
           f"catching_up true at its start and false at the end", flush=True)
     print(f"  the joining node's K1 + K2 (K7) launches: trust hops {jl['trust']['k1']}, backfill "
@@ -5281,7 +5479,9 @@ def phase_localnet(dev, err: dict) -> dict:
             "lanes_per_flush": statistics.mean(lanes), "peer_bytes": peer_bytes,
             "gossip": gossip, "seconds": seconds, "dial_races": len(races),
             "join": {k: join[k] for k in ("snapshot", "synced", "restore_s", "handoff_s",
-                                           "tip_s", "follow_s")},
+                                           "tip_s", "follow_s", "peers_s")},
+            "signer": {"round_trips": len(rt), "p50_ms": statistics.median(rt) * 1e3,
+                       "max_ms": rt[-1] * 1e3},
             "rpc": {"burst": burst, "lite": lite,
                     "commit_p50_ms": statistics.median(commit_s) * 1e3},
             "launches": {"flushes": vals[0].get("ed25519_prologue", 0),
@@ -5555,6 +5755,12 @@ def phase_cli(dev, err: dict) -> dict:
         used["after"] = cli_mem_used(device)
         check(all(rc == 0 for rc in rcs.values()),
               f"cli: exit codes on SIGTERM {rcs} (within {CLI_STOP_S:g} s)\n{net.tails()}")
+        # each node ran the [p2p] default, the peer exchange on: its PEX
+        # reactor saved the address book when the node stopped
+        books = [os.path.join(net.home(i), "config", "addrbook.json") for i in range(CLI_VALS)]
+        check(all(os.path.exists(b) for b in books),
+              f"cli: no address book saved by the peer exchange: "
+              f"{[b for b in books if not os.path.exists(b)]}")
     except BaseException:
         print(net.tails(), flush=True)
         raise
@@ -5591,7 +5797,8 @@ def phase_cli(dev, err: dict) -> dict:
           f"by node {[h['calls'] for h in health.values()]}, device fallbacks 0; SIGTERM: "
           f"exit codes {rcs}, seconds to exit "
           f"{ {k: round(p.exit_s, 2) for k, p in net.procs.items() if p.exit_s is not None} } "
-          f"({stop_s:.2f} s for all); phase {seconds:.1f} s", flush=True)
+          f"({stop_s:.2f} s for all); the peer exchange on in every node (the [p2p] "
+          f"default; each saved its address book at exit); phase {seconds:.1f} s", flush=True)
     return {"seconds": seconds, "first_answer_s": answers, "blocks_s": blocks_s,
             "p50_ms": statistics.median(walls) * 1e3, "lite_s": lite_s,
             "lite_heights": len(lite_out), "restart_s": restart_s, "bench": bench,
@@ -5792,6 +5999,49 @@ def phase_sim(dev, err: dict) -> dict:
                          "fault": c["launches"]}}
 
 
+HOST_CALIB_CALLS = 100  # crypto/ed25519._verify_pure on one row, ~0.7 s on a 2.x GHz core
+
+
+def read_text(path: str) -> str:
+    try:
+        with open(path) as f:
+            return f.read().strip()
+    except OSError:
+        return "unreadable"
+
+
+def host_facts() -> dict:
+    """What makes one chip machine's host faster than another's, read and
+    timed without changing anything: the CPU model, the cores the process
+    may run on, the cgroup's CPU quota, the load, torch's threads, and the
+    seconds of a fixed pure-Python workload (HOST_CALIB_CALLS calls of the
+    port's _verify_pure on one signature)."""
+    info = {}
+    for line in read_text("/proc/cpuinfo").splitlines():
+        k, _, v = line.partition(":")
+        info.setdefault(k.strip(), v.strip())
+    model = (f"{info.get('model name', '?')} ({platform.machine()}; vendor "
+             f"{info.get('vendor_id', '?')} family {info.get('cpu family', '?')} model "
+             f"{info.get('model', '?')} stepping {info.get('stepping', '?')}; cpu MHz "
+             f"{info.get('cpu MHz', '?')}; cache {info.get('cache size', '?')})")
+    quota = read_text("/sys/fs/cgroup/cpu.max")
+    if quota == "unreadable":  # cgroup v1
+        quota = (f"{read_text('/sys/fs/cgroup/cpu/cpu.cfs_quota_us')} / "
+                 f"{read_text('/sys/fs/cgroup/cpu/cpu.cfs_period_us')}")
+    priv = PrivKeyEd25519.generate(b"\x07" * 32)
+    msg = b"host calibration"
+    sig, pub = priv.sign(msg), priv.pub_key().bytes()
+    t0 = time.perf_counter()
+    for _ in range(HOST_CALIB_CALLS):
+        check(ed._verify_pure(pub, msg, sig), "host: the calibration signature did not verify")
+    calib_s = time.perf_counter() - t0
+    return {"cpu": model, "cpu_count": os.cpu_count(),
+            "affinity": len(os.sched_getaffinity(0)), "cpu_max": quota,
+            "loadavg": [round(x, 2) for x in os.getloadavg()],
+            "torch_threads": torch.get_num_threads(), "calib_s": calib_s,
+            "calib_ms_a_call": calib_s / HOST_CALIB_CALLS * 1e3}
+
+
 def profiler_warmup(out: dict) -> None:
     """One empty torch.profiler session (CPU and CUDA activity). The first
     of a process initializes the profiler and CUPTI (7-20 s on the H100,
@@ -5823,6 +6073,12 @@ def main() -> int:
     print(f"  nvidia-smi: {smi_line}; torch: {torch.cuda.get_device_name(0)}; "
           f"SMs {props.multi_processor_count}; max SM clock {max_sm_mhz} MHz; "
           f"torch {torch.__version__} cuda {torch.version.cuda}", flush=True)
+    host = host_facts()
+    print(f"  host: {host['cpu']}; os.cpu_count {host['cpu_count']}, sched_getaffinity "
+          f"{host['affinity']}; cgroup cpu.max {host['cpu_max']}; loadavg {host['loadavg']}; "
+          f"torch threads {host['torch_threads']}; {HOST_CALIB_CALLS} calls of "
+          f"crypto/ed25519._verify_pure in {host['calib_s']:.3f} s "
+          f"({host['calib_ms_a_call']:.3f} ms a call)", flush=True)
     op_rate = props.multi_processor_count * max_sm_mhz * 1e6 * INT32_OPS_PER_CLK_PER_SM
 
     phase("build")
@@ -6028,7 +6284,9 @@ def main() -> int:
           f"on the backfill; phase {ssync['seconds']:.1f} s", flush=True)
     print(f"  localnet: {LN_VALS} nodes over TCP on the {localnet['sts_backend']} STS backend, "
           f"{localnet['blocks_s']:.3f} blocks/s (a height's p50 {localnet['p50_ms']:.1f} ms), "
-          f"a handshake {localnet['handshake_s']:.4f} s; the join restored "
+          f"a handshake {localnet['handshake_s']:.4f} s; the join by a seed had the "
+          f"{LN_VALS} validators as peers {localnet['join']['peers_s']:.3f} s after its start, "
+          f"restored "
           f"{localnet['join']['snapshot']} in {localnet['join']['restore_s']:.3f} s, "
           f"fast-synced {localnet['join']['synced']} block(s) and was at the tip "
           f"{localnet['join']['tip_s']:.3f} s after its start; the ?verify=1 burst "
@@ -6036,7 +6294,10 @@ def main() -> int:
           f"answers, {localnet['rpc']['burst']['dispatches']} dispatches), broadcast_tx_commit p50 "
           f"{localnet['rpc']['commit_p50_ms']:.1f} ms, the lite client "
           f"{localnet['rpc']['lite']['seconds'] * 1e3:.1f} ms for {localnet['rpc']['lite']['heights']} "
-          f"heights; phase {localnet['seconds']:.1f} s", flush=True)
+          f"heights; validator {LN_SIGNER}'s remote signer {localnet['signer']['round_trips']} "
+          f"round trips, p50 {localnet['signer']['p50_ms']:.2f} ms, max "
+          f"{localnet['signer']['max_ms']:.2f} ms; phase {localnet['seconds']:.1f} s",
+          flush=True)
     print(f"  cli: {CLI_VALS} node processes and a lite process on the card, "
           f"{cli['blocks_s']:.3f} blocks/s (a height's p50 {cli['p50_ms']:.1f} ms), spawn to "
           f"the first answer {max(cli['first_answer_s'].values()):.2f} s at most, the lite "

@@ -14,13 +14,11 @@ no card they exit non-zero naming ``NoCudaDeviceError``. With ``--device
 cpu``, ``TM_BATCH_VERIFIER=host`` (as the reference's multi-process test
 sets it) installs the host verifier; with the card it is refused at start.
 
-Differences from the reference's command line: ``node`` turns the peer
-exchange off (it is not ported, ROADMAP queue 1 item 17 (a'): a node runs
-on its persistent peers) and takes three more of the configuration's
-fields as flags, ``--rpc.unsafe`` and ``--instrumentation.prometheus`` (Go
-tendermint's names) and ``--verify.vote_batch_window_ms``;
-``probe_upnp`` exits non-zero (``p2p/upnp.py`` is not ported, item 17
-(a')).
+Differences from the reference's command line: ``node`` takes three more
+of the configuration's fields as flags, ``--rpc.unsafe`` and
+``--instrumentation.prometheus`` (Go tendermint's names) and
+``--verify.vote_batch_window_ms``. ``node`` runs the reference's ``[p2p]``
+default, the peer exchange on; ``probe_upnp`` runs ``p2p/upnp.probe``.
 
 Run: python -m tendermint_tpu_torch.cmd.tendermint <command> [--home DIR] ...
 """
@@ -53,9 +51,6 @@ def _config(args):
 
     cfg = default_config()
     cfg.set_root(_home(args))
-    # the peer exchange is not ported (ROADMAP item 17 (a')): the node runs
-    # on its persistent peers
-    cfg.p2p.pex = False
     if getattr(args, "proxy_app", None):
         cfg.base.proxy_app = args.proxy_app
     if getattr(args, "rpc_laddr", None):
@@ -160,8 +155,12 @@ def cmd_version(args) -> int:
 
 
 def cmd_probe_upnp(args) -> int:
-    """Probe for a UPnP gateway (commands/probe_upnp.go): not ported."""
-    raise CommandError("probe_upnp: p2p/upnp.py is not ported (ROADMAP queue 1 item 17 (a'))")
+    """Probe for a UPnP gateway (commands/probe_upnp.go)."""
+    from tendermint_tpu_torch.p2p.upnp import probe
+
+    caps = probe()
+    print(json.dumps(caps.__dict__, indent=2))
+    return 0
 
 
 def cmd_replay(args, console: bool = False) -> int:

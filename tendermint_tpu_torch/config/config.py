@@ -8,9 +8,11 @@ default. The other sections are the port's section modules
 (``config/{consensus,mempool,p2p,statesync,verify,instrumentation}.py``),
 which ``node/verify_root.py`` applies. Durations are seconds (float).
 
-``Config.validate_ported()`` refuses a configuration that needs a module
-the port does not have, naming its ROADMAP item, so that a node fails where
-it is built instead of running without it.
+Every field of the reference's configuration is ported: the remote signer
+(``base.priv_validator_laddr``, ``privval/remote_signer.py``), the peer
+exchange and its address book (``[p2p] pex``, ``seeds``, ``seed_mode``),
+and the ``remote`` db backend. ``[p2p] private_peer_ids``, ``upnp`` and
+``test_fuzz`` are read and wired to nothing, as in the reference.
 """
 
 from __future__ import annotations
@@ -36,8 +38,8 @@ class BaseConfig:
     log_level: str = "info"
     genesis_file: str = "config/genesis.json"
     priv_validator_file: str = "config/priv_validator.json"
-    # remote signer listen address (tcp://host:port or unix://path): not
-    # ported (validate_ported refuses it)
+    # remote signer listen address (tcp://host:port or unix://path) — when
+    # set, the node listens here for the signer's dial-in (node/node.py)
     priv_validator_laddr: str = ""
     priv_validator_signer_pubkey: str = ""
     node_key_file: str = "config/node_key.json"
@@ -56,6 +58,10 @@ class BaseConfig:
         return os.path.join(self.root_dir, self.node_key_file)
 
     def db_path(self) -> str:
+        """The stores' directory; for the ``remote`` backend, ``db_dir`` is
+        the store server's address (``host:port``) and is taken as it is."""
+        if self.db_backend == "remote":
+            return self.db_dir
         return os.path.join(self.root_dir, self.db_dir)
 
 
@@ -120,20 +126,6 @@ class Config:
     def set_root(self, root: str) -> "Config":
         self.base.root_dir = root
         return self
-
-    def validate_ported(self) -> None:
-        """Raise ``NotImplementedError`` for a field whose module is not
-        ported: the remote signer (``base.priv_validator_laddr``, ROADMAP
-        item 17 (d)) and, when the node runs p2p, what
-        ``P2PConfig.validate_ported`` refuses (item 17 (a')). A socket or
-        ``grpc://`` ``proxy_app``, ``rpc.grpc_laddr`` and
-        ``mempool.wal_path`` are ported."""
-        if self.base.priv_validator_laddr:
-            raise NotImplementedError(
-                "[base] priv_validator_laddr: the remote signer is not ported "
-                "(ROADMAP queue 1 item 17 (d)); use the FilePV")
-        if self.p2p.laddr:
-            self.p2p.validate_ported()
 
 
 def default_config() -> Config:

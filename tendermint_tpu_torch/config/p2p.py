@@ -5,13 +5,12 @@ The port's copy of the JAX package's ``config/config.py`` ``P2PConfig``
 ``node/verify_root.switch`` builds the transport, the switch and the
 ``MConnection`` settings from it, and dials ``persistent_peers``.
 
-The peer exchange (``pex/``), its address book and seed nodes are not
-ported: ``validate_ported`` refuses a section that turns on ``pex``, names
-``seeds``, runs in ``seed_mode``, asks for ``upnp`` or ``test_fuzz``, or
-names ``private_peer_ids`` (the address book's), so a section that needs them
-fails where it is applied instead of running without them. The defaults
-keep ``pex`` on, as the reference does; a node of fixed persistent peers
-sets it off.
+``pex`` (on by default, as in the reference) builds the peer exchange and
+its address book (``p2p/pex/``) at ``addr_book_file`` with
+``addr_book_strict``, seeded from ``seeds`` and in ``seed_mode`` when set
+(``node/verify_root.pex_reactor``). ``private_peer_ids``, ``upnp`` and
+``test_fuzz`` are read and wired to nothing, as in the reference package
+(whose fields they copy).
 """
 
 from __future__ import annotations
@@ -45,17 +44,3 @@ class P2PConfig:
 
     def addr_book_path(self, root: str) -> str:
         return os.path.join(root, self.addr_book_file)
-
-    def validate_ported(self) -> None:
-        """Raise ``NotImplementedError`` for a field whose module is not
-        ported (the peer exchange and its address book, UPnP, the fuzzed
-        connection)."""
-        unported = [name for name, on in (
-            ("pex", self.pex), ("seeds", bool(self.seeds.strip())),
-            ("seed_mode", self.seed_mode), ("private_peer_ids", bool(self.private_peer_ids.strip())),
-            ("upnp", self.upnp), ("test_fuzz", self.test_fuzz)) if on]
-        if unported:
-            raise NotImplementedError(
-                f"[p2p] {', '.join(unported)}: the peer exchange, its address book, UPnP and "
-                f"the fuzzed connection are not ported (set pex = false and leave the others "
-                f"at their defaults)")

@@ -106,10 +106,11 @@ class SigItem(NamedTuple):
 
 
 class HostBatchVerifier:
-    """Serial host verification over the port's oracles: Go-exact ed25519
-    (``crypto/ed25519._verify_pure``) and btcec-exact ECDSA
-    (``crypto/secp256k1.verify`` after the SHA-256 premix). The guard's
-    fallback and audit path."""
+    """Serial host verification: Go-exact ed25519 (``crypto/ed25519.verify``,
+    the reference's: OpenSSL in the canonical zone, ``_verify_pure``
+    elsewhere) and btcec-exact ECDSA (``crypto/secp256k1.verify`` after the
+    SHA-256 premix). The guard's fallback path; its audit keeps
+    ``_verify_pure``."""
 
     name = "host"
 
@@ -118,7 +119,7 @@ class HostBatchVerifier:
         with trace.span("verify.dispatch", backend="host", algo="ed25519",
                         n=len(items)):
             ok = np.array(
-                [_ed._verify_pure(it.pubkey, it.msg, it.sig) for it in items],
+                [_ed.verify(it.pubkey, it.msg, it.sig) for it in items],
                 dtype=bool,
             )
         _record_dispatch("host", "ed25519", len(items), t0, ok)
@@ -127,7 +128,7 @@ class HostBatchVerifier:
     def verify_ed25519_raw(self, pubs, msgs, sigs) -> np.ndarray:
         """Column form of verify_ed25519."""
         t0 = time.perf_counter()
-        verify = _ed._verify_pure
+        verify = _ed.verify
         with trace.span("verify.dispatch", backend="host", algo="ed25519",
                         n=len(pubs)):
             ok = np.fromiter(

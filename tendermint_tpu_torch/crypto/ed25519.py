@@ -22,6 +22,13 @@ to localize a dirty one), the default backend of the vote and tx feeds.
 It is not an exact per-lane oracle on rows whose equation leaves a
 small-order point (the RLC omits the cofactor), so the guards' audits keep
 ``_verify_pure``.
+
+``verify`` is the reference's single check: OpenSSL (the ``cryptography``
+package, where the host has it) on inputs in the canonical zone, where its
+accept set is Go's, and ``_verify_pure`` on every other input. A key's
+``verify_bytes`` and ``HostBatchVerifier`` use it, as the reference's do: at 3-7 ms a
+``_verify_pure`` call, a nine-node net in one process spent its rounds
+verifying each other's votes (``partition_heal_9``).
 """
 
 from __future__ import annotations
@@ -29,6 +36,14 @@ from __future__ import annotations
 import hashlib
 import os
 from typing import List, Optional, Tuple
+
+try:  # the host's OpenSSL for the canonical zone (verify)
+    from cryptography.exceptions import InvalidSignature
+    from cryptography.hazmat.primitives.asymmetric.ed25519 import Ed25519PublicKey
+
+    _HAVE_CRYPTOGRAPHY = True
+except ImportError:  # pragma: no cover - environment-dependent
+    _HAVE_CRYPTOGRAPHY = False
 
 P = 2**255 - 19
 L = 2**252 + 27742317777372353535851937790883648493  # group order
@@ -143,6 +158,33 @@ def _verify_pure(public_key: bytes, message: bytes, sig: bytes) -> bool:
         pt_scalar_mult(_to_extended(neg_a), h), pt_scalar_mult(B_EXT, s)
     )
     return pt_encode(r_check) == sig[:32]
+
+
+def _in_canonical_zone(public_key: bytes, sig: bytes) -> bool:
+    """True when stricter RFC 8032 verifiers (OpenSSL) agree with Go: s < L,
+    and both the key's y and R's y are canonical (< p)."""
+    s = int.from_bytes(sig[32:], "little")
+    if s >= L:
+        return False
+    y_pub = int.from_bytes(public_key, "little") & ((1 << 255) - 1)
+    y_r = int.from_bytes(sig[:32], "little") & ((1 << 255) - 1)
+    return y_pub < P and y_r < P
+
+
+def verify(public_key: bytes, message: bytes, sig: bytes) -> bool:
+    """Go-exact single verify (the reference's ``crypto/ed25519.verify``):
+    OpenSSL in the canonical zone, ``_verify_pure`` elsewhere."""
+    if len(public_key) != 32 or len(sig) != 64 or sig[63] & 224 != 0:
+        return False
+    if _HAVE_CRYPTOGRAPHY and _in_canonical_zone(public_key, sig):
+        try:
+            Ed25519PublicKey.from_public_bytes(public_key).verify(sig, message)
+            return True
+        except InvalidSignature:
+            return False
+        except ValueError:  # the key does not decompress: Go's answer
+            return _verify_pure(public_key, message, sig)
+    return _verify_pure(public_key, message, sig)
 
 
 # [d * 2^(8w)]B for every byte window w and digit d: any [k]B then costs at

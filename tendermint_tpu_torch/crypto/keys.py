@@ -62,7 +62,7 @@ class PubKeyEd25519(PubKey):
         return self.data
 
     def verify_bytes(self, msg: bytes, sig: bytes) -> bool:
-        return len(sig) == 64 and _ed._verify_pure(self.data, msg, sig)
+        return len(sig) == 64 and _ed.verify(self.data, msg, sig)
 
 
 @dataclass(frozen=True)

@@ -355,14 +355,18 @@ _guard_config = GuardConfig()
 _device_breaker: Optional[CircuitBreaker] = None
 
 
-def _default_on_transition(old: str, new: str, reason: str) -> None:
-    """Wire breaker transitions into the gauge + the profiler event ring."""
+def _set_breaker_gauge(state: str) -> None:
     try:
         from tendermint_tpu_torch.libs.metrics import get_verify_metrics
 
-        get_verify_metrics().device_breaker_state.set(float(STATE_GAUGE[new]))
+        get_verify_metrics().device_breaker_state.set(float(STATE_GAUGE[state]))
     except Exception:
         pass
+
+
+def _default_on_transition(old: str, new: str, reason: str) -> None:
+    """Wire breaker transitions into the gauge + the profiler event ring."""
+    _set_breaker_gauge(new)
     try:
         from tendermint_tpu_torch.libs.profile import get_profiler
 
@@ -426,7 +430,10 @@ def configure_device_guard(
             clock=clock or time.monotonic,
             on_transition=_default_on_transition,
         )
-        return _device_breaker
+    # the gauge reads the breaker now installed, which starts closed (a
+    # breaker replaced while open would leave it reading the old one)
+    _set_breaker_gauge(CLOSED)
+    return _device_breaker
 
 
 def reset_device_guard() -> None:

@@ -15,8 +15,9 @@ forward or reverse; ``Batch`` buffers writes (ref libs/db/types.go). The
 light client's trust store (``lite/provider.DBProvider``), the state store
 (``state/store.py``), the block store (``blockchain/store.py``), the
 evidence store (``evidence/pool.py``) and the tx index
-(``state/txindex/kv.py``) stand on them. The remote backend (``remote``,
-a store served over gRPC) is not ported: ``new_db`` refuses it."""
+(``state/txindex/kv.py``) stand on them. The ``remote`` backend is a
+store served over gRPC (``libs/db/remote.py``; the reference package
+builds it only by hand, its ``new_db`` has no such backend)."""
 
 from __future__ import annotations
 
@@ -258,22 +259,30 @@ def _fsdb_factory(name: str, dir: str):
     return FSDB(os.path.join(dir, f"{name}.db"))
 
 
+# the backend a "remote" store asks its server for (under the server's dir)
+REMOTE_BACKEND = "sqlite"
+
+
+def _remote_factory(name: str, addr: str):
+    from tendermint_tpu_torch.libs.db.remote import RemoteDB
+
+    return RemoteDB(addr, name, REMOTE_BACKEND)
+
+
 _BACKENDS = {
     "memdb": lambda name, dir: MemDB(),
     "sqlite": SQLiteDB,
     "goleveldb": SQLiteDB,  # the reference's default's name, kept for configs
     "fsdb": _fsdb_factory,  # a file a key (libs/db/fsdb.go)
+    "remote": _remote_factory,  # a store served over gRPC (libs/db/remote.py)
 }
-
-UNPORTED_BACKENDS = ("remote",)
 
 
 def new_db(name: str, backend: str = "sqlite", dir: str = ".") -> DB:
-    """The store ``backend`` names, for ``name`` under ``dir``."""
-    if backend in UNPORTED_BACKENDS:
-        raise NotImplementedError(
-            f"db backend {backend!r} is not ported (the remote store, ROADMAP queue 1 "
-            f"item 12 (iv)'s rest); use one of {sorted(_BACKENDS)}")
+    """The store ``backend`` names, for ``name`` under ``dir``; for
+    ``remote``, ``dir`` is the address of a ``libs/db/remote.RemoteDBServer``
+    (``host:port``) and the store is its ``REMOTE_BACKEND`` store
+    ``name`` (``grpcio`` is needed, else ``ImportError``)."""
     try:
         factory = _BACKENDS[backend]
     except KeyError:

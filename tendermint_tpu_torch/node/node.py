@@ -4,12 +4,15 @@ the port's counterpart of the reference package's ``node/node.py``).
 A node is started from a home directory (``config.base.root_dir``): its
 stores under ``data/`` on ``db_backend`` (sqlite by default), its genesis
 (``config/genesis.json``, then cached in the state store), its
-``privval/file_pv.FilePV``, its node key, its consensus WAL. The services
+``privval/file_pv.FilePV`` (or, with ``priv_validator_laddr``, the remote
+signer that dials in: ``privval/remote_signer.py``), its node key, its
+consensus WAL. The services
 are assembled from the port's configuration root (``node/verify_root.py``)
 in the reference's order: stores -> the three ABCI connections -> the
 snapshot store -> the handshake -> the event bus and the tx indexer -> the
 mempool (and its WAL) -> evidence and the block executor -> consensus
-(WAL, vote feed, instruments) -> p2p (switch and the reactor set) -> the
+(WAL, vote feed, instruments) -> p2p (switch, the reactor set and, with
+``[p2p] pex``, the peer exchange and its address book) -> the
 RPC server, the light-client frontend and the gRPC broadcast API at
 ``rpc.grpc_laddr`` (started in ``on_start``). ``proxy_app`` names an app of
 the node's process or a socket (``tcp://``, ``unix://``) or ``grpc://``
@@ -123,6 +126,37 @@ def _abci_filter(proxy_app, path_prefix: str, timeout: float = 5.0):
     return f
 
 
+def _signer_endpoint(base):
+    """The node's end of the remote signer (``node/node.py:112-152``): a
+    ``SignerValidatorEndpoint`` listening at ``base.priv_validator_laddr``,
+    pinned to ``priv_validator_signer_pubkey`` (hex) when set (``tcp://``
+    only: a unix socket has no authenticated handshake to pin), started, and
+    returned once a signer has dialed in; when none dials within its
+    deadline (``remote_signer.ACCEPT_DEADLINE``) it is stopped and
+    ``RuntimeError`` raised."""
+    from tendermint_tpu_torch.crypto.keys import PubKeyEd25519
+    from tendermint_tpu_torch.privval import remote_signer
+
+    expected = None
+    if base.priv_validator_signer_pubkey:
+        if base.priv_validator_laddr.startswith("unix"):
+            raise ValueError(
+                "priv_validator_signer_pubkey requires a tcp:// priv_validator_laddr "
+                "(unix sockets have no authenticated handshake to pin)")
+        expected = PubKeyEd25519(bytes.fromhex(base.priv_validator_signer_pubkey))
+    endpoint = remote_signer.SignerValidatorEndpoint(base.priv_validator_laddr,
+                                                     expected_signer_pubkey=expected)
+    endpoint.start()
+    if not endpoint.wait_for_signer(remote_signer.ACCEPT_DEADLINE):
+        try:
+            endpoint.stop()
+        except Exception:
+            pass
+        raise RuntimeError(
+            f"no remote signer dialed {base.priv_validator_laddr} before the deadline")
+    return endpoint
+
+
 class Node(BaseService):
     def __init__(
         self,
@@ -136,18 +170,19 @@ class Node(BaseService):
         logger: Optional[logging.Logger] = None,
     ):
         super().__init__("Node", logger)
-        config.validate_ported()
         self.config = config
         self._dbs = []  # the stores this node opened (closed if it fails to build)
         self.verify_root = _acquire_root(config.verify, device)
         self.device = self.verify_root.device
         self.proxy_app = None
         self._root_released = False
+        self.signer_endpoint = None
         try:
             self._build(config, priv_validator, client_creator, genesis_doc, db_provider)
         except BaseException:
-            if self.proxy_app is not None and self.proxy_app.is_running:
-                self.proxy_app.stop()
+            for svc in (self.proxy_app, self.signer_endpoint):
+                if svc is not None and svc.is_running:
+                    svc.stop()
             self._close_dbs()
             self._release()
             raise
@@ -194,6 +229,11 @@ class Node(BaseService):
         # handshake: sync the app with the stores and the state
         state = verify_root.handshake(self.state_db, state, self.block_store, genesis_doc,
                                       self.proxy_app)
+
+        # the remote signer when [base] priv_validator_laddr is set
+        # (node.go:225-242: the node listens for the signer's dial-in)
+        if config.base.priv_validator_laddr:
+            self.signer_endpoint = priv_validator = _signer_endpoint(config.base)
         self.priv_validator = priv_validator
 
         # event bus + indexer
@@ -252,6 +292,7 @@ class Node(BaseService):
 
         # the reactor set (node.go:372-471)
         self.reactors = None
+        self.addr_book = self.pex_reactor = None
         self.consensus_reactor = None
         self.blockchain_reactor = None
         self.statesync_reactor = None
@@ -269,6 +310,11 @@ class Node(BaseService):
             self.mempool_reactor = self.reactors.mempool
             if self.reactors.statesync is not None:
                 self.statesync_reactor = self.reactors.statesync.reactor
+            # the peer exchange on channel 0x00, registered last as the
+            # reference registers it (node.go:557-558)
+            self.addr_book, self.pex_reactor = verify_root.pex_reactor(config.p2p, root)
+            if self.pex_reactor is not None:
+                verify_root.add_reactor(self.switch, "pex", self.pex_reactor)
 
         self.rpc_server = None
         self._rpc_env = None
@@ -389,7 +435,8 @@ class Node(BaseService):
                     self.logger.exception("stopping %s failed", type(svc).__name__)
         services = [self.switch] if self.switch is not None else []
         services += [self.consensus_state, self.rpc_server, self.grpc_broadcast,
-                     self.indexer_service, self.event_bus, self.proxy_app]
+                     self.indexer_service, self.event_bus, self.proxy_app,
+                     self.signer_endpoint]
         for svc in services:
             if svc is None or not svc.is_running:
                 continue

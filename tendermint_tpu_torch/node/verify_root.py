@@ -60,7 +60,9 @@ whole reactor set on a switch as ``:380-441`` builds it and ``:551-558``
 registers it: a node with no block and ``[statesync] enable`` restores from
 a snapshot, hands off to fast sync and then to consensus; any other node
 fast-syncs (unless it is the only validator) or, with ``fast_sync`` off,
-starts consensus at once.
+starts consensus at once. ``pex_reactor(...)`` is the peer exchange and its
+address book when ``[p2p] pex`` is on (``:442-477``), which the node
+registers after that set (``:557-558``).
 """
 
 from __future__ import annotations
@@ -101,6 +103,7 @@ from tendermint_tpu_torch.ops import _build
 from tendermint_tpu_torch.p2p.conn.connection import MConnConfig
 from tendermint_tpu_torch.p2p.key import NodeKey
 from tendermint_tpu_torch.p2p.netaddress import NetAddress
+from tendermint_tpu_torch.p2p.pex import AddrBook, PEXReactor
 from tendermint_tpu_torch.p2p.node_info import NodeInfo, ProtocolVersion
 from tendermint_tpu_torch.p2p.switch import Switch, SwitchConfig
 from tendermint_tpu_torch.p2p.transport import MultiplexTransport
@@ -488,12 +491,10 @@ def switch(cfg: Optional[P2PConfig], node_key: NodeKey, chain_id: str, *, metric
     dial deadlines, and a ``Switch`` with its peer caps and
     ``allow_duplicate_ip``, and the ``NodeInfo`` (network ``chain_id``);
     ``add_reactor`` registers reactors and advertises their channels.
-    ``metrics`` is the node's ``libs/metrics.NodeMetrics``. A section that
-    needs an unported module (the peer exchange, its address book, seeds,
-    UPnP) raises ``NotImplementedError``. Unstarted: ``start_switch``
-    listens, starts it and dials the persistent peers."""
+    ``metrics`` is the node's ``libs/metrics.NodeMetrics``. The peer
+    exchange is a reactor of its own (``pex_reactor``). Unstarted:
+    ``start_switch`` listens, starts it and dials the persistent peers."""
     cfg = cfg if cfg is not None else P2PConfig()
-    cfg.validate_ported()
     mconfig = MConnConfig(
         send_rate=cfg.send_rate,
         recv_rate=cfg.recv_rate,
@@ -531,6 +532,23 @@ def add_reactor(sw: Switch, name: str, reactor) -> None:
     sw.add_reactor(name, reactor)
     sw.transport.node_info = dataclasses.replace(
         sw.transport.node_info, channels=bytes(d.id for d in sw._chan_descs))
+
+
+def pex_reactor(cfg: Optional[P2PConfig], root_dir: str = "") -> tuple:
+    """The peer exchange when the ``[p2p]`` section turns ``pex`` on
+    (``node/node.py:442-477``): an ``AddrBook`` at ``addr_book_file`` under
+    ``root_dir`` (in memory without one) with ``addr_book_strict``, and a
+    ``PEXReactor`` over it that starts from ``seeds`` and crawls in
+    ``seed_mode``. Returns (book, reactor), or (None, None) with ``pex``
+    off. The reactor sweeps every ``ensure_period`` seconds (the
+    reference's 30 s); ``add_reactor`` registers it on channel 0x00."""
+    cfg = cfg if cfg is not None else P2PConfig()
+    if not cfg.pex:
+        return None, None
+    book = AddrBook(cfg.addr_book_path(root_dir) if root_dir else None,
+                    strict=cfg.addr_book_strict)
+    seeds = [NetAddress.parse(s) for s in cfg.seeds.split(",") if s.strip()]
+    return book, PEXReactor(book, seeds=seeds, seed_mode=cfg.seed_mode)
 
 
 def consensus_reactor(consensus_state: ConsensusState, fast_sync: bool = False,

@@ -1,9 +1,8 @@
 """P2P stack: authenticated encrypted transport, multiplexed prioritized
 channels, the switch and its reactor registry (ref p2p/), the port's copy
-of the reference package's ``p2p/`` with the same exports. The peer
-exchange (``pex/``), its address book, ``trust``, ``upnp``, ``fuzz`` and
-``inproc`` are not ported: a node of fixed persistent peers needs none of
-them.
+of the reference package's ``p2p/`` with the same exports. Beside them:
+the peer exchange and its address book (``pex/``), ``trust``, ``upnp``,
+``fuzz`` and the in-process fabric of the simulator (``inproc``).
 """
 
 from tendermint_tpu_torch.p2p.base_reactor import Reactor

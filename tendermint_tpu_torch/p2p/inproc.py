@@ -33,6 +33,15 @@ first and reaches a step with no timeout (prevote, waiting for +2/3 of any
 votes) before the others run has announced each step into the void: its
 peers never learn its height, send it nothing, and it waits at height 1
 for ever while they commit (seen in ``churn``, 2 runs of 8 on the port).
+
+The third: what arrived from a peer and still waits in the inbox when
+that peer is removed (a partition's cut, a receive error) dies with the
+connection, as unread bytes die with a TCP connection. The reference's
+dispatcher takes such a message for a new inbound peer and connects it
+during the partition, with a ``PeerState`` that then marks as delivered
+every vote the partition drops; at the heal ``connect`` finds that peer and
+makes no fresh one, nothing is resent, and a net whose halves each hold
+exactly 2/3 of the prevotes waits for ever (``partition_heal_9``).
 """
 
 from __future__ import annotations
@@ -118,6 +127,12 @@ class InProcSwitch(BaseService):
         # dispatcher's accept-inbound path can race the same peer id, and
         # PeerSet.add treats a duplicate as an error
         self._connect_mtx = threading.Lock()
+        # messages delivered so far, and for each removed peer the count at
+        # its removal: what arrived before a peer's connection was torn
+        # down dies with it, as unread bytes die with a TCP connection
+        self._cut_mtx = threading.Lock()
+        self._delivered = 0
+        self._cut_at: Dict[str, int] = {}
 
     # -- identity / registry (Switch surface) -------------------------------
     @property
@@ -217,8 +232,11 @@ class InProcSwitch(BaseService):
         with self._mtx:
             if self._stopped:
                 return
+        with self._cut_mtx:
+            self._delivered += 1
+            seq = self._delivered
         try:
-            self._inbox.put_nowait((chan_id, src_id, msg_bytes))
+            self._inbox.put_nowait((chan_id, src_id, msg_bytes, seq))
         except queue.Full:
             self.logger.warning("inbox full: dropping %#x from %s",
                                 chan_id, src_id)
@@ -235,7 +253,12 @@ class InProcSwitch(BaseService):
                 # anything a single message (or a racing disconnect) throws
                 self.logger.exception("dispatch of %#x from %s", item[0], item[1])
 
-    def _dispatch_one(self, chan_id: int, src_id: str, msg_bytes: bytes) -> None:
+    def _dispatch_one(self, chan_id: int, src_id: str, msg_bytes: bytes, seq: int = 0) -> None:
+        with self._cut_mtx:
+            if seq <= self._cut_at.get(src_id, 0):
+                # it arrived on a connection removed since (a partition, a
+                # receive error): dropped with it, never a new inbound peer
+                return
         peer = self.peers.get(src_id)
         if peer is None:
             # accept-inbound: traffic from a node we haven't (re)added, e.g.
@@ -278,6 +301,8 @@ class InProcSwitch(BaseService):
         peer.stop()
         if not removed:
             return
+        with self._cut_mtx:
+            self._cut_at[peer.id] = self._delivered
         for reactor in self.reactors.values():
             try:
                 reactor.remove_peer(peer, reason)

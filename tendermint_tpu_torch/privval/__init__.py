@@ -1,2 +1,2 @@
-"""The validator's signer on disk (``file_pv.FilePV``); the remote signer is
-not ported (ROADMAP queue 1 item 17 (d))."""
+"""The validator's signers: on disk (``file_pv.FilePV``) and remote
+(``remote_signer``: the node's endpoint and the signer that dials it)."""

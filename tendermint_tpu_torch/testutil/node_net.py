@@ -19,6 +19,15 @@ Each node's ``checks`` lists the heights whose LastCommit its executor
 checked (one verify a check), as ``consensus_net``'s nodes do.
 ``testutil/consensus_net.py`` stays for the CPU tests that build a net by
 hand.
+
+With ``pex_period`` the nodes run the peer exchange (``[p2p] pex`` on, the
+address book not strict, as a local testnet sets it) and each PEX reactor
+sweeps every ``pex_period`` seconds (the reference's 30 s would hold a
+test for a sweep); ``add_joining_node(..., seed_only=True)`` then knows
+node 0 as its seed and no persistent peer, and finds the others by PEX.
+``remote_signers`` lists validators whose key sits behind a remote signer
+(``RemoteSigner``: a ``SignerServiceEndpoint`` over TCP that dials the
+node's ``priv_validator_laddr``).
 """
 
 from __future__ import annotations
@@ -26,6 +35,8 @@ from __future__ import annotations
 import copy
 import dataclasses
 import os
+import socket
+import threading
 import time
 from typing import Callable, List, Optional
 
@@ -46,14 +57,17 @@ LOCAL_P2P = P2PConfig(laddr="tcp://127.0.0.1:0", pex=False, allow_duplicate_ip=T
 LOCAL_RPC = "tcp://127.0.0.1:0"
 
 
-def node_config(base: Optional[Config], moniker: str) -> Config:
+def node_config(base: Optional[Config], moniker: str, pex: bool = False) -> Config:
     """A node's configuration: a copy of ``base`` (default
     ``default_config()``) with the local testnet's ``[p2p]`` and RPC
     addresses, ``moniker``, the ``unsafe`` routes and the Prometheus
-    metrics on."""
+    metrics on; with ``pex``, the peer exchange on over a book that takes
+    local addresses."""
     cfg = copy.deepcopy(base) if base is not None else default_config()
     cfg.base.moniker = moniker
     cfg.p2p = dataclasses.replace(LOCAL_P2P)
+    if pex:
+        cfg.p2p.pex, cfg.p2p.addr_book_strict = True, False
     cfg.rpc.laddr = LOCAL_RPC
     cfg.rpc.unsafe = True
     cfg.instrumentation.prometheus = True
@@ -72,21 +86,86 @@ def _track_checks(node: Node) -> None:
     node.block_exec.validate_block = validate_block
 
 
+def free_port() -> int:
+    """A TCP port of 127.0.0.1 that nothing listens on now."""
+    with socket.socket(socket.AF_INET, socket.SOCK_STREAM) as sk:
+        sk.bind(("127.0.0.1", 0))
+        return sk.getsockname()[1]
+
+
+class RemoteSigner:
+    """A validator's key behind a remote signer: a ``FilePV`` of ``priv``
+    at ``path`` served by a ``SignerServiceEndpoint`` that dials ``laddr``
+    (the node's ``priv_validator_laddr``) over TCP and a secret connection,
+    from a thread of its own that retries until the node listens (a
+    ``Node`` blocks in its build until the signer dials). ``requests``
+    counts the requests served; ``stop()`` ends it."""
+
+    def __init__(self, priv, path: str, laddr: str, timeout: float = 30.0):
+        from tendermint_tpu_torch.privval.file_pv import FilePV
+        from tendermint_tpu_torch.privval.remote_signer import SignerServiceEndpoint
+
+        self.laddr = laddr
+        os.makedirs(os.path.dirname(path), exist_ok=True)
+        self.pv = FilePV(priv, path)
+        self.pv.save()
+        self.endpoint = SignerServiceEndpoint(laddr, self.pv)
+        self.requests = 0
+        real = self.endpoint._handle
+
+        def handle(data: bytes) -> bytes:
+            self.requests += 1
+            return real(data)
+
+        self.endpoint._handle = handle
+        self.error: Optional[BaseException] = None
+        self._thread = threading.Thread(target=self._dial, args=(timeout,),
+                                        name="remote-signer-dial", daemon=True)
+        self._thread.start()
+
+    def _dial(self, timeout: float) -> None:
+        deadline = time.monotonic() + timeout
+        while True:
+            try:
+                self.endpoint.start()
+                return
+            except OSError as e:
+                if time.monotonic() >= deadline:
+                    self.error = e
+                    return
+                time.sleep(0.02)
+
+    def stop(self) -> None:
+        self._thread.join(5.0)
+        if self.endpoint.is_running:
+            self.endpoint.stop()
+
+
 def _listen(node: Node) -> str:
     """Bind the node's switch (port 0 takes a free port); the address its
     peers dial."""
     return str(verify_root.listen(node.switch, node.config.p2p))
 
 
+def _pex(node: Node, pex_period: Optional[float]) -> None:
+    if pex_period is not None:
+        node.pex_reactor.ensure_period = pex_period
+
+
 def make_node_net(n_vals: int, base_dir: str, config: Optional[Config] = None,
                   client_creator: Optional[Callable[[int], ClientCreator]] = None, *,
-                  device="cpu", start: bool = True) -> List[Node]:
+                  device="cpu", start: bool = True, pex_period: Optional[float] = None,
+                  remote_signers=()) -> List[Node]:
     """``n_vals`` validator nodes over one genesis from home directories
     under ``base_dir``, each at ``node_config(config, "node<i>")`` with fast
     sync off and ``client_creator(i)``'s app (default the config's
     ``proxy_app``), every one listening and holding the others as
     persistent peers; started unless ``start`` is False (then
-    ``start_node_net``)."""
+    ``start_node_net``). With ``pex_period`` the peer exchange is on and
+    sweeps every ``pex_period`` seconds. Each validator of
+    ``remote_signers`` signs through a ``RemoteSigner`` (its node's
+    ``remote_signer``; ``stop_node_net`` stops it) dialing a free port of
+    its ``priv_validator_laddr``."""
     doc, pvs = make_genesis(n_vals)
     by_addr = {pv.get_pub_key().address(): pv for pv in pvs}
     from tendermint_tpu_torch.state.state_types import state_from_genesis
@@ -97,10 +176,23 @@ def make_node_net(n_vals: int, base_dir: str, config: Optional[Config] = None,
         for i in range(n_vals):
             home = os.path.join(base_dir, f"node{i}")
             init_home(home, doc, priv_key=sorted_pvs[i]._priv)
-            cfg = node_config(config, f"node{i}")
+            cfg = node_config(config, f"node{i}", pex=pex_period is not None)
             cfg.base.fast_sync = False
-            node = Node.from_home(home, cfg, client_creator(i) if client_creator else None,
-                                  device=device)
+            signer = None
+            if i in remote_signers:
+                cfg.base.priv_validator_laddr = f"tcp://127.0.0.1:{free_port()}"
+                signer = RemoteSigner(sorted_pvs[i]._priv,
+                                      os.path.join(base_dir, f"signer{i}", "priv_validator.json"),
+                                      cfg.base.priv_validator_laddr)
+            try:
+                node = Node.from_home(home, cfg, client_creator(i) if client_creator else None,
+                                      device=device)
+            except BaseException:
+                if signer is not None:
+                    signer.stop()
+                raise
+            node.remote_signer = signer
+            _pex(node, pex_period)
             _track_checks(node)
             nodes.append(node)
         addrs = [_listen(n) for n in nodes]
@@ -123,25 +215,33 @@ def start_node_net(nodes: List[Node]) -> None:
 def add_joining_node(nodes: List[Node], base_dir: str, config: Optional[Config] = None,
                      client_creator: Optional[ClientCreator] = None, *,
                      statesync: Optional[StateSyncConfig] = None, device="cpu",
-                     start: bool = True) -> Node:
+                     start: bool = True, pex_period: Optional[float] = None,
+                     seed_only: bool = False) -> Node:
     """One more node for the running net ``nodes``: a non-validator home
     (its own key, the net's genesis) under ``base_dir``, at
     ``node_config(config, "node<n>")`` with fast sync on and the
     ``[statesync]`` section ``statesync`` (default off: it fast-syncs from
     genesis), dialing every node of ``nodes`` as a persistent peer (they do
-    not dial it). Started unless ``start`` is False."""
+    not dial it); with ``seed_only`` it knows node 0 as its seed and no
+    persistent peer, and finds the rest by the peer exchange (which
+    ``pex_period`` turns on, as ``make_node_net``'s). Started unless
+    ``start`` is False."""
     i = len(nodes)
     home = os.path.join(base_dir, f"node{i}")
     init_home(home, nodes[0].genesis_doc)
-    cfg = node_config(config, f"node{i}")
+    cfg = node_config(config, f"node{i}", pex=pex_period is not None)
     cfg.base.fast_sync = True
     cfg.statesync = statesync if statesync is not None else StateSyncConfig()
+    if seed_only:
+        cfg.p2p.seeds = str(nodes[0].switch.transport.listen_address)
     node = Node.from_home(home, cfg, client_creator, device=device)
     try:
+        _pex(node, pex_period)
         _track_checks(node)
         _listen(node)
-        cfg.p2p.persistent_peers = ",".join(
-            str(n.switch.transport.listen_address) for n in nodes)
+        if not seed_only:
+            cfg.p2p.persistent_peers = ",".join(
+                str(n.switch.transport.listen_address) for n in nodes)
     except BaseException:
         stop_node_net([node])
         raise
@@ -160,6 +260,8 @@ def stop_node_net(nodes: List[Node]) -> None:
             node.stop()
         elif not node._stopped:
             node.on_stop()  # built, never started: what is running stops
+        if getattr(node, "remote_signer", None) is not None:
+            node.remote_signer.stop()
 
 
 def wait_for(cond: Callable[[], bool], timeout: float, interval: float = 0.01) -> bool:

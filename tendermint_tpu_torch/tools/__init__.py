@@ -1,1 +1,1 @@
-"""Measurement tools of the port that run on the card (not on its main path)."""
+"""Measurement and operator tools of the port (not on its main path)."""

@@ -613,8 +613,9 @@ def test_verify_root_switch_applies_the_p2p_section():
         addr = verify_root.listen(sw, cfg)
         assert addr.port > 0 and sw.transport.node_info.listen_addr == f"127.0.0.1:{addr.port}"
         sw.transport.stop()
-        with pytest.raises(NotImplementedError, match="pex"):
-            verify_root.switch(P2PConfig(), nk, doc.chain_id)
+        # the [p2p] defaults (pex on) build too: the exchange is a reactor
+        # of its own
+        assert verify_root.switch(P2PConfig(), nk, doc.chain_id).transport.node_info.id == nk.id()
     finally:
         bus.stop()
 

@@ -177,6 +177,42 @@ def test_go_edge_window_verdicts_vs_jax_oracle():
     assert want[12] and want[16] and want[17]  # s + L, identity keys accepted
 
 
+@pytest.mark.parametrize("seed", range(4))
+def test_single_verify_equals_the_reference_and_go(seed):
+    """``crypto/ed25519.verify`` (a key's ``verify_bytes``, the host
+    verifier) is the reference's: OpenSSL in the canonical zone,
+    ``_verify_pure`` elsewhere; on the Go-edge window (s + L, non-canonical
+    keys and R, identity and order-8 keys, undecompressable keys) each
+    verdict equals the reference's and Go's."""
+    from tendermint_tpu.crypto.keys import PubKeyEd25519 as RPub
+    from tendermint_tpu_torch.crypto.batch import HostBatchVerifier
+    from tendermint_tpu_torch.crypto.keys import PubKeyEd25519
+
+    pubs, msgs, sigs, _ = tc.go_edge_window(seed=seed)
+    rows = list(zip(pubs, msgs, sigs))
+    want = [jed.verify(p, m, s) for p, m, s in rows]
+    assert [ted.verify(p, m, s) for p, m, s in rows] == want
+    assert [ted._verify_pure(p, m, s) for p, m, s in rows] == want
+    assert [PubKeyEd25519(p).verify_bytes(m, s) for p, m, s in rows] == [
+        RPub(p).verify_bytes(m, s) for p, m, s in rows] == want
+    assert HostBatchVerifier().verify_ed25519_raw(pubs, msgs, sigs).tolist() == want
+
+
+def test_single_verify_takes_openssl_in_the_canonical_zone(monkeypatch):
+    if not ted._HAVE_CRYPTOGRAPHY:
+        pytest.skip("the host has no cryptography package: verify is _verify_pure")
+    privs, _ = _keys(1, 9)
+    sig = ted.sign(privs[0], b"m")
+    assert ted._in_canonical_zone(privs[0][32:], sig)
+
+    def pure(*a):
+        raise AssertionError("the canonical zone took the Python oracle")
+
+    monkeypatch.setattr(ted, "_verify_pure", pure)
+    assert ted.verify(privs[0][32:], b"m", sig)
+    assert not ted.verify(privs[0][32:], b"n", sig)
+
+
 def test_random_mixed_length_batch_vs_jax_oracle():
     rng = np.random.default_rng(21)
     privs, _ = _keys(12, 21)

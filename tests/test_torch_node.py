@@ -9,11 +9,10 @@
 * ``status()`` has the reference's keys and value types, beside a
   reference node's.
 * ``Config`` and every section equal the reference's field for field;
-  ``validate_ported`` refuses each unported module, naming its ROADMAP
-  item, and a ``Node`` refuses before it builds anything; the fields whose
-  modules came since (a socket ``proxy_app``, ``rpc.grpc_laddr``,
-  ``mempool.wal_path``) pass it, and a node whose socket app is not there
-  fails to connect, as the reference's does.
+  each field whose module came later builds a node that runs it (the
+  remote signer, ``rpc.grpc_laddr``, ``mempool.wal_path``, the peer
+  exchange), and a node whose socket app is not there fails to connect, as
+  the reference's does.
 * ``device=None`` without a card raises ``NoCudaDeviceError``.
 * The ``[verify]`` root is one a process: nodes with an equal section share
   it, one with another section raises, and a stopped node's root is not torn
@@ -193,35 +192,63 @@ def _local(**kw):
     return cfg
 
 
-# (fields, the refusal's match; None: ported since, validate_ported passes)
-REFUSALS = [
-    (dict(base__priv_validator_laddr="tcp://127.0.0.1:26659"), r"item 17 \(d\)"),
-    (dict(rpc__grpc_laddr="tcp://127.0.0.1:26670"), None),
-    (dict(base__proxy_app="tcp://127.0.0.1:1"), None),
-    (dict(mempool__wal_path="data/mempool.wal"), None),
-    (dict(p2p__laddr="tcp://127.0.0.1:0", p2p__pex=True), "peer exchange"),
+# (fields, what the built node shows): every field that was refused until
+# its module came is accepted now
+PORTED = [
+    (dict(base__priv_validator_laddr="tcp://127.0.0.1:{port}"), "remote_signer"),
+    (dict(rpc__grpc_laddr="tcp://127.0.0.1:26670"), "grpc"),
+    (dict(base__proxy_app="tcp://127.0.0.1:1"), "socket_app"),
+    (dict(mempool__wal_path="data/mempool.wal"), "mempool_wal"),
+    (dict(p2p__laddr="tcp://127.0.0.1:0", p2p__pex=True), "pex"),
 ]
 
 
-@pytest.mark.parametrize("fields,match", REFUSALS,
+@pytest.mark.parametrize("fields,what", PORTED,
                          ids=["remote_signer", "grpc", "socket_app", "mempool_wal", "pex"])
-def test_validate_ported_refuses_what_is_not_ported(tmp_path, fields, match):
-    cfg = _local(**fields)
-    if match is None:
-        assert cfg.validate_ported() is None
-        if "base__proxy_app" in fields:
-            # nothing listens there: the socket client fails to connect while
-            # the node builds, and the node gives the root back
-            with pytest.raises(ConnectionRefusedError):
-                Node(cfg.set_root(str(tmp_path)), genesis_doc=make_genesis(1)[0],
-                     db_provider=lambda name: MemDB(), device="cpu")
-            assert node_mod._ROOT["nodes"] == 0
+def test_validate_ported_refuses_what_is_not_ported(tmp_path, fields, what):
+    """Every field the node refused until its module was ported builds a
+    node now, which runs it as the reference's does."""
+    from tendermint_tpu_torch.privval.remote_signer import SignerValidatorEndpoint
+
+    port = node_net.free_port()
+    cfg = _local(**{k: v.format(port=port) if isinstance(v, str) else v
+                    for k, v in fields.items()})
+    cfg.set_root(str(tmp_path))
+    doc, pvs = make_genesis(1)
+
+    def build():
+        return Node(cfg, genesis_doc=doc, db_provider=lambda name: MemDB(), device="cpu")
+
+    if what == "socket_app":
+        # nothing listens there: the socket client fails to connect while
+        # the node builds, and the node gives the root back
+        with pytest.raises(ConnectionRefusedError):
+            build()
+        assert node_mod._ROOT["nodes"] == 0
         return
-    with pytest.raises(NotImplementedError, match=match):
-        cfg.validate_ported()
-    with pytest.raises(NotImplementedError, match=match):
-        Node(cfg.set_root(str(tmp_path)), device="cpu")
-    assert node_mod._ROOT["nodes"] == 0  # refused before the root
+    signer = (node_net.RemoteSigner(pvs[0]._priv, str(tmp_path / "signer" / "pv.json"),
+                                    cfg.base.priv_validator_laddr)
+              if what == "remote_signer" else None)
+    node = build()
+    try:
+        if what == "remote_signer":
+            assert isinstance(node.priv_validator, SignerValidatorEndpoint)
+            assert node.priv_validator.get_pub_key().bytes() == pvs[0].get_pub_key().bytes()
+            assert node.consensus_state.priv_validator is node.signer_endpoint
+        elif what == "grpc":
+            assert node.config.rpc.grpc_laddr and node.grpc_broadcast is None  # on start
+        elif what == "mempool_wal":
+            assert node.mempool._wal is not None
+        else:
+            assert node.switch.reactors["pex"] is node.pex_reactor
+            assert node.pex_reactor.book is node.addr_book
+            assert 0x00 in node.switch.transport.node_info.channels
+            assert node.addr_book._file == os.path.join(str(tmp_path), "config", "addrbook.json")
+    finally:
+        node_net.stop_node_net([node])
+        if signer is not None:
+            signer.stop()
+    assert node_mod._ROOT["nodes"] == 0
 
 
 def test_a_client_creator_stands_for_the_proxy_app():
@@ -230,15 +257,12 @@ def test_a_client_creator_stands_for_the_proxy_app():
     from tendermint_tpu_torch.abci.grpc import GRPCClient
     from tendermint_tpu_torch.proxy.app_conn import RemoteClientCreator, default_client_creator
 
-    cfg = _local(base__proxy_app="tcp://127.0.0.1:26658")
-    assert cfg.validate_ported() is None
     remote = default_client_creator("tcp://127.0.0.1:26658")
     assert isinstance(remote, RemoteClientCreator) and not hasattr(remote, "_app")
     assert isinstance(remote.new_abci_client(), SocketClient)
     assert isinstance(default_client_creator("grpc://127.0.0.1:26658").new_abci_client(),
                       GRPCClient)
     assert isinstance(default_client_creator("kvstore")._app, KVStoreApp)
-    assert _local().validate_ported() is None
 
 
 def test_without_a_card_device_none_raises(tmp_path):

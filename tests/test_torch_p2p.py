@@ -207,11 +207,23 @@ def test_p2p_config_fields_and_defaults_equal_the_reference():
                                          ("seed_mode", True), ("private_peer_ids", "x"),
                                          ("upnp", True), ("test_fuzz", True)])
 def test_p2p_config_refuses_unported_modules(field, value):
-    P2PConfig(pex=False).validate_ported()
+    """Every field is ported: the node's switch builds with each one set,
+    and the peer exchange comes with pex on (the reference reads
+    private_peer_ids, upnp and test_fuzz and wires them to nothing)."""
+    from tendermint_tpu_torch.node import verify_root
+
     cfg = P2PConfig(pex=False)
     setattr(cfg, field, value)
-    with pytest.raises(NotImplementedError, match=field):
-        cfg.validate_ported()
+    sw = verify_root.switch(cfg, NodeKey(PrivKeyEd25519.generate()), "c")
+    book, pex = verify_root.pex_reactor(cfg)
+    assert sw.transport.node_info.network == "c"
+    assert (pex is not None) == (field == "pex")
+    if pex is not None:
+        assert pex.book is book and book._strict and pex.seeds == []
+    seeded = P2PConfig(seeds=value if field == "seeds" else "", seed_mode=field == "seed_mode")
+    _, pex = verify_root.pex_reactor(seeded)
+    assert [str(s) for s in pex.seeds] == ([value] if field == "seeds" else [])
+    assert pex.seed_mode == (field == "seed_mode")
 
 
 def _families(registry):

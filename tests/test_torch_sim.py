@@ -469,7 +469,8 @@ def test_baseline_determinism_hashes_equal_the_reference():
 
 
 # ---------------------------------------------------------------------------
-# p2p/inproc.py: init_peer, and messages that arrive before start
+# p2p/inproc.py: init_peer, messages that arrive before start, and what
+# waits from a peer when its connection is cut
 # ---------------------------------------------------------------------------
 
 
@@ -543,6 +544,36 @@ def test_a_message_before_start_waits_for_the_dispatcher():
         assert rb.got == [(0x77, "sim0", b"early")]
     finally:
         a.stop()
+        net.stop()
+
+
+def test_what_waits_from_a_cut_peer_dies_with_the_connection():
+    """A partition removes the cross peers; what they sent before it that
+    still waits in the inbox is dropped with the connection, not taken for
+    a new inbound peer (which would bring back, during the partition, a
+    PeerState that marks as delivered every vote the partition drops, so
+    that after the heal nothing is resent: partition_heal_9's stall). The
+    heal then connects fresh peers."""
+    net, [(a, ra), (b, rb)] = _pair()
+    net.start()
+    try:
+        a.start()
+        for m in (b"m1", b"m2"):
+            assert a.peers.get("sim1").send(0x77, m)
+        time.sleep(0.1)  # waiting in b's inbox: b has not started
+        net.set_partition([{"sim0"}, {"sim1"}])
+        assert a.peers.get("sim1") is None and b.peers.get("sim0") is None
+        b.start()
+        time.sleep(0.2)
+        assert rb.got == [] and b.peers.get("sim0") is None
+        net.heal_partition()
+        assert wait_for(lambda: a.peers.get("sim1") is not None and b.peers.get("sim0") is not None)
+        assert a.peers.get("sim1").send(0x77, b"m3")
+        assert wait_for(lambda: rb.got == [(0x77, "sim0", b"m3")])
+        assert ("init_peer", "sim0", True) in rb.calls
+    finally:
+        a.stop()
+        b.stop()
         net.stop()
 
 

@@ -186,10 +186,25 @@ def test_the_stores_answer_as_the_reference_s(backend, tmp_path):
 
 
 def test_new_db_refuses_the_unported_backends(tmp_path):
+    """Every backend is ported: ``remote`` is a store on the server at
+    ``dir`` (or, without ``grpcio``, an ``ImportError`` naming it)."""
+    from tendermint_tpu_torch.libs.db import remote
     from tendermint_tpu_torch.libs.db.fsdb import FSDB
 
-    with pytest.raises(NotImplementedError, match=r"item 12 \(iv\)"):
-        kv.new_db("x", "remote", str(tmp_path))
+    if remote._GRPC_ERR is not None:
+        with pytest.raises(ImportError, match="grpcio"):
+            kv.new_db("x", "remote", "127.0.0.1:1")
+    else:
+        srv = remote.RemoteDBServer("127.0.0.1:0", dir=str(tmp_path / "srv"))
+        srv.start()
+        try:
+            db = kv.new_db("x", "remote", f"127.0.0.1:{srv.bound_port}")
+            assert isinstance(db, remote.RemoteDB)
+            db.set(b"k", b"v")
+            assert db.get(b"k") == b"v"
+            db.close()
+        finally:
+            srv.stop()
     # fsdb is ported: a file a key under <dir>/<name>.db, as the reference's
     fs = kv.new_db("fs", "fsdb", str(tmp_path))
     assert isinstance(fs, FSDB) and os.path.isdir(os.path.join(str(tmp_path), "fs.db"))
