@@ -11,7 +11,7 @@ Phases, in order; any failure exits non-zero:
              torch's threads, and 100 calls of crypto/ed25519._verify_pure
              on one signature, timed (what makes one machine's host-bound
              phases slower than another's);
-  2. build   the four CUDA kernels and the multiply probe from the
+  2. build   the six CUDA kernels and the multiply probe from the
              checkout's sources, in parallel, with each one's registers,
              spills and stack frame; then the probe's IMAD.WIDE and IMAD
              rates (products a clock an SM): the IMAD.WIDE rate prices
@@ -521,6 +521,28 @@ Phases, in order; any failure exits non-zero:
              fallback, no store passes the height being decided, every
              verdict before the fault equals the host's. Prints each part's
              seconds and launches.
+  28. mesh    the multi-device lane split (parallel/mesh.py) on a
+             DeviceMesh of four shards (cuda:0 four times on one card, the
+             distinct cards in turn where there are more), on a [verify]
+             root of its own whose audit samples 0.5 % of a dispatch's
+             lanes. (a) K5 (the bit-serial ed25519 ladder) against its
+             plain version on the card at N = 10,240: the 10k commit's
+             rows, its last 20 the Go edge window's (a flipped bit, a
+             non-canonical R, an s with its top bits set, an order-8 key),
+             exact on every row, the verdicts Go's; its time over 20
+             launches beside its bound (products at the IMAD.WIDE rate).
+             (b) K6 the same way on the 10k secp256k1 commit with the
+             secp256k1 edge window's rows. (c) both 10k commits through
+             TorchBatchVerifier(mesh=): K5 and K6 once a shard, the verdicts
+             the unsharded verifier's. (d) the 512 x 64 window of phase 10
+             through verify_windows(mesh) in both reduce modes,
+             verify_commit_window on the 2 x 2 (height, val) mesh and
+             verify_block_window(mesh) over phase 22's 513 blocks: every
+             lane verdict and int64 tally the flat path's, K1 + K2 once a
+             shard (and the tally, on the device reduce), four shards in
+             record_device_shards and a planner_mesh / window_mesh ledger
+             entry, no fallback, the breaker closed. One card checks the
+             split; it cannot time it.
 
 The window phase's routes and the backfill phase each make one traced call
 (the p50 of 3 before phase 21, of 2 before phase 22: the fastsync replay
@@ -559,9 +581,11 @@ and the joining node's by source under ``join``) and phase 26's as
 device-backend verify calls, one K1 and one K2 launch each, and the lite
 process's frontend dispatches) and phase 27's as ``sim_launches``
 (determinism: the card's LastCommit checks; vote_storm: its flushes and
-LastCommit checks; fault: the answered calls); K4's own
-``launches`` are
-the msm route's 10,000-validator commit's. The line before the last two is the
+LastCommit checks; fault: the answered calls) and phase 28's as
+``mesh_launches`` (the verifier's two commits, the planner's two reduce
+modes, the commit window, fast sync); K4's own ``launches`` are the msm
+route's 10,000-validator commit's, K5's and K6's the verifier's mesh
+route's (phase 28 (c)). The line before the last two is the
 ``kernels`` JSON, then the card's name
 and power limit, then ``{"ok": true, "device": {...}}``. Exits 2 when no
 CUDA device is present.
@@ -648,14 +672,18 @@ from tendermint_tpu_torch.node.verify_root import configure_verify
 from tendermint_tpu_torch.ops import _build
 from tendermint_tpu_torch.ops import ed25519_cuda as ec
 from tendermint_tpu_torch.ops import ed25519_msm as em
+from tendermint_tpu_torch.ops import ed25519_verify as k5v
 from tendermint_tpu_torch.ops import fe
+from tendermint_tpu_torch.ops import fe_secp256k1 as F
 from tendermint_tpu_torch.ops import imad_probe
 from tendermint_tpu_torch.ops import secp256k1_cuda as sc
+from tendermint_tpu_torch.ops import secp256k1_verify as k6v
 from tendermint_tpu_torch.p2p import errors as p2p_errors
 from tendermint_tpu_torch.p2p.conn import secret_connection as p2p_sts
 from tendermint_tpu_torch.p2p.transport import MultiplexTransport
 from tendermint_tpu_torch.parallel import commit_verify as cv
 from tendermint_tpu_torch.parallel import planner
+from tendermint_tpu_torch.parallel.mesh import DeviceMesh
 from tendermint_tpu_torch.proxy.app_conn import LocalClientCreator, MultiAppConn
 from tendermint_tpu_torch.rpc import client as rpc_client
 from tendermint_tpu_torch.rpc.client import HTTPClient, WSEventClient
@@ -1208,10 +1236,12 @@ def reset_launches() -> None:
     ec.reset_launches()
     sc.reset_launches()
     em.reset_launches()
+    k5v.reset_launches()
+    k6v.reset_launches()
 
 
 def read_launches() -> dict:
-    return {**ec.launches, **sc.launches, **em.launches}
+    return {**ec.launches, **sc.launches, **em.launches, **k5v.launches, **k6v.launches}
 
 
 def flipped(sc_: tc.SignedCommit, i: int):
@@ -1503,6 +1533,7 @@ def phase_secp_main(dev, op_rate: float, mul_rate: float, err: dict) -> dict:
         "bound": least_ms(ins, out, ops, mul_rate),
         "table_bound": least_ms(ins, out, ops, op_rate),
         "b": b,
+        "commit": sc_,
     }
 
 
@@ -3605,6 +3636,7 @@ def phase_fastsync(root, dev, err: dict) -> dict:
     print(f"  no fallback; breaker closed; no audit mismatch; phase {seconds:.1f} s", flush=True)
     return {"runs": {k: {n: v for n, v in r.items() if n != "packs"} for k, r in runs.items()},
             "baseline_blocks_s": base, "reactor": reactor, "fault": fault, "seconds": seconds,
+            "chain": chain,
             "launches": {"guarded": runs["guarded"]["launches"],
                          "explicit": runs["explicit"]["launches"],
                          "baseline": base_launches, "reactor": reactor["launches"]}}
@@ -5999,6 +6031,261 @@ def phase_sim(dev, err: dict) -> dict:
                          "fault": c["launches"]}}
 
 
+
+# -- phase 28: the multi-device lane split, K5 and K6 ------------------------
+
+MESH_SHARDS = 4
+MESH_AUDIT_RATE = 0.005  # the phase's guarded dispatches audit 0.5 % of their lanes
+K5_REPLACES = "tendermint_tpu/ops/ed25519_verify.py:343"
+K6_REPLACES = "tendermint_tpu/ops/secp256k1_verify.py:330"
+MESH_KERNELS = ("ed25519_verify", "secp256k1_verify")
+
+
+def mesh_devices() -> list:
+    """Four shards: cuda:0 four times on one card, the distinct cards in
+    turn where there are more."""
+    n = torch.cuda.device_count()
+    return [torch.device("cuda", k % n) for k in range(MESH_SHARDS)]
+
+
+def edge_rows(rows: list, edges: list) -> list:
+    """``rows`` with its last len(edges) rows replaced by ``edges``."""
+    return rows[: len(rows) - len(edges)] + edges
+
+
+def mesh_k5(dev, sc_: tc.SignedCommit, mul_rate: float, err: dict) -> dict:
+    """(a): K5 at N = 10,240 on the 10k commit's rows, its last 20 the Go
+    edge window's (a flipped bit, a non-canonical R, an s with a top bit
+    set, an order-8 key), against its plain version on the card."""
+    e_pubs, e_msgs, e_sigs, verdicts = tc.go_edge_window(seed=0)
+    pubs = edge_rows([v.pub_key.bytes() for v in sc_.valset.validators], e_pubs)
+    msgs = edge_rows([pc.sign_bytes(sc_.chain_id) for pc in sc_.commit.precommits], e_msgs)
+    sigs = edge_rows([pc.signature for pc in sc_.commit.precommits], e_sigs)
+    pubs_a, sigs_a = as_arrays(pubs, sigs)
+    *host, valid = k5v.host_prologue(pubs_a, msgs, sigs_a)
+    b = ec._bucket(len(pubs))
+    host = [ec._pad_rows(np.asarray(a), b) for a in host]
+    ins = k5v.upload(host, dev)
+    out = k5v.verify_rows(*ins)
+    ref, plain_ms = cuda_once(lambda: k5v.verify_ref(*ins))
+    worst = max_abs_diff((out,), (ref,))
+    err["ed25519_verify"] = worst
+    check(worst == 0, f"K5 differs from its plain version: {worst}")
+    ok = (out[: len(pubs)].cpu().numpy() != 0) & valid
+    n_edge = len(e_pubs)
+    check(bool(ok[: -n_edge].all()), "K5: a commit row was rejected")
+    for j, want_v in verdicts.items():
+        want_v = ed._verify_pure(e_pubs[j], e_msgs[j], e_sigs[j]) if want_v is None else want_v
+        check(bool(ok[len(pubs) - n_edge + j]) == want_v,
+              f"K5 edge row {j}: {ok[len(pubs) - n_edge + j]}, want {want_v}")
+    ms = cuda_ms(lambda: k5v.verify_rows(*ins))
+    muls, squarings = k5v.k5_fe_ops(host[2], host[3])
+    ops = muls * fe.NLIMB ** 2 + squarings * fe.NLIMB * (fe.NLIMB + 1) // 2
+    threads, blocks = k5v.k5_geometry(b)
+    print(f"  (a) K5 {ms:.4f} ms at N = {b} (20 launches; plain {plain_ms:.1f} ms), exact on "
+          f"every row, the {n_edge} Go edge rows' verdicts Go's; {muls:,} multiplications and "
+          f"{squarings:,} squarings ({ops:,} products); {threads} threads a block, {blocks} "
+          f"blocks; {registers('ed25519_verify')}", flush=True)
+    return {"ms": ms, "plain_ms": plain_ms, "bound": least_ms(ins, (out,), ops, mul_rate),
+            "b": b}
+
+
+def mesh_k6(dev, sc_: tc.SignedCommit, mul_rate: float, err: dict) -> dict:
+    """(b): K6 at N = 10,240 on the 10k secp256k1 commit's rows, its last
+    23 the secp256k1 edge window's, against its plain version on the card."""
+    pks, msgs, sigs, _ = sc_.valset.collect_commit_sigs(
+        sc_.chain_id, sc_.block_id, sc_.height, sc_.commit)
+    e_pubs, e_digs, e_sigs, verdicts = tc.secp_edge_window(seed=1)
+    pubs = edge_rows([pk.bytes() for pk in pks], e_pubs)
+    digs = edge_rows([sha256(m) for m in msgs], e_digs)
+    sigs = edge_rows(list(sigs), e_sigs)
+    b = ec._bucket(len(pubs))
+    host, forced = k6v.pack_rows(pubs, digs, sigs, b)
+    ins = k6v.upload(host, dev)
+    out = k6v.verify_rows(*ins)
+    ref, plain_ms = cuda_once(lambda: k6v.verify_ref(*ins))
+    worst = max_abs_diff((out,), (ref,))
+    err["secp256k1_verify"] = worst
+    check(worst == 0, f"K6 differs from its plain version: {worst}")
+    ok = out[: len(pubs)].cpu().numpy() != 0
+    got = np.where(forced[: len(pubs)] >= 0, forced[: len(pubs)].astype(bool), ok)
+    n_edge = len(e_pubs)
+    check(bool(got[: -n_edge].all()), "K6: a commit row was rejected")
+    for j, want_v in verdicts.items():
+        check(bool(got[len(pubs) - n_edge + j]) == want_v,
+              f"K6 edge row {j}: {got[len(pubs) - n_edge + j]}, want {want_v}")
+    ms = cuda_ms(lambda: k6v.verify_rows(*ins))
+    muls, squarings, smalls = k6v.k6_fe_ops(host[2], host[3])
+    ops = muls * F.NLIMB ** 2 + squarings * F.NLIMB * (F.NLIMB + 1) // 2 + smalls * F.NLIMB
+    threads, blocks = k6v.k6_geometry(b)
+    print(f"  (b) K6 {ms:.4f} ms at N = {b} (20 launches; plain {plain_ms:.1f} ms), exact on "
+          f"every row, the {n_edge} edge rows' verdicts the oracle's; {muls:,} "
+          f"multiplications, {squarings:,} squarings, {smalls:,} by b3 ({ops:,} products); "
+          f"{threads} threads a block, {blocks} blocks; {registers('secp256k1_verify')}",
+          flush=True)
+    return {"ms": ms, "plain_ms": plain_ms, "bound": least_ms(ins, (out,), ops, mul_rate),
+            "b": b}
+
+
+def mesh_verifier(dev, mesh, ed_sc: tc.SignedCommit, secp_sc: tc.SignedCommit) -> dict:
+    """(c): both 10k commits through TorchBatchVerifier(mesh=): K5 and K6
+    once a shard, the verdicts the unsharded verifier's (K1 + K2, K3); the
+    launch counts set to 0 just before the mesh calls and read just after."""
+    out = {}
+    for what, sc_, verify in (
+            ("ed25519", ed_sc, lambda v, cols: v.verify_ed25519_raw(*cols)),
+            ("secp256k1", secp_sc, lambda v, cols: v.verify_secp256k1(
+                [SigItem(p, m, g) for p, m, g in zip(*cols)]))):
+        pks, msgs, sigs, _ = sc_.valset.collect_commit_sigs(
+            sc_.chain_id, sc_.block_id, sc_.height, sc_.commit)
+        sigs = list(sigs)
+        sigs[N_VALIDATORS // 3] = bytes(flipped(sc_, N_VALIDATORS // 3).precommits[
+            N_VALIDATORS // 3].signature)
+        cols = ([pk.bytes() for pk in pks], msgs, sigs)
+        want = verify(TorchBatchVerifier(dev), cols)
+        meshed = TorchBatchVerifier(mesh=mesh)
+        check(meshed.kernel_route == "xla" and meshed.backend == dev.type,
+              f"the mesh verifier's route {meshed.kernel_route}, label {meshed.backend}")
+        reset_launches()
+        t0 = time.perf_counter()
+        got = verify(meshed, cols)
+        wall = time.perf_counter() - t0
+        launches = read_launches()
+        name = "ed25519_verify" if what == "ed25519" else "secp256k1_verify"
+        check(launches[name] == MESH_SHARDS and sum(launches.values()) == MESH_SHARDS,
+              f"(c) {what}: launches {launches}, want {name} once a shard")
+        check(np.array_equal(got, want) and int((~got).sum()) == 1,
+              f"(c) {what}: the mesh verdicts differ from the unsharded verifier's")
+        print(f"  (c) {what}: {N_VALIDATORS} rows through TorchBatchVerifier(mesh) in "
+              f"{wall * 1e3:.1f} ms, verdicts equal the unsharded verifier's (the flipped row "
+              f"rejected); launches {launches}: {launches[name] // MESH_SHARDS} a shard",
+              flush=True)
+        out[what] = {"launches": launches, "wall_s": wall}
+    return out
+
+
+def shard_ticks(labels) -> dict:
+    m = get_verify_metrics()
+    return {lbl: m.device_dispatches._values.get((lbl,), 0.0) for lbl in labels}
+
+
+def mesh_windows(dev, mesh, mesh2d, window: dict, fs_chain) -> dict:
+    """(d): the 512 x 64 window through verify_windows(mesh) in both reduce
+    modes, verify_commit_window on the 2 x 2 (height, val) mesh, and
+    verify_block_window(mesh) over the fast-sync cell's 513 blocks, each
+    equal to its flat path; guarded (no fallback, the breaker closed) and
+    recorded as four shards."""
+    votes, powers, totals = window["rows"]
+    want = window["verdict"]
+    before = fallbacks()
+    labels = mesh.labels()
+    out = {}
+    for reduce in ("device", "host"):
+        planner.set_reduce_mode(reduce)
+        ticks0 = shard_ticks(labels)
+        reset_launches()
+        planner.tally_launches["planner_tally"] = 0
+        t0 = time.perf_counter()
+        try:
+            got = planner.verify_windows([(votes, powers, totals)], mesh=mesh,
+                                         use_device=True)[0]
+        finally:
+            planner.set_reduce_mode("device")
+        wall = time.perf_counter() - t0
+        launches = {**read_launches(), **planner.tally_launches}
+        for k in VERDICT_KEYS:
+            check(np.array_equal(getattr(got, k), getattr(want, k)),
+                  f"(d) planner mesh ({reduce}): {k} differs from the flat path's")
+        check(got.tally.dtype == np.int64, "(d) the mesh tally is not int64")
+        ticks = {k: v - ticks0[k] for k, v in shard_ticks(labels).items()}
+        check(list(ticks.values()) == [1.0] * MESH_SHARDS,
+              f"(d) record_device_shards: {ticks}")
+        check(get_profiler().entries()[-1]["kind"] == "planner_mesh"
+              and get_profiler().entries()[-1]["n_devices"] == MESH_SHARDS,
+              "(d) the dispatch is not recorded as planner_mesh over four shards")
+        k1 = launches["ed25519_prologue"]
+        check(k1 >= MESH_SHARDS and launches["ed25519_ladder"] == k1
+              and launches["planner_tally"] == (MESH_SHARDS if reduce == "device" else 0),
+              f"(d) planner mesh ({reduce}): launches {launches}")
+        print(f"  (d) verify_windows(mesh), reduce {reduce}: {wall:.2f} s; lanes and int64 "
+              f"tallies equal the flat path's; shards {ticks}; launches {launches}", flush=True)
+        out[f"planner_{reduce}"] = launches
+    raw = [[None if x is None else (x[0].bytes(), x[1], x[2]) for x in row] for row in votes]
+    win = cv.pack_commit_window(raw, powers)
+    ticks0 = shard_ticks(mesh2d.labels())
+    reset_launches()
+    cv.tally_launches["window_tally"] = 0
+    t0 = time.perf_counter()
+    got = cv.verify_commit_window(win, totals[0], mesh=mesh2d)
+    wall = time.perf_counter() - t0
+    launches = {**read_launches(), **cv.tally_launches}
+    for k, g in zip(("ok", "tally", "committed"), got):
+        check(np.array_equal(g, getattr(want, k)), f"(d) window_mesh: {k} differs")
+    ticks = {k: v - ticks0[k] for k, v in shard_ticks(mesh2d.labels()).items()}
+    check(list(ticks.values()) == [1.0] * MESH_SHARDS, f"(d) window_mesh shards: {ticks}")
+    check(launches["window_tally"] == MESH_SHARDS
+          and launches["ed25519_ladder"] == launches["ed25519_prologue"] >= MESH_SHARDS,
+          f"(d) window_mesh launches {launches}")
+    print(f"  (d) verify_commit_window on the {mesh2d.devices.shape} (height, val) mesh: "
+          f"{wall:.2f} s, equal to the flat path's; shards {ticks}; launches {launches}",
+          flush=True)
+    out["commit_window"] = launches
+    st0 = state_from_genesis(fs_chain.fx.genesis)
+    blocks = fs_chain.blocks[:FS_WINDOW + 1]
+    flat_parts, mesh_parts = [], []
+    flat = bc_reactor.verify_block_window(st0, blocks, parts_out=flat_parts)
+    ticks0 = shard_ticks(labels)
+    reset_launches()
+    planner.tally_launches["planner_tally"] = 0
+    t0 = time.perf_counter()
+    sharded = bc_reactor.verify_block_window(st0, blocks, parts_out=mesh_parts, mesh=mesh)
+    wall = time.perf_counter() - t0
+    launches = {**read_launches(), **planner.tally_launches}
+    check(flat == sharded == (FS_WINDOW, None), f"(d) fast sync: {flat} vs {sharded}")
+    check([p.header() for p in flat_parts] == [p.header() for p in mesh_parts],
+          "(d) fast sync: the mesh window's parts differ")
+    ticks = {k: v - ticks0[k] for k, v in shard_ticks(labels).items()}
+    check(list(ticks.values()) == [1.0] * MESH_SHARDS, f"(d) fast sync shards: {ticks}")
+    check(launches["planner_tally"] == MESH_SHARDS, f"(d) fast sync launches {launches}")
+    print(f"  (d) verify_block_window(mesh) over {len(blocks)} blocks: {wall:.2f} s, "
+          f"{sharded[0]} commits verified as on the flat path; shards {ticks}; launches "
+          f"{launches}", flush=True)
+    out["fastsync"] = launches
+    check_guard_clean(before, "mesh")
+    return out
+
+
+def phase_mesh(dev, mul_rate: float, ed_sc: tc.SignedCommit, secp_sc: tc.SignedCommit,
+               window: dict, fs_chain, err: dict) -> dict:
+    """Phase 28: the multi-device lane split on a DeviceMesh of four shards
+    (cuda:0 four times on one card), K5 and K6 against their plain
+    versions, the verifier's mesh route and the mesh paths of the planner,
+    the commit window and fast sync, on a [verify] root of its own whose
+    audit samples 0.5 % of a dispatch's lanes."""
+    devs = mesh_devices()
+    phase(f"mesh: DeviceMesh of {[str(d) for d in devs]}: (a) K5 and (b) K6 vs plain at "
+          f"N = 10,240 with the edge rows, (c) both 10k commits through "
+          f"TorchBatchVerifier(mesh), (d) the {WINDOW_H} x {WINDOW_V} window through "
+          f"verify_windows (both reduce modes), verify_commit_window (2 x 2) and "
+          f"verify_block_window over {FS_WINDOW + 1} blocks")
+    t_phase = time.perf_counter()
+    mesh = DeviceMesh(devs)
+    mesh2d = DeviceMesh(devs, (2, 2), ("height", "val"))
+    root = configure_verify(VerifyConfig(audit_sample_rate=MESH_AUDIT_RATE), device=dev)
+    check(get_batch_verifier() is root.verifier, "the mesh root's verifier is not installed")
+    a = mesh_k5(dev, ed_sc, mul_rate, err)
+    b = mesh_k6(dev, secp_sc, mul_rate, err)
+    c = mesh_verifier(dev, mesh, ed_sc, secp_sc)
+    d = mesh_windows(dev, mesh, mesh2d, window, fs_chain)
+    check(breaker.get_device_breaker().state == breaker.CLOSED, "mesh: the breaker is not closed")
+    seconds = time.perf_counter() - t_phase
+    print(f"  one card holds every shard: the split is checked here, not timed; no fallback, "
+          f"breaker closed; phase {seconds:.1f} s", flush=True)
+    return {"k5": a, "k6": b, "seconds": seconds,
+            "launches": {"verifier_ed25519": c["ed25519"]["launches"],
+                         "verifier_secp256k1": c["secp256k1"]["launches"], **d}}
+
+
 HOST_CALIB_CALLS = 100  # crypto/ed25519._verify_pure on one row, ~0.7 s on a 2.x GHz core
 
 
@@ -6140,6 +6427,9 @@ def main() -> int:
     cli = phase_cli(dev, err)
     # the sim phase: SimNets on a default [verify] root of its own
     simr = phase_sim(dev, err)
+    # the mesh phase: a [verify] root of its own, four shards
+    mesh = phase_mesh(dev, mul_rate, ed_main["commit"], secp_main["commit"], window,
+                      fs["chain"], err)
     print(f"  {smi_line}", flush=True)
 
     ms = {**ed_main["ms"], "secp256k1_ladder": secp_main["ms"]}
@@ -6203,6 +6493,7 @@ def main() -> int:
             "commit_window_launches": {"ladder": cwin["launches"][name],
                                        "msm": cwin["msm_launches"][name],
                                        "planner_msm": cwin["planner_msm_launches"][name]},
+            "mesh_launches": {part: n[name] for part, n in mesh["launches"].items()},
         })
     k4c = k4["commit"]
     kernels.append({
@@ -6252,7 +6543,27 @@ def main() -> int:
         "commit_window_launches": {"ladder": cwin["launches"][K4],
                                    "msm": cwin["msm_launches"][K4],
                                    "planner_msm": cwin["planner_msm_launches"][K4]},
+        "mesh_launches": {part: n[K4] for part, n in mesh["launches"].items()},
     })
+    # K5 and K6: the verifier's mesh route (phase 28) is their main path
+    for name, replaces, res, part in (
+            ("ed25519_verify", K5_REPLACES, mesh["k5"], "verifier_ed25519"),
+            ("secp256k1_verify", K6_REPLACES, mesh["k6"], "verifier_secp256k1")):
+        kernels.append({
+            "name": name,
+            "route": "cuda",
+            "source": f"tendermint_tpu_torch/ops/csrc/{_build.SOURCES[name]}",
+            "replaces": replaces,
+            "launches": mesh["launches"][part][name],
+            "max_abs_err": err[name],
+            "ms": res["ms"],
+            "plain_ms": res["plain_ms"],
+            "bound_ms": res["bound"][0],
+            "bound_by": res["bound"][1],
+            "library_ms": None,  # no single PyTorch call computes this function
+            "b": res["b"],
+            "mesh_launches": {p: n[name] for p, n in mesh["launches"].items()},
+        })
     print(f"  {N_VALIDATORS}-validator ed25519 verify_commit p50: {ed_main['p50_ms']:.3f} ms "
           f"through TorchBatchVerifier, {default['p50_ms']:.1f} ms through the default "
           f"guarded verifier (audit {default['verify.audit']:.1f} ms of it)", flush=True)
@@ -6309,6 +6620,10 @@ def main() -> int:
           f"vote_storm {simr['b']['seconds']:.1f} s ({simr['b']['dispatches']} flushes on the "
           f"card), (c) the card fault {simr['c']['seconds']:.1f} s (halts {simr['c']['faults']}); "
           f"phase {simr['seconds']:.1f} s", flush=True)
+    print(f"  mesh: K5 {mesh['k5']['ms']:.4f} ms and K6 {mesh['k6']['ms']:.4f} ms at N = "
+          f"{mesh['k5']['b']}; four shards on the planner (both reduce modes), the commit "
+          f"window, fast sync and the verifier, each equal to its flat path; phase "
+          f"{mesh['seconds']:.1f} s", flush=True)
     print(f"  total {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"torch_ops": [window["tally"], cwin["tally"]]}))
     print(json.dumps({"kernels": kernels}))

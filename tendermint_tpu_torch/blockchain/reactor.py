@@ -28,8 +28,10 @@ any other window error every 10 ms, which on the card would blame an honest
 peer for a device fault, or hide one behind a log line. Off the card the
 reference's behaviour stays.
 
-A mesh (the multi-GPU lane split) is ROADMAP queue 1 item 4b (iii):
-``mesh=`` raises ``NotImplementedError``.
+With ``mesh=`` (a ``parallel.mesh.DeviceMesh``) a window takes the
+planner's device route instead, as in the reference: its lanes split over
+the mesh's devices (K1 + K2 and the K7 tally a shard, behind the planner's
+guard), and a window of other key types falls back to the verifier route.
 """
 
 from __future__ import annotations
@@ -73,9 +75,6 @@ SWITCH_TO_CONSENSUS_INTERVAL = 0.5  # reference 1s
 VERIFY_WINDOW = 512
 MAX_WINDOW_SIGS = 512 * 1024  # |window| x |valset| ceiling per dispatch
 
-_MESH = "a mesh (the multi-GPU lane split) is ported by ROADMAP queue 1 item 4b (iii)"
-
-
 def auto_verify_window(n_validators: int, window: int = VERIFY_WINDOW) -> int:
     """Window size bounded so window x valset <= MAX_WINDOW_SIGS (a 10k-val
     set still gets 52-height batches; a 64-val set the full default)."""
@@ -110,16 +109,16 @@ def verify_block_window(
 
     The per-precommit rules and the power collection are
     ``ValidatorSet.collect_commit_sigs``'s; packing, the verify dispatch and
-    the +2/3 tallies are ``parallel/planner.verify_window``'s verifier route
-    (``verify_generic`` and ``verifier``, else the installed one).
+    the +2/3 tallies are ``parallel/planner.verify_window``'s: without a
+    mesh its verifier route (``verify_generic`` and ``verifier``, else the
+    installed one), with ``mesh`` its device route over the mesh's shards
+    (an all-ed25519 set; other key types take the verifier route).
 
     Returns (n_verified, err): the first n_verified blocks' commits are
     verified; err is set if block n_verified is invalid (a block of a later
     set just ends the window). ``parts_out`` receives each verified block's
     PartSet so that the apply loop does not rebuild it.
     """
-    if mesh is not None:
-        raise NotImplementedError(_MESH)
     valset = state.validators
     chain_id = state.chain_id
     n = len(blocks) - 1
@@ -165,7 +164,8 @@ def verify_block_window(
     total = valset.total_voting_power()
     with get_profiler().window(blocks[0].height, heights=usable):
         verdict = planner.verify_window(
-            votes_rows, power_rows, [total] * usable, verifier=verifier, use_device=False,
+            votes_rows, power_rows, [total] * usable,
+            mesh=mesh, verifier=verifier, use_device=mesh is not None,
         )
 
     # 3. the per-height verdict; stop at the first invalid commit
@@ -194,11 +194,9 @@ class BlockchainReactor(Reactor):
         consensus_reactor=None,  # .switch_to_consensus(state, n) when caught up
         verifier=None,  # BatchVerifier for the windows; None: the installed one
         verify_window: Optional[int] = None,  # None: auto by the set's size
-        mesh=None,
+        mesh=None,  # DeviceMesh: the windows split over its devices
         metrics=None,  # .fast_syncing gauge and .reset_block_timer()
     ):
-        if mesh is not None:
-            raise NotImplementedError(_MESH)
         super().__init__(name="BlockchainReactor")
         self.metrics = metrics
         self.initial_state = state
@@ -211,6 +209,7 @@ class BlockchainReactor(Reactor):
         # a given window is fixed; None sizes each dispatch by the set being
         # verified (it can change during sync)
         self._fixed_window = verify_window
+        self.mesh = mesh
         self.pool = BlockPool(
             start_height=self.store.height() + 1,
             request_cb=self._send_block_request,
@@ -334,9 +333,10 @@ class BlockchainReactor(Reactor):
     # -- the device-fault contract -----------------------------------------------------
     def _card_fault(self, exc: BaseException, verifier) -> bool:
         """True, with the fault recorded, when ``exc`` is a guarded
-        dispatch's failure and ``verifier`` (else the installed one) is on
-        the card."""
-        if isinstance(exc, _brk.DeviceDispatchError) and _verifier_on_card(verifier):
+        dispatch's failure and ``verifier`` (else the installed one) or the
+        reactor's mesh is on the card."""
+        card = _verifier_on_card(verifier) or (self.mesh is not None and self.mesh.on_card())
+        if isinstance(exc, _brk.DeviceDispatchError) and card:
             if self.device_fault is None:
                 self.device_fault = exc
             return True
@@ -473,7 +473,7 @@ class BlockchainReactor(Reactor):
                         mode="speculative",
                     ):
                         fut.set_result(
-                            verify_block_window(st, nxt, self.verifier, parts_list)
+                            verify_block_window(st, nxt, self.verifier, parts_list, self.mesh)
                         )
                 except BaseException as e:
                     fut.set_exception(e)
@@ -498,6 +498,7 @@ class BlockchainReactor(Reactor):
                 ):
                     n_ok, err = verify_block_window(
                         self.state, blocks, verifier=self.verifier, parts_out=parts_list,
+                        mesh=self.mesh,
                     )
         except _brk.DeviceDispatchError as e:
             self._card_fault(e, self.verifier)

@@ -17,6 +17,9 @@ into the same ed25519 call. With ``ed25519_path="msm"`` (``[verify]
 ed25519_path``, ``TM_ED25519_PATH``) ed25519 batches go through
 ``ops.ed25519_cuda.rlc_verify_batch`` instead: K1, one MSM (K4), and on a
 reject K1 + K2 over the batch with host chunk RLCs where a row fails.
+``TorchBatchVerifier(mesh=)`` (or ``kernel_route="xla"``) takes the
+reference's XLA route instead: K5 (``ops.ed25519_verify``) and K6
+(``ops.secp256k1_verify``), one launch a shard of a ``DeviceMesh``.
 """
 
 from __future__ import annotations
@@ -42,11 +45,14 @@ from tendermint_tpu_torch.libs import trace
 from tendermint_tpu_torch.libs.metrics import get_verify_metrics
 from tendermint_tpu_torch.libs.profile import get_profiler
 from tendermint_tpu_torch.ops import ed25519_cuda as _kernel
+from tendermint_tpu_torch.ops import ed25519_verify as _k5
 from tendermint_tpu_torch.ops import secp256k1_cuda as _secp_kernel
+from tendermint_tpu_torch.ops import secp256k1_verify as _k6
 
 ED25519_PATHS = ("ladder", "msm")
 FE_BACKENDS = ("vpu", "mxu", "mxu16")  # the JAX verifier's values
 CARRY_MODES = ("eager", "lazy")
+KERNEL_ROUTES = ("pallas", "xla")  # the JAX verifier's backend values
 
 
 def _record_dispatch(backend: str, algo: str, n: int, t0: float, ok,
@@ -221,20 +227,37 @@ class TorchBatchVerifier:
     ``ed25519_path`` ("ladder": K1 + K2 a signature; "msm": one MSM a
     batch, ``rlc_verify_batch``) resolves as ``_resolve_ed25519_path``
     does: the argument, ``TM_ED25519_PATH``, the ``[verify]`` value, then
-    "ladder"."""
+    "ladder".
+
+    ``mesh`` (a ``parallel.mesh.DeviceMesh``) and ``kernel_route`` are the
+    reference's ``TPUBatchVerifier(mesh=, backend=)``, resolved as it
+    resolves them: ``kernel_route`` takes the reference's ``backend``
+    values, "pallas" (the lane kernels: K1 + K2 for ed25519, K3 for
+    secp256k1; a mesh is not consulted) or "xla" (the bit-serial kernels
+    K5 and K6, their rows split over the mesh when one is given), and None
+    means "xla" iff a mesh is given. It is named apart from ``backend``,
+    the label this verifier records in the metrics and spans, which stays
+    the device type ("cuda" or "cpu"). The msm path does not consult the
+    mesh. With a mesh and no ``device``, ``device`` is the mesh's first."""
 
     name = "torch"
 
     def __init__(self, device: DeviceLike = None, fe_backend: Optional[str] = None,
                  carry_mode: Optional[str] = None,
-                 ed25519_path: Optional[str] = None):
-        self.device = resolve_device(device)
+                 ed25519_path: Optional[str] = None, *, mesh=None,
+                 kernel_route: Optional[str] = None):
+        self.mesh = mesh
+        self.device = (mesh.flat[0] if mesh is not None and device is None
+                       else resolve_device(device))
         self.backend = self.device.type
         self.fe_backend = _choice(fe_backend, "vpu", FE_BACKENDS, "fe_backend")
         self.carry_mode = _choice(
             carry_mode, "eager" if self.fe_backend == "mxu16" else "lazy",
             CARRY_MODES, "carry_mode")
         self.ed25519_path = _resolve_ed25519_path(ed25519_path)
+        self.kernel_route = _choice(
+            kernel_route, "xla" if mesh is not None else "pallas", KERNEL_ROUTES,
+            "kernel_route")
         self.stats: Dict[str, DispatchStats] = {a: DispatchStats() for a in ALGORITHMS}
 
     def verify_ed25519(self, items: Sequence[SigItem]) -> np.ndarray:
@@ -253,9 +276,12 @@ class TorchBatchVerifier:
                         algo="ed25519", n=n):
             pubs_a = np.frombuffer(b"".join(pubs), dtype=np.uint8).reshape(n, 32)
             sigs_a = np.frombuffer(b"".join(sigs), dtype=np.uint8).reshape(n, 64)
-            verify = (_kernel.rlc_verify_batch if self.ed25519_path == "msm"
-                      else _kernel.verify_batch)
-            ok = verify(pubs_a, msgs, sigs_a, device=self.device)
+            if self.ed25519_path == "msm":
+                ok = _kernel.rlc_verify_batch(pubs_a, msgs, sigs_a, device=self.device)
+            elif self.kernel_route == "xla":
+                ok = _k5.verify_batch(pubs_a, msgs, sigs_a, self.mesh, device=self.device)
+            else:
+                ok = _kernel.verify_batch(pubs_a, msgs, sigs_a, device=self.device)
         self._record("ed25519", ok, t0)
         return ok
 
@@ -268,10 +294,12 @@ class TorchBatchVerifier:
         t0 = time.perf_counter()
         with trace.span("verify.dispatch", backend=self.backend,
                         algo="secp256k1", n=n):
-            ok = _secp_kernel.verify_batch(
-                [it.pubkey for it in items], [sha256(it.msg) for it in items],
-                [it.sig for it in items], device=self.device,
-            )
+            cols = ([it.pubkey for it in items], [sha256(it.msg) for it in items],
+                    [it.sig for it in items])
+            if self.kernel_route == "xla":
+                ok = _k6.verify_batch(*cols, self.mesh, device=self.device)
+            else:
+                ok = _secp_kernel.verify_batch(*cols, device=self.device)
         self._record("secp256k1", ok, t0)
         return ok
 

@@ -434,7 +434,11 @@ class VerifyMetrics:
 
     def record_device_shards(self, device_ids, lanes_per_device: int) -> None:
         """One mesh (or single-device) dispatch: every participating device
-        gets a dispatch tick and its lane-tile shard size attributed."""
+        gets a dispatch tick and its lane-tile shard size attributed. A
+        mesh passes ``DeviceMesh.labels()``, one label a shard, in which a
+        device the mesh repeats carries its occurrence ("0#0" .. "0#3" for
+        four shards on cuda:0), so that each shard is counted on its own;
+        an id that comes twice in one call is counted twice."""
         for d in device_ids:
             lbl = self._device_label(str(d))
             self.device_dispatches.add(1.0, (lbl,))

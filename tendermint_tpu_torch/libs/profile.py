@@ -5,8 +5,10 @@ transfer).
 The port's copy of the JAX package's ``libs/profile.py``: the same ring
 buffer, the same entry fields, the same per-window ``ledger()`` fold. The
 port's planner (``parallel/planner.py``) records one entry per dispatch,
-``kind`` "planner" for the device executor and "host" for the verifier
-route. Each entry carries the (window, bucket) coordinates plus:
+``kind`` "planner" for the device executor ("planner_mesh" when it splits
+the lanes over a ``DeviceMesh``, "planner_msm" on the MSM path) and "host"
+for the verifier route; the commit window records "window", "window_mesh"
+or "window_msm". A mesh entry's ``n_devices`` is the mesh's shard count. Each entry carries the (window, bucket) coordinates plus:
 
 - ``pack_seconds``   host plan + pack (sign-bytes, decompress, upload) time
 - ``run_seconds``    device dispatch wall time (includes the bucket's

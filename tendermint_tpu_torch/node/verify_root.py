@@ -7,9 +7,9 @@ Counterpart of the ``[verify]`` wiring in the JAX package's node
      with no device given and no CUDA present it raises
      ``NoCudaDeviceError``) and validates the knobs (``ed25519_path`` is
      "ladder" or "msm");
-  2. builds every kernel the path launches (K1, K2, K3, and K4 for the
-     MSM path, whichever path is configured: ``TM_ED25519_PATH`` can
-     switch it later) with
+  2. builds every kernel the path launches (K1, K2, K3, K4 for the MSM
+     path, whichever path is configured: ``TM_ED25519_PATH`` can switch it
+     later, and K5 and K6 for a verifier given a mesh) with
      ``ops/_build.build_all`` before any guarded call, so that no first
      dispatch pays ``nvcc`` under the dispatch deadline (a build that ran
      into the deadline would become a timeout and a host fallback hiding
@@ -117,8 +117,9 @@ from tendermint_tpu_torch.statesync.syncer import StateSyncer
 from tendermint_tpu_torch.types.events import EventBus
 
 # the kernels of the verify path: K1 and K2 (ed25519), K3 (secp256k1), K4
-# (the ed25519 MSM path)
-PATH_KERNELS = ("ed25519_prologue", "ed25519_ladder", "secp256k1_ladder", "ed25519_msm")
+# (the ed25519 MSM path), K5 and K6 (a verifier's mesh route)
+PATH_KERNELS = ("ed25519_prologue", "ed25519_ladder", "secp256k1_ladder", "ed25519_msm",
+                "ed25519_verify", "secp256k1_verify")
 
 
 @dataclass

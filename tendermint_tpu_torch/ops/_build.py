@@ -31,6 +31,8 @@ SOURCES = {
     "ed25519_ladder": "ed25519_ladder.cu",
     "secp256k1_ladder": "secp256k1_ladder.cu",
     "ed25519_msm": "ed25519_msm.cu",
+    "ed25519_verify": "ed25519_verify.cu",
+    "secp256k1_verify": "secp256k1_verify.cu",
     "imad_probe": "imad_probe.cu",  # a measurement probe, not a port of a TPU kernel
 }
 

@@ -1,11 +1,12 @@
-// The ed25519 field arithmetic that K2 (ed25519_ladder.cu) and K4
-// (ed25519_msm.cu) share: the ten radix-2^25.5 limbs of ops/fe.py, the
-// parallel and sequential carries, addition and subtraction (a + 2p - b),
-// the 100-product multiplication and the 55-product squaring, and the
-// canonical form. Every product column is the same integer as in fe.py's
-// plain version, so both kernels match their plain versions limb for limb.
-// ops/_build.py hashes this header into the library name of every source
-// that includes it, so an edit here rebuilds both kernels.
+// The ed25519 field arithmetic that K2 (ed25519_ladder.cu), K4
+// (ed25519_msm.cu) and K5 (ed25519_verify.cu) share: the ten radix-2^25.5
+// limbs of ops/fe.py, the parallel and sequential carries, addition and
+// subtraction (a + 2p - b), the 100-product multiplication and the
+// 55-product squaring, and the canonical form. Every product column is the
+// same integer as in fe.py's plain version, so each kernel matches its
+// plain version limb for limb. ops/_build.py hashes this header into the
+// library name of every source that includes it, so an edit here rebuilds
+// all three kernels.
 
 #pragma once
 

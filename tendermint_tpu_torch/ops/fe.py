@@ -231,6 +231,17 @@ def sq(a: torch.Tensor) -> torch.Tensor:
     return mul(a, a)
 
 
+def stacked(mul_fn, *pairs):
+    """Independent products (a, b) in one call of a field's ``mul_fn`` (this
+    module's ``mul`` or ``fe_secp256k1.mul``) over a new leading axis, the
+    operands broadcast to one shape: each result is the same integer as its
+    own call, in a fraction of the plain version's per-op overhead."""
+    shape = torch.broadcast_shapes(*(t.shape for pair in pairs for t in pair))
+    a = torch.stack([x.expand(shape) for x, _ in pairs])
+    b = torch.stack([y.expand(shape) for _, y in pairs])
+    return mul_fn(a, b).unbind(0)
+
+
 def _sqn(a: torch.Tensor, n: int) -> torch.Tensor:
     for _ in range(n):
         a = sq(a)

@@ -19,7 +19,14 @@ into one MSM instead (``_verify_window_device_msm``).
 Off the card a failed, quarantined or mis-auditing dispatch completes on
 the host oracle (``_verify_window_host``) as in the reference; on the card
 it raises ``DeviceDispatchError`` (``DeviceAuditMismatch`` after a
-quarantine). A mesh (the multi-GPU split) raises ``NotImplementedError``.
+quarantine).
+
+With a ``DeviceMesh`` of (height, val) axes (``parallel/mesh.py``) H and V
+pad to multiples of the mesh's shape, each (height-block, val-block) shard
+runs one K1 + K2 over its present cells and its own int64 tally on its
+device, and each height's tally is summed over the val shards on the
+mesh's first device (the reference's psum over its ``val`` axis); the
+dispatch is labelled "window_mesh". The MSM path does not consult the mesh.
 """
 
 from __future__ import annotations
@@ -47,9 +54,6 @@ SigTuple = Tuple[bytes, bytes, bytes]  # (pubkey32, msg, sig64)
 
 # the labels the dispatch metrics carry (the JAX package's default names)
 FE_BACKEND, CARRY_MODE = "vpu", "lazy"
-
-_MESH_ITEM = "a mesh (the multi-GPU split) is ported by ROADMAP queue 1 item 4b (iii)"
-
 
 @dataclass
 class CommitWindow:
@@ -150,29 +154,76 @@ def window_tally(ok: torch.Tensor, power: torch.Tensor, total_power: int):
     return tally, tally * 3 > 2 * int(total_power)
 
 
-def _window_step(win: CommitWindow, total_power: int, device: torch.device):
-    """K1 -> K2 over the present cells, one launch each a message-length
-    group, the verdicts scattered into (H, V) and masked by ``present``,
-    then ``window_tally``; read back with one synchronisation."""
+def _block_verdicts(win: CommitWindow, hs: slice, vs: slice, device: torch.device):
+    """K1 -> K2 over the present cells of the block (heights ``hs``, vals
+    ``vs``) of the window, one launch each a message-length group, the
+    verdicts scattered into the block and masked by ``present``; cells
+    past (H, V) (a mesh's padding) are absent. Returns ok (bh, bv) bool and
+    power (bh, bv) int64 on ``device``, unsynchronised."""
     H, V = win.shape
-    flat = lambda a: a.reshape(H * V, *a.shape[2:])  # noqa: E731
-    present = flat(win.present)
-    lens = flat(win.msg_len)
+    bh, bv = hs.stop - hs.start, vs.stop - vs.start
+    h1, v1 = min(hs.stop, H), min(vs.stop, V)
+    present = np.zeros((bh, bv), bool)
+    power = np.zeros((bh, bv), np.int64)
+    present[: h1 - hs.start, : v1 - vs.start] = win.present[hs.start:h1, vs.start:v1]
+    power[: h1 - hs.start, : v1 - vs.start] = win.power[hs.start:h1, vs.start:v1]
     cells = np.flatnonzero(present)
-    ok_d = torch.zeros((H * V,), dtype=torch.bool, device=device)
-    for ln in np.unique(lens[cells]):
-        g = cells[lens[cells] == ln]
-        msgs = flat(win.msg_bytes)[g, :ln]
+    gh, gv = hs.start + cells // bv, vs.start + cells % bv
+    lens = win.msg_len[gh, gv]
+    ok_d = torch.zeros((bh * bv,), dtype=torch.bool, device=device)
+    for ln in np.unique(lens):
+        g = lens == ln
+        ch, cv = gh[g], gv[g]
+        msgs = win.msg_bytes[ch, cv, :ln]
         inputs, _ = _k.packed_inputs(
-            flat(win.pub_bytes)[g], [m.tobytes() for m in msgs], flat(win.sig_bytes)[g],
-            flat(win.neg_ax)[g], flat(win.ay)[g], present[g], int(ln), device)
-        ok_d[torch.from_numpy(g).to(device)] = _k._device_verify_packed(*inputs)[:g.size] != 0
-    ok = ok_d.view(H, V) & torch.from_numpy(win.present).to(device)
-    tally, committed = window_tally(ok, torch.from_numpy(win.power).to(device), total_power)
-    out = torch.cat([ok.view(-1).to(torch.int64), tally,
+            win.pub_bytes[ch, cv], [m.tobytes() for m in msgs], win.sig_bytes[ch, cv],
+            win.neg_ax[ch, cv], win.ay[ch, cv], win.present[ch, cv], int(ln), device)
+        ok_d[torch.from_numpy(cells[g]).to(device)] = \
+            _k._device_verify_packed(*inputs)[:ch.size] != 0
+    ok = ok_d.view(bh, bv) & torch.from_numpy(present).to(device)
+    return ok, torch.from_numpy(power).to(device)
+
+
+def _read_back(ok: torch.Tensor, tally: torch.Tensor, committed: torch.Tensor, H: int,
+               V: int):
+    """One synchronisation: the (H, V) verdicts, (H,) int64 tally and (H,)
+    committed of a (ph, pv) grid's results."""
+    ph, pv = ok.shape
+    out = torch.cat([ok.reshape(-1).to(torch.int64), tally,
                      committed.to(torch.int64)]).cpu().numpy()
-    return (out[: H * V].reshape(H, V) != 0, out[H * V: H * V + H].astype(np.int64),
-            out[H * V + H:] != 0)
+    return (out[: ph * pv].reshape(ph, pv)[:H, :V] != 0,
+            out[ph * pv: ph * pv + H].astype(np.int64), out[ph * pv + ph: ph * pv + ph + H] != 0)
+
+
+def _window_step(win: CommitWindow, total_power: int, device: torch.device):
+    """The whole window as one block (``_block_verdicts``), then
+    ``window_tally``; read back with one synchronisation."""
+    H, V = win.shape
+    ok, power = _block_verdicts(win, slice(0, H), slice(0, V), device)
+    return _read_back(ok, *window_tally(ok, power, total_power), H, V)
+
+
+def _window_step_mesh(win: CommitWindow, total_power: int, mesh):
+    """The window padded to multiples of the mesh's (height, val) shape and
+    split into one block a mesh device (``DeviceMesh.split_window``): each
+    block's K1 -> K2 and its int64 ``window_tally`` over its val columns,
+    launched on its own device with no synchronisation between blocks;
+    then, on the mesh's first device, each height's tally summed over its
+    val blocks (the reference's psum over the val axis) and the strict
+    +2/3 compare; read back with one synchronisation."""
+    H, V = win.shape
+    mh, mv = mesh.window_shape()
+    dev = mesh.flat[0]
+    blocks = [_block_verdicts(win, hs, vs, d) for d, hs, vs in mesh.split_window(H, V)]
+    oks, tallies = [], []
+    for ok, power in blocks:
+        oks.append(ok)
+        tallies.append(window_tally(ok, power, total_power)[0])
+    ok = torch.cat([torch.cat([oks[i * mv + j].to(dev) for j in range(mv)], dim=1)
+                    for i in range(mh)])
+    tally = torch.cat([torch.stack([tallies[i * mv + j].to(dev) for j in range(mv)]).sum(0)
+                       for i in range(mh)])
+    return _read_back(ok, tally, tally * 3 > 2 * int(total_power), H, V)
 
 
 def _verify_window_host(
@@ -278,11 +329,14 @@ def verify_commit_window(
     deadline, one bounded retry and the seeded audit, whose mismatch
     quarantines the device path. Where the reference then completes on
     the host oracle, the port does so off the card and raises on it. A
-    window without raw columns (built by hand) dispatches unguarded."""
-    if mesh is not None:
-        raise NotImplementedError(_MESH_ITEM)
-    dev = resolve_device(device)
-    card = dev.type == "cuda"
+    window without raw columns (built by hand) dispatches unguarded.
+
+    With a ``DeviceMesh`` of (height, val) axes the window splits into one
+    block a mesh device (``_window_step_mesh``; ``device`` is then the
+    mesh's first) and is labelled "window_mesh"; the MSM path does not
+    consult the mesh."""
+    dev = mesh.flat[0] if mesh is not None and device is None else resolve_device(device)
+    card = dev.type == "cuda" or (mesh is not None and mesh.on_card())
     br = _brk.get_device_breaker()
     cfg = _brk.guard_config()
     if win.raw is None:
@@ -383,36 +437,44 @@ _compiled_shapes = set()
 def _verify_window_device(
     win: CommitWindow, total_power: int, mesh=None, *, device: torch.device
 ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
-    """The raw (unguarded) device dispatch: the K8 step, or the MSM route."""
-    if mesh is not None:
-        raise NotImplementedError(_MESH_ITEM)
+    """The raw (unguarded) device dispatch: the K8 step (over a mesh's
+    blocks when one is given), or the MSM route."""
     if win.raw is not None and _resolve_ed25519_path(None) == "msm":
         return _verify_window_device_msm(win, total_power, mesh, device=device)
     H, V = win.shape
-    shape_key = (mesh, (H, V), FE_BACKEND, CARRY_MODE)
+    ph, pv = (H, V) if mesh is None else mesh.pad_window(H, V)
+    backend = "window" if mesh is None else "window_mesh"
+    n_devices = 1 if mesh is None else mesh.size
+    shape_key = (mesh, (ph, pv), FE_BACKEND, CARRY_MODE)
     first = shape_key not in _compiled_shapes
     _compiled_shapes.add(shape_key)
     n = int(np.count_nonzero(win.present))
     t0 = time.perf_counter()
-    with trace.span("verify.window_dispatch", backend="window", H=H, V=V, n=n):
-        ok, tally, committed = _window_step(win, total_power, device)
+    with trace.span("verify.window_dispatch", backend=backend, H=H, V=V, n=n):
+        if mesh is None:
+            ok, tally, committed = _window_step(win, total_power, device)
+        else:
+            ok, tally, committed = _window_step_mesh(win, total_power, mesh)
     dt = time.perf_counter() - t0
     try:
         # rejects = votes that passed the host prechecks but failed the
         # device verify
         m = get_verify_metrics()
         m.record_dispatch(
-            "window", "ed25519", n, dt,
+            backend, "ed25519", n, dt,
             rejects=int(np.count_nonzero(win.present & ~ok)), first=first,
             fe_backend=FE_BACKEND, carry_mode=CARRY_MODE, ed25519_path="ladder",
         )
-        m.record_device_shards(
-            (device.index if device.index is not None else device.type,), H * V)
+        if mesh is None:
+            m.record_device_shards(
+                (device.index if device.index is not None else device.type,), H * V)
+        else:
+            m.record_device_shards(mesh.labels(), ph * pv // n_devices)
         get_profiler().record(
-            "window",
-            bucket=(H, V),
+            backend,
+            bucket=(ph, pv),
             lanes_present=n,
-            lanes_dispatched=H * V,
+            lanes_dispatched=ph * pv,
             heights=H,
             pack_seconds=win.pack_seconds,
             run_seconds=dt,
@@ -424,7 +486,7 @@ def _verify_window_device(
             carry_mode=CARRY_MODE,
             ed25519_path="ladder",
             n_windows=1,
-            n_devices=1,
+            n_devices=n_devices,
         )
     except Exception:
         pass

@@ -45,8 +45,17 @@ window N+1 while window N dispatches), ``LaneFeed`` (many callers with one
 row each, such as the RPC's ``?verify=1`` burst: rows that arrive within a
 deadline fold into one dispatch), ``VoteFeed`` (live consensus votes, one
 lane each, one row per vote set) and ``TxFeed`` (mempool CheckTx
-signatures, one row per CheckTx window). Not ported yet: the multi-GPU
-lane split (ROADMAP queue 1 item 4b (iii)).
+signatures, one row per CheckTx window).
+
+With a ``DeviceMesh`` (``parallel/mesh.py``) the device route splits the
+lanes: the host packs once, the lane axis (padded to a multiple of the
+device count, ``lanes_bucket(n, mesh)``) is cut into one contiguous shard a
+mesh device, and each shard runs its own K1 -> K2 groups and, with reduce
+"device", its own int64 ``segment_tally``; the shards' tallies are summed
+on the mesh's first device (the reference's psum) and the strict +2/3
+compare follows, or with reduce "host" the gathered verdicts fold in
+``_host_reduce``. The dispatch is labelled "planner_mesh"; the MSM path
+does not consult the mesh, as in the reference.
 """
 
 from __future__ import annotations
@@ -88,13 +97,18 @@ MAX_POW2_LANES = 4096  # above this, buckets are multiples of 4096
 MIN_SEGS = 8  # smallest segment (height) bucket
 
 
-def lanes_bucket(n: int) -> int:
-    """Lane pad size: powers of two 64..4096, then multiples of 4096."""
+def lanes_bucket(n: int, mesh=None) -> int:
+    """Lane pad size: powers of two 64..4096, then multiples of 4096; with a
+    mesh, rounded up to a multiple of its device count so that the lane
+    axis splits evenly."""
     b = MIN_LANES
     while b < n and b < MAX_POW2_LANES:
         b *= 2
     if n > b:
         b = ((n + MAX_POW2_LANES - 1) // MAX_POW2_LANES) * MAX_POW2_LANES
+    if mesh is not None:
+        nd = int(mesh.devices.size)
+        b = -(-b // nd) * nd
     return b
 
 
@@ -149,11 +163,9 @@ def pipeline_depth() -> int:
 
 def windows_per_dispatch(mesh=None) -> int:
     """How many independent windows one superdispatch folds: the configured
-    per-device budget (one card; a mesh is the multi-GPU split)."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "a mesh (the multi-GPU lane split) is ported by ROADMAP queue 1 item 4b (iii)")
-    return _windows_per_device
+    per-device budget times the mesh's device count (one without a mesh)."""
+    nd = int(mesh.devices.size) if mesh is not None else 1
+    return _windows_per_device * nd
 
 
 def reduce_mode() -> str:
@@ -378,52 +390,97 @@ class DevicePack:
         return sum(t.numel() * t.element_size() for t in ts)
 
 
-def pack_device(plan, device: torch.device) -> DevicePack:
+@dataclass
+class MeshPack:
+    """A plan's inputs split over a ``DeviceMesh``: one ``DevicePack`` a mesh
+    device, each covering a contiguous shard of the (B,) lane axis with its
+    own segment ids and the full (S,) totals."""
+
+    mesh: object  # parallel.mesh.DeviceMesh
+    shape: Tuple[int, int]  # (B, S)
+    shards: List[DevicePack]
+    present_host: np.ndarray  # (B,) bool
+
+    def nbytes(self) -> int:
+        return sum(sh.nbytes() for sh in self.shards)
+
+
+def _host_pack(plan, B: int, S: int) -> dict:
+    """The host prologue of a plan, once: the lane vectors padded to B, the
+    totals to S, and the wellformed lanes' keys, signatures, decompressed
+    keys and message lengths."""
+    n = plan.n_lanes
+    h = dict(present=np.zeros((B,), bool), is_vote=np.zeros((B,), bool),
+             power=np.zeros((B,), np.int64), seg_ids=np.full((B,), S - 1, np.int64),
+             totals=np.zeros((S,), np.int64), idx=np.zeros((0,), np.int64))
+    h["totals"][: plan.H] = np.asarray(plan.totals, np.int64)
+    if not n:
+        return h
+    h["is_vote"][:n] = True
+    h["seg_ids"][:n] = plan.seg_ids
+    idx = np.flatnonzero(np.asarray(plan.wellformed, dtype=bool))
+    if idx.size:
+        pubs_a = np.frombuffer(
+            b"".join(_pub_bytes(plan.pubs[j]) for j in idx), np.uint8
+        ).reshape(idx.size, 32)
+        sigs_a = np.frombuffer(
+            b"".join(bytes(plan.sigs[j]) for j in idx), np.uint8
+        ).reshape(idx.size, 64)
+        neg_ax, ay, valid = _k._decompress_valset(pubs_a)
+        valid = valid & ((sigs_a[:, 63] & 224) == 0)  # Go's s check
+        h["present"][idx] = valid
+        h.update(idx=idx, pubs=pubs_a, sigs=sigs_a, neg_ax=neg_ax, ay=ay, valid=valid,
+                 lens=np.fromiter((len(plan.msgs[j]) for j in idx), np.int64, idx.size))
+    h["power"][:n] = np.where(h["present"][:n], np.asarray(plan.powers, np.int64), 0)
+    return h
+
+
+def _upload_lanes(plan, h: dict, lo: int, hi: int, device: torch.device) -> DevicePack:
+    """The lanes [lo, hi) of a host pack on ``device``: per message length,
+    the group's K1 and K2 inputs (``ed25519_cuda.packed_inputs``) and its
+    lanes, numbered from lo."""
+    groups = []
+    sel = np.flatnonzero((h["idx"] >= lo) & (h["idx"] < hi))
+    if sel.size:
+        lens = h["lens"][sel]
+        for ln in np.unique(lens):
+            g = sel[lens == ln]
+            inputs, _ = _k.packed_inputs(
+                h["pubs"][g], [bytes(plan.msgs[h["idx"][i]]) for i in g], h["sigs"][g],
+                h["neg_ax"][g], h["ay"][g], h["valid"][g], int(ln), device)
+            groups.append((torch.from_numpy(h["idx"][g] - lo).to(device), int(g.size),
+                           inputs))
+    put = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(device)  # noqa: E731
+    return DevicePack(device, (hi - lo, h["totals"].shape[0]), groups,
+                      put(h["present"][lo:hi]), put(h["is_vote"][lo:hi]),
+                      put(h["power"][lo:hi]), put(h["seg_ids"][lo:hi]), put(h["totals"]),
+                      h["present"][lo:hi])
+
+
+def pack_device(plan, device: torch.device, mesh=None):
     """Host prologue + upload for the device route: decompress every
     wellformed lane's key (cached per key and per column), split the lanes
     by message length and build each group's K1 and K2 inputs with
-    ``ed25519_cuda.packed_inputs``. A port plan keeps its pack in
-    ``plan.dev``; a plan of another planner with the same fields (the
-    reference's, through its executor seam) is packed afresh each call."""
+    ``ed25519_cuda.packed_inputs``. With a mesh the host work runs once and
+    the lane axis splits into one contiguous shard a mesh device
+    (``MeshPack``); without one the pack is a ``DevicePack`` on ``device``.
+    A port plan keeps its pack in ``plan.dev``; a plan of another planner
+    with the same fields (the reference's, through its executor seam) is
+    packed afresh each call."""
     own = isinstance(plan, WindowPlan)
-    if own and isinstance(plan.dev, DevicePack) and plan.dev.device == device:
-        return plan.dev
-    n = plan.n_lanes
-    B = lanes_bucket(n)
+    hit = plan.dev if own else None
+    if mesh is None and isinstance(hit, DevicePack) and hit.device == device:
+        return hit
+    if mesh is not None and isinstance(hit, MeshPack) and hit.mesh == mesh:
+        return hit
+    B = lanes_bucket(plan.n_lanes, mesh)
     S = segs_bucket(plan.H)
-    present = np.zeros((B,), bool)
-    is_vote = np.zeros((B,), bool)
-    power = np.zeros((B,), np.int64)
-    seg_ids = np.full((B,), S - 1, np.int64)
-    groups = []
-    if n:
-        is_vote[:n] = True
-        seg_ids[:n] = plan.seg_ids
-        idx = np.flatnonzero(np.asarray(plan.wellformed, dtype=bool))
-        if idx.size:
-            pubs_a = np.frombuffer(
-                b"".join(_pub_bytes(plan.pubs[j]) for j in idx), np.uint8
-            ).reshape(idx.size, 32)
-            sigs_a = np.frombuffer(
-                b"".join(bytes(plan.sigs[j]) for j in idx), np.uint8
-            ).reshape(idx.size, 64)
-            neg_ax, ay, valid = _k._decompress_valset(pubs_a)
-            valid = valid & ((sigs_a[:, 63] & 224) == 0)  # Go's s check
-            present[idx] = valid
-            lens = np.fromiter((len(plan.msgs[j]) for j in idx), np.int64, idx.size)
-            for ln in np.unique(lens):
-                g = np.flatnonzero(lens == ln)
-                inputs, _ = _k.packed_inputs(
-                    pubs_a[g], [bytes(plan.msgs[idx[i]]) for i in g], sigs_a[g],
-                    neg_ax[g], ay[g], valid[g], int(ln), device)
-                groups.append((torch.from_numpy(idx[g].astype(np.int64)).to(device),
-                               int(g.size), inputs))
-        power[:n] = np.where(present[:n], np.asarray(plan.powers, np.int64), 0)
-    totals = np.zeros((S,), np.int64)
-    totals[: plan.H] = np.asarray(plan.totals, np.int64)
-    put = lambda a: torch.from_numpy(a).to(device)  # noqa: E731
-    pack = DevicePack(device, (B, S), groups, put(present), put(is_vote),
-                      put(power), put(seg_ids), put(totals), present)
+    h = _host_pack(plan, B, S)
+    if mesh is None:
+        pack = _upload_lanes(plan, h, 0, B, device)
+    else:
+        pack = MeshPack(mesh, (B, S), [_upload_lanes(plan, h, lo, hi, d) for (lo, hi), d
+                                       in zip(mesh.split_rows(B), mesh.flat)], h["present"])
     if own:
         plan.dev, plan.dev_shape = pack, (B, S)
     return pack
@@ -462,6 +519,23 @@ def _planner_step(pack: DevicePack, reduce: str = "device"):
         return ok
     return (ok, *segment_tally(ok, pack.power, pack.is_vote, pack.seg_ids,
                                pack.totals))
+
+
+def _mesh_step(pack: MeshPack, reduce: str = "device"):
+    """``_planner_step`` on every shard, each launched on its own device
+    with no synchronisation between shards, then the fold on the mesh's
+    first device: the verdicts gathered in lane order and, with reduce
+    "device", the shards' int64 tallies and failure counts summed (the
+    reference's psum) before the strict +2/3 compare."""
+    outs = [_planner_step(sh, reduce) for sh in pack.shards]
+    mesh = pack.mesh
+    if reduce == "host":
+        return mesh.gather(outs)
+    dev = mesh.flat[0]
+    tally = torch.stack([o[1].to(dev) for o in outs]).sum(0)
+    nbad = torch.stack([o[3].to(dev) for o in outs]).sum(0)
+    totals = pack.shards[0].totals.to(dev)
+    return mesh.gather([o[0] for o in outs]), tally, tally * 3 > totals * 2, nbad
 
 
 _buckets_seen: set = set()
@@ -590,32 +664,35 @@ def _execute_device_msm(plan, mesh=None, *, device: torch.device) -> WindowVerdi
 
 
 def _execute_device(plan, mesh=None, *, device: torch.device) -> WindowVerdict:
-    """Pack, run ``_planner_step`` and read the verdict and tallies back
-    with one synchronisation (one ``.cpu()``); on the MSM path,
-    ``_execute_device_msm``."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "a mesh (the multi-GPU lane split) is ported by ROADMAP queue 1 item 4b (iii)")
+    """Pack, run ``_planner_step`` (``_mesh_step`` over a mesh's shards, on
+    the mesh's devices) and read the verdict and tallies back with one
+    synchronisation (one ``.cpu()``); on the MSM path, which does not
+    consult the mesh, ``_execute_device_msm``."""
     if _resolve_ed25519_path(None) == "msm":
         return _execute_device_msm(plan, mesh, device=device)
     t_pack = time.perf_counter()
     with trace.span("planner.pack_device", H=plan.H, n=plan.n_lanes):
-        pack = pack_device(plan, device)
+        # the two-argument call without a mesh keeps the seam the tests
+        # fault (a ``pack_device(plan, device)`` stand-in)
+        pack = pack_device(plan, device) if mesh is None else pack_device(plan, device, mesh)
     pack_seconds = plan.pack_seconds + (time.perf_counter() - t_pack)
     B, S = pack.shape
     H, n = plan.H, plan.n_lanes
     reduce = _reduce_mode
-    compiled = _note_bucket((device, B, S, reduce))
+    compiled = _note_bucket((device if mesh is None else mesh, B, S, reduce))
+    step = _planner_step if mesh is None else _mesh_step
+    backend = "planner" if mesh is None else "planner_mesh"
+    n_devices = 1 if mesh is None else mesh.size
     t0 = time.perf_counter()
     with trace.span(
-        "planner.dispatch", backend="planner", H=H, lanes=B, n=n,
+        "planner.dispatch", backend=backend, H=H, lanes=B, n=n,
         windows=plan.n_windows, compiled=compiled,
     ):
         if reduce == "host":
-            ok_l = _planner_step(pack, "host").cpu().numpy()[:n]
+            ok_l = step(pack, "host").cpu().numpy()[:n]
             tally, committed, nbad = _host_reduce(plan, ok_l)
         else:
-            ok, tally_d, committed_d, nbad_d = _planner_step(pack)
+            ok, tally_d, committed_d, nbad_d = step(pack)
             out = torch.cat([ok.to(torch.int64), tally_d,
                              committed_d.to(torch.int64), nbad_d]).cpu().numpy()
             ok_l = out[:n] != 0
@@ -629,15 +706,18 @@ def _execute_device(plan, mesh=None, *, device: torch.device) -> WindowVerdict:
         # rejects = lanes that passed the host prechecks but failed the
         # device verify (the reference's definition)
         m.record_dispatch(
-            "planner", "ed25519", n, dt,
+            backend, "ed25519", n, dt,
             rejects=int(np.count_nonzero(pack.present_host[:n] & ~ok_l)),
             first=compiled, fe_backend=FE_BACKEND, carry_mode=CARRY_MODE,
             ed25519_path="ladder",
         )
-        m.record_device_shards(
-            (device.index if device.index is not None else device.type,), B)
+        if mesh is None:
+            m.record_device_shards(
+                (device.index if device.index is not None else device.type,), B)
+        else:
+            m.record_device_shards(mesh.labels(), B // n_devices)
         get_profiler().record(
-            "planner",
+            backend,
             bucket=(B, S),
             lanes_present=n,
             lanes_dispatched=B,
@@ -650,7 +730,7 @@ def _execute_device(plan, mesh=None, *, device: torch.device) -> WindowVerdict:
             carry_mode=CARRY_MODE,
             ed25519_path="ladder",
             n_windows=plan.n_windows,
-            n_devices=1,
+            n_devices=n_devices,
         )
     except Exception:
         pass
@@ -684,8 +764,11 @@ def device_executor(device: DeviceLike = None):
 
 
 def _execute_default_device(plan, mesh=None) -> WindowVerdict:
-    """The executor when none is installed: the current CUDA device (which
-    raises when there is none). It counts as on the card for the guard."""
+    """The executor when none is installed: the mesh's devices when a mesh
+    is given, else the current CUDA device (which raises when there is
+    none). Without a mesh it counts as on the card for the guard."""
+    if mesh is not None:
+        return _execute_device(plan, mesh, device=mesh.flat[0])
     return device_executor(None)(plan, mesh)
 
 
@@ -776,6 +859,15 @@ def _executor_on_card(exe) -> bool:
     ``.device`` is CUDA: where the guard raises rather than complete a
     window on the host."""
     return exe is _execute_default_device or _brk.on_card(exe)
+
+
+def _dispatch_on_card(exe, mesh) -> bool:
+    """Where a guarded dispatch of ``exe`` over ``mesh`` runs on the card:
+    the default executor runs on the mesh's devices when one is given;
+    any other runs on the card if its ``.device`` or the mesh is CUDA."""
+    if mesh is not None and exe is _execute_default_device:
+        return mesh.on_card()
+    return _executor_on_card(exe) or (mesh is not None and mesh.on_card())
 
 
 def executor_on_card() -> bool:
@@ -872,7 +964,7 @@ def _execute_device_guarded(plan, mesh=None, verifier=None) -> WindowVerdict:
     br = _brk.get_device_breaker()
     cfg = _brk.guard_config()
     exe = _installed_executor()
-    card = _executor_on_card(exe)
+    card = _dispatch_on_card(exe, mesh)
     if not br.allow():
         reason = (
             "quarantined" if br.state == _brk.QUARANTINED else "breaker_open"
@@ -1054,7 +1146,7 @@ class WindowPipeline:
         except Exception as e:
             if not self._device_route(plan):
                 raise
-            card = _executor_on_card(_installed_executor())
+            card = _dispatch_on_card(_installed_executor(), self.mesh)
             _brk.get_device_breaker().record_failure("pipeline_error")
             _note_device_fallback("pipeline_error", plan, card)
             if card:
@@ -1226,7 +1318,6 @@ class _GroupFeed:
 
     def __init__(self, mesh, verifier, use_device, window_s, max_rows,
                  profile_kind, on_flush):
-        windows_per_dispatch(mesh)  # a mesh raises here, not in the worker
         self.mesh = mesh
         self.verifier = verifier
         self.use_device = use_device

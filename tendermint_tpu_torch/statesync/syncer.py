@@ -29,8 +29,9 @@ raised past the snapshot loop, so the snapshot is not rejected, no peer is
 banned and nothing is persisted; the reactor does not hand off. The app
 has taken the chunks by then and stays restored, as the reference leaves
 it after any late failure. Off the card the reference's behaviour stays.
-A mesh (the multi-GPU lane split) is ROADMAP queue 1 item 4b (iii):
-``mesh=`` raises ``NotImplementedError``.
+With ``mesh=`` (a ``parallel.mesh.DeviceMesh``) the backfill's
+``WindowPipeline`` splits each sub-window's lanes over the mesh's devices,
+as the reference passes its mesh to its pipeline.
 """
 
 from __future__ import annotations
@@ -53,9 +54,6 @@ from tendermint_tpu_torch.state.execution import _verifier_on_card
 from tendermint_tpu_torch.state.state_types import State
 from tendermint_tpu_torch.statesync import chunker
 from tendermint_tpu_torch.types.validator_set import CommitError
-
-_MESH = "a mesh (the multi-GPU lane split) is ported by ROADMAP queue 1 item 4b (iii)"
-
 
 class StateSyncError(Exception):
     """The restore cannot proceed (bad trust root, app abort, no peers...)."""
@@ -107,12 +105,10 @@ class StateSyncer:
         state_db,
         block_store,
         batch_verifier=None,  # the trust hops' verifier; None: the installed one
-        mesh=None,
+        mesh=None,  # DeviceMesh for the backfill's device route
         metrics=None,
         logger: Optional[logging.Logger] = None,
     ):
-        if mesh is not None:
-            raise NotImplementedError(_MESH)
         self.config = config
         self.chain_id = chain_id
         self.genesis = genesis
@@ -120,6 +116,7 @@ class StateSyncer:
         self.state_db = state_db
         self.block_store = block_store
         self.batch_verifier = batch_verifier
+        self.mesh = mesh
         self.metrics = metrics or get_statesync_metrics()
         self.logger = logger or logging.getLogger("statesync")
         # the device fault that halted the restore (on the card only)
@@ -385,8 +382,8 @@ class StateSyncer:
         the planner's ``WindowVerdict``, shared with fast sync."""
         if not fcs:
             raise _SnapshotRejected("empty backfill window")
-        pipe = planner.WindowPipeline(verifier=self.batch_verifier, use_device=True,
-                                      depth=planner.pipeline_depth())
+        pipe = planner.WindowPipeline(mesh=self.mesh, verifier=self.batch_verifier,
+                                      use_device=True, depth=planner.pipeline_depth())
         off = 0
         try:
             # one profiler row for the whole backfill: the sub-window
@@ -403,7 +400,8 @@ class StateSyncer:
                                 f"insufficient voting power in backfill commit at {fc.height}")
                     off += len(sub)
         except _brk.DeviceDispatchError as e:
-            self._halt_on_card(e, planner._executor_on_card(planner._installed_executor()))
+            self._halt_on_card(e, planner._dispatch_on_card(planner._installed_executor(),
+                                                            self.mesh))
             raise
 
     def _persist_backfill(self, fcs: List[FullCommit]) -> None:

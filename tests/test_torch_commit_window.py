@@ -25,6 +25,7 @@ from tendermint_tpu_torch.libs.metrics import get_verify_metrics
 from tendermint_tpu_torch.libs.profile import get_profiler
 from tendermint_tpu_torch.ops import ed25519_cuda as ec
 from tendermint_tpu_torch.parallel import commit_verify as cv
+from tendermint_tpu_torch.parallel.mesh import DeviceMesh
 
 from tests.test_planner import _ragged_window, _signed
 
@@ -192,9 +193,15 @@ class TestCommitWindow:
         _assert_verdict(cv.verify_commit_window(win, 6, device="cpu"), want)
 
     def test_a_mesh_raises(self):
-        win, _ = _both(*_grid_window(1, 2))
-        with pytest.raises(NotImplementedError, match=r"item 4b \(iii\)"):
-            cv.verify_commit_window(win, 3, mesh=object(), device="cpu")
+        """A mesh no longer raises: a 1 x 2 window padded to a 2 x 2 mesh of
+        CPU devices, one block a device, gives the reference's verdict,
+        labelled "window_mesh" with four shards."""
+        win, jwin = _both(*_grid_window(1, 2))
+        mesh = DeviceMesh(["cpu"] * 4, (2, 2), ("height", "val"))
+        _assert_verdict(cv.verify_commit_window(win, 3, mesh=mesh),
+                        jcv._verify_window_host(jwin, 3))
+        entry = get_profiler().entries()[-1]
+        assert (entry["kind"], entry["n_devices"], entry["bucket"]) == ("window_mesh", 4, [2, 2])
 
     def test_no_device_and_no_card_raises(self):
         if torch.cuda.is_available():

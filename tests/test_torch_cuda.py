@@ -14,7 +14,10 @@ from tendermint_tpu_torch.crypto import ed25519 as ted
 from tendermint_tpu_torch.crypto import secp256k1 as ts
 from tendermint_tpu_torch.ops import ed25519_cuda as ec
 from tendermint_tpu_torch.ops import ed25519_msm as em
+from tendermint_tpu_torch.ops import ed25519_verify as k5
 from tendermint_tpu_torch.ops import secp256k1_cuda as sc
+from tendermint_tpu_torch.ops import secp256k1_verify as k6
+from tendermint_tpu_torch.parallel.mesh import DeviceMesh
 from tendermint_tpu_torch.testutil import commit as tc
 
 pytestmark = pytest.mark.cuda
@@ -482,3 +485,63 @@ def test_rlc_verify_batch_on_the_card(cuda):
     assert em.launches["ed25519_msm"] == before + 1
     assert np.array_equal(got, ec.rlc_verify_batch(pa, msgs, sa, device="cpu", seed=1234))
     assert np.array_equal(got, ec.verify_batch(pa, msgs, sa, device=cuda))
+
+
+def test_k5_kernel_vs_plain(cuda):
+    """K5 (the bit-serial ed25519 ladder) against its plain version on the
+    card: the Go-edge window and seeded rows, 300 rows in a ragged last
+    block, exact on every row, one launch."""
+    rng = np.random.default_rng(55)
+    pubs, msgs, sigs, _ = tc.go_edge_window(seed=2)
+    while len(pubs) < 300:
+        priv = ted.gen_privkey(rng.bytes(32))
+        msg = rng.bytes(int(rng.integers(0, 200)))
+        pubs.append(priv[32:])
+        msgs.append(msg)
+        sigs.append(ted.sign(priv, msg))
+    pa = np.frombuffer(b"".join(pubs), np.uint8).reshape(-1, 32)
+    sa = np.frombuffer(b"".join(sigs), np.uint8).reshape(-1, 64)
+    *host, valid = k5.host_prologue(pa, msgs, sa)
+    ins = k5.upload(host, cuda)
+    before = k5.launches["ed25519_verify"]
+    ok = k5.verify_rows(*ins)
+    torch.cuda.synchronize()
+    assert k5.launches["ed25519_verify"] == before + 1
+    assert torch.equal(ok.cpu(), k5.verify_ref(*ins).cpu())
+    assert np.array_equal((ok.cpu().numpy() != 0) & valid, ec.verify_batch(pa, msgs, sa,
+                                                                          device=cuda))
+
+
+def test_k6_kernel_vs_plain(cuda):
+    """K6 (the bit-serial secp256k1 ladder) against its plain version on
+    the card: the secp256k1 edge window and seeded rows, exact."""
+    rng = np.random.default_rng(56)
+    pubs, digs, sigs, _ = tc.secp_edge_window(seed=3)
+    while len(pubs) < 200:
+        priv = ts.gen_privkey(rng.bytes(32))
+        dig = rng.bytes(32)
+        pubs.append(ts.pubkey_compressed(priv))
+        digs.append(dig)
+        sigs.append(ts.sign(priv, dig))
+    host, forced = k6.pack_rows(pubs, digs, sigs, len(pubs))
+    ins = k6.upload(host, cuda)
+    ok = k6.verify_rows(*ins)
+    torch.cuda.synchronize()
+    assert torch.equal(ok.cpu(), k6.verify_ref(*ins).cpu())
+    got = np.where(forced >= 0, forced.astype(bool), ok.cpu().numpy() != 0)
+    assert got.tolist() == [ts.verify(p, d, g) for p, d, g in zip(pubs, digs, sigs)]
+
+
+def test_a_mesh_of_one_card(cuda):
+    """Four shards on one card: K5 and K6 once a shard that holds rows, the
+    verdicts the unsharded call's."""
+    mesh = DeviceMesh([cuda] * 4)
+    pa, msgs, sa = _window()
+    before = k5.launches["ed25519_verify"]
+    got = k5.verify_batch(pa, msgs, sa, mesh)
+    # 20 rows in a bucket of 64: shards of 16, two of them hold rows
+    assert k5.launches["ed25519_verify"] == before + 2
+    assert np.array_equal(got, k5.verify_batch(pa, msgs, sa, device=cuda))
+    pubs, digs, sigs, _ = tc.secp_edge_window(seed=4)
+    assert np.array_equal(k6.verify_batch(pubs, digs, sigs, mesh),
+                          k6.verify_batch(pubs, digs, sigs, device=cuda))

@@ -14,9 +14,8 @@ verifier on ``device="cpu"`` (the kernels' plain versions) at
 
 Not restated here: ``TestFastSyncIntegration`` (a late joiner through real
 switches and consensus) waits for ROADMAP item 17 (the p2p stack and
-consensus), and ``TestVerifyBlockWindowSharded`` (the mesh) for item 4b
-(iii); ``mesh=`` raises ``NotImplementedError`` on the port. Every wait is
-bounded by a deadline.
+consensus); ``TestVerifyBlockWindowSharded`` (the mesh) is restated in
+``tests/test_torch_mesh.py``. Every wait is bounded by a deadline.
 """
 
 import base64
@@ -55,7 +54,9 @@ from tendermint_tpu_torch.crypto import keys
 from tendermint_tpu_torch.crypto.batch import HostBatchVerifier
 from tendermint_tpu_torch.libs.db import kv as kvdb
 from tendermint_tpu_torch.node import verify_root
+from tendermint_tpu_torch.libs.profile import get_profiler
 from tendermint_tpu_torch.p2p.base_reactor import Reactor
+from tendermint_tpu_torch.parallel.mesh import DeviceMesh
 from tendermint_tpu_torch.proxy import app_conn
 from tendermint_tpu_torch.state import execution
 from tendermint_tpu_torch.state import state_types as st_types
@@ -616,13 +617,22 @@ def test_verify_root_wires_the_installed_guarded_verifier(_verifiers):
 
 
 def test_a_mesh_is_not_ported():
+    """The mesh is ported: ``verify_block_window(mesh=)`` splits the
+    window's lanes over four CPU shards (the planner's device route,
+    "planner_mesh") and verifies what the flat verifier route verifies,
+    part for part; ``BlockchainReactor(mesh=)`` keeps its mesh."""
     fx = vbw_chain("port")
     st = PORT.st.state_from_genesis(fx.genesis)
-    with pytest.raises(NotImplementedError, match="4b"):
-        reactor.verify_block_window(st, load_blocks(fx), mesh=object())
+    mesh = DeviceMesh(["cpu"] * 4)
+    flat_parts, mesh_parts = [], []
+    flat = reactor.verify_block_window(st, load_blocks(fx), parts_out=flat_parts)
+    sharded = reactor.verify_block_window(st, load_blocks(fx), parts_out=mesh_parts, mesh=mesh)
+    assert flat == sharded == (fx.height - 1, None)
+    assert [p.header() for p in flat_parts] == [p.header() for p in mesh_parts]
+    entry = get_profiler().entries()[-1]
+    assert (entry["kind"], entry["n_devices"]) == ("planner_mesh", 4)
     st, ex = fresh_executor(PORT, fx.genesis)
-    with pytest.raises(NotImplementedError, match="4b"):
-        reactor.BlockchainReactor(st, ex, PORT.BlockStore(PORT.MemDB()), mesh=object())
+    assert reactor.BlockchainReactor(st, ex, PORT.BlockStore(PORT.MemDB()), mesh=mesh).mesh is mesh
 
 
 # -- tools/bench_fastsync ---------------------------------------------------------------

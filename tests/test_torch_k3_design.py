@@ -19,6 +19,7 @@ import pytest
 import torch
 
 from tendermint_tpu_torch.crypto import secp256k1 as ts
+from tendermint_tpu_torch.ops import _build
 from tendermint_tpu_torch.ops import fe_secp256k1 as F
 from tendermint_tpu_torch.ops import imad_probe
 from tendermint_tpu_torch.ops import secp256k1_cuda as sc
@@ -26,7 +27,9 @@ from tendermint_tpu_torch.tools import k3_compare
 
 P = F.P
 S = F.closed_set()
-SRC = (Path(sc.__file__).parent / "csrc" / "secp256k1_ladder.cu").read_text()
+# K3's source with the field header it includes (csrc/secp256k1_field.cuh)
+SRC = _build._source_bytes(Path(sc.__file__).parent / "csrc" / "secp256k1_ladder.cu",
+                           set()).decode()
 NPTS = 64
 SMEM_LIMIT = 232_448  # dynamic shared memory one block may use on Hopper
 

@@ -23,6 +23,7 @@ from tendermint_tpu_torch.frontend.aggregator import BatchingVerifier
 from tendermint_tpu_torch.libs import breaker as brk
 from tendermint_tpu_torch.libs.profile import get_profiler
 from tendermint_tpu_torch.parallel import planner
+from tendermint_tpu_torch.parallel.mesh import DeviceMesh
 from tendermint_tpu_torch.testutil import commit as tc
 from tendermint_tpu_torch.types.validator_set import CommitError
 
@@ -221,8 +222,25 @@ def test_on_flush_sees_every_dispatch(feeds):
 
 
 def test_a_mesh_is_refused_at_construction():
-    with pytest.raises(NotImplementedError, match=r"item 4b \(iii\)"):
-        planner.LaneFeed(mesh=object())
+    """A mesh is taken now: the feed's superdispatch budget scales with the
+    mesh's devices and its dispatch splits the lanes over them (the
+    device route, "planner_mesh"), with the verdict a flat call gives."""
+    mesh = DeviceMesh(["cpu"] * 2)
+    row = _row(3, 99)
+    want = planner.verify_window([row], [[1, 1, 1]], [3], use_device=False,
+                                 verifier=tbatch.HostBatchVerifier())
+    feed = planner.LaneFeed(mesh=mesh, window_s=LONG)
+    get_profiler().reset()
+    try:
+        assert feed.mesh is mesh
+        assert planner.windows_per_dispatch(mesh) == 2 * planner.windows_per_dispatch()
+        got = feed.submit(row, [1, 1, 1], 3)
+        feed.flush_now()
+        verdict = got.result(TIMEOUT)
+        assert np.array_equal(verdict.ok, want.ok[0]) and verdict.committed == want.committed[0]
+        assert [e["kind"] for e in get_profiler().entries()] == ["planner_mesh", "lane_feed"]
+    finally:
+        feed.close()
 
 
 # -- BatchingVerifier --------------------------------------------------------

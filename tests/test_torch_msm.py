@@ -35,6 +35,7 @@ from tendermint_tpu_torch.ops import ed25519_cuda as ec
 from tendermint_tpu_torch.ops import ed25519_msm as tm
 from tendermint_tpu_torch.ops import fe
 from tendermint_tpu_torch.parallel import planner
+from tendermint_tpu_torch.parallel.mesh import DeviceMesh
 from tendermint_tpu_torch.testutil import commit as tc
 
 from tests.test_msm_path import _adversarial_window, _corpus, _np_batch
@@ -608,9 +609,13 @@ class TestPlannerMsm:
             planner.verify_window(votes, powers, totals, use_device=True)
         rows = prof.ledger()
         assert rows[-1]["ed25519_paths"] == ["msm"]
-        with pytest.raises(NotImplementedError, match=r"item 4b \(iii\)"):
-            planner.device_executor("cpu")(planner.plan_window(votes, powers, totals),
-                                           mesh=object())
+        # the msm executor ignores a mesh, as the reference's does: one
+        # "planner_msm" dispatch on the executor's device, the same verdict
+        got = planner.device_executor("cpu")(planner.plan_window(votes, powers, totals),
+                                             mesh=DeviceMesh(["cpu"] * 2))
+        entry = prof.entries()[-1]
+        assert (entry["kind"], entry["n_devices"]) == ("planner_msm", 1)
+        assert got.ok.all() and got.committed.all()
 
 
 class TestObservability:

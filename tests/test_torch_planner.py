@@ -20,7 +20,9 @@ from tendermint_tpu_torch.crypto import secp256k1 as tsecp
 from tendermint_tpu_torch.crypto.keys import PubKeyEd25519 as TEd
 from tendermint_tpu_torch.crypto.keys import PubKeySecp256k1 as TSecp
 from tendermint_tpu_torch.libs import breaker as brk
+from tendermint_tpu_torch.libs.profile import get_profiler
 from tendermint_tpu_torch.parallel import planner
+from tendermint_tpu_torch.parallel.mesh import DeviceMesh
 from tendermint_tpu_torch.testutil import commit as tc
 from tendermint_tpu_torch.testutil import secp_signer
 
@@ -318,8 +320,8 @@ def test_configure_planner_knobs():
         Cfg.pipeline_depth, Cfg.windows_per_device, Cfg.planner_reduce = 0, -2, "device"
         planner.configure_planner(Cfg())  # floors of 1, as the reference's
         assert (planner.pipeline_depth(), planner.windows_per_dispatch()) == (1, 1)
-        with pytest.raises(NotImplementedError, match=r"item 4b \(iii\)"):
-            planner.windows_per_dispatch(mesh=object())
+        # the per-device budget times the mesh's devices
+        assert planner.windows_per_dispatch(mesh=DeviceMesh(["cpu"] * 3)) == 3
     finally:
         planner.configure_planner(None)
     assert planner.reduce_mode() == "device"
@@ -327,10 +329,18 @@ def test_configure_planner_knobs():
 
 
 def test_mesh_is_not_ported():
-    votes, powers, totals = _ragged_window([2], tag=8)
+    """The executor takes a mesh now: the lanes split over two CPU shards
+    and the verdict equals the single-device executor's and the
+    reference's, labelled "planner_mesh"."""
+    votes, powers, totals = _ragged_window([2, 3], forged={(1, 1)}, tag=8)
     plan = planner.plan_window(votes, powers, totals)
-    with pytest.raises(NotImplementedError, match="item 4b"):
-        planner.device_executor("cpu")(plan, mesh=object())
+    got = planner.device_executor("cpu")(plan, mesh=DeviceMesh(["cpu"] * 2))
+    entry = get_profiler().entries()[-1]
+    assert (entry["kind"], entry["n_devices"]) == ("planner_mesh", 2)
+    want = _reference(votes, powers, totals)
+    _assert_equal(got, want)
+    _assert_equal(planner.device_executor("cpu")(planner.plan_window(votes, powers, totals)),
+                  want)
 
 
 def _reference_profiler_kind():

@@ -33,6 +33,7 @@ from tendermint_tpu_torch.crypto import hashing as thash
 from tendermint_tpu_torch.crypto import keys as tkeys
 from tendermint_tpu_torch.crypto import secp256k1 as ts
 from tendermint_tpu_torch.crypto.hashing import sha256
+from tendermint_tpu_torch.ops import _build
 from tendermint_tpu_torch.ops import fe_secp256k1 as F
 from tendermint_tpu_torch.ops import secp256k1_cuda as sc
 from tendermint_tpu_torch.testutil import commit as tc
@@ -173,7 +174,9 @@ def _c_const(src: str, name: str) -> int:
 
 
 def test_kernel_source_constants():
-    src = (Path(sc.__file__).parent / "csrc" / "secp256k1_ladder.cu").read_text()
+    # the kernel's source with the field header it includes
+    src = _build._source_bytes(Path(sc.__file__).parent / "csrc" / "secp256k1_ladder.cu",
+                               set()).decode()
     assert tuple(_c_array(src, "KSUB")) == F.K_SUB
     for name in ("TOP_LO", "TOP_HI", "FOLD_LO", "FOLD_HI", "FOLD19_LO",
                  "FOLD19_HI", "B3"):

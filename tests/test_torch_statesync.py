@@ -62,7 +62,9 @@ from tendermint_tpu_torch.libs.metrics import StateSyncMetrics
 from tendermint_tpu_torch.lite.provider import NodeProvider
 from tendermint_tpu_torch.node import verify_root
 from tendermint_tpu_torch.parallel import commit_verify as cv
+from tendermint_tpu_torch.libs.profile import get_profiler
 from tendermint_tpu_torch.parallel import planner
+from tendermint_tpu_torch.parallel.mesh import DeviceMesh
 from tendermint_tpu_torch.proxy import app_conn
 from tendermint_tpu_torch.state import execution
 from tendermint_tpu_torch.state import state_types as st_types
@@ -566,10 +568,17 @@ def test_backfill_empty_window_rejected(pkg):
 
 
 def test_the_syncer_refuses_a_mesh():
+    """The syncer takes a mesh now: its backfill's pipeline splits each
+    sub-window's lanes over the mesh ("planner_mesh") and accepts the
+    valid window the flat backfill accepts."""
     fx = bf_chain(PORT)
-    with pytest.raises(NotImplementedError, match="4b"):
-        StateSyncer(StateSyncConfig(), fx.chain_id, fx.genesis, None, MemDB(),
-                    BlockStore(MemDB()), mesh=object())
+    mesh = DeviceMesh(["cpu"] * 2)
+    syncer = StateSyncer(StateSyncConfig(), fx.chain_id, fx.genesis, None, MemDB(),
+                         BlockStore(MemDB()), mesh=mesh)
+    assert syncer.mesh is mesh
+    syncer._verify_backfill_window(window(PORT, fx, 6, 9))  # no raise
+    entry = get_profiler().entries()[-1]
+    assert (entry["kind"], entry["n_devices"]) == ("planner_mesh", 2)
 
 
 # -- TestStateSyncEndToEnd ---------------------------------------------------------------------

@@ -33,6 +33,7 @@ from tendermint_tpu_torch.libs import breaker as brk
 from tendermint_tpu_torch.libs.metrics import get_mempool_batch_metrics, get_verify_metrics
 from tendermint_tpu_torch.mempool.tx_verify import BatchTxVerifier
 from tendermint_tpu_torch.parallel import planner
+from tendermint_tpu_torch.parallel.mesh import DeviceMesh
 from tendermint_tpu_torch.testutil import votes as tv
 
 LONG = 30.0
@@ -229,8 +230,10 @@ def test_tx_feed_defaults_and_the_card():
     feed = planner.TxFeed(device="cpu")
     assert isinstance(feed.verifier, tbatch.RLCHostVerifier)
     assert (feed.profile_kind, feed.txs_in) == ("mempool.tx_batch", 0)
-    with pytest.raises(NotImplementedError):
-        planner.TxFeed(mesh=object(), device="cpu")
+    mesh = DeviceMesh(["cpu"] * 2)  # taken now: the budget scales with its devices
+    meshed = planner.TxFeed(mesh=mesh, device="cpu")
+    assert meshed.mesh is mesh and planner.windows_per_dispatch(mesh) == 8
+    meshed.close()
     if not torch.cuda.is_available():
         with pytest.raises(NoCudaDeviceError):
             planner.TxFeed()

@@ -35,6 +35,7 @@ from tendermint_tpu_torch.libs.metrics import (
 from tendermint_tpu_torch.libs.profile import get_profiler
 from tendermint_tpu_torch.node.verify_root import vote_feed
 from tendermint_tpu_torch.parallel import planner
+from tendermint_tpu_torch.parallel.mesh import DeviceMesh
 from tendermint_tpu_torch.testutil import votes as tv
 from tendermint_tpu_torch.types.core import SignedMsgType
 from tendermint_tpu_torch.types.priv_validator import MockPV
@@ -441,8 +442,10 @@ def test_the_cpu_default_verifier_is_rlc_and_a_mesh_raises():
     assert feed.device == torch.device("cpu")
     explicit = tbatch.HostBatchVerifier()
     assert planner.VoteFeed(device="cpu", verifier=explicit).verifier is explicit
-    with pytest.raises(NotImplementedError):
-        planner.VoteFeed(mesh=object(), device="cpu")
+    mesh = DeviceMesh(["cpu"] * 2)  # taken now: the budget scales with its devices
+    meshed = planner.VoteFeed(mesh=mesh, device="cpu")
+    assert meshed.mesh is mesh and planner.windows_per_dispatch(mesh) == 8
+    meshed.close()
 
 
 @no_cuda
