@@ -525,13 +525,18 @@ Phases, in order; any failure exits non-zero:
              DeviceMesh of four shards (cuda:0 four times on one card, the
              distinct cards in turn where there are more), on a [verify]
              root of its own whose audit samples 0.5 % of a dispatch's
-             lanes. (a) K5 (the bit-serial ed25519 ladder) against its
-             plain version on the card at N = 10,240: the 10k commit's
-             rows, its last 20 the Go edge window's (a flipped bit, a
-             non-canonical R, an s with its top bits set, an order-8 key),
-             exact on every row, the verdicts Go's; its time over 20
-             launches beside its bound (products at the IMAD.WIDE rate).
-             (b) K6 the same way on the 10k secp256k1 commit with the
+             lanes. (a) K5 (K2's windowed two-lane ed25519 ladder, its
+             digits from the scalars' bit words) against its plain version
+             (the reference's bit-serial ladder) on the card at N = 10,240:
+             the 10k commit's rows, its last 20 the Go edge window's (a
+             flipped bit, a non-canonical R, an s with its top bits set, an
+             order-8 key), exact on every row, the verdicts Go's; then on
+             the first 2,560 and 3,072 rows (a quarter of N, and the shard
+             the mesh route launches), exact against the same rows of the
+             plain run; each time over 20 launches beside its bound over
+             this design's products and over the reference's (at the
+             IMAD.WIDE rate), with registers, stack and spills.
+             (b) K6 (K3's design) the same way on the 10k secp256k1 commit with the
              secp256k1 edge window's rows. (c) both 10k commits through
              TorchBatchVerifier(mesh=): K5 and K6 once a shard, the verdicts
              the unsharded verifier's. (d) the 512 x 64 window of phase 10
@@ -6039,6 +6044,10 @@ MESH_AUDIT_RATE = 0.005  # the phase's guarded dispatches audit 0.5 % of their l
 K5_REPLACES = "tendermint_tpu/ops/ed25519_verify.py:343"
 K6_REPLACES = "tendermint_tpu/ops/secp256k1_verify.py:330"
 MESH_KERNELS = ("ed25519_verify", "secp256k1_verify")
+# K5 and K6 alone at shard sizes: a quarter of N = 10,240, and the shard the
+# mesh route launches for the 10k commit (the reference's bucket, 12,288,
+# over four devices)
+MESH_SHARD_ROWS = (2_560, 3_072)
 
 
 def mesh_devices() -> list:
@@ -6051,6 +6060,46 @@ def mesh_devices() -> list:
 def edge_rows(rows: list, edges: list) -> list:
     """``rows`` with its last len(edges) rows replaced by ``edges``."""
     return rows[: len(rows) - len(edges)] + edges
+
+
+def ladder_resources(name: str) -> dict:
+    """Registers, stack and spills of library ``name``'s ladder kernel."""
+    return next((r for r in kernel_resources(name).values() if "registers" in r), {})
+
+
+def mesh_ladder(name: str, head: str, verify_rows, geometry, ins, ref, plain_ms: float, ops,
+                per_row: int, mul_rate: float, err: dict) -> dict:
+    """K5 or K6 on every row of ``ins`` (N) and on its first b rows for
+    each b of MESH_SHARD_ROWS: exact against the same rows of the full
+    plain run ``ref`` (rows are independent) and timed, each with its bound
+    over this design's products (``per_row`` a row, whatever the scalars)
+    and, beside it, over the reference's bit-serial products on those rows
+    (``ops(b)``, more); prints ``head``'s line."""
+    n = ins[0].shape[1]
+    sizes = {}
+    for b in (n, *MESH_SHARD_ROWS):
+        sub = ins if b == n else tuple(t[:, :b].contiguous() for t in ins)
+        got = verify_rows(*sub)
+        worst = max_abs_diff((got,), (ref[:b],))
+        err[name] = max(err.get(name, 0), worst)
+        check(worst == 0, f"{name} at b = {b} differs from its plain version: {worst}")
+        sizes[b] = {"ms": cuda_ms(lambda: verify_rows(*sub)),
+                    "bound": least_ms(sub, (got,), per_row * b, mul_rate),
+                    "reference_bound": least_ms(sub, (got,), ops(b), mul_rate)}
+    res = sizes.pop(n)
+    ms, bound, ref_bound = res["ms"], res["bound"], res["reference_bound"]
+    lanes, rpb, blocks, smem = geometry(n)
+    print(f"  {head}; {ms:.4f} ms at N = {n} (20 launches; plain {plain_ms:.1f} ms), bound "
+          f"{bound[0]:.4f} ms by {bound[1]} over this design's {per_row:,} products a row "
+          f"({bound[0] / ms:.1%} of it), {ref_bound[0]:.4f} ms over the reference's "
+          f"{ops(n):,} ({ref_bound[0] / ms:.1%}); "
+          + "; ".join(f"b = {b}: {v['ms']:.4f} ms, exact, {v['bound'][0] / v['ms']:.1%} of "
+                      f"{v['bound'][0]:.4f} ({v['reference_bound'][0] / v['ms']:.1%} of "
+                      f"{v['reference_bound'][0]:.4f})" for b, v in sizes.items())
+          + f"; {lanes} lanes a row, {rpb} rows a block, {blocks} blocks, {smem:,} bytes of "
+          f"shared memory; {registers(name)}", flush=True)
+    return {**res, "plain_ms": plain_ms, "products": per_row * n, "reference_products": ops(n),
+            "shards": sizes, "resources": ladder_resources(name), "b": n}
 
 
 def mesh_k5(dev, sc_: tc.SignedCommit, mul_rate: float, err: dict) -> dict:
@@ -6067,10 +6116,7 @@ def mesh_k5(dev, sc_: tc.SignedCommit, mul_rate: float, err: dict) -> dict:
     host = [ec._pad_rows(np.asarray(a), b) for a in host]
     ins = k5v.upload(host, dev)
     out = k5v.verify_rows(*ins)
-    ref, plain_ms = cuda_once(lambda: k5v.verify_ref(*ins))
-    worst = max_abs_diff((out,), (ref,))
-    err["ed25519_verify"] = worst
-    check(worst == 0, f"K5 differs from its plain version: {worst}")
+    ref, plain_ms = cuda_once(lambda: k5v.verify_ref(*ins))  # held against it in mesh_ladder
     ok = (out[: len(pubs)].cpu().numpy() != 0) & valid
     n_edge = len(e_pubs)
     check(bool(ok[: -n_edge].all()), "K5: a commit row was rejected")
@@ -6078,16 +6124,16 @@ def mesh_k5(dev, sc_: tc.SignedCommit, mul_rate: float, err: dict) -> dict:
         want_v = ed._verify_pure(e_pubs[j], e_msgs[j], e_sigs[j]) if want_v is None else want_v
         check(bool(ok[len(pubs) - n_edge + j]) == want_v,
               f"K5 edge row {j}: {ok[len(pubs) - n_edge + j]}, want {want_v}")
-    ms = cuda_ms(lambda: k5v.verify_rows(*ins))
-    muls, squarings = k5v.k5_fe_ops(host[2], host[3])
-    ops = muls * fe.NLIMB ** 2 + squarings * fe.NLIMB * (fe.NLIMB + 1) // 2
-    threads, blocks = k5v.k5_geometry(b)
-    print(f"  (a) K5 {ms:.4f} ms at N = {b} (20 launches; plain {plain_ms:.1f} ms), exact on "
-          f"every row, the {n_edge} Go edge rows' verdicts Go's; {muls:,} multiplications and "
-          f"{squarings:,} squarings ({ops:,} products); {threads} threads a block, {blocks} "
-          f"blocks; {registers('ed25519_verify')}", flush=True)
-    return {"ms": ms, "plain_ms": plain_ms, "bound": least_ms(ins, (out,), ops, mul_rate),
-            "b": b}
+
+    def ops(rows: int) -> int:  # the reference's bit-serial products over the first rows
+        muls, squarings = k5v.k5_fe_ops(host[2][:rows], host[3][:rows])
+        return muls * fe.NLIMB ** 2 + squarings * fe.NLIMB * (fe.NLIMB + 1) // 2
+
+    d_muls, d_squarings = ec.ladder_fe_ops()
+    per_row = d_muls * fe.NLIMB ** 2 + d_squarings * fe.NLIMB * (fe.NLIMB + 1) // 2
+    return mesh_ladder("ed25519_verify", f"(a) K5 exact on every row, the {n_edge} Go edge "
+                       f"rows' verdicts Go's", k5v.verify_rows, k5v.k5_geometry, ins, ref,
+                       plain_ms, ops, per_row, mul_rate, err)
 
 
 def mesh_k6(dev, sc_: tc.SignedCommit, mul_rate: float, err: dict) -> dict:
@@ -6103,10 +6149,7 @@ def mesh_k6(dev, sc_: tc.SignedCommit, mul_rate: float, err: dict) -> dict:
     host, forced = k6v.pack_rows(pubs, digs, sigs, b)
     ins = k6v.upload(host, dev)
     out = k6v.verify_rows(*ins)
-    ref, plain_ms = cuda_once(lambda: k6v.verify_ref(*ins))
-    worst = max_abs_diff((out,), (ref,))
-    err["secp256k1_verify"] = worst
-    check(worst == 0, f"K6 differs from its plain version: {worst}")
+    ref, plain_ms = cuda_once(lambda: k6v.verify_ref(*ins))  # held against it in mesh_ladder
     ok = out[: len(pubs)].cpu().numpy() != 0
     got = np.where(forced[: len(pubs)] >= 0, forced[: len(pubs)].astype(bool), ok)
     n_edge = len(e_pubs)
@@ -6114,17 +6157,16 @@ def mesh_k6(dev, sc_: tc.SignedCommit, mul_rate: float, err: dict) -> dict:
     for j, want_v in verdicts.items():
         check(bool(got[len(pubs) - n_edge + j]) == want_v,
               f"K6 edge row {j}: {got[len(pubs) - n_edge + j]}, want {want_v}")
-    ms = cuda_ms(lambda: k6v.verify_rows(*ins))
-    muls, squarings, smalls = k6v.k6_fe_ops(host[2], host[3])
-    ops = muls * F.NLIMB ** 2 + squarings * F.NLIMB * (F.NLIMB + 1) // 2 + smalls * F.NLIMB
-    threads, blocks = k6v.k6_geometry(b)
-    print(f"  (b) K6 {ms:.4f} ms at N = {b} (20 launches; plain {plain_ms:.1f} ms), exact on "
-          f"every row, the {n_edge} edge rows' verdicts the oracle's; {muls:,} "
-          f"multiplications, {squarings:,} squarings, {smalls:,} by b3 ({ops:,} products); "
-          f"{threads} threads a block, {blocks} blocks; {registers('secp256k1_verify')}",
-          flush=True)
-    return {"ms": ms, "plain_ms": plain_ms, "bound": least_ms(ins, (out,), ops, mul_rate),
-            "b": b}
+
+    def products(muls: int, squarings: int, smalls: int) -> int:
+        return muls * F.NLIMB ** 2 + squarings * F.NLIMB * (F.NLIMB + 1) // 2 + smalls * F.NLIMB
+
+    def ops(rows: int) -> int:  # the reference's bit-serial products over the first rows
+        return products(*k6v.k6_fe_ops(host[2][:rows], host[3][:rows]))
+
+    return mesh_ladder("secp256k1_verify", f"(b) K6 exact on every row, the {n_edge} edge rows' "
+                       f"verdicts the oracle's", k6v.verify_rows, k6v.k6_geometry, ins, ref,
+                       plain_ms, ops, products(*sc.ladder_fe_ops()), mul_rate, err)
 
 
 def mesh_verifier(dev, mesh, ed_sc: tc.SignedCommit, secp_sc: tc.SignedCommit) -> dict:
@@ -6264,7 +6306,7 @@ def phase_mesh(dev, mul_rate: float, ed_sc: tc.SignedCommit, secp_sc: tc.SignedC
     audit samples 0.5 % of a dispatch's lanes."""
     devs = mesh_devices()
     phase(f"mesh: DeviceMesh of {[str(d) for d in devs]}: (a) K5 and (b) K6 vs plain at "
-          f"N = 10,240 with the edge rows, (c) both 10k commits through "
+          f"N = 10,240 with the edge rows and at b = {MESH_SHARD_ROWS}, (c) both 10k commits through "
           f"TorchBatchVerifier(mesh), (d) the {WINDOW_H} x {WINDOW_V} window through "
           f"verify_windows (both reduce modes), verify_commit_window (2 x 2) and "
           f"verify_block_window over {FS_WINDOW + 1} blocks")
@@ -6562,6 +6604,16 @@ def main() -> int:
             "bound_by": res["bound"][1],
             "library_ms": None,  # no single PyTorch call computes this function
             "b": res["b"],
+            # the bound above counts the windowed design's own products;
+            # this one the reference's bit-serial products on these rows
+            "products": res["products"],
+            "reference_bound_ms": res["reference_bound"][0],
+            "reference_products": res["reference_products"],
+            "shard_ms": {b: v["ms"] for b, v in res["shards"].items()},
+            "shard_bound_ms": {b: v["bound"][0] for b, v in res["shards"].items()},
+            "shard_reference_bound_ms": {b: v["reference_bound"][0]
+                                         for b, v in res["shards"].items()},
+            "resources": res["resources"],
             "mesh_launches": {p: n[name] for p, n in mesh["launches"].items()},
         })
     print(f"  {N_VALIDATORS}-validator ed25519 verify_commit p50: {ed_main['p50_ms']:.3f} ms "
@@ -6621,7 +6673,10 @@ def main() -> int:
           f"card), (c) the card fault {simr['c']['seconds']:.1f} s (halts {simr['c']['faults']}); "
           f"phase {simr['seconds']:.1f} s", flush=True)
     print(f"  mesh: K5 {mesh['k5']['ms']:.4f} ms and K6 {mesh['k6']['ms']:.4f} ms at N = "
-          f"{mesh['k5']['b']}; four shards on the planner (both reduce modes), the commit "
+          f"{mesh['k5']['b']}, "
+          + ", ".join(f"{mesh['k5']['shards'][b]['ms']:.4f} and {mesh['k6']['shards'][b]['ms']:.4f}"
+                      f" at b = {b}" for b in MESH_SHARD_ROWS)
+          + "; four shards on the planner (both reduce modes), the commit "
           f"window, fast sync and the verifier, each equal to its flat path; phase "
           f"{mesh['seconds']:.1f} s", flush=True)
     print(f"  total {time.perf_counter() - t_start:.1f} s", flush=True)

@@ -233,8 +233,8 @@ class TorchBatchVerifier:
     reference's ``TPUBatchVerifier(mesh=, backend=)``, resolved as it
     resolves them: ``kernel_route`` takes the reference's ``backend``
     values, "pallas" (the lane kernels: K1 + K2 for ed25519, K3 for
-    secp256k1; a mesh is not consulted) or "xla" (the bit-serial kernels
-    K5 and K6, their rows split over the mesh when one is given), and None
+    secp256k1; a mesh is not consulted) or "xla" (K5 and K6, the XLA
+    route's kernels, their rows split over the mesh when one is given), and None
     means "xla" iff a mesh is given. It is named apart from ``backend``,
     the label this verifier records in the metrics and spans, which stays
     the device type ("cuda" or "cpu"). The msm path does not consult the

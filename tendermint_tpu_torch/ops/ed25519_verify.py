@@ -1,5 +1,5 @@
-"""Batched Go-exact Ed25519 verification by one bit-serial ladder a row:
-K5, its plain version, its host prologue and its entry point.
+"""Batched Go-exact Ed25519 verification on the verifier's mesh route: K5,
+its plain version, its host prologue and its entry point.
 
 Counterpart of the JAX package's ``ops/ed25519_verify.py``, the XLA route
 its verifier takes whenever a mesh is given (``TPUBatchVerifier(mesh=)``,
@@ -7,11 +7,14 @@ its verifier takes whenever a mesh is given (``TPUBatchVerifier(mesh=)``,
 with hashlib's SHA-512 and reduces it mod L, checks Go's top three bits of
 s, decompresses A (cached per key; a key that fails makes its row invalid)
 and zeroes an invalid row's scalars. K5 (``csrc/ed25519_verify.cu``,
-``verify_rows``) then computes R' = [s]B + [h](-A) over 253 bits, MSB
-first, with the complete extended formulas, inverts Z, and accepts a row
-iff R''s canonical y equals R's raw low 255 bits and x's parity R's sign
-bit. ``verify_batch`` pads to the reference's bucket, splits the rows over
-a ``DeviceMesh`` when one is given, launches K5 once a shard and returns
+``verify_rows``) then computes R' = [s]B + [h](-A) with K2's windowed
+two-lane ladder (``csrc/ed25519_ladder.cuh``), its 4-bit digits taken in
+the kernel from the scalars' bit words, inverts Z, and accepts a row iff R''s canonical y equals R's raw low 255
+bits and x's parity R's sign bit. The plain version (``verify_ref``) is
+the reference's bit-serial ladder over 253 bits, MSB first, with the
+complete extended formulas: the same group element, so the same verdict.
+``verify_batch`` pads to the reference's bucket, splits the rows over a
+``DeviceMesh`` when one is given, launches K5 once a shard and returns
 ``ok & valid``.
 
 Field elements are the ten radix-2^25.5 limbs of ``ops/fe.py``; device
@@ -41,7 +44,10 @@ NLIMB = fe.NLIMB
 NBITS = 253  # s, h < 2^253
 NAME = "ed25519_verify"
 
-B_LIMBS = {  # B's extended coordinates (Z = 1), as the kernel's constants
+# B's extended coordinates (Z = 1) and 2d in limbs: what the kernel's
+# constant input (ed25519_cuda._CONSTS: the niels table [0..15]B, then 2d)
+# is held against
+B_LIMBS = {
     "BX": fe.int_to_limbs(_ed.B_AFFINE),
     "BY": fe.int_to_limbs(_ed._BY),
     "BT": fe.int_to_limbs(_ed.B_AFFINE * _ed._BY % P),
@@ -171,10 +177,12 @@ def verify_ref(negax, ay, s_words, h_words, rlimb, rsign) -> torch.Tensor:
 
 
 def k5_fe_ops(s_words: np.ndarray, h_words: np.ndarray) -> Tuple[int, int]:
-    """(multiplications, squarings) K5 does over these rows (row-major
-    (n, 8) words): a row's 253 doublings (4 and 4), an addition (9
+    """(multiplications, squarings) of the reference's bit-serial schedule
+    (``verify_ref``) over these rows (row-major (n, 8) words), which K5's
+    bound is read against: a row's 253 doublings (4 and 4), an addition (9
     multiplications) for each set bit of s and of h below 2^253, -A's T,
-    Z^-1 and x, y."""
+    Z^-1 and x, y. K5's own schedule does ``ed25519_cuda.ladder_fe_ops()``
+    a row whatever the scalars."""
     n = s_words.shape[0]
     bits = sum(int(np.unpackbits(np.ascontiguousarray(w, dtype="<u4").view(np.uint8),
                                  bitorder="little").sum()) for w in (s_words, h_words))
@@ -188,23 +196,22 @@ def k5_fe_ops(s_words: np.ndarray, h_words: np.ndarray) -> Tuple[int, int]:
 
 # launches of K5: the wrapper adds one where it launches the kernel
 launches: Dict[str, int] = {NAME: 0}
-K5_THREADS = 128  # rows (threads) a block; the kernel source's THREADS
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-# negax, ay, sw, hw, rlimb, rsign, ok, b, threads, blocks, stream
-_ARGTYPES = [_P] * 7 + [_I] * 3 + [_P]
+# consts, negax, ay, sw, hw, rlimb, rsign, ok, b, lanes_per_row,
+# rows_per_block, blocks, smem_bytes, stream
+_ARGTYPES = [_P] * 8 + [_I] * 5 + [_P]
 
 
 def reset_launches() -> None:
     launches[NAME] = 0
 
 
-def k5_geometry(b: int) -> Tuple[int, int]:
-    """(threads, blocks) of K5 over b rows: one thread a row."""
-    if b <= 0:
-        raise ValueError(f"bad batch size {b}")
-    return K5_THREADS, -(-b // K5_THREADS)
+def k5_geometry(b: int) -> Tuple[int, int, int, int]:
+    """(lanes_per_row, rows_per_block, blocks, smem_bytes) of K5 over b
+    rows: K2's (``ed25519_cuda.k2_geometry``), whose body K5 runs."""
+    return _ec.k2_geometry(b)
 
 
 def verify_rows(negax, ay, s_words, h_words, rlimb, rsign) -> torch.Tensor:
@@ -222,6 +229,7 @@ def verify_rows(negax, ay, s_words, h_words, rlimb, rsign) -> torch.Tensor:
         raise ValueError("bad batch size 0")
     ok = torch.empty((b,), dtype=torch.int32, device=negax.device)
     _ec.launch_kernel(NAME, _ARGTYPES, launches, negax.device,
+                      _ec._consts_on(negax.device).data_ptr(),
                       *(t.data_ptr() for t in ins), ok.data_ptr(), b, *k5_geometry(b))
     return ok
 

@@ -1,5 +1,5 @@
-"""Batched secp256k1 ECDSA verification by one bit-serial ladder a row:
-K6, its plain version, its packing and its entry point.
+"""Batched secp256k1 ECDSA verification on the verifier's mesh route: K6,
+its plain version, its packing and its entry point.
 
 Counterpart of the JAX package's ``ops/secp256k1_verify.py``, the XLA route
 its verifier takes whenever a mesh is given (``TPUBatchVerifier(mesh=)``,
@@ -8,9 +8,13 @@ one K3 takes, so that K3 and K6 cannot drift apart: the strict DER parse,
 the range and low-s checks, w = s^-1 mod n, u1 and u2, the cached key
 decompression; the rows it decides (a bad key or signature, u1 = 0 or
 u2 = 0) stay the host's. K6 (``csrc/secp256k1_verify.cu``, ``verify_rows``)
-computes R = u1 G + u2 Q over 256 bits, MSB first, with the complete
-Renes-Costello-Batina addition (doubling by adding the point to itself),
-inverts Z, and accepts iff Z != 0 and x(R) is r, or r + n where r + n < p.
+computes R = u1 G + u2 Q with K3's windowed two-lane ladder
+(``csrc/secp256k1_ladder.cuh``), its 4-bit digits taken in the kernel from
+the scalars' bit words, and accepts iff Z != 0 and X = r Z, or X = (r + n) Z where r + n < p. The plain
+version (``verify_ref``) is the reference's bit-serial ladder over 256
+bits, MSB first, with the complete Renes-Costello-Batina addition
+(doubling by adding the point to itself), Z^-1 and the affine compare: the
+same group element, so the same verdict.
 ``verify_batch`` pads to the reference's bucket, splits the rows over a
 ``DeviceMesh`` when one is given, and launches K6 once a shard.
 
@@ -41,6 +45,8 @@ NLIMB = F.NLIMB
 NBITS = 256
 NAME = "secp256k1_verify"
 
+# G's affine coordinates in limbs: what the kernel's constant input
+# (secp256k1_cuda._CONSTS, the table [0..15]G) is held against
 G_LIMBS = {"GX": F.int_to_limbs(_s._G[0]), "GY": F.int_to_limbs(_s._G[1])}
 
 
@@ -192,10 +198,12 @@ def verify_ref(qx, qy, u1w, u2w, rl, rnl, rnok) -> torch.Tensor:
 
 
 def k6_fe_ops(u1w: np.ndarray, u2w: np.ndarray) -> Tuple[int, int, int]:
-    """(multiplications, squarings, multiplications by b3) K6 does over
-    these rows (row-major (n, 8) words): a row's 256 doublings and an
-    addition for each set bit of u1 and of u2, each 12 multiplications and
-    2 by b3, then Z^-1 and X Z^-1."""
+    """(multiplications, squarings, multiplications by b3) of the
+    reference's bit-serial schedule (``verify_ref``) over these rows
+    (row-major (n, 8) words), which K6's bound is read against: a row's 256
+    doublings and an addition for each set bit of u1 and of u2, each 12
+    multiplications and 2 by b3, then Z^-1 and X Z^-1. K6's own schedule
+    does ``secp256k1_cuda.ladder_fe_ops()`` a row whatever the scalars."""
     n = u1w.shape[0]
     bits = sum(int(np.unpackbits(np.ascontiguousarray(w, dtype="<u4").view(np.uint8)).sum())
                for w in (u1w, u2w))
@@ -209,23 +217,22 @@ def k6_fe_ops(u1w: np.ndarray, u2w: np.ndarray) -> Tuple[int, int, int]:
 
 # launches of K6: the wrapper adds one where it launches the kernel
 launches: Dict[str, int] = {NAME: 0}
-K6_THREADS = 128  # rows (threads) a block; the kernel source's THREADS
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-# qx, qy, u1w, u2w, rl, rnl, rnok, ok, b, threads, blocks, stream
-_ARGTYPES = [_P] * 8 + [_I] * 3 + [_P]
+# consts, qx, qy, u1w, u2w, rl, rnl, rnok, ok, b, lanes_per_row,
+# rows_per_block, blocks, smem_bytes, stream
+_ARGTYPES = [_P] * 9 + [_I] * 5 + [_P]
 
 
 def reset_launches() -> None:
     launches[NAME] = 0
 
 
-def k6_geometry(b: int) -> Tuple[int, int]:
-    """(threads, blocks) of K6 over b rows: one thread a row."""
-    if b <= 0:
-        raise ValueError(f"bad batch size {b}")
-    return K6_THREADS, -(-b // K6_THREADS)
+def k6_geometry(b: int) -> Tuple[int, int, int, int]:
+    """(lanes_per_row, rows_per_block, blocks, smem_bytes) of K6 over b
+    rows: K3's (``secp256k1_cuda.k3_geometry``), whose body K6 runs."""
+    return _sc.k3_geometry(b)
 
 
 def verify_rows(qx, qy, u1w, u2w, rl, rnl, rnok) -> torch.Tensor:
@@ -244,6 +251,7 @@ def verify_rows(qx, qy, u1w, u2w, rl, rnl, rnok) -> torch.Tensor:
         raise ValueError("bad batch size 0")
     ok = torch.empty((b,), dtype=torch.int32, device=qx.device)
     _ec.launch_kernel(NAME, _ARGTYPES, launches, qx.device,
+                      _sc._consts_on(qx.device).data_ptr(),
                       *(t.data_ptr() for t in ins), ok.data_ptr(), b, *k6_geometry(b))
     return ok
 

@@ -379,10 +379,22 @@ class RPCEnv:
 
     def consensus_params(self, height: Optional[int] = None) -> dict:
         """Consensus parameters at a height from the state store
-        (ref ConsensusParams rpc/core/consensus.go:299)."""
+        (ref ConsensusParams rpc/core/consensus.go:299). With no height,
+        the consensus state's height, as Go's GetState().LastBlockHeight + 1;
+        without a consensus state, the height after the last saved state.
+        The block store takes a block before its state and the next height's
+        params are saved, so a call between the two would ask for params not
+        yet stored if the default came from the block store."""
         from tendermint_tpu_torch.state import store as sm_store
 
-        h = int(height) if height else self.node.block_store.height() + 1
+        cs = getattr(self.node, "consensus_state", None)
+        if height:
+            h = int(height)
+        elif cs is not None:
+            h = cs.get_last_height() + 1
+        else:
+            st = sm_store.load_state(self.node.state_db)
+            h = (st.last_block_height if st is not None else self.node.block_store.height()) + 1
         try:
             params = sm_store.load_consensus_params(self.node.state_db, h)
         except Exception as e:

@@ -4,6 +4,7 @@ source, built once, and a failed build raises and leaves nothing behind."""
 
 import os
 import stat
+from pathlib import Path
 
 import pytest
 
@@ -88,6 +89,30 @@ def test_kernel_sources_hash_the_shared_field_header():
         path = _build.SRC_DIR / _build.SOURCES[name]
         assert b'#include "ed25519_field.cuh"' in path.read_bytes()
         assert header in _build._source_bytes(path, set())
+
+
+@pytest.mark.parametrize("header, names", [
+    ("ed25519_ladder.cuh", ("ed25519_ladder", "ed25519_verify")),
+    ("secp256k1_ladder.cuh", ("secp256k1_ladder", "secp256k1_verify")),
+])
+def test_the_shared_ladder_bodies_rebuild_both_kernels(sandbox, header, names):
+    """K2 and K5 share csrc/ed25519_ladder.cuh, K3 and K6
+    csrc/secp256k1_ladder.cuh: both library names cover the real header,
+    and an edit of it, on copies of the real sources, renames both."""
+    src, _ = sandbox  # _build.SRC_DIR is the sandbox's
+    real = Path(_build.__file__).resolve().parent / "csrc"
+    body = (real / header).read_bytes()
+    for name in names:
+        path = real / _build.SOURCES[name]
+        assert f'#include "{header}"'.encode() in path.read_bytes()
+        assert body in _build._source_bytes(path, set())
+    for f in real.iterdir():
+        if f.suffix in (".cu", ".cuh"):
+            (src / f.name).write_bytes(f.read_bytes())
+    before = {n: _build.target(n) for n in _build.SOURCES}
+    (src / header).write_bytes(body + b"// edited\n")
+    after = {n: _build.target(n) for n in _build.SOURCES}
+    assert {n for n in _build.SOURCES if after[n] != before[n]} == set(names)
 
 
 def test_failed_build_raises_and_leaves_nothing(sandbox):

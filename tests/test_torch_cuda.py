@@ -488,9 +488,10 @@ def test_rlc_verify_batch_on_the_card(cuda):
 
 
 def test_k5_kernel_vs_plain(cuda):
-    """K5 (the bit-serial ed25519 ladder) against its plain version on the
-    card: the Go-edge window and seeded rows, 300 rows in a ragged last
-    block, exact on every row, one launch."""
+    """K5 (K2's windowed two-lane ed25519 ladder, its digits from the
+    scalars' bit words) against its plain version (the reference's
+    bit-serial ladder) on the card: the Go-edge window and seeded rows, 300
+    rows in a ragged last block, exact on every row, one launch."""
     rng = np.random.default_rng(55)
     pubs, msgs, sigs, _ = tc.go_edge_window(seed=2)
     while len(pubs) < 300:
@@ -513,8 +514,10 @@ def test_k5_kernel_vs_plain(cuda):
 
 
 def test_k6_kernel_vs_plain(cuda):
-    """K6 (the bit-serial secp256k1 ladder) against its plain version on
-    the card: the secp256k1 edge window and seeded rows, exact."""
+    """K6 (K3's windowed two-lane secp256k1 ladder, its digits from the
+    scalars' bit words) against its plain version (the reference's
+    bit-serial ladder) on the card: the secp256k1 edge window and seeded
+    rows, 200 rows in a ragged last block, exact."""
     rng = np.random.default_rng(56)
     pubs, digs, sigs, _ = tc.secp_edge_window(seed=3)
     while len(pubs) < 200:

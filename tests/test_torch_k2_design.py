@@ -21,15 +21,17 @@ import pytest
 import torch
 
 from tendermint_tpu_torch.crypto import ed25519 as ted
+from tendermint_tpu_torch.ops import _build
 from tendermint_tpu_torch.ops import ed25519_cuda as ec
 from tendermint_tpu_torch.ops import fe
 from tendermint_tpu_torch.tools import k3_compare
 
 P = fe.P
 S = fe.closed_set()
-# K2's source with the field header it includes (csrc/ed25519_field.cuh)
-SRC = "".join((Path(ec.__file__).parent / "csrc" / f).read_text()
-              for f in ("ed25519_ladder.cu", "ed25519_field.cuh"))
+# K2's source with the headers it includes (csrc/ed25519_ladder.cuh, the
+# body it shares with K5, and csrc/ed25519_field.cuh)
+SRC = _build._source_bytes(Path(ec.__file__).parent / "csrc" / "ed25519_ladder.cu",
+                           set()).decode()
 NPTS = 64
 SMEM_LIMIT = 232_448  # dynamic shared memory one block may use on Hopper
 D2 = torch.tensor(fe.int_to_limbs(ted.D2), dtype=torch.int64)

@@ -11,8 +11,13 @@ packages: ``tests/test_ops_ed25519.py::TestSharded`` and
 the port on ``DeviceMesh(["cpu"] * 8)``, and ``TorchBatchVerifier(mesh=)``
 against ``TPUBatchVerifier(mesh=, backend="xla")``. Each reference kernel
 compiles once for the module (the sharded K5 at 64 rows, K6 at 32: every
-reference call here lands in those buckets). No tolerance: verdicts are
-exact."""
+reference call here lands in those buckets). On the card K5 and K6 run
+K2's and K3's windowed two-lane ladders with their digits taken from the
+scalars' bit words: the digits mirrored in Python (``window_digits``) must
+be K1's and ``secp256k1_cuda._digits_batch``'s, and K2's and K3's windowed
+plain versions (``ladder_ref``) fed K5's and K6's inputs must give the
+verdicts of ``verify_ref`` and of the reference's kernel. No tolerance:
+verdicts are exact."""
 
 import re
 from pathlib import Path
@@ -35,9 +40,11 @@ from tendermint_tpu_torch.crypto import ed25519 as ted
 from tendermint_tpu_torch.crypto import secp256k1 as ts
 from tendermint_tpu_torch.crypto.hashing import sha256
 from tendermint_tpu_torch.ops import _build
+from tendermint_tpu_torch.ops import ed25519_cuda as ec
 from tendermint_tpu_torch.ops import ed25519_verify as k5
 from tendermint_tpu_torch.ops import fe
 from tendermint_tpu_torch.ops import fe_secp256k1 as F
+from tendermint_tpu_torch.ops import secp256k1_cuda as sc
 from tendermint_tpu_torch.ops import secp256k1_verify as k6
 from tendermint_tpu_torch.parallel.mesh import DeviceMesh
 from tendermint_tpu_torch.testutil import commit as tc
@@ -45,6 +52,7 @@ from tendermint_tpu_torch.testutil import secp_signer
 
 K5_ROWS, K6_ROWS = 64, 32  # the reference's buckets on an 8-device mesh
 CPU = torch.device("cpu")
+SMEM_LIMIT = 232_448  # dynamic shared memory one block may use on Hopper
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -66,6 +74,20 @@ def mesh8():
 @pytest.fixture(scope="module")
 def port_mesh():
     return DeviceMesh(["cpu"] * 8, (8,), ("batch",))
+
+
+def window_digits(words: torch.Tensor, nbits: int = k5.NBITS) -> torch.Tensor:
+    """K5's and K6's digits, as the kernels take them from (8, b)
+    little-endian bit words: (64, b) MSB-first 4-bit windows, window t the
+    field at bit 4 (63 - t), the top one cut to the bits below 2^nbits.
+    int32."""
+    w = ec._u32(words)
+    rows = []
+    for t in range(ec.NWIN):
+        u = ec.NWIN - 1 - t
+        mask = (1 << min(4, nbits - 4 * u)) - 1
+        rows.append((w[u // 8] >> (4 * (u % 8))) & mask)
+    return torch.stack(rows).to(torch.int32)
 
 
 def _ref_call(fn, mesh, arrays):
@@ -126,22 +148,98 @@ def test_k5_prologue_packs_the_reference_values():
         assert np.array_equal(got, _to_port(want, fe))
 
 
+_K5_CASES: dict = {}
+
+
+def _k5_case(ref_k5, seed):
+    """The reference's packed rows (its host prologue) of ``_ed_rows``,
+    their verdicts through its jitted, sharded ``_verify_kernel``, and the
+    rows converted to the port's limbs as K5's inputs on the CPU; once a
+    seed for the module."""
+    if seed not in _K5_CASES:
+        pubs, msgs, sigs = _ed_rows(K5_ROWS, seed=seed)
+        jneg, jay, jsw, jhw, jrl, jrs, valid = jk5.host_prologue(pubs, msgs, sigs)
+        want = ref_k5((jneg, jay, jsw, jhw, jrl, jrs))
+        host = (_to_port(jneg, fe), _to_port(jay, fe), jsw, jhw, _to_port(jrl, fe), jrs)
+        _K5_CASES[seed] = (pubs, msgs, sigs, valid, want, k5.upload(host, CPU))
+    return _K5_CASES[seed]
+
+
 @pytest.mark.parametrize("seed", [0, 1])
 def test_k5_plain_version_equals_the_reference_kernel(ref_k5, seed):
     """The reference's packed rows (its host prologue) through its jitted,
     sharded ``_verify_kernel`` and, converted to the port's limbs, through
     ``verify_rows`` on the CPU: the same raw verdict on every row, the
     Go edge rows among them."""
-    pubs, msgs, sigs = _ed_rows(K5_ROWS, seed=seed)
-    jneg, jay, jsw, jhw, jrl, jrs, valid = jk5.host_prologue(pubs, msgs, sigs)
-    want = ref_k5((jneg, jay, jsw, jhw, jrl, jrs))
-    host = (_to_port(jneg, fe), _to_port(jay, fe), jsw, jhw, _to_port(jrl, fe), jrs)
-    got = k5.verify_rows(*k5.upload(host, CPU)).numpy() != 0
+    pubs, msgs, sigs, valid, want, ins = _k5_case(ref_k5, seed)
+    got = k5.verify_rows(*ins).numpy() != 0
     assert got.tolist() == want.tolist()
     oracle = [jed.verify(pubs[i].tobytes(), bytes(msgs[i]), sigs[i].tobytes())
               for i in range(K5_ROWS)]
     assert (got & valid).tolist() == oracle
     assert 0 < sum(oracle) < K5_ROWS
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_k5_windowed_plain_version_gives_the_reference_verdicts(ref_k5, seed):
+    """The schedule K5 runs on the card: K2's windowed plain version
+    (``ed25519_cuda.ladder_ref``) on K5's inputs, its digits taken from the
+    bit words as the kernel takes them, gives ``verify_ref``'s verdict and
+    the reference kernel's on every row, the Go edge rows among them."""
+    _, _, _, _, want, ins = _k5_case(ref_k5, seed)
+    negax, ay, sw, hw, rlimb, rsign = ins
+    windowed, _ = ec.ladder_ref(ec._consts_on(CPU), negax, ay, window_digits(sw),
+                                window_digits(hw), rlimb, rsign)
+    assert (windowed.numpy() != 0).tolist() == want.tolist()
+    assert torch.equal(windowed, k5.verify_ref(*ins))
+    assert 0 < int(windowed.sum()) < K5_ROWS
+
+
+def test_k5_window_digits_are_k1s():
+    """The digits K5 takes from s's and h's bit words are the ones K1
+    computes for K2 from the signature and SHA-512(R || A || M) mod L, on
+    every row; and a scalar with bit 252 set keeps it in the top window."""
+    pubs, msgs, sigs = _mk(24, msg_len=70)
+    neg_ax, ay, sw, hw, _, _, valid = k5.host_prologue(pubs, msgs, sigs)
+    assert valid.all()
+    inputs, b = ec.packed_inputs(pubs, msgs, sigs, neg_ax, ay, valid, 70, CPU)
+    _, _, pubw, sigw, tmpl, vidx, vwords = inputs[1:]
+    digs, digh, _, _ = ec.prologue(tmpl, vidx, vwords, pubw, sigw)
+    for words, want in ((sw, digs), (hw, digh)):
+        got = window_digits(ec._put(np.ascontiguousarray(words.T), CPU))
+        assert torch.equal(got, want[:, :24])
+    top = ec._put(np.asarray([[0] * 7 + [0xF0000000]], np.uint32).T, CPU)
+    assert window_digits(top)[0].tolist() == [1]
+    assert window_digits(top, 256)[0].tolist() == [15]
+
+
+def test_k6_window_digits_are_k3s():
+    """The digits K6 takes from u1's and u2's bit words are
+    ``secp256k1_cuda._digits_batch``'s, K3's, for seeded and edge scalars."""
+    rng = np.random.default_rng(29)
+    xs = [int.from_bytes(rng.bytes(32), "big") % ts.N for _ in range(40)]
+    xs += [1, 2, 15, 16, ts.N - 1, (1 << 255) + 3, (1 << 252) - 1, 0xF << 252]
+    got = window_digits(ec._put(np.ascontiguousarray(k6._scalar_words(xs).T), CPU), 256)
+    assert torch.equal(got, ec._put(np.ascontiguousarray(sc._digits_batch(xs).T), CPU))
+
+
+@pytest.mark.parametrize("b", [1, 17, 2_560, 10_240])
+def test_k5_k6_geometry(b):
+    """K5's and K6's launch geometry is K2's and K3's: two lanes a row, 16
+    rows a one-warp block, every row covered by one block and no block
+    empty, the shared memory inside the card's limit."""
+    for geometry, body, words in ((k5.k5_geometry, ec.k2_geometry, 4 * 10),
+                                  (k6.k6_geometry, sc.k3_geometry, 3 * 10)):
+        lanes, rpb, blocks, smem = geometry(b)
+        assert (lanes, rpb, blocks, smem) == body(b)
+        assert (lanes, rpb) == (2, 16) and lanes * rpb == 32
+        assert blocks * rpb >= b > (blocks - 1) * rpb
+        consts = ec.NCONSTS if geometry is k5.k5_geometry else sc.NCONSTS
+        assert smem == (consts + 16 * words * rpb) * 4 <= SMEM_LIMIT
+    with pytest.raises(ValueError):
+        k5.k5_geometry(0)
+    with pytest.raises(ValueError):
+        k6.k6_geometry(0)
 
 
 def _mk(n, msg_len=110, seed0=1):
@@ -203,21 +301,27 @@ def _ref_pack(pubs, digs, sigs):
 def _k6_rows_equal(ref_k6, pubs, digs, sigs):
     """Every kernel row through the reference's sharded kernel (chunks of
     its bucket) and the port's plain version (one call); the forced rows
-    and their values equal. Returns (the port's verdicts, kernel rows)."""
+    and their values equal. Returns (the port's verdicts, kernel rows, the
+    reference kernel's verdicts on those rows, ``verify_rows``' raw output
+    and K6's inputs on the CPU)."""
     jcols, rows, jforced = _ref_pack(pubs, digs, sigs)
     host, forced = k6.pack_rows(pubs, digs, sigs, len(pubs))
     assert np.array_equal(forced, jforced)
     assert np.array_equal(np.flatnonzero(forced == -1), rows)
     want = np.concatenate([ref_k6([c[k: k + K6_ROWS] for c in jcols])[: len(rows[k: k + K6_ROWS])]
                            for k in range(0, len(rows), K6_ROWS)])
-    got = k6.verify_rows(*k6.upload(host, CPU)).numpy() != 0
+    ins = k6.upload(host, CPU)
+    raw = k6.verify_rows(*ins)
+    got = raw.numpy() != 0
     assert got[rows].tolist() == want.tolist()
-    return np.where(forced >= 0, forced.astype(bool), got), rows
+    return np.where(forced >= 0, forced.astype(bool), got), rows, want, raw, ins
 
 
-def test_k6_plain_version_equals_the_reference_kernel_on_the_edge_rows(ref_k6):
+@pytest.fixture(scope="module")
+def k6_edge(ref_k6):
     """The secp256k1 edge window (range, parity, DER and high-s edges; the
-    zero digest's u1 = 0 row, which the host decides) and clean rows."""
+    zero digest's u1 = 0 row, which the host decides) and clean rows,
+    through ``_k6_rows_equal``."""
     pubs, digs, sigs, verdicts = tc.secp_edge_window(seed=1)
     rng = np.random.default_rng(11)
     while len(pubs) < K6_ROWS:
@@ -226,15 +330,13 @@ def test_k6_plain_version_equals_the_reference_kernel_on_the_edge_rows(ref_k6):
         pubs.append(secp_signer.pubkey_compressed(priv))
         digs.append(dig)
         sigs.append(secp_signer.sign(priv, dig))
-    got, rows = _k6_rows_equal(ref_k6, pubs, digs, sigs)
-    assert got.tolist() == [js.verify(p, d, g) for p, d, g in zip(pubs, digs, sigs)]
-    assert [got[i] for i in sorted(verdicts)] == [verdicts[i] for i in sorted(verdicts)]
-    assert 20 not in rows  # u1 = 0: decided on the host
+    return (pubs, digs, sigs, verdicts), _k6_rows_equal(ref_k6, pubs, digs, sigs)
 
 
-def test_k6_plain_version_equals_the_reference_kernel_on_der_mutations(ref_k6):
+@pytest.fixture(scope="module")
+def k6_der(ref_k6):
     """tests/test_torch_secp256k1.py's 500 seeded byte mutations of valid
-    DER signatures: the rows that reach the kernel, row for row."""
+    DER signatures, through ``_k6_rows_equal``."""
     pubs, digs, sigs, _ = tc.secp_edge_window(seed=6)
     rng = np.random.default_rng(7)
     mp, md, ms = [], [], []
@@ -245,8 +347,40 @@ def test_k6_plain_version_equals_the_reference_kernel_on_der_mutations(ref_k6):
         mp.append(pubs[i])
         md.append(digs[i])
         ms.append(bytes(sig))
-    got, rows = _k6_rows_equal(ref_k6, mp, md, ms)
+    return (mp, md, ms), _k6_rows_equal(ref_k6, mp, md, ms)
+
+
+def test_k6_plain_version_equals_the_reference_kernel_on_the_edge_rows(k6_edge):
+    """The secp256k1 edge window (range, parity, DER and high-s edges; the
+    zero digest's u1 = 0 row, which the host decides) and clean rows."""
+    (pubs, digs, sigs, verdicts), (got, rows, _, _, _) = k6_edge
+    assert got.tolist() == [js.verify(p, d, g) for p, d, g in zip(pubs, digs, sigs)]
+    assert [got[i] for i in sorted(verdicts)] == [verdicts[i] for i in sorted(verdicts)]
+    assert 20 not in rows  # u1 = 0: decided on the host
+
+
+def test_k6_plain_version_equals_the_reference_kernel_on_der_mutations(k6_der):
+    """tests/test_torch_secp256k1.py's 500 seeded byte mutations of valid
+    DER signatures: the rows that reach the kernel, row for row."""
+    _, (got, rows, _, _, _) = k6_der
     assert len(rows) > 32 and not got[rows].all()
+
+
+@pytest.mark.parametrize("case, some_accepted", [("k6_edge", True), ("k6_der", False)])
+def test_k6_windowed_plain_version_gives_the_reference_verdicts(case, some_accepted, request):
+    """The schedule K6 runs on the card: K3's windowed plain version
+    (``secp256k1_cuda.ladder_ref``, the inversion-free check) on K6's
+    inputs, its digits taken from the bit words as the kernel takes them,
+    gives the reference kernel's verdict on every kernel row and
+    ``verify_ref``'s on every row (the host's rows, zeroed, reject on
+    both); every mutated row that reaches the kernel is rejected."""
+    _, (_, rows, want, raw, ins) = request.getfixturevalue(case)
+    qx, qy, u1w, u2w, rl, rnl, rnok = ins
+    windowed, _, _ = sc.ladder_ref(sc._consts_on(CPU), qx, qy, window_digits(u1w, 256),
+                                   window_digits(u2w, 256), rl, rnl, rnok)
+    assert (windowed.numpy()[rows] != 0).tolist() == want.tolist()
+    assert torch.equal(windowed, raw)
+    assert bool(windowed.any()) == some_accepted and not windowed.numpy()[rows].all()
 
 
 def test_mesh_sharded(ref_k6, mesh8, port_mesh):
@@ -324,18 +458,57 @@ def test_buckets_equal_the_reference(nd):
         assert k6._bucket(n, pmesh) == jk6._bucket(n, jmesh)
 
 
-def _source_consts(path: Path, name: str):
-    body = re.search(name + r"\[NL\] = \{([^}]*)\}", path.read_text()).group(1)
-    return [int(v, 16) for v in body.replace("\n", " ").split(",")]
+def _source(name: str) -> str:
+    """Kernel ``name``'s source with every header it includes."""
+    return _build._source_bytes(_build.SRC_DIR / _build.SOURCES[name], set()).decode()
 
 
 def test_kernel_sources_hold_the_plain_versions_constants():
-    src5 = _build.SRC_DIR / _build.SOURCES["ed25519_verify"]
-    for name, limbs in {**k5.B_LIMBS, "D2C": k5.D2_LIMBS}.items():
-        assert _source_consts(src5, name) == limbs
-    src6 = _build.SRC_DIR / _build.SOURCES["secp256k1_verify"]
-    for name, limbs in k6.G_LIMBS.items():
-        assert _source_consts(src6, name) == limbs
+    """K5 and K6 run K2's and K3's bodies, which read their constants from
+    the kernel's constant input: ``ed25519_cuda._CONSTS`` (the niels table
+    [0..15]B, then 2d) and ``secp256k1_cuda._CONSTS`` ([0..15]G). Each entry
+    is held against the multiples of the plain versions' B and G, formed by
+    the plain versions' own additions; the sources instantiate the shared
+    bodies and keep no constant of their own."""
+    src5, src6 = _source("ed25519_verify"), _source("secp256k1_verify")
+    assert "ladder_kernel(const uint32_t* __restrict__ consts" in src5
+    assert "launch_ladder<Digits::kWords>" in src5 and "__constant__" not in src5
+    assert "launch_ladder<Digits::kRows>" in _source("ed25519_ladder")
+    assert "ladder_kernel(const uint32_t* __restrict__ consts" in src6
+    assert "launch_ladder<Digits::kWords>" in src6
+    assert "launch_ladder<Digits::kRows>" in _source("secp256k1_ladder")
+    assert re.search(r"constexpr int NCONSTS = 16 \* NIELS_W \+ NL;", src5)
+    assert re.search(r"constexpr int NCONSTS = 16 \* PTW;", src6)
+
+    # [j]B by verify_ref's extended additions from B_LIMBS, 2d D2_LIMBS
+    assert ec.NCONSTS == 16 * 3 * 10 + 10
+    assert ec._CONSTS[16 * 3 * 10:].tolist() == k5.D2_LIMBS
+    row = lambda limbs: torch.tensor([limbs], dtype=torch.int64)
+    d2 = row(k5.D2_LIMBS)
+    bp = (row(k5.B_LIMBS["BX"]), row(k5.B_LIMBS["BY"]), fe.const(1, d2), row(k5.B_LIMBS["BT"]))
+    acc = (torch.zeros_like(d2), fe.const(1, d2), fe.const(1, d2), torch.zeros_like(d2))
+    two_d = fe.limbs_to_int(k5.D2_LIMBS)
+    for j in range(16):
+        zinv = fe.inv(acc[2])
+        x, y = (fe.limbs_to_int(fe.canonical(fe.mul(c, zinv))[0].tolist()) for c in acc[:2])
+        want = [fe.int_to_limbs((y + x) % fe.P), fe.int_to_limbs((y - x) % fe.P),
+                fe.int_to_limbs(two_d * x * y % fe.P)]
+        assert ec._CONSTS[: 16 * 30].reshape(16, 3, 10)[j].tolist() == want, j
+        acc = k5._pt_add(acc, bp, d2)
+
+    # [j]G by verify_ref's complete additions from G_LIMBS
+    assert sc.NCONSTS == 16 * 3 * 10
+    gp = (row(k6.G_LIMBS["GX"]), row(k6.G_LIMBS["GY"]), F.const(1, row(k6.G_LIMBS["GX"])))
+    one = F.const(1, gp[0])
+    acc = (torch.zeros_like(one), one, torch.zeros_like(one))
+    table = sc._CONSTS.reshape(16, 3, 10)
+    assert table[0].tolist() == [[0] * 10, F.int_to_limbs(1), [0] * 10]
+    for j in range(1, 16):
+        acc = k6._pt_add(acc, gp)
+        zinv = k6.fe_inv(acc[2])
+        want = [F.canonical(F.mul(c, zinv))[0].tolist() for c in acc[:2]] + [F.int_to_limbs(1)]
+        assert table[j].tolist() == want, j
+
     assert F.limbs_to_int(k6.G_LIMBS["GX"]) == jk6.GX
     assert fe.limbs_to_int(k5.B_LIMBS["BY"]) == jed._BY
     assert k5.k5_fe_ops(np.zeros((2, 8), np.uint32), np.zeros((2, 8), np.uint32)) == (
