@@ -548,6 +548,25 @@ Phases, in order; any failure exits non-zero:
              record_device_shards and a planner_mesh / window_mesh ledger
              entry, no fallback, the breaker closed. One card checks the
              split; it cannot time it.
+  29. smokes  the port's operator smokes (tendermint_tpu_torch/tools), each
+             on a default [verify] root of its own (tools/smoke_verify),
+             as an operator runs them: (a) statesync_smoke (a 13-height
+             chain, snapshots every 4, the trust hop and the backfill of
+             [9..12]); (b) flight_smoke (4 validators, 2 silenced, the
+             watchdog's stall within 6 s, the merged Chrome trace); (c)
+             critpath_smoke (node 0 on a file WAL, every waterfall
+             reconciled to 1e-6 s); (d) quorum_smoke (build_sim_net with
+             the vote feed at 2 ms / 64 rows, validator 3 silenced, 25 %
+             duplicates), K1 and K2 held exact on its first launch's
+             inputs; (e) soak_smoke at 63 heights (the fault over (21,
+             36], the crash at 42, a snapshot every 3); (f)
+             bench_commit_path.summarize over phase 27's vote_storm result
+             and one mempool_flood run (no second vote storm). Each part
+             must exit green with K1 + K2 launched, no fallback, the
+             breaker closed and no audit mismatch; round files go to a
+             temporary directory the phase removes. Prints each part's
+             seconds, heights and launches, (f)'s pooled commit p50/p99
+             and phase table and (e)'s fleet commit p50/p99.
 
 The window phase's routes and the backfill phase each make one traced call
 (the p50 of 3 before phase 21, of 2 before phase 22: the fastsync replay
@@ -588,7 +607,8 @@ process's frontend dispatches) and phase 27's as ``sim_launches``
 (determinism: the card's LastCommit checks; vote_storm: its flushes and
 LastCommit checks; fault: the answered calls) and phase 28's as
 ``mesh_launches`` (the verifier's two commits, the planner's two reduce
-modes, the commit window, fast sync); K4's own ``launches`` are the msm
+modes, the commit window, fast sync) and phase 29's as ``smoke_launches``
+(statesync, flight, critpath, quorum, soak, bench); K4's own ``launches`` are the msm
 route's 10,000-validator commit's, K5's and K6's the verifier's mesh
 route's (phase 28 (c)). The line before the last two is the
 ``kernels`` JSON, then the card's name
@@ -714,6 +734,14 @@ from tendermint_tpu_torch.testutil.fastsync import LoopbackSwitch, ServingPeer
 from tendermint_tpu_torch.testutil.statesync import CorruptingStore, hub_net
 from tendermint_tpu_torch.tools import bench_fastsync as bf
 from tendermint_tpu_torch.tools import chaos_smoke
+from tendermint_tpu_torch.tools import (
+    bench_commit_path,
+    critpath_smoke,
+    flight_smoke,
+    quorum_smoke,
+    soak_smoke,
+    statesync_smoke,
+)
 from tendermint_tpu_torch.tools import tm_bench
 from tendermint_tpu_torch.tools.tm_monitor import NetworkMonitor, _fmt_device, _fmt_verify
 from tendermint_tpu_torch.tools import trace_merge
@@ -902,6 +930,11 @@ CLI_TIMEOUT_COMMIT, CLI_WINDOW_MS = 0.3, LN_WINDOW_MS
 CLI_TIMEOUT, CLI_STOP_S = 120.0, 10.0
 CLI_TX = b"cli-socket=1"
 CLI_BENCH_S, CLI_BENCH_RATE = 2.0, 50
+
+# phase 29: the operator smokes (tendermint_tpu_torch/tools); the soak at
+# 63 heights (the reference's 210 cut to a third), its marks in proportion
+SMOKE_SOAK_HEIGHTS = 63
+SMOKE_PARTS = ("statesync", "flight", "critpath", "quorum", "soak", "bench")
 
 # phase 27: the chaos simulator (tendermint_tpu_torch/sim)
 SIM_FAULT_OK = 8  # answered calls of (c)'s card device before it fails
@@ -5970,7 +6003,7 @@ def sim_vote_storm(dev, err: dict) -> dict:
           f"{launches} for {dispatches} flushes and the LastCommit checks; no fallback; K1/K2 "
           f"exact on the first launch's inputs (b = {b})", flush=True)
     return {"seconds": wall, "launches": launches, "dispatches": dispatches,
-            "heights": res.heights}
+            "heights": res.heights, "result": res}
 
 
 def sim_card_fault(dev) -> dict:
@@ -6371,6 +6404,105 @@ def host_facts() -> dict:
             "calib_ms_a_call": calib_s / HOST_CALIB_CALLS * 1e3}
 
 
+# -- phase 29: the operator smokes -------------------------------------------
+
+
+def smoke_part(name: str, module, argv: list, err: dict, smi_line: str) -> dict:
+    """One smoke through its command line's ``run`` on the card: green,
+    K1 + K2 launched, no fallback, the breaker closed, no audit mismatch.
+    The launch counts are set to 0 just before and read just after; the
+    quorum smoke's first launch holds K1 and K2 against their plain
+    versions."""
+    before = fallbacks()
+    reset_launches()
+    planner.tally_launches["planner_tally"] = 0
+    t0 = time.perf_counter()
+    with (captured_packs() if name == "quorum" else contextlib.nullcontext([])) as packs:
+        res = module.run(argv)
+    wall = time.perf_counter() - t0
+    launches = {**read_launches(), **planner.tally_launches}
+    check(res["ok"], f"smokes ({name}): {res['failures']}")
+    check(launches["ed25519_prologue"] > 0 and launches["ed25519_ladder"] > 0,
+          f"smokes ({name}): no K1 + K2 launch: {launches}")
+    if name == "statesync":
+        check(launches["planner_tally"] >= 1,
+              f"smokes (statesync): the backfill ran no K7 tally on the card: {launches}")
+    check_guard_clean(before, f"smokes ({name})")
+    out = {"seconds": wall, "launches": launches, "result": res}
+    exact = ""
+    if name == "quorum":
+        check(packs, "smokes (quorum): no packed K1 + K2 inputs recorded")
+        b, k1_in, k2_in = hold_k1_k2(packs[0], err, "smokes quorum")
+        out["pair_ms"] = cuda_ms(lambda: ec.prologue(*k1_in)) + cuda_ms(lambda: ec.ladder(*k2_in))
+        out["b"] = b
+        exact = (f"; K1/K2 exact on the first launch's inputs (b = {b}), K1 + K2 "
+                 f"{out['pair_ms']:.4f} ms a launch pair there")
+    print(f"  ({name}) {wall:.1f} s, heights {res.get('heights')}, K1 + K2 launches "
+          f"{launches['ed25519_prologue']} + {launches['ed25519_ladder']}, K7 "
+          f"{launches['planner_tally']}{exact} [{smi_line}]", flush=True)
+    return out
+
+
+def phase_smokes(dev, storm, err: dict, smi_line: str) -> dict:
+    """Phase 29: the operator smokes on the card, each through its own
+    ``--device cuda`` command line on a default [verify] root of its own;
+    (f) pools phase 27's vote_storm result with one mempool_flood run."""
+    phase(f"smokes: statesync, flight, critpath, quorum, soak at {SMOKE_SOAK_HEIGHTS} heights "
+          f"and the commit-path bench on the card, each on a default [verify] root of its own")
+    t_phase = time.perf_counter()
+    prev = get_batch_verifier()
+    rounds = tempfile.mkdtemp(prefix="smoke_rounds_")
+    parts = {}
+    try:
+        cuda = ["--device", str(dev)]
+        parts["statesync"] = smoke_part("statesync", statesync_smoke, cuda, err, smi_line)
+        parts["flight"] = smoke_part("flight", flight_smoke, cuda, err, smi_line)
+        parts["critpath"] = smoke_part("critpath", critpath_smoke, cuda, err, smi_line)
+        parts["quorum"] = smoke_part("quorum", quorum_smoke, cuda + ["--round-dir", rounds], err,
+                                     smi_line)
+        parts["soak"] = smoke_part("soak", soak_smoke, cuda + [
+            "--target-height", str(SMOKE_SOAK_HEIGHTS), "--round-dir", rounds], err, smi_line)
+        soak = parts["soak"]["result"]
+        check(soak["marks"]["fault_at"] == 21 and soak["marks"]["crash_at"] == 42
+              and soak["marks"]["spool_interval"] == 3,
+              f"smokes (soak): marks {soak['marks']}")
+        parts["bench"] = smoke_part("bench", bench_commit_path, cuda + [
+            "--scenarios", "mempool_flood", "--round-dir", rounds], err, smi_line)
+        written = sorted(os.listdir(rounds))
+        check(written == ["CRITPATH_r01.json", "QUORUM_r01.json", "SOAK_r01.json"],
+              f"smokes: round files {written}")
+    finally:
+        shutil.rmtree(rounds, ignore_errors=True)
+    check(get_batch_verifier() is prev, "smokes: the phase's verifier was not put back")
+    pooled = bench_commit_path.summarize([storm] + parts["bench"]["result"]["results"])
+    check(pooled["commits"] >= 6, f"smokes (bench): {pooled['commits']} pooled waterfalls")
+    parsed = pooled["parsed"]
+    fleet = soak["parsed"]
+    seconds = time.perf_counter() - t_phase
+    print(f"  (f) vote_storm (phase 27) + mempool_flood: {pooled['commits']} waterfalls, commit "
+          f"p50 {parsed['commit_p50_seconds'] * 1e3:.1f} ms, p99 "
+          f"{parsed['commit_p99_seconds'] * 1e3:.1f} ms [{smi_line}]", flush=True)
+    for line in pooled["table"].splitlines():
+        print(f"    {line}", flush=True)
+    print(f"  (e) soak fleet commit p50 {fleet['soak_commit_p50_seconds'] * 1e3:.1f} ms, p99 "
+          f"{fleet['soak_commit_p99_seconds'] * 1e3:.1f} ms over {fleet['soak_commit_samples']} "
+          f"commits [{smi_line}]", flush=True)
+    # the kernels' share of each wall: its K2 launches (one K1 each) at the
+    # quorum flush's launch-pair time, a small-b shape as every part's
+    pair_ms = parts["quorum"]["pair_ms"]
+    shares = {n: parts[n]["launches"]["ed25519_ladder"] * pair_ms / (parts[n]["seconds"] * 1e3)
+              for n in SMOKE_PARTS}
+    print(f"  K1 + K2 at {pair_ms:.4f} ms a pair (b = {parts['quorum']['b']}): "
+          + ", ".join(f"({n}) {shares[n]:.2%}" for n in SMOKE_PARTS)
+          + f" of each wall [{smi_line}]", flush=True)
+    print(f"  phase {seconds:.1f} s: " + ", ".join(
+        f"({n}) {parts[n]['seconds']:.1f}" for n in SMOKE_PARTS) + f" [{smi_line}]", flush=True)
+    return {"seconds": seconds, "launches": {n: parts[n]["launches"] for n in SMOKE_PARTS},
+            "parts": {n: {"seconds": parts[n]["seconds"],
+                          "heights": parts[n]["result"].get("heights")} for n in SMOKE_PARTS},
+            "bench": parsed, "soak": fleet, "pair_ms": pair_ms, "shares": shares}
+
+
 def profiler_warmup(out: dict) -> None:
     """One empty torch.profiler session (CPU and CUDA activity). The first
     of a process initializes the profiler and CUPTI (7-20 s on the H100,
@@ -6472,6 +6604,9 @@ def main() -> int:
     # the mesh phase: a [verify] root of its own, four shards
     mesh = phase_mesh(dev, mul_rate, ed_main["commit"], secp_main["commit"], window,
                       fs["chain"], err)
+    # the smokes phase: each smoke on a default [verify] root of its own
+    configure_verify(VerifyConfig(), device=dev)
+    smokes = phase_smokes(dev, simr["b"]["result"], err, smi_line)
     print(f"  {smi_line}", flush=True)
 
     ms = {**ed_main["ms"], "secp256k1_ladder": secp_main["ms"]}
@@ -6536,6 +6671,7 @@ def main() -> int:
                                        "msm": cwin["msm_launches"][name],
                                        "planner_msm": cwin["planner_msm_launches"][name]},
             "mesh_launches": {part: n[name] for part, n in mesh["launches"].items()},
+            "smoke_launches": {part: n[name] for part, n in smokes["launches"].items()},
         })
     k4c = k4["commit"]
     kernels.append({
@@ -6586,6 +6722,7 @@ def main() -> int:
                                    "msm": cwin["msm_launches"][K4],
                                    "planner_msm": cwin["planner_msm_launches"][K4]},
         "mesh_launches": {part: n[K4] for part, n in mesh["launches"].items()},
+        "smoke_launches": {part: n[K4] for part, n in smokes["launches"].items()},
     })
     # K5 and K6: the verifier's mesh route (phase 28) is their main path
     for name, replaces, res, part in (
@@ -6615,6 +6752,7 @@ def main() -> int:
                                          for b, v in res["shards"].items()},
             "resources": res["resources"],
             "mesh_launches": {p: n[name] for p, n in mesh["launches"].items()},
+            "smoke_launches": {p: n[name] for p, n in smokes["launches"].items()},
         })
     print(f"  {N_VALIDATORS}-validator ed25519 verify_commit p50: {ed_main['p50_ms']:.3f} ms "
           f"through TorchBatchVerifier, {default['p50_ms']:.1f} ms through the default "
@@ -6679,6 +6817,12 @@ def main() -> int:
           + "; four shards on the planner (both reduce modes), the commit "
           f"window, fast sync and the verifier, each equal to its flat path; phase "
           f"{mesh['seconds']:.1f} s", flush=True)
+    print(f"  smokes: " + ", ".join(
+        f"{n} {smokes['parts'][n]['seconds']:.1f} s" for n in SMOKE_PARTS)
+          + f"; the commit path's p50 {smokes['bench']['commit_p50_seconds'] * 1e3:.1f} ms, p99 "
+          f"{smokes['bench']['commit_p99_seconds'] * 1e3:.1f} ms; the soak's fleet p99 "
+          f"{smokes['soak']['soak_commit_p99_seconds'] * 1e3:.1f} ms; phase "
+          f"{smokes['seconds']:.1f} s [{smi_line}]", flush=True)
     print(f"  total {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"torch_ops": [window["tally"], cwin["tally"]]}))
     print(json.dumps({"kernels": kernels}))
