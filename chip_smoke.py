@@ -15,7 +15,13 @@ Phases, in order; any failure exits non-zero:
              checkout's sources, in parallel, with each one's registers,
              spills and stack frame; then the probe's IMAD.WIDE and IMAD
              rates (products a clock an SM): the IMAD.WIDE rate prices
-             K2's and K3's bounds;
+             K2's and K3's bounds. Beside them the three host C
+             accelerators (encoding/native.py: the codec, the SHA-256 and
+             Merkle hasher, the WAL scanner), which the port's imports
+             built with cc into build/tendermint_tpu_torch/native/: each
+             one's build seconds and path and have_shani(); it fails if
+             one did not load or TM_NO_NATIVE_CODEC is set, so that no
+             phase runs on the Python fallback;
   3. K1      the prologue kernel against its plain version on the card,
              2,048 seeded rows at each message length 0, 33, 104, 111, 112
              and 200, exact; h also against hashlib + bigint mod L; then
@@ -504,8 +510,10 @@ Phases, in order; any failure exits non-zero:
              [verify] root of its own: 4-validator SimNets whose nodes are
              wired by node/verify_root and share the root's guarded
              verifier. (a) baseline_determinism (seed 1, frozen clocks) on
-             the card beside the same seed with every LastCommit check on
-             HostBatchVerifier, at once in two threads: every node's
+             the card, then the same seed with every LastCommit check on
+             HostBatchVerifier (side by side in two threads before phase
+             30 came; a late precommit then fell out of the host net's
+             LastCommits in 3 of 8 attempts): every node's
              commit hash equal over the deterministic prefix (round 0,
              every LastCommit canonical; testutil/sim_determinism), K1 +
              K2 launched by the card's LastCommit checks. (b) vote_storm
@@ -558,8 +566,9 @@ Phases, in order; any failure exits non-zero:
              reconciled to 1e-6 s); (d) quorum_smoke (build_sim_net with
              the vote feed at 2 ms / 64 rows, validator 3 silenced, 25 %
              duplicates), K1 and K2 held exact on its first launch's
-             inputs; (e) soak_smoke at 63 heights (the fault over (21,
-             36], the crash at 42, a snapshot every 3); (f)
+             inputs; (e) soak_smoke at 42 heights (the fault over (14,
+             24], the crash at 28, a snapshot every 2; 63 before phase 30
+             came); (f)
              bench_commit_path.summarize over phase 27's vote_storm result
              and one mempool_flood run (no second vote storm). Each part
              must exit green with K1 + K2 launched, no fallback, the
@@ -567,6 +576,28 @@ Phases, in order; any failure exits non-zero:
              temporary directory the phase removes. Prints each part's
              seconds, heights and launches, (f)'s pooled commit p50/p99
              and phase table and (e)'s fleet commit p50/p99.
+  30. native the host C accelerators on phase 22's chain (no second
+             chain): tools/bench_native.write_inputs lays out its 513
+             blocks' bytes and a WAL of the chain's precommits and
+             #ENDHEIGHT markers (10,000 records or more) with a truncated
+             copy; (a) and (b) tools/bench_native.run here, on the
+             natives, and in a PythonChild, a fresh child interpreter with
+             TM_NO_NATIVE_CODEC=1 that imports while (c) runs and is timed
+             after the natives: every block's decode and encode, the
+             part-set rehash, Header.hash, ValidatorSet.hash at 10,000
+             validators and the WAL decode (each timed with the garbage
+             collector off) must give equal digests (the
+             truncated WAL the same prefix and error string), and each
+             pair's seconds and factor are printed beside the card's name
+             and power limit; phase 22's null, explicit and serial
+             blocks/s and phase 21's are printed beside PERF.md section 5's
+             earlier ranges (other machines: not a gain). (c) one window of
+             NATIVE_WINDOW heights decoded by the native Reader and
+             verified by blockchain/reactor.verify_block_window on a
+             default [verify] root of the phase's own: one K1 and one K2
+             launch, K1/K2 exact on that pack, the verdict equal to the
+             same window decoded by _PyReader, no fallback, the breaker
+             closed, no audit mismatch.
 
 The window phase's routes and the backfill phase each make one traced call
 (the p50 of 3 before phase 21, of 2 before phase 22: the fastsync replay
@@ -608,7 +639,8 @@ process's frontend dispatches) and phase 27's as ``sim_launches``
 LastCommit checks; fault: the answered calls) and phase 28's as
 ``mesh_launches`` (the verifier's two commits, the planner's two reduce
 modes, the commit window, fast sync) and phase 29's as ``smoke_launches``
-(statesync, flight, critpath, quorum, soak, bench); K4's own ``launches`` are the msm
+(statesync, flight, critpath, quorum, soak, bench) and phase 30's as
+``native_launches`` (c); K4's own ``launches`` are the msm
 route's 10,000-validator commit's, K5's and K6's the verifier's mesh
 route's (phase 28 (c)). The line before the last two is the
 ``kernels`` JSON, then the card's name
@@ -658,6 +690,7 @@ from tendermint_tpu_torch.config.mempool import MempoolConfig
 from tendermint_tpu_torch.config.statesync import StateSyncConfig
 from tendermint_tpu_torch.consensus.cstypes import RoundStepType
 from tendermint_tpu_torch.consensus.messages import EndHeightMessage, VoteMessage
+from tendermint_tpu_torch.consensus import wal as cwal
 from tendermint_tpu_torch.consensus.wal import WAL
 from tendermint_tpu_torch.config.verify import VerifyConfig
 from tendermint_tpu_torch.crypto import ed25519 as ed
@@ -673,7 +706,10 @@ from tendermint_tpu_torch.crypto.batch import (
     verify_generic,
 )
 from tendermint_tpu_torch.crypto.hashing import sha256
+from tendermint_tpu_torch.crypto import merkle
 from tendermint_tpu_torch.crypto.keys import PrivKeyEd25519, PubKeyEd25519, PubKeySecp256k1
+from tendermint_tpu_torch.encoding import codec as tcodec
+from tendermint_tpu_torch.encoding import native as tnative
 from tendermint_tpu_torch.frontend.aggregator import BatchingVerifier
 from tendermint_tpu_torch.libs import breaker, trace
 from tendermint_tpu_torch.libs.critpath import TIMELINE_PHASES, verify_seconds_for_height
@@ -733,6 +769,7 @@ from tendermint_tpu_torch.testutil.consensus_net import validate_chrome_trace
 from tendermint_tpu_torch.testutil.fastsync import LoopbackSwitch, ServingPeer
 from tendermint_tpu_torch.testutil.statesync import CorruptingStore, hub_net
 from tendermint_tpu_torch.tools import bench_fastsync as bf
+from tendermint_tpu_torch.tools import bench_native
 from tendermint_tpu_torch.tools import chaos_smoke
 from tendermint_tpu_torch.tools import (
     bench_commit_path,
@@ -745,7 +782,7 @@ from tendermint_tpu_torch.tools import (
 from tendermint_tpu_torch.tools import tm_bench
 from tendermint_tpu_torch.tools.tm_monitor import NetworkMonitor, _fmt_device, _fmt_verify
 from tendermint_tpu_torch.tools import trace_merge
-from tendermint_tpu_torch.types.block import Commit
+from tendermint_tpu_torch.types.block import Block, Commit
 from tendermint_tpu_torch.types.core import BlockID, SignedMsgType
 from tendermint_tpu_torch.types.events import EventBus
 from tendermint_tpu_torch.types.genesis import GenesisDoc, GenesisValidator
@@ -932,9 +969,15 @@ CLI_TX = b"cli-socket=1"
 CLI_BENCH_S, CLI_BENCH_RATE = 2.0, 50
 
 # phase 29: the operator smokes (tendermint_tpu_torch/tools); the soak at
-# 63 heights (the reference's 210 cut to a third), its marks in proportion
-SMOKE_SOAK_HEIGHTS = 63
+# 42 heights (the reference's 210 cut to a fifth; 63 before phase 30 came),
+# its marks in proportion
+SMOKE_SOAK_HEIGHTS = 42
 SMOKE_PARTS = ("statesync", "flight", "critpath", "quorum", "soak", "bench")
+NATIVE_WINDOW = 64  # phase 30 (c): heights in its one window (4,096 lanes, ~205 audited)
+NATIVE_PAIRS = ("decode", "encode", "part_set", "header_hash", "valset_hash", "wal")
+# PERF.md section 5's earlier ranges, taken on other machines: blocks/s
+NATIVE_EARLIER = {"null": "690.77-931.77", "explicit": "670.55-816.25",
+                  "serial": "39.74-43.87", "block_exec": "3.30"}
 
 # phase 27: the chaos simulator (tendermint_tpu_torch/sim)
 SIM_FAULT_OK = 8  # answered calls of (c)'s card device before it fails
@@ -5917,32 +5960,25 @@ def sim_host_executors(scenario):
 
 
 def sim_baseline(dev) -> dict:
-    """(a): baseline_determinism on the card beside the same seed with every
-    LastCommit check on the host, at once in two threads; the commit hashes
-    of every node over the deterministic prefix (round 0, every LastCommit
-    canonical: testutil/sim_determinism) must be equal."""
+    """(a): baseline_determinism on the card, then the same seed with every
+    LastCommit check on the host; the commit hashes of every node over the
+    deterministic prefix (round 0, every LastCommit canonical:
+    testutil/sim_determinism) must be equal. The two nets run one after the
+    other: side by side in one interpreter, the host net's Python verifies
+    left a late precommit out of a LastCommit in 3 of 8 attempts over five
+    runs of the whole script, on both codec paths."""
     target = sim.SCENARIOS["baseline_determinism"]().target_height
     for attempt in range(1, SIM_ATTEMPTS + 1):
-        out = {}
-
         host_sc = sim_determinism.recording_canonical_commits(
             sim_host_executors(sim.SCENARIOS["baseline_determinism"]()))
         card_sc = sim_determinism.recording_canonical_commits(
             sim.SCENARIOS["baseline_determinism"]())
-
-        def host_run():
-            out["host"] = sim.run_scenario(host_sc, device=dev)
-
         t0 = time.perf_counter()
         reset_launches()
-        th = threading.Thread(target=host_run, name="sim-host-run", daemon=True)
-        th.start()
         card = sim.run_scenario(card_sc, device=dev)
-        th.join(CS_TIMEOUT)
+        host = sim.run_scenario(host_sc, device=dev)
         launches = read_launches()
         wall = time.perf_counter() - t0
-        check("host" in out, "sim (a): the host-verifier run did not end")
-        host = out["host"]
         hard = [f for f in card.failures + host.failures if not f.startswith("liveness")]
         check(not hard, f"sim (a): {hard}")
         # the deterministic prefix: round 0 and canonical LastCommits
@@ -5959,8 +5995,8 @@ def sim_baseline(dev) -> dict:
     check(launches["ed25519_prologue"] > 0 and launches["ed25519_ladder"] > 0,
           f"sim (a): no K1 + K2 launch on the card's LastCommit checks: {launches}")
     hashes = [card.commit_hashes[0][h][:12] for h in range(1, top + 1)]
-    print(f"  (a) baseline_determinism, seed {card.seed}: the card's net and the host's, side by "
-          f"side in {wall:.1f} s; heights {card.heights} / {host.heights}; every node's commit "
+    print(f"  (a) baseline_determinism, seed {card.seed}: the card's net and the host's, one "
+          f"after the other in {wall:.1f} s; heights {card.heights} / {host.heights}; every node's commit "
           f"hash equal over the deterministic prefix 1..{top} ({', '.join(hashes)}); the card's "
           f"LastCommit checks launched {launches}", flush=True)
     return {"seconds": wall, "top": top, "launches": launches}
@@ -6052,7 +6088,7 @@ def phase_sim(dev, err: dict) -> dict:
     """Phase 27: the chaos simulator (sim/, p2p/inproc.py) on the card, on a
     default [verify] root of its own."""
     phase(f"sim: 4-validator SimNets on the card's default [verify] root: (a) "
-          f"baseline_determinism beside a host-verifier run of its seed, (b) vote_storm, (c) a "
+          f"baseline_determinism and a host-verifier run of its seed, (b) vote_storm, (c) a "
           f"device fault after {SIM_FAULT_OK} answered calls of the shared guarded verifier")
     t_phase = time.perf_counter()
     root = configure_verify(VerifyConfig(), device=dev)
@@ -6463,8 +6499,9 @@ def phase_smokes(dev, storm, err: dict, smi_line: str) -> dict:
         parts["soak"] = smoke_part("soak", soak_smoke, cuda + [
             "--target-height", str(SMOKE_SOAK_HEIGHTS), "--round-dir", rounds], err, smi_line)
         soak = parts["soak"]["result"]
-        check(soak["marks"]["fault_at"] == 21 and soak["marks"]["crash_at"] == 42
-              and soak["marks"]["spool_interval"] == 3,
+        check(soak["marks"] == soak_smoke.marks(SMOKE_SOAK_HEIGHTS)
+              and soak["marks"]["fault_at"] == 14 and soak["marks"]["crash_at"] == 28
+              and soak["marks"]["spool_interval"] == 2,
               f"smokes (soak): marks {soak['marks']}")
         parts["bench"] = smoke_part("bench", bench_commit_path, cuda + [
             "--scenarios", "mempool_flood", "--round-dir", rounds], err, smi_line)
@@ -6501,6 +6538,151 @@ def phase_smokes(dev, storm, err: dict, smi_line: str) -> dict:
             "parts": {n: {"seconds": parts[n]["seconds"],
                           "heights": parts[n]["result"].get("heights")} for n in SMOKE_PARTS},
             "bench": parsed, "soak": fleet, "pair_ms": pair_ms, "shares": shares}
+
+
+# -- the host C accelerators (built at import, checked in the build phase) --
+
+
+NATIVE_MODULES = {"codec": "tendermint_tpu_torch.encoding._codec_native",
+                  "hash": "tendermint_tpu_torch.crypto._hash_native",
+                  "wal": "tendermint_tpu_torch.consensus._wal_native"}
+
+
+def load_natives() -> dict:
+    """The three natives, loaded: the codec and the hasher bind at the
+    port's import, the WAL scanner at its first use (here). Fails on any
+    fallback, so that no phase measures the Python paths."""
+    check(not os.environ.get("TM_NO_NATIVE_CODEC"),
+          "TM_NO_NATIVE_CODEC is set: the run would measure the Python paths")
+    check(cwal._get_native_scan() is not None, "the native WAL scanner did not load")
+    check(tcodec.Writer is not tcodec._PyWriter and tcodec.Reader is not tcodec._PyReader,
+          "the native codec did not load")
+    check(merkle._native is not None, "the native hasher did not load")
+    out = {}
+    for what, name in NATIVE_MODULES.items():
+        mod = tnative.modules.get(name)
+        check(mod is not None, f"the native {what} is not loaded as {name}")
+        out[what] = {"path": os.path.relpath(mod.__file__), "seconds": tnative.build_seconds[name]}
+        check(out[what]["path"].startswith(os.path.join("build", "tendermint_tpu_torch", "native")),
+              f"the native {what} was loaded from {out[what]['path']}")
+    out["have_shani"] = bool(merkle._native.have_shani())
+    return out
+
+
+# -- phase 30: the host C accelerators on phase 22's chain ------------------------------
+
+
+def native_window(dev, chain, err: dict, smi_line: str) -> dict:
+    """(c): one window decoded by the native Reader, verified through
+    verify_block_window on a default [verify] root of the phase's own."""
+    root = configure_verify(VerifyConfig(), device=dev)
+    check(get_batch_verifier() is root.verifier and root.verifier.audit_rate == 0.05,
+          "native (c): the default verifier is not the root's guarded one")
+    raw = [b.marshal() for b in chain.blocks[:NATIVE_WINDOW + 1]]
+    st = state_from_genesis(chain.fx.genesis)
+    before = fallbacks()
+    audit_ok0 = audits("ok")
+    t0 = time.perf_counter()
+    blocks = [Block.decode(tcodec.Reader(b)) for b in raw]
+    decode_s = time.perf_counter() - t0
+    reset_launches()
+    t0 = time.perf_counter()
+    with captured_packs() as packs:
+        n_ok, bad = bc_reactor.verify_block_window(st, blocks)
+    verify_s = time.perf_counter() - t0
+    launches = read_launches()
+    check(n_ok == NATIVE_WINDOW and bad is None,
+          f"native (c): the window verified {n_ok} of {NATIVE_WINDOW} heights ({bad})")
+    check(launches["ed25519_prologue"] == 1 and launches["ed25519_ladder"] == 1
+          and all(v == 0 for k, v in launches.items()
+                  if k not in ("ed25519_prologue", "ed25519_ladder")),
+          f"native (c): launches {launches}, want one K1 and one K2")
+    check_guard_clean(before, "native (c)")
+    check(audits("ok") > audit_ok0, "native (c): no audited lane")
+    b, _, _ = hold_k1_k2(packs[0], err, "native (c)")
+    check(b == NATIVE_WINDOW * st.validators.size, f"native (c): K1/K2 ran at b = {b}")
+    py_blocks = [Block.decode(tcodec._PyReader(b)) for b in raw]
+    check([x.hash() for x in py_blocks] == [x.hash() for x in blocks],
+          "native (c): the blocks decoded by _PyReader hash otherwise")
+    want = bc_reactor.verify_block_window(st, py_blocks, verifier=TorchBatchVerifier(dev))
+    check((want[0], str(want[1])) == (n_ok, str(bad)),
+          f"native (c): the _PyReader window's verdict {want} differs from {(n_ok, bad)}")
+    print(f"  (c) {NATIVE_WINDOW} heights x {st.validators.size} validators decoded by the "
+          f"native Reader in {decode_s * 1e3:.1f} ms, verify_block_window on the phase's "
+          f"default root {verify_s:.3f} s: {n_ok} heights, launches {launches}; K1/K2 exact at "
+          f"b = {b}; the same verdict from the _PyReader decode; no fallback, breaker closed, "
+          f"no audit mismatch [{smi_line}]", flush=True)
+    return {"launches": launches, "b": b, "decode_s": decode_s, "verify_s": verify_s}
+
+
+def phase_native(dev, fs: dict, bx: dict, natives: dict, err: dict, smi_line: str) -> dict:
+    """Phase 30: the host C accelerators against the Python paths on phase
+    22's chain, then one window of it on the card."""
+    chain = fs["chain"]
+    phase(f"native: the codec, the hasher and the WAL scanner on phase 22's {len(chain.blocks)} "
+          f"blocks of {FS_VALS} validators, natively here and on the Python paths in a fresh "
+          f"child interpreter, and one {NATIVE_WINDOW}-height window on the card")
+    t_phase = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="native_")
+    walls = {}
+    try:
+        t0 = time.perf_counter()
+        sizes = bench_native.write_inputs(tmp, chain.blocks)
+        walls["inputs"] = time.perf_counter() - t0
+        check(sizes["records"] >= bench_native.WAL_MIN_RECORDS,
+              f"native: the WAL holds {sizes['records']} records")
+        with bench_native.PythonChild(tmp) as child:
+            # (c) on the card while the child imports; then the natives
+            # here and the Python paths there, one after the other
+            t0 = time.perf_counter()
+            card = native_window(dev, chain, err, smi_line)
+            walls["card"] = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            child.wait_ready()
+            walls["child_ready"] = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            nat = bench_native.run(tmp)
+            walls["native"] = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            py = child.result()
+            walls["python"] = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    check(nat["path"] == "native" and py["path"] == "python",
+          f"native: the paths ran {nat['path']} and {py['path']}")
+    for what in nat["digest"]:
+        check(nat["digest"][what] == py["digest"][what],
+              f"native (a): {what} differs between the native and the Python paths: "
+              f"{nat['digest'][what]} != {py['digest'][what]}")
+    check(nat["counts"] == py["counts"], f"native (a): counts {nat['counts']} != {py['counts']}")
+    trunc = nat["digest"]["truncated"]
+    check(not trunc.endswith(" None"), f"native (a): the truncated WAL decoded whole: {trunc}")
+    print(f"  (a) equal on both paths: {nat['counts']['blocks']} blocks decoded and re-encoded "
+          f"({sizes['block_bytes']:,} bytes), {nat['counts']['parts']} parts rehashed, the "
+          f"headers' and a {nat['counts']['validators']:,}-validator set's hashes, "
+          f"{nat['counts']['records']:,} WAL records ({sizes['wal_bytes']:,} bytes); the "
+          f"truncated copy: {trunc.split(' ', 1)[0]} records, then "
+          f"'{trunc.split(' ', 1)[1]}' on both [{smi_line}]", flush=True)
+    pairs = {w: {"native_s": nat["seconds"][w], "python_s": py["seconds"][w],
+                 "factor": py["seconds"][w] / nat["seconds"][w]} for w in NATIVE_PAIRS}
+    for w, p in pairs.items():
+        print(f"  (b) {w}: native {p['native_s']:.6f} s, Python {p['python_s']:.6f} s, "
+              f"{p['factor']:.2f}x [{smi_line}]", flush=True)
+    runs = fs["runs"]
+    print(f"  on the natives: phase 22's null replay {runs['null']['blocks_s']:.2f} blocks/s "
+          f"(earlier {NATIVE_EARLIER['null']}), explicit {runs['explicit']['blocks_s']:.2f} "
+          f"({NATIVE_EARLIER['explicit']}), serial {fs['baseline_blocks_s']:.2f} "
+          f"({NATIVE_EARLIER['serial']}); phase 21's chain {bx['chain']['blocks_s']:.2f} "
+          f"(earlier {NATIVE_EARLIER['block_exec']}); the earlier ranges are other machines' "
+          f"[{smi_line}]", flush=True)
+    seconds = time.perf_counter() - t_phase
+    print(f"  the natives: " + ", ".join(
+        f"{w} {natives[w]['path']} (built in {natives[w]['seconds']:.2f} s)"
+        for w in NATIVE_MODULES) + f", have_shani {natives['have_shani']}; phase "
+          f"{seconds:.1f} s (" + ", ".join(f"{k} {v:.1f}" for k, v in walls.items())
+          + f") [{smi_line}]", flush=True)
+    return {"seconds": seconds, "pairs": pairs, "sizes": sizes, "launches": card["launches"],
+            "card": card, "walls": walls}
 
 
 def profiler_warmup(out: dict) -> None:
@@ -6548,6 +6730,7 @@ def main() -> int:
                               daemon=True)
     warm_t.start()
     secs = _build.build_all()
+    natives = load_natives()
     warm_t.join(RESULT_TIMEOUT)
     check("seconds" in warm, "the profiler's warm-up did not end")
     print(f"  the torch profiler's first session (its initialization) in "
@@ -6557,6 +6740,11 @@ def main() -> int:
         for line in _build.build_log(name).splitlines():
             if "registers" in line or "spill" in line or "stack frame" in line:
                 print(f"    {line.strip()}")
+    for what in NATIVE_MODULES:
+        print(f"  native {what}: {natives[what]['path']}, built in "
+              f"{natives[what]['seconds']:.2f} s at import (0: reused) [{smi_line}]", flush=True)
+    print(f"  the hasher's block function: {'SHA-NI' if natives['have_shani'] else 'portable'} "
+          f"(have_shani() {natives['have_shani']})", flush=True)
     rates = imad_probe.products_per_clock(dev)
     mul_rate = props.multi_processor_count * max_sm_mhz * 1e6 * rates["imad_wide"]
     print(f"  multiply probe: IMAD.WIDE {rates['imad_wide']:.2f}, IMAD {rates['imad']:.2f} "
@@ -6607,6 +6795,8 @@ def main() -> int:
     # the smokes phase: each smoke on a default [verify] root of its own
     configure_verify(VerifyConfig(), device=dev)
     smokes = phase_smokes(dev, simr["b"]["result"], err, smi_line)
+    # the native phase: phase 22's chain, a default [verify] root of its own
+    nat = phase_native(dev, fs, bx, natives, err, smi_line)
     print(f"  {smi_line}", flush=True)
 
     ms = {**ed_main["ms"], "secp256k1_ladder": secp_main["ms"]}
@@ -6672,6 +6862,7 @@ def main() -> int:
                                        "planner_msm": cwin["planner_msm_launches"][name]},
             "mesh_launches": {part: n[name] for part, n in mesh["launches"].items()},
             "smoke_launches": {part: n[name] for part, n in smokes["launches"].items()},
+            "native_launches": nat["launches"][name],
         })
     k4c = k4["commit"]
     kernels.append({
@@ -6723,6 +6914,7 @@ def main() -> int:
                                    "planner_msm": cwin["planner_msm_launches"][K4]},
         "mesh_launches": {part: n[K4] for part, n in mesh["launches"].items()},
         "smoke_launches": {part: n[K4] for part, n in smokes["launches"].items()},
+        "native_launches": nat["launches"][K4],
     })
     # K5 and K6: the verifier's mesh route (phase 28) is their main path
     for name, replaces, res, part in (
@@ -6753,6 +6945,7 @@ def main() -> int:
             "resources": res["resources"],
             "mesh_launches": {p: n[name] for p, n in mesh["launches"].items()},
             "smoke_launches": {p: n[name] for p, n in smokes["launches"].items()},
+            "native_launches": nat["launches"][name],
         })
     print(f"  {N_VALIDATORS}-validator ed25519 verify_commit p50: {ed_main['p50_ms']:.3f} ms "
           f"through TorchBatchVerifier, {default['p50_ms']:.1f} ms through the default "
@@ -6806,7 +6999,7 @@ def main() -> int:
           f"{cli['restart_s']:.2f} s to the tip, tm_bench {cli['bench']['txs_per_sec']['avg']} "
           f"tx/s; phase {cli['seconds']:.1f} s", flush=True)
     print(f"  sim: (a) {simr['a']['seconds']:.1f} s for the card's and the host's "
-          f"baseline_determinism side by side (equal hashes over 1..{simr['a']['top']}), (b) "
+          f"baseline_determinism one after the other (equal hashes over 1..{simr['a']['top']}), (b) "
           f"vote_storm {simr['b']['seconds']:.1f} s ({simr['b']['dispatches']} flushes on the "
           f"card), (c) the card fault {simr['c']['seconds']:.1f} s (halts {simr['c']['faults']}); "
           f"phase {simr['seconds']:.1f} s", flush=True)
@@ -6823,6 +7016,10 @@ def main() -> int:
           f"{smokes['bench']['commit_p99_seconds'] * 1e3:.1f} ms; the soak's fleet p99 "
           f"{smokes['soak']['soak_commit_p99_seconds'] * 1e3:.1f} ms; phase "
           f"{smokes['seconds']:.1f} s [{smi_line}]", flush=True)
+    print(f"  native: " + ", ".join(f"{w} {p['factor']:.2f}x" for w, p in nat["pairs"].items())
+          + f" (Python seconds over native); (c) K1 + K2 {nat['launches']['ed25519_prologue']} + "
+          f"{nat['launches']['ed25519_ladder']}; phase {nat['seconds']:.1f} s [{smi_line}]",
+          flush=True)
     print(f"  total {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"torch_ops": [window["tally"], cwin["tally"]]}))
     print(json.dumps({"kernels": kernels}))

@@ -7,10 +7,12 @@ payload is a timestamped consensus message (``messages.py``'s registry).
 ``#ENDHEIGHT`` markers delimit heights; ``search_for_end_height`` scans the
 chunks backwards as the reference does (wal.go:159).
 
-Reading runs the reference's pure-Python framing loop (the one that
-``TM_NO_NATIVE_CODEC=1`` selects there): the same accept and reject rules
-and the same error strings. The reference's C scanner
-(``consensus/_wal_native.c``) is host code; the port has no copy of it.
+Reading takes the records' spans from the C scanner of
+``_wal_native.c`` (crc32 through zlib, the uvarint length and the bounds of
+a whole chunk in one call), built by ``encoding/native.py`` at its first
+use; where it did not build, or with ``TM_NO_NATIVE_CODEC=1``, the
+pure-Python framing loop runs. Both have the same accept and reject rules
+and the same error strings.
 Appends are traced as ``wal.append`` and fsyncs as ``wal.fsync``, each
 tagged with the height that ``set_height`` last gave; the same spans feed
 per-height cost accumulators (``height_costs`` / ``pop_height_costs``),
@@ -21,6 +23,7 @@ committed height's waterfall.
 from __future__ import annotations
 
 import io
+import os
 import struct
 import threading
 import time
@@ -34,11 +37,27 @@ from tendermint_tpu_torch.consensus.messages import (
     encode_msg,
 )
 from tendermint_tpu_torch.encoding.codec import Reader, Writer, encode_uvarint, read_uvarint
+from tendermint_tpu_torch.encoding.native import load_ext
 from tendermint_tpu_torch.libs import trace
 from tendermint_tpu_torch.libs.autofile import Group
 from tendermint_tpu_torch.libs.service import BaseService
 
 MAX_MSG_SIZE_BYTES = 1024 * 1024  # 1MB (wal.go maxMsgSizeBytes)
+
+# the native framing scanner, loaded at its first use: None not tried yet,
+# False unavailable (the Python loop of _iter_records runs)
+_native_scan = None
+
+
+def _get_native_scan():
+    global _native_scan
+    if _native_scan is None:
+        mod = load_ext(os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                                    "_wal_native.c"),
+                       "tendermint_tpu_torch.consensus._wal_native",
+                       extra_ldflags=("-lz",))
+        _native_scan = mod.scan if mod is not None else False
+    return _native_scan or None
 
 
 class DataCorruptionError(Exception):
@@ -150,6 +169,17 @@ class WAL(BaseService):
         reader = self.group.new_reader(start_index)
         buf = reader.read()
         reader.close()
+        scan = _get_native_scan()
+        if scan is not None:
+            spans, err = scan(buf, MAX_MSG_SIZE_BYTES)
+            for start, length in spans:
+                try:
+                    yield TimedWALMessage.unmarshal(buf[start: start + length])
+                except (EOFError, ValueError) as e:
+                    raise DataCorruptionError(f"undecodable payload: {e}") from e
+            if err is not None:
+                raise DataCorruptionError(err)
+            return
         pos = 0
         n = len(buf)
         while pos < n:

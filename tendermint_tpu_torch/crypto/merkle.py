@@ -4,23 +4,35 @@ separation (leaf = SHA-256(0x00 || leaf), inner = SHA-256(0x01 || left ||
 right)), the empty tree is SHA-256(""), and a list splits at the largest
 power of two below its length. ``Header.hash`` and ``ValidatorSet.hash``
 are roots of this tree; ``SimpleProof`` is a leaf's inclusion proof (a
-block part's, ``types/part_set.py``, and a tx's, ``types/tx.py``)."""
+block part's, ``types/part_set.py``, and a tx's, ``types/tx.py``).
+
+``leaf_hash`` and ``hash_from_byte_slices`` are the C functions of
+``_hash_native.c`` (the whole tree in one call, on SHA-NI where the CPU has
+it) when ``encoding/native.py`` could build it, else the pure-Python
+``_py_leaf_hash`` and ``_py_hash_from_byte_slices``; both give the same
+digests."""
 
 from __future__ import annotations
 
 import hashlib
+import os
 from dataclasses import dataclass, field
 from typing import List, Optional, Sequence, Tuple
 
+from tendermint_tpu_torch.encoding.native import load_ext as _load_ext
+
 _LEAF_PREFIX = b"\x00"
 _INNER_PREFIX = b"\x01"
+
+_native = _load_ext(os.path.join(os.path.dirname(os.path.abspath(__file__)), "_hash_native.c"),
+                    "tendermint_tpu_torch.crypto._hash_native")
 
 
 def _hash(data: bytes) -> bytes:
     return hashlib.sha256(data).digest()
 
 
-def leaf_hash(leaf: bytes) -> bytes:
+def _py_leaf_hash(leaf: bytes) -> bytes:
     return _hash(_LEAF_PREFIX + leaf)
 
 
@@ -36,15 +48,23 @@ def _split_point(n: int) -> int:
     return k
 
 
-def hash_from_byte_slices(items: Sequence[bytes]) -> bytes:
+def _py_hash_from_byte_slices(items: Sequence[bytes]) -> bytes:
     n = len(items)
     if n == 0:
         return _hash(b"")
     if n == 1:
-        return leaf_hash(items[0])
+        return _py_leaf_hash(items[0])
     k = _split_point(n)
-    return inner_hash(hash_from_byte_slices(items[:k]),
-                      hash_from_byte_slices(items[k:]))
+    return inner_hash(_py_hash_from_byte_slices(items[:k]),
+                      _py_hash_from_byte_slices(items[k:]))
+
+
+if _native is not None:
+    leaf_hash = _native.leaf_hash
+    hash_from_byte_slices = _native.merkle_root
+else:
+    leaf_hash = _py_leaf_hash
+    hash_from_byte_slices = _py_hash_from_byte_slices
 
 
 @dataclass
@@ -99,12 +119,15 @@ def _compute_from_aunts(index: int, total: int, lh: bytes,
 def proofs_from_byte_slices(items: Sequence[bytes]) -> Tuple[bytes, List[SimpleProof]]:
     """The root and one proof a leaf (ref SimpleProofsFromByteSlices); each
     proof's aunts run from the leaf up."""
-    return proofs_from_leaf_hashes([leaf_hash(it) for it in items])
+    lhs = (_native.leaf_hashes(list(items)) if _native is not None
+           else [_py_leaf_hash(it) for it in items])
+    return proofs_from_leaf_hashes(lhs)
 
 
 def proofs_from_leaf_hashes(lhs: Sequence[bytes]) -> Tuple[bytes, List[SimpleProof]]:
     """``proofs_from_byte_slices`` over leaf hashes already computed (the
-    state-sync manifest holds them)."""
+    state-sync manifest holds them; ``PartSet.from_data`` hashes its chunks
+    natively straight off the block's bytes)."""
     n = len(lhs)
     proofs = [SimpleProof(total=n, index=i, leaf_hash=lhs[i]) for i in range(n)]
 

@@ -1,9 +1,15 @@
 """The deterministic codec that canonical sign-bytes and the light-client
 records are built with: LEB128 uvarints, zig-zag svarints, little-endian
 fixed64, length-prefixed bytes and strings, one-byte bools. Same wire
-format and the same rejections as the reference package's pure-Python
-writer and reader (a truncated input raises ``EOFError``; an overlong,
-overflowing or non-minimal uvarint raises ``ValueError``)."""
+format and the same rejections as the reference package's writer and
+reader (a truncated input raises ``EOFError``; an overlong, overflowing or
+non-minimal uvarint raises ``ValueError``).
+
+``Writer`` and ``Reader`` are the C types of ``_codec_native.c`` when
+``encoding/native.py`` could build it, else the pure-Python ``_PyWriter``
+and ``_PyReader``; the choice is made once, at import, and both give the
+same bytes, values and errors (``TM_NO_NATIVE_CODEC=1`` forces the Python
+classes)."""
 
 from __future__ import annotations
 
@@ -56,7 +62,7 @@ def length_prefix(payload: bytes) -> bytes:
     return encode_uvarint(len(payload)) + payload
 
 
-class Writer:
+class _PyWriter:
     __slots__ = ("_buf",)
 
     def __init__(self) -> None:
@@ -93,7 +99,7 @@ class Writer:
         return bytes(self._buf)
 
 
-class Reader:
+class _PyReader:
     __slots__ = ("_data", "_buf")
 
     def __init__(self, data: bytes) -> None:
@@ -101,7 +107,9 @@ class Reader:
         self._buf = io.BytesIO(self._data)
 
     def _take(self, n: int, what: str) -> bytes:
-        data = self._buf.read(n)
+        # a length past the end is truncation, as in the C reader (BytesIO
+        # would raise OverflowError on one beyond ssize_t)
+        data = self._buf.read(n) if n <= len(self._data) else b""
         if len(data) != n:
             raise EOFError(f"truncated {what}")
         return data
@@ -143,3 +151,16 @@ class Reader:
         if start < 0 or start > pos:
             raise ValueError("span start out of range")
         return self._data[start:pos]
+
+
+# The C types (one call a field instead of a Python frame and a BytesIO
+# read) when they build; the Python classes otherwise.
+from tendermint_tpu_torch.encoding import native as _native_loader  # noqa: E402
+
+_native = _native_loader.load()
+if _native is not None:
+    Writer = _native.Writer
+    Reader = _native.Reader
+else:
+    Writer = _PyWriter
+    Reader = _PyReader

@@ -21,9 +21,8 @@ reactor (and anything else with a per-source identity):
 
 Decisions are never silent: each one lands in the
 ``tendermint_mempool_qos_*`` counters (when metrics are wired) and in the
-per-peer ledger that ``MempoolReactor.qos_snapshot`` serves (the reference
-serves it on the unsafe ``dump_mempool_qos`` RPC route; the port's RPC
-server is ROADMAP item 17 (c)).
+per-peer ledger that ``MempoolReactor.qos_snapshot`` serves (the unsafe
+``dump_mempool_qos`` RPC route serves it, the port's as the reference's).
 
 The port's copy of the reference package's ``mempool/qos.py``: the same
 decisions, reasons and snapshots for the same call sequence and clock.

@@ -298,9 +298,8 @@ def blockchain_reactor(state, block_exec, block_store, fast_sync: bool = True,
     window is sized by the set being verified: every window's commits go to
     the installed verifier, on the card the configuration root's guarded
     one (K1 + K2, K3). ``consensus_reactor.switch_to_consensus(state, n)``
-    is called once the pool is caught up; ``metrics`` needs only
-    ``fast_syncing`` and ``reset_block_timer()`` (the node's metrics are
-    ROADMAP item 17)."""
+    is called once the pool is caught up; ``metrics``, where given, needs
+    only ``fast_syncing`` and ``reset_block_timer()``."""
     return BlockchainReactor(state, block_exec, block_store, fast_sync=fast_sync,
                              consensus_reactor=consensus_reactor, verifier=None,
                              verify_window=None, metrics=metrics)

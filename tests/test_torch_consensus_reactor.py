@@ -425,7 +425,21 @@ def test_a_fault_in_the_shared_guarded_verifier_stops_the_net():
     flush's error). Once more than a third of the power has halted, no
     quorum can form: a node that had nothing left to dispatch stays up at
     height 2 without a fault, and the net commits nothing more."""
-    shared = guarded("raise", at_height(2))
+    nodes = []
+
+    def height_two_once_all_stored_one(msgs):
+        # a height-2 batch fails once every node has stored height 1: under
+        # load a node may still be finishing height 1 when the first
+        # height-2 flush comes, and meeting the open breaker there it would
+        # halt at height 1. No node commits height 2 while this waits: that
+        # takes a height-2 flush, and each one waits here.
+        if not at_height(2)(msgs):
+            return False
+        harness.wait_for(lambda: all(n.cs.block_store.height() >= 1 for n in nodes),
+                         timeout=DEADLINE, interval=0.01)
+        return True
+
+    shared = guarded("raise", height_two_once_all_stored_one)
     failed, real = [], shared.device.verify_ed25519_raw
 
     def counted(pubs, msgs, sigs):
@@ -437,7 +451,7 @@ def test_a_fault_in_the_shared_guarded_verifier_stops_the_net():
 
     shared.device.verify_ed25519_raw = counted
     tbatch.set_batch_verifier(shared)
-    nodes = cn.make_consensus_net(4, start=False, verify_cfg=VerifyConfig(vote_batch_window_ms=2.0))
+    nodes += cn.make_consensus_net(4, start=False, verify_cfg=VerifyConfig(vote_batch_window_ms=2.0))
     for n in nodes:
         _on_the_card(n.feed, shared)
     stopped = _stopped_peers(nodes)

@@ -8,10 +8,11 @@ The restated cases of ``tests/test_consensus.py`` (``TestWALReplay``,
 matrix of app and state behind the store, its three refusals and the app's
 InitChain parameters) run once on each package through the ``pkg``
 parameter. ``tests/test_wal_fuzz.py``'s ``TestWALFuzz`` cases run on the
-port and on the reference's pure-Python framing loop (its ``_native_scan =
-False``), the loop the port copies; a differential case over seeded random
-streams holds the two loops to the same accepted prefix and the same error
-string on every input. The reference verifies with its host verifier, the
+port (its native scanner where it built, ``_wal_native.c``) and on the
+reference's pure-Python framing loop (its ``_native_scan = False``); a
+differential case over seeded random streams holds the two to the same
+accepted prefix and the same error string on every input
+(``tests/test_torch_wal_fuzz.py`` runs both of the port's decoders). The reference verifies with its host verifier, the
 port with the configuration root's guarded verifier on ``device="cpu"``.
 """
 

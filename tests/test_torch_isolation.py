@@ -3,6 +3,7 @@ imports jax or the JAX package, and importing them loads neither."""
 
 import ast
 import os
+import re
 import subprocess
 import sys
 from pathlib import Path
@@ -32,6 +33,24 @@ def _forbidden(mod: str) -> bool:
 def test_no_jax_or_reference_import(path):
     bad = [m for m in _imported_modules(path) if _forbidden(m)]
     assert not bad, f"{path}: imports {bad}"
+
+
+C_SOURCES = sorted((ROOT / "tendermint_tpu_torch").rglob("*.c"))
+
+
+def test_the_port_has_its_three_c_sources():
+    assert [str(p.relative_to(ROOT)) for p in C_SOURCES] == [
+        "tendermint_tpu_torch/consensus/_wal_native.c",
+        "tendermint_tpu_torch/crypto/_hash_native.c",
+        "tendermint_tpu_torch/encoding/_codec_native.c",
+    ]
+
+
+@pytest.mark.parametrize("path", C_SOURCES, ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_c_source_names_the_jax_package(path):
+    """The port's C sources name no path or module of the JAX package."""
+    bad = re.findall(r"tendermint_tpu(?!_torch)\b[./]?\S*", path.read_text())
+    assert not bad, f"{path}: {bad}"
 
 
 def test_import_leaves_jax_unloaded():

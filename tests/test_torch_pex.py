@@ -557,7 +557,13 @@ def test_upnp_probe_without_a_gateway_equals_the_reference(monkeypatch):
 # a port node that knows only a seed joins a port net
 # ---------------------------------------------------------------------------
 
-PEX_PERIOD = 0.3
+# the sweep period, as chip_smoke.py's localnet phase sweeps: a receiver
+# drops a peer whose address requests come within a third of its period,
+# and a sender's sweeps come a period apart, so a receive thread that
+# stalls past two thirds of it reads two requests as a flood. At 0.3 s
+# (0.2 s of room) that happened under six busy workers; at 1 s it takes a
+# stall of 0.67 s
+PEX_PERIOD = 1.0
 
 
 @pytest.fixture
@@ -610,8 +616,11 @@ def test_a_port_node_joins_a_port_net_knowing_only_a_seed(tmp_path, _host_verify
         for i in ids - {seed.id}:
             assert book[i].src.id != i or not peers[i].outbound, (book[i], peers[i])
         top = min(n.block_store.height() for n in nodes) + 2
-        assert node_net.wait_for(lambda: joiner.block_store.height() >= top, DEADLINE), (
-            joiner.block_store.height(), top)
+        # the joiner can store a block before nodes[0] does (it needs only
+        # the precommits, and nodes[0]'s commit may still be on its way)
+        assert node_net.wait_for(lambda: joiner.block_store.height() >= top
+                                 and nodes[0].block_store.height() >= top, DEADLINE), (
+            joiner.block_store.height(), nodes[0].block_store.height(), top)
         for h in range(1, top + 1):
             assert joiner.block_store.load_block(h).hash() == nodes[0].block_store.load_block(
                 h).hash()
